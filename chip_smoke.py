@@ -1,0 +1,599 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
+nvcc, then:
+
+1. card: prints the card's name and power limit (nvidia-smi), the torch
+   and CUDA versions, and the kernel build seconds with ptxas's report;
+2. main path, at full size: a 1B-column index (fields f and g, 954 shards
+   of 2^20 columns, 8 rows, bit density 0.05, the content of bench.py's
+   build_index) built through the port's Holder / Field.import_bits and
+   queried through Executor(holder, backend=CUDABackend(holder)): single
+   Count(Intersect|Union|Difference|Xor(Row, Row)) calls (popcount kernel),
+   one request of 16 fused Counts (per-shard pair kernel) and Row(f=2);
+   then a 256 x 256-row field pair over 128 shards, whose per-shard pair
+   table is past the retention gate, so it takes the shard-summed pair
+   kernel. Every answer is checked against the port's CPU oracle
+   (Executor(holder, backend=CPUBackend(holder))). The kernels' launch
+   counters are zeroed before this phase and read after it: every kernel
+   must have launched. Launches per request are printed beside it;
+3. each kernel against its plain PyTorch version on the card, on the
+   inputs the main path gave it and at edge shapes, exactly; with its
+   median time, the plain version's, and its bound;
+4. a small holder with an existence field: the whole Count/Row/Not/All
+   query list through two write-churn epochs, checked against the CPU
+   oracle after each; the resident stacks must be spliced, not rebuilt,
+   and no query may be routed to the CPU oracle.
+
+Prints a JSON line of every kernel, then, last, one JSON object whose
+"ok" is true. Any failed check raises; the exit code is then not 0.
+With no CUDA card the script exits with code 2 before doing anything.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+SHARDS = 954  # 954 * 2^20 > 1e9 columns
+ROWS = 8
+DENSITY = 0.05
+# The wide pair: Rf = Rg = 256 over 128 shards makes the per-shard table
+# 128 * (256*256 + 512) * 4 bytes > MAX_PAIR_PERSHARD_BYTES (32 MiB).
+WIDE_SHARDS = 128
+WIDE_ROWS = 256
+WIDE_BITS_PER_ROW = 256
+
+# Published H100 SXM memory rate (NVIDIA data sheet).
+HBM_BYTES_PER_S = 3.35e12
+# Issue rates a clock per SM of the kernels' instructions (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0): population count, and 32-bit integer add / bitwise AND. Times the
+# card's SM count and maximum SM clock (read in phase_card) they give the
+# operations bound.
+POPC_PER_SM_CLOCK = 16
+INT32_PER_SM_CLOCK = 64
+RATES = {}
+
+SOURCE = "pilosa_tpu_torch/ops/csrc/bitcount.cu"
+REPLACES = {
+    "pair_stats_pershard": "pilosa_tpu/ops/kernels.py:142",
+    "pair_stats": "pilosa_tpu/ops/kernels.py:81",
+    # Not a Pallas kernel: the popcount-reduce of the fused count program.
+    "popcount_rows": "pilosa_tpu/exec/tpu.py:2074",
+}
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Median device time of fn() in ms, by CUDA events around each call."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 5):
+    """(first call ms, median of `reps` further calls ms, last result) on
+    the host clock; every call ends in a device readback."""
+    t0 = time.perf_counter()
+    out = fn()
+    first = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return first, statistics.median(times), out
+
+
+def device_share(fn, label: str, n: int = 10) -> None:
+    """Profile n calls of fn with torch.profiler: wall ms per call, device
+    kernel ms per call and the device's busy share, and the kernels that
+    took the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            rows.append((us, ev.count, ev.key))
+    dev_us = sum(r[0] for r in rows)
+    log(f"profile {label}: wall {wall_us / n / 1e3:.4f} ms/call, device "
+        f"{dev_us / n / 1e3:.4f} ms/call, device busy {dev_us / wall_us:.3f}")
+    for us, count, key in sorted(rows, reverse=True)[:6]:
+        log(f"profile {label}:   {us / n / 1e3:.4f} ms/call x{count // n} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 1: card and build
+# ---------------------------------------------------------------------------
+
+
+def phase_card():
+    import torch
+
+    from pilosa_tpu_torch.ops import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card_line = smi.stdout.strip().splitlines()[0]
+    log(card_line)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr}")
+    sm_hz = float(clk.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    RATES["popc"] = POPC_PER_SM_CLOCK * sms * sm_hz
+    RATES["int32"] = INT32_PER_SM_CLOCK * sms * sm_hz
+    log(f"card: {sms} SMs, max SM clock {sm_hz / 1e6:.0f} MHz: popcount "
+        f"{RATES['popc']:.4g}/s, int32 add/AND {RATES['int32']:.4g}/s, "
+        f"memory {HBM_BYTES_PER_S:.4g} B/s")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    build.library()
+    log(f"kernel build seconds: {build.build_seconds:.2f}")
+    for line in build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log("  ptxas:", line.strip())
+    return card_line
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the main path at full size
+# ---------------------------------------------------------------------------
+
+
+def build_bench_index(holder):
+    """bench.py build_index's f and g: per shard, ROWS * SHARD_WIDTH *
+    DENSITY uniform columns per row from SFC64(42)'s raw stream."""
+    import numpy as np
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    idx = holder.create_index("bench")
+    n_bits = int(SHARD_WIDTH * DENSITY)
+    rows = np.repeat(np.arange(ROWS, dtype=np.uint8), n_bits)
+    bitgen = np.random.SFC64(42)
+    mask = np.uint32(SHARD_WIDTH - 1)
+    for fname in ("f", "g"):
+        field = idx.create_field(fname)
+        for shard in range(SHARDS):
+            raw = bitgen.random_raw((rows.size + 1) // 2).view(np.uint32)[: rows.size]
+            np.bitwise_and(raw, mask, out=raw)
+            np.bitwise_or(raw, np.uint32(shard * SHARD_WIDTH), out=raw)
+            field.import_bits(rows, raw)
+
+
+def build_wide_index(holder):
+    import numpy as np
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    idx = holder.create_index("wide")
+    rng = np.random.default_rng(7)
+    rows = np.repeat(np.arange(WIDE_ROWS, dtype=np.uint64), WIDE_BITS_PER_ROW)
+    for fname in ("a", "b"):
+        field = idx.create_field(fname)
+        for shard in range(WIDE_SHARDS):
+            cols = rng.integers(0, SHARD_WIDTH, rows.size, dtype=np.uint64)
+            field.import_bits(rows, cols + np.uint64(shard * SHARD_WIDTH))
+
+
+def same_answers(a, b) -> bool:
+    import numpy as np
+
+    from pilosa_tpu_torch.core.row import Row
+
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, Row) or isinstance(y, Row):
+            if not (isinstance(x, Row) and isinstance(y, Row)):
+                return False
+            if not np.array_equal(x.columns(), y.columns()):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_main(results: dict):
+    import torch
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    holder = Holder(None).open()
+    t0 = time.perf_counter()
+    build_bench_index(holder)
+    log(f"main: index build seconds {time.perf_counter() - t0:.1f} "
+        f"({SHARDS} shards x 2 fields x {ROWS} rows, density {DENSITY})")
+    t0 = time.perf_counter()
+    build_wide_index(holder)
+    log(f"main: wide index build seconds {time.perf_counter() - t0:.1f} "
+        f"({WIDE_SHARDS} shards x 2 fields x {WIDE_ROWS} rows)")
+
+    backend = CUDABackend(holder)
+    dev = Executor(holder, backend=backend)
+    oracle = Executor(holder, backend=CPUBackend(holder))
+    routed0 = sum(global_stats.counter_totals("cpu_routed_total").values())
+
+    singles = [
+        "Count(Intersect(Row(f=1), Row(g=2)))",
+        "Count(Union(Row(f=3), Row(g=0)))",
+        "Count(Difference(Row(f=5), Row(g=5)))",
+        "Count(Xor(Row(f=7), Row(g=4)))",
+    ]
+    verbs = ("Intersect", "Union", "Difference", "Xor")
+    pair_request = " ".join(
+        f"Count({verbs[k % 4]}(Row(f={k % ROWS}), Row(g={(3 * k + 1) % ROWS})))"
+        for k in range(16)
+    )
+    wide_request = " ".join(
+        f"Count({verbs[k % 4]}(Row(a={(37 * k) % WIDE_ROWS}), "
+        f"Row(b={(101 * k + 5) % WIDE_ROWS})))"
+        for k in range(16)
+    )
+
+    K.reset_launch_counts()
+    latencies = {}
+    answers = {}
+    t0 = time.perf_counter()
+    answers["cold"] = dev.execute("bench", singles[0])
+    torch.cuda.synchronize()
+    log(f"main: first query (stack build + upload) seconds "
+        f"{time.perf_counter() - t0:.2f}; resident stack bytes "
+        f"{backend.blocks.resident_bytes()}")
+    for q in singles + ["Row(f=2)"]:
+        first, med, out = host_ms(lambda q=q: dev.execute("bench", q))
+        latencies[q] = {"first_ms": first, "median_ms": med}
+        answers[q] = out
+    device_share(lambda: dev.execute("bench", singles[0]), "single Count")
+    device_share(lambda: dev.execute("bench", "Row(f=2)"), "Row(f=2)", n=2)
+    per_request = {}
+
+    def launches_of(label, fn):
+        before = K.launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()}
+        return ms, out
+
+    launches_of("single Count", lambda: dev.execute("bench", singles[0]))
+    launches_of("Row(f=2)", lambda: dev.execute("bench", "Row(f=2)"))
+    sweeps0 = global_stats.counter_totals("pair_stats_sweeps_total")
+    first, answers[pair_request] = launches_of(
+        "16-Count request, uncached", lambda: dev.execute("bench", pair_request))
+    launches_of("16-Count request, cached", lambda: dev.execute("bench", pair_request))
+    _, med, out = host_ms(lambda: dev.execute("bench", pair_request))
+    check(same_answers(out, answers[pair_request]), "cached pair answers moved")
+    latencies["16-Count pair request"] = {"first_ms": first, "median_cached_ms": med}
+    check(sum(global_stats.counter_totals("pair_stats_sweeps_total").values())
+          == sum(sweeps0.values()) + 1, "the 16-Count request did not sweep once")
+    cold, answers[wide_request] = launches_of(
+        "16-Count wide request", lambda: dev.execute("wide", wide_request))
+    latencies["16-Count wide pair request (cold)"] = {"first_ms": cold}
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    log("main: launches per request " + json.dumps(per_request))
+    want = {
+        "single Count": {"popcount_rows": 1},
+        "Row(f=2)": {},
+        "16-Count request, uncached": {"pair_stats_pershard": 1},
+        "16-Count request, cached": {},
+        "16-Count wide request": {"pair_stats": 1},
+    }
+    for label, expect in want.items():
+        got = {k: v for k, v in per_request[label].items() if v}
+        check(got == expect, f"main: {label} launched {got}, expected {expect}")
+    log("main: launches " + json.dumps(launches))
+    log("main: latencies " + json.dumps(latencies))
+    log(f"main: resident stack bytes {backend.blocks.resident_bytes()}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+
+    for q in singles + ["Row(f=2)", pair_request]:
+        t0 = time.perf_counter()
+        want = oracle.execute("bench", q)
+        check(same_answers(answers[q], want), f"main: {q[:60]} disagrees with the oracle")
+        log(f"main: oracle agrees on {q[:60]} ({time.perf_counter() - t0:.1f} s)")
+    check(same_answers(answers["cold"], oracle.execute("bench", singles[0])),
+          "main: cold query disagrees")
+    check(same_answers(answers[wide_request], oracle.execute("wide", wide_request)),
+          "main: wide pair request disagrees with the oracle")
+    log("main: oracle agrees on the wide pair request")
+    check(sum(global_stats.counter_totals("cpu_routed_total").values()) == routed0,
+          "main: a query was routed to the CPU oracle")
+    log("main: answers " + json.dumps(
+        {q[:40]: [r if isinstance(r, int) else int(r.count()) for r in answers[q]]
+         for q in singles + ["Row(f=2)"]}))
+
+    results["launches"] = launches
+    f_stack, _ = backend.blocks.get("bench", holder.index("bench").field("f"),
+                                    tuple(range(SHARDS)))
+    g_stack, _ = backend.blocks.get("bench", holder.index("bench").field("g"),
+                                    tuple(range(SHARDS)))
+    a_stack, _ = backend.blocks.get("wide", holder.index("wide").field("a"),
+                                    tuple(range(WIDE_SHARDS)))
+    b_stack, _ = backend.blocks.get("wide", holder.index("wide").field("b"),
+                                    tuple(range(WIDE_SHARDS)))
+    check(f_stack.shape == (SHARDS, ROWS, 32768), f"f stack {tuple(f_stack.shape)}")
+    check(a_stack.shape == (WIDE_SHARDS, WIDE_ROWS, 32768),
+          f"a stack {tuple(a_stack.shape)}")
+    holder.close()
+    return (f_stack, g_stack), (a_stack, b_stack)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def pair_bound(s, rf, rg, w, pershard):
+    """(bytes, popcounts, int32 add/AND) of a pair sweep: per word, one
+    AND, popcount and add per pair, one popcount and add per row."""
+    out_cells = (s if pershard else 1) * (rf * rg + rf + rg)
+    nbytes = 4 * s * (rf + rg) * w + 4 * out_cells
+    popc = s * w * (rf * rg + rf + rg)
+    alu = s * w * (2 * rf * rg + rf + rg)
+    return nbytes, (popc, alu)
+
+
+def kernel_line(name, ms, plain_ms, nbytes, ops, err, launches):
+    popc, alu = ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(popc / RATES["popc"], alu / RATES["int32"]) * 1e3
+    return {
+        "name": name, "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES[name], "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
+def max_abs_err(got, want) -> int:
+    import torch
+
+    diff = got.to(device="cpu", dtype=torch.int64) - want.to(device="cpu", dtype=torch.int64)
+    return int(diff.abs().max())
+
+
+def phase_kernels(main_stacks, wide_stacks, launches):
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+
+    dev = main_stacks[0].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+
+    def rand_stack(s, r, w=32768):
+        return torch.randint(-(2**31), 2**31, (s, r, w), dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    # Edge shapes: Rf != Rg, Rg off the 8-row tile, a 64 x 64 pair, S = 1,
+    # one-row stacks.
+    for s, rf, rg in [(16, 8, 16), (7, 16, 8), (5, 8, 13), (3, 64, 64),
+                      (1, 8, 8), (2, 1, 3)]:
+        f, g = rand_stack(s, rf), rand_stack(s, rg)
+        check(max_abs_err(K.pair_stats_pershard(f, g), K.pair_stats_torch(f, g, True)) == 0,
+              f"pair_stats_pershard differs at S={s} Rf={rf} Rg={rg}")
+        check(max_abs_err(K.pair_stats(f, g), K.pair_stats_torch(f, g, False)) == 0,
+              f"pair_stats differs at S={s} Rf={rf} Rg={rg}")
+        x = f.reshape(-1, f.shape[-1])
+        check(max_abs_err(K.popcount_rows(x), K.popcount_rows_torch(x)) == 0,
+              f"popcount_rows differs at N={x.shape[0]}")
+        log(f"kernels: exact at S={s} Rf={rf} Rg={rg}")
+
+    lines = []
+    f, g = main_stacks
+    s, rf, w = f.shape
+    rg = g.shape[1]
+    err = max_abs_err(K.pair_stats_pershard(f, g), K.pair_stats_torch(f, g, True))
+    check(err == 0, "pair_stats_pershard differs on the main path's stacks")
+    ms = time_ms(lambda: K.pair_stats_pershard(f, g))
+    plain = time_ms(lambda: K.pair_stats_torch(f, g, True), reps=3, warm=1)
+    nbytes, ops = pair_bound(s, rf, rg, w, True)
+    lines.append(kernel_line("pair_stats_pershard", ms, plain, nbytes, ops, err,
+                             launches["pair_stats_pershard"]))
+
+    # The count program's slab: Intersect(Row(f=1), Row(g=2)) over all shards.
+    slab = (f[:, 1, :] & g[:, 2, :]).contiguous()
+    err = max_abs_err(K.popcount_rows(slab), K.popcount_rows_torch(slab))
+    check(err == 0, "popcount_rows differs on the main path's slab")
+    ms = time_ms(lambda: K.popcount_rows(slab))
+    plain = time_ms(lambda: K.popcount_rows_torch(slab), reps=5, warm=1)
+    nbytes = slab.numel() * 4 + slab.shape[0] * 4
+    ops = (slab.numel(), slab.numel())  # one popcount and one add a word
+    lines.append(kernel_line("popcount_rows", ms, plain, nbytes, ops, err,
+                             launches["popcount_rows"]))
+
+    a, b = wide_stacks
+    s, rf, w = a.shape
+    rg = b.shape[1]
+    err = max_abs_err(K.pair_stats(a, b), K.pair_stats_torch(a, b, False))
+    check(err == 0, "pair_stats differs on the wide pair's stacks")
+    ms = time_ms(lambda: K.pair_stats(a, b), reps=3, warm=1)
+    plain = time_ms(lambda: K.pair_stats_torch(a, b, False), reps=1, warm=0)
+    nbytes, ops = pair_bound(s, rf, rg, w, False)
+    lines.append(kernel_line("pair_stats", ms, plain, nbytes, ops, err,
+                             launches["pair_stats"]))
+    # The shard-summed kernel on the main path's square shape too.
+    ms_sq = time_ms(lambda: K.pair_stats(f, g))
+    log(f"kernels: pair_stats at S={f.shape[0]} Rf={f.shape[1]} Rg={g.shape[1]}: "
+        f"{ms_sq:.4f} ms")
+    for ln in lines:
+        log(f"kernels: {ln['name']}: {ln['ms']:.4f} ms, plain {ln['plain_ms']:.4f} ms, "
+            f"bound {ln['bound_ms']:.4f} ms by {ln['bound_by']}; no single PyTorch "
+            f"call computes a popcount, so no library yardstick")
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# phase 4: small holder, whole query list, write churn
+# ---------------------------------------------------------------------------
+
+
+SMALL_QUERIES = [
+    "Count(Intersect(Row(f=1), Row(g=7)))",
+    "Count(Union(Row(f=1), Row(f=2), Row(f=3)))",
+    "Count(Not(Row(f=1)))",
+    "Row(f=2)",
+    "Count(Row(f=3))",
+    "Count(Difference(Row(f=2), Row(g=7)))",
+    "Count(Xor(Row(f=1), Row(g=7)))",
+    "Count(All())",
+    "Not(Union(Row(f=1), Row(g=7)))",
+    "Intersect(Row(f=3), Row(g=7))",
+    "Count(Row(f=99))",
+    " ".join(f"Count(Intersect(Row(f={a}), Row(g={b})))"
+             for a in (0, 1, 2, 3) for b in (0, 1, 7, 9)),
+]
+
+
+def phase_small():
+    import numpy as np
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    n = 4
+    rng = np.random.default_rng(0)
+    holder = Holder(None).open()
+    idx = holder.create_index("i")
+    idx.create_field("f")
+    idx.create_field("g")
+    for row in (1, 2, 3):
+        cols = np.unique(rng.integers(0, n * SHARD_WIDTH, 4000, dtype=np.uint64))
+        idx.field("f").import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+        idx.existence_field().import_bits(np.zeros(cols.size, dtype=np.uint64), cols)
+    cols = np.unique(rng.integers(0, n * SHARD_WIDTH, 3000, dtype=np.uint64))
+    idx.field("g").import_bits(np.full(cols.size, 7, dtype=np.uint64), cols)
+
+    dev = Executor(holder, backend=CUDABackend(holder))
+    oracle = Executor(holder, backend=CPUBackend(holder))
+    epochs = [
+        [], [f"Set({SHARD_WIDTH + 5}, f=1)", f"Set({SHARD_WIDTH + 6}, g=7)",
+             f"Clear({SHARD_WIDTH + 5}, f=2)"],
+        [f"Set({3 * SHARD_WIDTH + 1}, f=2)", f"Clear({SHARD_WIDTH + 6}, g=7)",
+         f"Set({SHARD_WIDTH + 70000}, f=1)"],
+    ]
+
+    def counter(name):
+        return sum(global_stats.counter_totals(name).values())
+
+    routed0 = counter("cpu_routed_total")
+    for k, writes in enumerate(epochs):
+        spliced, rebuilt = counter("stack_incremental_updates_total"), counter(
+            "stack_full_rebuilds_total")
+        for q in writes:
+            oracle.execute("i", q)
+        for q in SMALL_QUERIES:
+            check(same_answers(dev.execute("i", q), oracle.execute("i", q)),
+                  f"small: epoch {k}: {q[:60]} disagrees with the oracle")
+        if writes:
+            check(counter("stack_incremental_updates_total") > spliced,
+                  f"small: epoch {k} did not splice the resident stacks")
+            check(counter("stack_full_rebuilds_total") == rebuilt,
+                  f"small: epoch {k} rebuilt a stack")
+        log(f"small: epoch {k}: {len(SMALL_QUERIES)} requests agree with the oracle")
+    routed = counter("cpu_routed_total") - routed0
+    check(routed == 0, f"small: {routed} calls were routed to the CPU oracle")
+    log("small: cpu_routed_total 0")
+    holder.close()
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is available", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "pilosa_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(pilosa_tpu_torch/ is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+
+    phase_card()
+    log("reduced: none (954 shards, full size)")
+    results: dict = {}
+    main_stacks, wide_stacks = phase_main(results)
+    lines = phase_kernels(main_stacks, wide_stacks, results["launches"])
+    del main_stacks, wide_stacks
+    phase_small()
+    log(f"total seconds {time.perf_counter() - t_start:.1f}")
+    print(json.dumps({"kernels": lines}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,185 @@
+"""Per-fragment row-count caches for TopN (reference cache.go).
+
+The reference keeps an approximate rank cache per fragment (sorted
+(rowID, count) pairs, recalculated when counts drift past a 1.1 threshold
+factor, reference cache.go:136-301) and an LRU variant (cache.go:58).
+On TPU the exact popcount of every row is one fused kernel away, so the
+rank cache mostly serves API parity + the CPU path; the TPU executor
+recomputes exact counts on device (see pilosa_tpu_torch/ops).
+"""
+
+from __future__ import annotations
+
+import heapq
+import json
+import os
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Iterable
+
+THRESHOLD_FACTOR = 1.1  # reference cache.go:30
+
+
+@dataclass(frozen=True)
+class Pair:
+    """(id, count) result pair (reference cache.go:304, internal Pair)."""
+
+    id: int
+    count: int
+    key: str = ""
+
+
+def add_pairs(a: list[Pair], b: list[Pair]) -> list[Pair]:
+    """Merge pair lists summing counts by id (reference cache.go Pairs.Add :356)."""
+    counts: dict[int, int] = {}
+    for p in a:
+        counts[p.id] = counts.get(p.id, 0) + p.count
+    for p in b:
+        counts[p.id] = counts.get(p.id, 0) + p.count
+    return [Pair(id=i, count=c) for i, c in counts.items()]
+
+
+def top_n_pairs(pairs: Iterable[Pair], n: int) -> list[Pair]:
+    """Sort by (count desc, id asc) and trim to n; n==0 means all
+    (reference cache.go Pairs sorting semantics)."""
+    ordered = sorted(pairs, key=lambda p: (-p.count, p.id))
+    return ordered[:n] if n else ordered
+
+
+class RankCache:
+    """Sorted top-rows cache with threshold-gated recalculation
+    (reference cache.go rankCache :136)."""
+
+    def __init__(self, max_entries: int = 50000):
+        self.max_entries = max_entries
+        self.entries: dict[int, int] = {}
+        self.threshold_value = 0  # count below which adds are ignored once full
+
+    def add(self, row_id: int, count: int) -> None:
+        if count == 0:
+            self.entries.pop(row_id, None)
+            return
+        if (
+            len(self.entries) >= self.max_entries
+            and row_id not in self.entries
+            and count < self.threshold_value
+        ):
+            return
+        self.entries[row_id] = count
+        if len(self.entries) > int(self.max_entries * THRESHOLD_FACTOR):
+            self._recalculate()
+
+    def bulk_add(self, row_id: int, count: int) -> None:
+        if count:
+            # lint: allow-shared-state(RankCache is confined to its owning Fragment: every mutating path holds Fragment.lock and TopN readers snapshot through top)
+            self.entries[row_id] = count
+        else:
+            self.entries.pop(row_id, None)
+
+    def get(self, row_id: int) -> int:
+        return self.entries.get(row_id, 0)
+
+    def ids(self) -> list[int]:
+        return sorted(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def _recalculate(self) -> None:
+        top = heapq.nlargest(self.max_entries, self.entries.items(), key=lambda kv: kv[1])
+        self.entries = dict(top)
+        # lint: allow-shared-state(fragment-confined like entries above: recalculation always runs under the owning Fragment.lock)
+        self.threshold_value = min((c for _, c in top), default=0)
+
+    def invalidate(self) -> None:
+        self._recalculate()
+
+    def top(self) -> list[Pair]:
+        return top_n_pairs((Pair(id=i, count=c) for i, c in self.entries.items()), 0)
+
+
+class LRUCache:
+    """LRU row-count cache (reference cache.go lruCache :58)."""
+
+    def __init__(self, max_entries: int = 50000):
+        self.max_entries = max_entries
+        self.entries: OrderedDict[int, int] = OrderedDict()
+
+    def add(self, row_id: int, count: int) -> None:
+        if row_id in self.entries:
+            self.entries.move_to_end(row_id)
+        self.entries[row_id] = count
+        while len(self.entries) > self.max_entries:
+            self.entries.popitem(last=False)
+
+    bulk_add = add
+
+    def get(self, row_id: int) -> int:
+        if row_id in self.entries:
+            self.entries.move_to_end(row_id)
+            return self.entries[row_id]
+        return 0
+
+    def ids(self) -> list[int]:
+        return sorted(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def invalidate(self) -> None:
+        pass
+
+    def top(self) -> list[Pair]:
+        return top_n_pairs((Pair(id=i, count=c) for i, c in self.entries.items()), 0)
+
+
+class NopCache:
+    """cacheType 'none' (reference field.go:1650)."""
+
+    def add(self, row_id: int, count: int) -> None:
+        pass
+
+    bulk_add = add
+
+    def get(self, row_id: int) -> int:
+        return 0
+
+    def ids(self) -> list[int]:
+        return []
+
+    def __len__(self) -> int:
+        return 0
+
+    def invalidate(self) -> None:
+        pass
+
+    def top(self) -> list[Pair]:
+        return []
+
+
+def new_cache(cache_type: str, size: int):
+    if cache_type == "ranked":
+        return RankCache(size)
+    if cache_type == "lru":
+        return LRUCache(size)
+    if cache_type == "none":
+        return NopCache()
+    raise ValueError(f"invalid cache type: {cache_type}")
+
+
+def save_cache(cache, path: str) -> None:
+    """Persist id->count entries (reference fragment.go flushCache :2403;
+    we use JSON instead of the reference's protobuf .cache format)."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({str(k): v for k, v in getattr(cache, "entries", {}).items()}, f)
+    os.replace(tmp, path)
+
+
+def load_cache(cache, path: str) -> None:
+    if not os.path.exists(path):
+        return
+    with open(path) as f:
+        data = json.load(f)
+    for k, v in data.items():
+        cache.bulk_add(int(k), int(v))

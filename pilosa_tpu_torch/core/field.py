@@ -1,0 +1,558 @@
+"""Field: a typed container of views (reference field.go).
+
+Types: set / int / time / mutex / bool (reference field.go:56-62). Int
+fields are BSI-encoded (bit-sliced index) in a "bsig_<field>" view with
+values stored sign-magnitude relative to a base (reference field.go:1562
+bsiGroup). Time fields write to the standard view plus one view per time
+quantum unit. Bool fields use rows 0 (false) / 1 (true); mutex fields
+enforce one row per column.
+"""
+
+from __future__ import annotations
+
+import datetime as dt
+import json
+import os
+import threading
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+
+from pilosa_tpu_torch.core.cache import Pair
+from pilosa_tpu_torch.core.row import Row
+from pilosa_tpu_torch.core.timequantum import (
+    validate_quantum,
+    views_by_time,
+    views_by_time_range,
+)
+from pilosa_tpu_torch.core.view import (
+    VIEW_STANDARD,
+    View,
+    bsi_view_name,
+    mint_generation,
+    publish_watermark,
+)
+from pilosa_tpu_torch.roaring import Bitmap, serialize
+from pilosa_tpu_torch.roaring.codec import deserialize
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+FIELD_TYPE_SET = "set"
+FIELD_TYPE_INT = "int"
+FIELD_TYPE_TIME = "time"
+FIELD_TYPE_MUTEX = "mutex"
+FIELD_TYPE_BOOL = "bool"
+
+DEFAULT_CACHE_TYPE = "ranked"
+DEFAULT_CACHE_SIZE = 50000  # reference field.go:48
+
+FALSE_ROW_ID = 0  # reference fragment.go:86
+TRUE_ROW_ID = 1
+
+
+def bit_depth_of(value: int) -> int:
+    """Bits needed for |value| (reference bitDepthInt64)."""
+    return max(int(abs(value)).bit_length(), 1)
+
+
+@dataclass
+class FieldOptions:
+    """reference field.go:1419 FieldOptions (JSON meta instead of protobuf)."""
+
+    type: str = FIELD_TYPE_SET
+    cache_type: str = DEFAULT_CACHE_TYPE
+    cache_size: int = DEFAULT_CACHE_SIZE
+    min: int = 0
+    max: int = 0
+    base: int = 0
+    bit_depth: int = 0
+    time_quantum: str = ""
+    keys: bool = False
+    no_standard_view: bool = False
+
+    def to_dict(self) -> dict:
+        return {
+            "type": self.type,
+            "cacheType": self.cache_type,
+            "cacheSize": self.cache_size,
+            "min": self.min,
+            "max": self.max,
+            "base": self.base,
+            "bitDepth": self.bit_depth,
+            "timeQuantum": self.time_quantum,
+            "keys": self.keys,
+            "noStandardView": self.no_standard_view,
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "FieldOptions":
+        return FieldOptions(
+            type=d.get("type", FIELD_TYPE_SET),
+            cache_type=d.get("cacheType", DEFAULT_CACHE_TYPE),
+            cache_size=d.get("cacheSize", DEFAULT_CACHE_SIZE),
+            min=d.get("min", 0),
+            max=d.get("max", 0),
+            base=d.get("base", 0),
+            bit_depth=d.get("bitDepth", 0),
+            time_quantum=d.get("timeQuantum", ""),
+            keys=d.get("keys", False),
+            no_standard_view=d.get("noStandardView", False),
+        )
+
+
+def options_for_set(cache_type: str = DEFAULT_CACHE_TYPE, cache_size: int = DEFAULT_CACHE_SIZE) -> FieldOptions:
+    return FieldOptions(type=FIELD_TYPE_SET, cache_type=cache_type, cache_size=cache_size)
+
+
+def options_for_int(min_: int, max_: int) -> FieldOptions:
+    """reference field.go OptionsFieldTypeInt: base clamps 0 into [min,max]."""
+    if min_ > max_:
+        raise ValueError("int field min cannot exceed max")
+    base = 0
+    if min_ > 0:
+        base = min_
+    elif max_ < 0:
+        base = max_
+    return FieldOptions(type=FIELD_TYPE_INT, min=min_, max=max_, base=base, cache_type="none", cache_size=0)
+
+
+def options_for_time(quantum: str, no_standard_view: bool = False) -> FieldOptions:
+    validate_quantum(quantum)
+    return FieldOptions(type=FIELD_TYPE_TIME, time_quantum=quantum, no_standard_view=no_standard_view, cache_type="none", cache_size=0)
+
+
+def options_for_mutex(cache_type: str = DEFAULT_CACHE_TYPE, cache_size: int = DEFAULT_CACHE_SIZE) -> FieldOptions:
+    return FieldOptions(type=FIELD_TYPE_MUTEX, cache_type=cache_type, cache_size=cache_size)
+
+
+def options_for_bool() -> FieldOptions:
+    return FieldOptions(type=FIELD_TYPE_BOOL, cache_type="none", cache_size=0)
+
+
+class Field:
+    def __init__(
+        self,
+        path: Optional[str],
+        index: str,
+        name: str,
+        options: Optional[FieldOptions] = None,
+        broadcast_shard: Optional[Callable[[str, str, int], None]] = None,
+    ):
+        self.path = path
+        self.index = index
+        self.name = name
+        self.options = options or FieldOptions()
+        self.views: dict[str, View] = {}
+        self.lock = threading.RLock()
+        self.broadcast_shard = broadcast_shard
+        # Shards that have ever had data, persisted as a roaring bitmap
+        # (reference field.go:263-359 .available.shards).
+        self._available_shards = Bitmap()
+        self.row_attr_store = None  # wired by Index when attr stores exist
+        self.translate_store = None  # wired when keys=True
+        # Structure version: bumped on view creation, fragment create/
+        # delete, and available-shards changes. Keys the cached shard-set
+        # union below — rebuilding it per query cost ~10 ms at the
+        # 954-shard bench shape (it walked every fragment).
+        self.structure_version = 0
+        self._shards_cache: Optional[tuple[int, Bitmap]] = None
+
+    def _bump_structure(self) -> None:
+        # Atomic global counter (see core/view.py): concurrent bumps must
+        # never collapse into one observable value. Watermark published
+        # only after the store, per the view.py protocol.
+        self.structure_version = mint_generation()
+        publish_watermark(self.structure_version)
+
+    # -- lifecycle --------------------------------------------------------
+
+    def open(self) -> "Field":
+        from pilosa_tpu_torch.store import AttrStore, TranslateStore
+
+        if self.path is not None:
+            os.makedirs(self.path, exist_ok=True)
+            self._load_meta()
+            self._load_available_shards()
+            views_dir = os.path.join(self.path, "views")
+            if os.path.isdir(views_dir):
+                for entry in sorted(os.listdir(views_dir)):
+                    self.views[entry] = self._new_view(entry).open()
+        # Row attr store at <field>/.data (reference index.go:464); key
+        # translation at <field>/keys (reference field.go:438).
+        self.row_attr_store = AttrStore(
+            os.path.join(self.path, ".data") if self.path else None
+        )
+        if self.options.keys:
+            self.translate_store = TranslateStore(
+                os.path.join(self.path, "keys") if self.path else None
+            )
+        return self
+
+    def close(self) -> None:
+        with self.lock:
+            for v in self.views.values():
+                v.close()
+            if self.row_attr_store is not None:
+                self.row_attr_store.close()
+            if self.translate_store is not None:
+                self.translate_store.close()
+
+    def _meta_path(self) -> str:
+        return os.path.join(self.path, ".meta")
+
+    def _load_meta(self) -> None:
+        if os.path.exists(self._meta_path()):
+            with open(self._meta_path()) as f:
+                self.options = FieldOptions.from_dict(json.load(f))
+
+    def save_meta(self) -> None:
+        """reference field.go saveMeta :563 (JSON, not protobuf)."""
+        if self.path is None:
+            return
+        tmp = self._meta_path() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.options.to_dict(), f)
+        os.replace(tmp, self._meta_path())
+
+    def _load_available_shards(self) -> None:
+        # Sweep tmp orphans first: a crash between the tmp write and its
+        # os.replace leaves `.available.shards.tmp.<tid>` behind, and
+        # per-thread names (the rename-race fix below) never
+        # self-overwrite across restarts the way one fixed name did.
+        for entry in os.listdir(self.path):
+            if entry.startswith(".available.shards.tmp"):
+                try:
+                    os.remove(os.path.join(self.path, entry))
+                except OSError:
+                    pass  # already gone / racing sibling: nothing lost
+        p = os.path.join(self.path, ".available.shards")
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                data = f.read()
+            if data:
+                self._available_shards = deserialize(data)
+
+    def _save_available_shards(self) -> None:
+        if self.path is None:
+            return
+        p = os.path.join(self.path, ".available.shards")
+        # Every caller now holds the field RLock (ISSUE r13 shared-state
+        # fix), which is what prevents the concurrent-savers ENOENT
+        # race the per-thread tmp name was first added for (BENCH_r10's
+        # first ingest run). The unique name stays anyway: open()'s
+        # crash-orphan sweep matches the ".tmp.<tid>" pattern, and a
+        # belt under the lock costs nothing if a lock-free caller ever
+        # reappears.
+        tmp = p + f".tmp.{threading.get_ident()}"
+        with open(tmp, "wb") as f:
+            f.write(serialize(self._available_shards))
+        os.replace(tmp, p)
+
+    # -- views ------------------------------------------------------------
+
+    def _new_view(self, name: str) -> View:
+        v = View(
+            os.path.join(self.path, "views", name) if self.path else None,
+            self.index,
+            self.name,
+            name,
+            cache_type=self.options.cache_type if self.options.cache_type else "none",
+            cache_size=self.options.cache_size,
+            mutex=self.options.type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL),
+            broadcast_shard=self.broadcast_shard,
+        )
+        v.on_structure_change = self._bump_structure
+        return v
+
+    def view(self, name: str) -> Optional[View]:
+        return self.views.get(name)
+
+    def create_view_if_not_exists(self, name: str) -> View:
+        with self.lock:
+            v = self.views.get(name)
+            if v is None:
+                v = self._new_view(name).open()
+                # lint: allow-shared-state(writes serialized under field.lock; the lock-free view getter is one GIL-atomic dict read and a pre-insert miss just routes back through this create path)
+                self.views[name] = v
+                self._bump_structure()
+            return v
+
+    def add_available_shard(self, shard: int) -> None:
+        # Under the field RLock: concurrent import threads land distinct
+        # shards into one shared Bitmap, and its container dict +
+        # keys-generation bookkeeping are read-modify-write (the
+        # shared-state rule; the PR 10 per-thread tmp names fixed the
+        # SAVE race, this serializes the mutation itself).
+        with self.lock:
+            if self._available_shards.add(shard, log=False):
+                self._bump_structure()
+                self._save_available_shards()
+
+    def remove_available_shard(self, shard: int) -> None:
+        with self.lock:
+            if self._available_shards.remove(shard, log=False):
+                self._bump_structure()
+                self._save_available_shards()
+
+    def available_shards(self) -> Bitmap:
+        with self.lock:
+            # Read the version BEFORE walking: a concurrent fragment
+            # create during the walk (views bump without field.lock) then
+            # mismatches this snapshot on the next call instead of being
+            # absorbed into the cache key forever.
+            ver = self.structure_version
+            cached = self._shards_cache
+            if cached is not None and cached[0] == ver:
+                return cached[1].clone()
+            out = self._available_shards.clone()
+            for v in self.views.values():
+                for shard in v.available_shards():
+                    out.add(shard, log=False)
+            self._shards_cache = (ver, out)
+            return out.clone()
+
+    def merge_remote_available_shards(self, other: Bitmap) -> None:
+        """reference field.go AddRemoteAvailableShards :274."""
+        with self.lock:
+            self._available_shards.union_in_place(other)
+            self._bump_structure()
+            self._save_available_shards()
+
+    # -- type helpers -----------------------------------------------------
+
+    @property
+    def field_type(self) -> str:
+        return self.options.type
+
+    def bsi_group(self) -> FieldOptions:
+        if self.options.type != FIELD_TYPE_INT:
+            raise ValueError(f"field {self.name} is not an int (BSI) field")
+        return self.options
+
+    def bit_depth_min(self) -> int:
+        return self.options.base - (1 << self.options.bit_depth) + 1
+
+    def bit_depth_max(self) -> int:
+        return self.options.base + (1 << self.options.bit_depth) - 1
+
+    # -- bit ops ----------------------------------------------------------
+
+    def set_bit(self, row_id: int, column_id: int, timestamp: Optional[dt.datetime] = None) -> bool:
+        """reference field.go SetBit :927: standard view + any time views."""
+        shard = column_id // SHARD_WIDTH
+        # Single-bit Set always writes the standard view; timestamps add the
+        # quantum views (reference field.go SetBit :927; noStandardView only
+        # affects the bulk-import grouping, field.go:1222-1265).
+        view_names = [VIEW_STANDARD]
+        if timestamp is not None:
+            if self.options.type != FIELD_TYPE_TIME:
+                raise ValueError(f"cannot set timestamp on non-time field {self.name}")
+            view_names += views_by_time(VIEW_STANDARD, timestamp, self.options.time_quantum)
+        changed = False
+        for vname in view_names:
+            frag = self.create_view_if_not_exists(vname).create_fragment_if_not_exists(shard)
+            changed = frag.set_bit(row_id, column_id) or changed
+        self.add_available_shard(shard)
+        return changed
+
+    def clear_bit(self, row_id: int, column_id: int) -> bool:
+        """reference field.go ClearBit :967 (standard + time views)."""
+        shard = column_id // SHARD_WIDTH
+        changed = False
+        for vname, v in list(self.views.items()):
+            frag = v.fragment(shard)
+            if frag is not None and not vname.startswith("bsig_"):
+                changed = frag.clear_bit(row_id, column_id) or changed
+        return changed
+
+    def row(self, row_id: int, shard: int) -> Row:
+        v = self.view(VIEW_STANDARD)
+        if v is None:
+            return Row()
+        frag = v.fragment(shard)
+        if frag is None:
+            return Row()
+        return frag.row(row_id)
+
+    def row_time(self, row_id: int, shard: int, from_t: dt.datetime, to_t: dt.datetime) -> Row:
+        """Union of time views covering [from, to) (reference field.go Row
+        w/ time + executor.executeRowShard :1441-1530)."""
+        if self.options.type != FIELD_TYPE_TIME:
+            raise ValueError(f"field {self.name} is not a time field")
+        out = Row()
+        for vname in views_by_time_range(VIEW_STANDARD, from_t, to_t, self.options.time_quantum):
+            v = self.view(vname)
+            if v is None:
+                continue
+            frag = v.fragment(shard)
+            if frag is not None:
+                out = out.union(frag.row(row_id))
+        return out
+
+    # -- BSI ops ----------------------------------------------------------
+
+    def _bsi_fragment(self, shard: int, create: bool = False):
+        vname = bsi_view_name(self.name)
+        if create:
+            return self.create_view_if_not_exists(vname).create_fragment_if_not_exists(shard)
+        v = self.view(vname)
+        return v.fragment(shard) if v is not None else None
+
+    def set_value(self, column_id: int, value: int) -> bool:
+        """reference field.go SetValue :1075: range-check, grow bitDepth,
+        store base-relative."""
+        opts = self.bsi_group()
+        if value < opts.min:
+            raise ValueError(f"value {value} less than field minimum {opts.min}")
+        if value > opts.max:
+            raise ValueError(f"value {value} greater than field maximum {opts.max}")
+        base_value = value - opts.base
+        depth = bit_depth_of(base_value)
+        with self.lock:
+            if depth > opts.bit_depth:
+                opts.bit_depth = depth
+                self.save_meta()
+            depth = opts.bit_depth
+        frag = self._bsi_fragment(column_id // SHARD_WIDTH, create=True)
+        self.add_available_shard(column_id // SHARD_WIDTH)
+        return frag.set_value(column_id, depth, base_value)
+
+    def value(self, column_id: int) -> tuple[int, bool]:
+        opts = self.bsi_group()
+        frag = self._bsi_fragment(column_id // SHARD_WIDTH)
+        if frag is None:
+            return 0, False
+        v, ok = frag.value(column_id, opts.bit_depth)
+        if not ok:
+            return 0, False
+        return v + opts.base, True
+
+    def sum(self, filter_row: Optional[Row], shard: int) -> tuple[int, int]:
+        """Per-shard sum; executor reduces across shards
+        (reference field.go Sum :1121 -> fragment.sum)."""
+        opts = self.bsi_group()
+        frag = self._bsi_fragment(shard)
+        if frag is None:
+            return 0, 0
+        s, c = frag.sum(filter_row, opts.bit_depth)
+        return s + opts.base * c, c
+
+    def min(self, filter_row: Optional[Row], shard: int) -> tuple[int, int]:
+        opts = self.bsi_group()
+        frag = self._bsi_fragment(shard)
+        if frag is None:
+            return 0, 0
+        v, c = frag.min(filter_row, opts.bit_depth)
+        return (v + opts.base, c) if c else (0, 0)
+
+    def max(self, filter_row: Optional[Row], shard: int) -> tuple[int, int]:
+        opts = self.bsi_group()
+        frag = self._bsi_fragment(shard)
+        if frag is None:
+            return 0, 0
+        v, c = frag.max(filter_row, opts.bit_depth)
+        return (v + opts.base, c) if c else (0, 0)
+
+    def import_value(self, column_ids: np.ndarray, values: np.ndarray, clear: bool = False) -> None:
+        """Bulk BSI import (reference field.go importValue :1285)."""
+        opts = self.bsi_group()
+        values = np.asarray(values, dtype=np.int64)
+        column_ids = np.asarray(column_ids, dtype=np.uint64)
+        if values.size == 0:
+            return
+        if int(values.min()) < opts.min:
+            raise ValueError(f"value {int(values.min())} less than field minimum {opts.min}")
+        if int(values.max()) > opts.max:
+            raise ValueError(f"value {int(values.max())} greater than field maximum {opts.max}")
+        base_values = values - opts.base
+        depth = max(bit_depth_of(int(base_values.min())), bit_depth_of(int(base_values.max())))
+        with self.lock:
+            if depth > opts.bit_depth:
+                opts.bit_depth = depth
+                self.save_meta()
+            depth = opts.bit_depth
+        shards = column_ids // np.uint64(SHARD_WIDTH)
+        for shard in np.unique(shards):
+            sel = shards == shard
+            frag = self._bsi_fragment(int(shard), create=True)
+            frag.import_value(column_ids[sel], base_values[sel], depth, clear=clear)
+            self.add_available_shard(int(shard))
+
+    # -- imports ----------------------------------------------------------
+
+    def import_bits(
+        self,
+        row_ids: np.ndarray,
+        column_ids: np.ndarray,
+        timestamps: Optional[list[Optional[dt.datetime]]] = None,
+        clear: bool = False,
+    ) -> None:
+        """Bulk bit import grouped by view and shard (reference field.go
+        Import :1204, grouping by time quantum :1222-1265)."""
+        # Narrow streams pass through unwidened (uint8 rows, uint32
+        # global column ids — valid up to 4096 shards): the native
+        # import reads them directly and the bulk-load path is
+        # input-bandwidth bound.
+        row_ids = np.asarray(row_ids)
+        if row_ids.dtype != np.uint8:
+            row_ids = row_ids.astype(np.uint64, copy=False)
+        column_ids = np.asarray(column_ids)
+        if column_ids.dtype != np.uint32:
+            column_ids = column_ids.astype(np.uint64, copy=False)
+        if timestamps is None:
+            # Fast path: everything goes to the standard view — skip the
+            # per-bit grouping loop entirely.
+            self._import_view(VIEW_STANDARD, row_ids, column_ids, clear)
+            return
+        # Group (view -> indices) per timestamp quantum.
+        groups: dict[str, list[int]] = {}
+        for i in range(row_ids.size):
+            ts = timestamps[i]
+            names = [VIEW_STANDARD] if not self.options.no_standard_view or ts is None else []
+            if ts is not None:
+                if not self.options.time_quantum:
+                    raise ValueError(f"cannot import with timestamp into field {self.name} with no time quantum")
+                names += views_by_time(VIEW_STANDARD, ts, self.options.time_quantum)
+            for nm in names:
+                groups.setdefault(nm, []).append(i)
+        for vname, idxs in groups.items():
+            sel = np.array(idxs, dtype=np.int64)
+            self._import_view(vname, row_ids[sel], column_ids[sel], clear)
+
+    def _import_view(self, vname: str, rows_v: np.ndarray, cols_v: np.ndarray, clear: bool) -> None:
+        if cols_v.size == 0:
+            return
+        lo = int(cols_v.min()) // SHARD_WIDTH
+        hi = int(cols_v.max()) // SHARD_WIDTH
+        if lo == hi:
+            # Single-shard batch (the bulk loader's common shape): skip
+            # the per-shard mask/unique/fancy-index passes entirely.
+            frag = self.create_view_if_not_exists(vname).create_fragment_if_not_exists(lo)
+            frag.bulk_import(rows_v, cols_v, clear=clear)
+            self.add_available_shard(lo)
+            return
+        shards = cols_v // np.uint64(SHARD_WIDTH)
+        for shard in np.unique(shards):
+            ssel = shards == shard
+            frag = self.create_view_if_not_exists(vname).create_fragment_if_not_exists(int(shard))
+            frag.bulk_import(rows_v[ssel], cols_v[ssel], clear=clear)
+            self.add_available_shard(int(shard))
+
+    def import_roaring(self, shard: int, data: bytes, view_name: str = VIEW_STANDARD, clear: bool = False, epoch_unknown: bool = False) -> int:
+        frag = self.create_view_if_not_exists(view_name).create_fragment_if_not_exists(shard)
+        self.add_available_shard(shard)
+        return frag.import_roaring(data, clear=clear, epoch_unknown=epoch_unknown)
+
+    # -- TopN -------------------------------------------------------------
+
+    def top(self, shard: int, **kwargs) -> list[Pair]:
+        v = self.view(VIEW_STANDARD)
+        if v is None:
+            return []
+        frag = v.fragment(shard)
+        if frag is None:
+            return []
+        return frag.top(**kwargs)
+
+    def __repr__(self) -> str:
+        return f"Field({self.index}/{self.name}, type={self.options.type})"

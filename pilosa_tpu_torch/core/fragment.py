@@ -1,0 +1,2024 @@
+"""Fragment: one (view ∩ shard) storage unit (reference fragment.go).
+
+Storage is a single roaring bitmap whose position space interleaves rows:
+position = row_id * SHARD_WIDTH + (column_id % SHARD_WIDTH) (reference
+fragment.go pos() :1539). Durability is a snapshot file (byte-compatible
+Pilosa roaring format) plus an appended op-log WAL; once op_n crosses
+MAX_OP_N the file is atomically rewritten (reference fragment.go:84,
+:2296-2394 snapshot via .snapshotting temp + rename).
+
+BSI (bit-sliced index) int values live in dedicated views; within such a
+fragment row 0 is the existence ("not null") plane, row 1 the sign plane,
+and rows 2..2+bitDepth the magnitude planes (reference fragment.go:91-93).
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import threading
+import time
+from collections import deque
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+
+from pilosa_tpu_torch.core.cache import Pair, new_cache, load_cache, save_cache, top_n_pairs
+from pilosa_tpu_torch.core.row import Row
+from pilosa_tpu_torch.native import xxhash64
+from pilosa_tpu_torch.roaring import Bitmap, serialize
+from pilosa_tpu_torch.roaring.codec import (
+    CorruptWalError,
+    OpWriter,
+    ReplayInfo,
+    deserialize,
+)
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP
+from pilosa_tpu_torch.utils.locks import InstrumentedLock, InstrumentedRLock
+from pilosa_tpu_torch.utils.logger import StandardLogger
+
+# Maximum op-log length before a snapshot rewrite (reference fragment.go:84).
+MAX_OP_N = 10000
+
+# Rows per checksum block for anti-entropy (reference fragment.go:81).
+HASH_BLOCK_SIZE = 100
+
+# BSI plane rows (reference fragment.go:91-93).
+BSI_EXISTS_BIT = 0
+BSI_SIGN_BIT = 1
+BSI_OFFSET_BIT = 2
+
+CACHE_EXT = ".cache"
+
+# Per-block last-write-epoch sidecar (ISSUE r15 tentpole 1). Written
+# atomically at clean close and after every snapshot rewrite, keyed to
+# the storage file's byte size at write time: on open the sidecar is
+# adopted only when the sizes still match — any WAL bytes appended (or
+# torn away) after the last sidecar write cannot be attributed to
+# blocks, so those epochs are dropped and the fragment degrades to
+# union repair (never a misdirected wipe) until fresh writes re-stamp.
+EPOCHS_EXT = ".epochs"
+
+# Decoded-row LRU bound: a TopN over a 50k-row fragment must not pin 50k
+# bitmaps (r1 weak #7). 2048 rows ≈ a full rank-cache recalc working set.
+ROW_CACHE_MAX = 2048
+
+
+def pos(row_id: int, column_id: int) -> int:
+    """Bit position in fragment storage (reference fragment.go pos)."""
+    return row_id * SHARD_WIDTH + (column_id % SHARD_WIDTH)
+
+
+import itertools
+
+_fragment_uids = itertools.count(1)
+
+#: Recovery events are rare (one per crashed fragment per restart) and
+#: operator-significant: log them unconditionally. Fragments have no
+#: per-instance logger seam; stderr is where the server logger writes
+#: anyway.
+_recovery_log = StandardLogger()
+
+
+class FragmentCorruptError(Exception):
+    """A fragment file whose damage is NOT the recoverable torn-tail
+    shape: snapshot-section corruption, or op-log corruption with valid
+    records after it. Opening must fail loudly — truncating past mid-log
+    damage would silently drop every record behind it (ISSUE r8
+    tentpole 1: never silent data loss)."""
+
+    def __init__(self, path: str, reason: str, cause: Exception):
+        super().__init__(f"fragment {path} is corrupt ({reason}): {cause}")
+        self.path = path
+        self.reason = reason
+
+
+class _WalBacklog:
+    """Process-wide count of WAL ops not yet absorbed by a snapshot —
+    the pending-WAL depth the import admission gate bounds (ISSUE r8
+    tentpole 3). Fragments report op_n deltas here (under their own
+    lock); the gauge publishes inside this leaf lock so two racing
+    updates can never publish out of order (same discipline as the
+    inflight-queries gauge, server/api.py)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._ops = 0
+
+    def adjust(self, delta: int) -> None:
+        if not delta:
+            return
+        from pilosa_tpu_torch.utils.stats import global_stats
+
+        with self._lock:
+            self._ops = max(0, self._ops + delta)
+            global_stats.gauge("wal_pending_ops", self._ops)
+
+    @property
+    def ops(self) -> int:
+        return self._ops
+
+
+WAL_BACKLOG = _WalBacklog()
+
+
+class _SnapshotPending:
+    """Process-wide count of fragments with a snapshot in flight
+    (`snapshot_pending` gauge): sustained nonzero means the rewrite
+    plane is falling behind the ingest rate."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def adjust(self, delta: int) -> None:
+        from pilosa_tpu_torch.utils.stats import global_stats
+
+        with self._lock:
+            self._n = max(0, self._n + delta)
+            global_stats.gauge("snapshot_pending", self._n)
+
+
+_SNAPSHOT_PENDING = _SnapshotPending()
+
+
+#: Paced snapshot write granularity: the phase-2 rewrite goes down in
+#: slices this big, each gated on the scheduler's token bucket, so a
+#: bandwidth cap shapes the rewrite's disk pressure instead of letting
+#: the whole serialized storage burst at once (ISSUE r19 tentpole 1).
+SNAPSHOT_CHUNK = 1 << 20
+
+
+class SnapshotScheduler:
+    """Process-global background-rewrite scheduler (ISSUE r19
+    tentpole 1). Before r19 every fragment past MAX_OP_N spawned its own
+    rewrite thread, so a churn burst across N fragments meant N
+    concurrent O(storage) serializes competing with the read plane for
+    CPU and disk. Fragments now enqueue here (deduped by uid, FIFO —
+    oldest backlog drains first) and at most `concurrency` spawn-on-
+    demand daemon workers run the rewrites. The shared token bucket
+    (`bandwidth` bytes/s, 0 = uncapped) paces every worker's unlocked
+    phase-2 writes in SNAPSHOT_CHUNK slices, bounding the rewrite
+    plane's AGGREGATE I/O no matter how deep the queue."""
+
+    def __init__(self, concurrency: int = 2, bandwidth: int = 0):
+        self._lock = threading.Lock()
+        self._queue: deque = deque()  # (enqueue_monotonic, fragment)
+        self._queued: set[int] = set()  # fragment uids present in _queue
+        self._active = 0  # live worker threads
+        self._concurrency = max(1, concurrency)
+        self._bandwidth = max(0, bandwidth)
+        self._tokens = 0.0
+        self._t_last = time.monotonic()
+
+    def configure(self, concurrency: Optional[int] = None,
+                  bandwidth: Optional[int] = None) -> None:
+        with self._lock:
+            if concurrency is not None:
+                self._concurrency = max(1, int(concurrency))
+            if bandwidth is not None:
+                self._bandwidth = max(0, int(bandwidth))
+                # A rate change empties the bucket: accumulated credit
+                # at the old rate must not burst through the new cap.
+                self._tokens = 0.0
+                self._t_last = time.monotonic()
+
+    def enqueue(self, frag: "Fragment") -> None:
+        """Queue a fragment's background rewrite (idempotent while it is
+        already queued). Called under frag.lock from _increment_op_n —
+        lock order fragment -> scheduler; nothing here ever takes a
+        fragment lock while holding the scheduler lock."""
+        from pilosa_tpu_torch.utils.stats import global_stats
+
+        with self._lock:
+            if frag.uid in self._queued:
+                return
+            self._queued.add(frag.uid)
+            self._queue.append((time.monotonic(), frag))
+            global_stats.gauge(
+                "snapshot_sched_queue_depth", len(self._queue)
+            )
+            start_worker = self._active < self._concurrency
+            if start_worker:
+                self._active += 1
+        if start_worker:
+            from pilosa_tpu_torch.utils.threads import spawn
+
+            spawn("snapshot-scheduler", self._worker, name="snapshot-sched")
+
+    def cancel(self, frag: "Fragment") -> bool:
+        """Remove a still-queued rewrite so close() doesn't have to wait
+        out the whole backlog ahead of it. False = not queued (idle, or
+        already claimed by a worker — the caller waits instead)."""
+        from pilosa_tpu_torch.utils.stats import global_stats
+
+        with self._lock:
+            if frag.uid not in self._queued:
+                return False
+            self._queued.discard(frag.uid)
+            for i, (_, fr) in enumerate(self._queue):
+                if fr is frag:
+                    del self._queue[i]
+                    break
+            global_stats.gauge(
+                "snapshot_sched_queue_depth", len(self._queue)
+            )
+        frag._snapshot_done()
+        return True
+
+    def _worker(self) -> None:
+        from pilosa_tpu_torch.utils.stats import global_stats
+
+        while True:
+            with self._lock:
+                # Workers drain until the queue is empty, then exit
+                # (spawn-on-demand keeps an idle process at zero
+                # threads); a shrunk concurrency cap sheds the extras
+                # at their next dequeue.
+                if not self._queue or self._active > self._concurrency:
+                    self._active -= 1
+                    return
+                enq_t, frag = self._queue.popleft()
+                self._queued.discard(frag.uid)
+                global_stats.gauge(
+                    "snapshot_sched_queue_depth", len(self._queue)
+                )
+            global_stats.count(
+                "snapshot_sched_queue_seconds_total",
+                time.monotonic() - enq_t,
+            )
+            global_stats.count("snapshot_sched_runs_total")
+            frag._snapshot_bg()
+
+    def throttle(self, nbytes: int,
+                 aborted: Optional[Callable[[], bool]] = None) -> None:
+        """Token-bucket gate before writing `nbytes` of snapshot data.
+        Sleeps in <=50 ms slices so a mid-wait close()/SIGTERM (the
+        `aborted` probe) and a live reconfigure stay responsive; sleep
+        time is counted into snapshot_paced_sleep_seconds_total. The
+        burst floor of max(rate, nbytes) keeps a chunk larger than one
+        second's budget from waiting forever."""
+        from pilosa_tpu_torch.utils.stats import global_stats
+
+        while True:
+            with self._lock:
+                rate = self._bandwidth
+                if rate <= 0:
+                    return
+                now = time.monotonic()
+                burst = float(max(rate, nbytes))
+                self._tokens = min(
+                    burst, self._tokens + (now - self._t_last) * rate
+                )
+                self._t_last = now
+                if self._tokens >= nbytes:
+                    self._tokens -= nbytes
+                    return
+                wait = (nbytes - self._tokens) / rate
+            wait = min(wait, 0.05)
+            global_stats.count("snapshot_paced_sleep_seconds_total", wait)
+            time.sleep(wait)
+            if aborted is not None and aborted():
+                return
+
+
+SNAPSHOT_SCHEDULER = SnapshotScheduler()
+
+
+class _WalFile:
+    """Lazy, budget-managed WAL append handle.
+
+    The fd opens on first write and registers with the process-wide file
+    budget (utils/syswrap, reference syswrap/os.go:30-60); the budget may
+    call release() from another thread when over the limit, and the next
+    write transparently reopens — append semantics make the handoff safe.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self._fh = None
+        self._lock = InstrumentedLock("wal_append")
+        self.budget_stamp = 0  # lock-free LRU stamp (syswrap.file_touched)
+
+    def write(self, data: bytes) -> int:
+        from pilosa_tpu_torch.utils import syswrap
+
+        with self._lock:
+            if self._fh is None:
+                # Unbuffered append so each WAL record hits the OS
+                # directly (crash durability without per-record flushes).
+                self._fh = open(self.path, "ab", buffering=0)
+                register = True
+            else:
+                register = False
+            # buffering=0 hands back a raw FileIO whose write() may be
+            # SHORT (signal interruption, pipe-ish limits): loop until
+            # the whole record is down, or a torn record could land with
+            # the process still healthy — the recovery contract only
+            # covers torn tails from crashes (ISSUE r8 satellite). The
+            # fragment lock serializes callers, so the loop's writes are
+            # contiguous and a record is never interleaved.
+            view = memoryview(data)
+            n = 0
+            while n < len(view):
+                wrote = self._fh.write(view[n:])
+                if wrote is None:  # non-raw file object: all-or-error
+                    n = len(view)
+                    break
+                n += wrote
+        # Budget bookkeeping outside self._lock (see syswrap.file_opened
+        # for the lock-order rationale).
+        if register:
+            syswrap.file_opened(self)
+        else:
+            syswrap.file_touched(self)
+        return n
+
+    def flush(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                self._fh.flush()
+
+    def release(self) -> None:
+        """Close the fd (budget eviction / snapshot rename) and leave the
+        budget slot; reopens + re-registers on the next write."""
+        from pilosa_tpu_torch.utils import syswrap
+
+        with self._lock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+        # Outside self._lock (lock order: holder -> registry, never the
+        # reverse). Idempotent when the evictor already removed us.
+        syswrap.file_closed(self)
+
+    def close(self) -> None:
+        self.release()
+
+
+class _WalBuffer:
+    """Group-commit staging buffer handed to the storage OpWriter in
+    place of the WAL fd (ISSUE r19 tentpole 3). Mutators append encoded
+    records here under Fragment.lock — a pure list append, no I/O — and
+    the records drain to the real _WalFile AFTER the fragment lock is
+    released (Fragment._drain_wal), so a reader never parks behind a
+    writer's disk write. File-like: OpWriter only needs write()/flush().
+    """
+
+    def __init__(self, frag: "Fragment"):
+        self._frag = frag
+
+    def write(self, data: bytes) -> int:
+        self._frag._wal_pending.append(data)
+        return len(data)
+
+    def flush(self) -> None:
+        # Durability is _drain_wal's job (every mutator drains before
+        # returning); there is nothing buffered below this shim.
+        pass
+
+
+def _drains_wal(fn):
+    """Mutator decorator (ISSUE r19 tentpole 3): the wrapped method
+    stages its WAL records in _wal_pending under self.lock; the drain to
+    disk runs here AFTER the lock is released, so a mutation's lock hold
+    no longer includes file I/O. The drain completing before return is
+    what preserves the ack-implies-on-disk durability contract (a torn
+    batch tail is still covered by the PR 8 torn-tail recovery)."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            self._drain_wal()
+
+    return wrapper
+
+
+class Fragment:
+    """In-process fragment. Thread-safe for single-writer/multi-reader via a
+    coarse lock (the reference uses an RWMutex per fragment, fragment.go:101)."""
+
+    def __init__(
+        self,
+        path: Optional[str],
+        index: str,
+        field: str,
+        view: str,
+        shard: int,
+        cache_type: str = "ranked",
+        cache_size: int = 50000,
+        mutex: bool = False,
+    ):
+        self.path = path  # None = memory-only (tests)
+        self.index = index
+        self.field = field
+        self.view = view
+        self.shard = shard
+        self.mutex = mutex
+        self.storage = Bitmap()
+        self.cache = new_cache(cache_type, cache_size)
+        self.cache_type = cache_type
+        self.max_row_id = 0
+        self.lock = InstrumentedRLock("fragment")
+        self._file = None
+        # Off-hot-path snapshotting (ISSUE r8 tentpole 2): one in-flight
+        # background rewrite at a time; close() joins it. The mutex
+        # serializes the rewrite itself (a sync snapshot() racing the
+        # background one must not interleave writes into the same temp
+        # file); order is always _snapshot_mutex -> self.lock.
+        self._snapshotting = False
+        self._snapshot_thread: Optional[threading.Thread] = None
+        self._snapshot_mutex = InstrumentedLock("snapshot_mutex")
+        # Signaled when NO background snapshot is queued or running for
+        # this fragment: await_snapshot()/close() wait on it instead of
+        # joining a per-fragment thread (the scheduler's worker sets it
+        # in _snapshot_done, as does SnapshotScheduler.cancel).
+        self._snapshot_idle = threading.Event()
+        self._snapshot_idle.set()
+        # Group-commit WAL staging (ISSUE r19 tentpole 3): mutators
+        # append encoded records here under self.lock (via the
+        # _WalBuffer the OpWriter writes through) and drain them to the
+        # real file after releasing it. Lock order is always
+        # _wal_drain_lock -> self.lock, never the reverse.
+        self._wal_pending: list[bytes] = []
+        self._wal_drain_lock = InstrumentedLock("wal_drain")
+        # op_n already reported into the process-wide WAL_BACKLOG.
+        self._backlog_reported = 0
+        self._closed = False
+        # Bumped on every mutation; the TPU block cache uses it to decide
+        # when a device re-upload is needed (see pilosa_tpu_torch/ops/blocks.py).
+        # uid is process-unique (never reused, unlike id()) for cache keys.
+        self.version = 0
+        self.uid = next(_fragment_uids)
+        # Owning view's data-generation bump (called with this
+        # fragment's shard for the view's mutation journal); see
+        # _mutated.
+        self.on_mutate: Optional[Callable[[int], None]] = None
+        self._row_cache: dict[int, Bitmap] = {}
+        # Lazily-computed per-block checksums, invalidated by row on write
+        # (reference caches block checksums too, fragment.go:1762-1776).
+        self._block_sums: dict[int, int] = {}
+        # Per-block last-write epoch (ISSUE r15 tentpole 1): a hybrid
+        # wall-nanosecond stamp minted on every mutation that touches
+        # the block, monotone per fragment (max(now, prev+1)) so a
+        # stepped-back clock can never re-order this fragment's own
+        # writes. Epochs are COMPARED ACROSS REPLICAS by anti-entropy
+        # ("higher epoch wins" directed repair), which is exactly why
+        # they must be wall-derived: a per-process counter says nothing
+        # about which replica wrote last. A block with no entry is
+        # epoch-UNKNOWN (pre-upgrade data, crash-dropped sidecar) and
+        # degrades to union repair. An entry persists after the block
+        # empties — that is the tombstone that lets clears propagate.
+        self._block_epochs: dict[int, int] = {}
+        self._epoch_clock = 0
+        # Ring of recent single-bit mutations (version, row, local_col,
+        # sign) — the exact deltas the TPU backend's host stats tables
+        # apply per write epoch instead of re-deriving whole shard slabs
+        # (exec/tpu.py _pair_try_incremental). Lazy: bulk-loaded
+        # fragments that never see point writes pay nothing.
+        self.bit_ops: Optional[deque] = None
+        # BSI twin: recent value mutations (version, old_present,
+        # old_value, new_present, new_value) in base-relative space —
+        # lets the unfiltered Sum cache apply set/clear_value epochs as
+        # sum/count deltas instead of re-dispatching the plane sweep
+        # (exec/tpu.py bsi_sum).
+        self.value_ops: Optional[deque] = None
+
+    # -- lifecycle --------------------------------------------------------
+
+    def open(self) -> "Fragment":
+        replay = ReplayInfo()
+        # A closed-then-reopened fragment must snapshot again — leaving
+        # the flag set would silently disable the rewrite plane and grow
+        # the WAL without bound.
+        self._closed = False
+        if self.path is not None:
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            orphan = self.path + ".snapshotting"
+            if os.path.exists(orphan):
+                # SIGKILL mid-rewrite leaves the phase-2 temp behind
+                # (publication is a single os.replace, so the real file
+                # — snapshot + WAL tail — is still authoritative and the
+                # temp is an unpublished partial). Sweep it, counted and
+                # logged, instead of letting them accumulate on the data
+                # dir forever (ISSUE r19 satellite).
+                from pilosa_tpu_torch.utils.stats import global_stats
+
+                try:
+                    os.remove(orphan)
+                except OSError:
+                    pass
+                else:
+                    global_stats.count("snapshot_orphans_swept_total")
+                    _recovery_log.printf(
+                        "fragment %s: swept orphaned snapshot temp %s",
+                        self.path, orphan,
+                    )
+            # mmap-backed read (budgeted, reference syswrap): container
+            # payloads copy out during deserialize, so there is no
+            # transient whole-file copy and the map releases immediately.
+            from pilosa_tpu_torch.utils.syswrap import read_buffer
+
+            with read_buffer(self.path) as data:
+                if len(data):
+                    try:
+                        self.storage = deserialize(data, info=replay)
+                    except (CorruptWalError, ValueError) as e:
+                        # Snapshot-section damage, or op-log corruption
+                        # BEFORE the tail (CorruptWalError): truncation
+                        # would silently drop data — refuse structured.
+                        self._count_recovery("corrupt")
+                        reason = getattr(e, "reason", "storage")
+                        _recovery_log.printf(
+                            "fragment %s refuses to open: corrupt (%s): %s",
+                            self.path, reason, e,
+                        )
+                        raise FragmentCorruptError(self.path, reason, e) from e
+            if replay.torn_offset is not None:
+                # Torn tail (SIGKILL mid-append): the replay already
+                # stopped at the last good record — make the file match
+                # by truncating the partial record away, so the next
+                # open (and the WAL appender) see a consistent prefix.
+                self._truncate_torn_tail(replay)
+            if not os.path.exists(self.path) or os.path.getsize(self.path) == 0:
+                # New file: write an empty-bitmap header so the op log that
+                # follows always has a valid roaring prefix (reference
+                # fragment.go openStorage writes the marshaled bitmap
+                # first). tmp + os.replace: a crash mid-header-write must
+                # leave either no file or a whole header, never a torn
+                # prefix the next open would refuse (lint: durable-write).
+                tmp = self.path + ".tmp"
+                with open(tmp, "wb") as f:
+                    f.write(serialize(self.storage))
+                os.replace(tmp, self.path)
+            # Lazy, budgeted WAL appender: the fd opens on first write and
+            # the process-wide file budget (utils/syswrap, reference
+            # syswrap/os.go:30-60) can reclaim it — a 100k-fragment holder
+            # must not pin 100k open fds.
+            self._file = _WalFile(self.path)
+            # OpWriter writes through the group-commit buffer, not the
+            # fd: records stage under the fragment lock and drain to
+            # _file once it's released (ISSUE r19 tentpole 3).
+            self.storage.op_writer = OpWriter(_WalBuffer(self))
+            if replay.ops_applied == 0:
+                load_cache(self.cache, self.path + CACHE_EXT)
+            else:
+                # Crash recovery applied WAL ops the flushed .cache never
+                # saw (save_cache only runs at clean close): the file is
+                # stale by exactly those ops. Don't trust it — fall
+                # through to the rebuild below (ISSUE r8 satellite).
+                # One outcome per open: a torn-tail open already counted
+                # as truncated.
+                if replay.torn_offset is None:
+                    self._count_recovery("replayed")
+                _recovery_log.printf(
+                    "fragment %s: replayed %d WAL op record(s); rank "
+                    "cache rebuilt from storage",
+                    self.path, replay.ops_applied,
+                )
+            # Replayed-but-unsnapshotted ops are pending WAL depth: the
+            # admission gate must see a crash-looped node's backlog.
+            self._backlog_reported = 0
+            self._report_backlog()
+            self._load_block_epochs()
+        mx = self.storage.max()
+        self.max_row_id = mx // SHARD_WIDTH if self.storage.any() else 0
+        # A missing/stale .cache (e.g. after a crash — it is only flushed
+        # periodically and on close) must not make TopN silently empty:
+        # rebuild from storage. (The reference tolerates stale caches
+        # because Go flushes every minute, holder.go:506; a rebuild at open
+        # is cheap here and strictly better.)
+        if self.cache_type != "none" and self.storage.any() and (
+            len(self.cache) == 0 or replay.ops_applied
+        ):
+            for r in self.row_ids():
+                self.cache.bulk_add(r, self.row_count(r))
+            self.cache.invalidate()
+        return self
+
+    def _count_recovery(self, outcome: str) -> None:
+        from pilosa_tpu_torch.utils.stats import global_stats
+
+        global_stats.with_tags(f"outcome:{outcome}").count(
+            "fragment_recovery_total"
+        )
+
+    def _truncate_torn_tail(self, replay: ReplayInfo) -> None:
+        """Cut the detected partial final record off the WAL so the file
+        is exactly the consistent prefix the replay recovered to."""
+        from pilosa_tpu_torch.utils.stats import global_stats
+
+        dropped = os.path.getsize(self.path) - replay.torn_offset
+        # lint: allow-durable-write(in-place truncate IS the recovery op: it restores the consistent prefix, never writes data)
+        with open(self.path, "rb+") as f:
+            f.truncate(replay.torn_offset)
+            f.flush()
+            os.fsync(f.fileno())
+        global_stats.count("wal_truncated_records_total")
+        self._count_recovery("truncated")
+        _recovery_log.printf(
+            "fragment %s: torn WAL tail (%s) at offset %d — truncated %d "
+            "byte(s) back to the last good record",
+            self.path, replay.torn_reason, replay.torn_offset, dropped,
+        )
+
+    def _load_block_epochs(self) -> None:
+        """Adopt the persisted per-block epochs iff the sidecar still
+        describes the storage file on disk (size match — see EPOCHS_EXT).
+        Any failure degrades to epoch-unknown, never an error: union
+        repair is always a safe fallback."""
+        import json
+
+        if self.path is None:
+            return
+        try:
+            with open(self.path + EPOCHS_EXT) as f:
+                data = json.load(f)
+            wal_size = int(data.get("walSize", -1))
+            clock = int(data.get("clock", 0))
+            epochs = {
+                int(k): int(v) for k, v in (data.get("epochs") or {}).items()
+            }
+        except (OSError, ValueError, TypeError, AttributeError):
+            return
+        # The clock floor adopts even when the epochs don't: a reopened
+        # fragment must never mint below its previous incarnation.
+        self._epoch_clock = max(self._epoch_clock, clock)
+        if wal_size != os.path.getsize(self.path):
+            return
+        self._block_epochs.update(epochs)
+
+    def _save_block_epochs(self) -> None:
+        """Atomic sidecar rewrite (tmp + os.replace, the durable-write
+        discipline), stamped with the CURRENT storage file size. Called
+        with self.lock held, after any pending WAL bytes are down (clean
+        close; snapshot phase 3). Best-effort: a failed save just means
+        the next open degrades those blocks to union repair."""
+        import json
+
+        if self.path is None:
+            return
+        try:
+            payload = json.dumps({
+                "walSize": os.path.getsize(self.path),
+                "clock": self._epoch_clock,
+                "epochs": {str(k): v for k, v in self._block_epochs.items()},
+            })
+            tmp = self.path + EPOCHS_EXT + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(payload)
+            os.replace(tmp, self.path + EPOCHS_EXT)
+        except OSError:
+            pass
+
+    def _report_backlog(self) -> None:
+        """Publish this fragment's un-snapshotted op delta into the
+        process-wide WAL backlog. Called with self.lock held (or before
+        the fragment is shared, in open)."""
+        d = self.storage.op_n - self._backlog_reported
+        if d:
+            WAL_BACKLOG.adjust(d)
+            self._backlog_reported = self.storage.op_n
+
+    def close(self) -> None:
+        # Mark closed FIRST so an in-flight background snapshot aborts
+        # at its next phase checkpoint — or mid-token-bucket-wait, the
+        # throttle's aborted probe — instead of close() waiting out a
+        # full pointless O(storage) rewrite (delete_fragment holds
+        # view.lock across this call — stalling it stalls every new
+        # shard of the view). Then wait outside the lock (the rewrite's
+        # splice phase needs the lock to observe the flag).
+        with self.lock:
+            self._closed = True
+        # A rewrite still queued behind other fragments is cancelled
+        # outright (no reason to wait out the backlog ahead of it); one
+        # a worker already claimed is waited out — it aborts fast.
+        if not SNAPSHOT_SCHEDULER.cancel(self):
+            self.await_snapshot()
+        with self._wal_drain_lock:
+            with self.lock:
+                self.flush_cache()
+                if self._file is not None:
+                    # Staged group-commit records go down before the fd
+                    # detaches (ISSUE r19 tentpole 3); the extra flush
+                    # covers a buffered writer handed in by a test/tool
+                    # (ISSUE r8 satellite; the default unbuffered
+                    # appender makes it a no-op).
+                    self._drain_wal_locked()
+                    if self.storage.op_writer is not None:
+                        self.storage.op_writer.flush()
+                    # Every WAL byte is down: the sidecar's size stamp
+                    # now describes exactly this file, so the next open
+                    # adopts the epochs (directed repair survives clean
+                    # restarts).
+                    self._save_block_epochs()
+                    self._file.close()
+                    self._file = None
+                    self.storage.op_writer = None
+                # This fragment's pending ops leave the live backlog
+                # with it (they are on disk and replay at the next open).
+                if self._backlog_reported:
+                    WAL_BACKLOG.adjust(-self._backlog_reported)
+                    self._backlog_reported = 0
+
+    def flush_cache(self) -> None:
+        if self.path is not None and self.cache_type != "none":
+            save_cache(self.cache, self.path + CACHE_EXT)
+
+    # -- WAL group commit (ISSUE r19 tentpole 3) --------------------------
+
+    def _drain_wal(self) -> None:
+        """Flush staged WAL records to the file. Every mutator runs this
+        AFTER releasing self.lock (the _drains_wal decorator): the swap
+        happens under both locks, the disk write under only
+        _wal_drain_lock — so readers taking self.lock never wait on a
+        writer's file I/O. Returning only once the buffer is drained
+        (by us or by the concurrent drainer _wal_drain_lock serializes
+        us behind) is what preserves ack-implies-on-disk. Lock order is
+        always _wal_drain_lock -> self.lock, never the reverse."""
+        with self._wal_drain_lock:
+            with self.lock:
+                pending = self._wal_pending
+                if not pending:
+                    return
+                self._wal_pending = []
+                f = self._file
+            if f is not None:
+                f.write(b"".join(pending))
+
+    def _drain_wal_locked(self) -> None:
+        """Drain variant for sites already holding BOTH _wal_drain_lock
+        and self.lock (snapshot phases 1/3, close): rare and small, and
+        those callers need the file byte-complete before they read its
+        size or tail."""
+        if self._wal_pending and self._file is not None:
+            pending = self._wal_pending
+            self._wal_pending = []
+            self._file.write(b"".join(pending))
+
+    # -- snapshotting -----------------------------------------------------
+
+    def _increment_op_n(self) -> None:
+        # Called with self.lock held by every mutator. Past the op-log
+        # bound the rewrite runs OFF the ingest hot path (ISSUE r8
+        # tentpole 2): the old inline snapshot serialized the whole
+        # storage under the fragment lock, stalling the triggering
+        # import — and everything queued behind the lock — for a full
+        # rewrite. In-memory fragments keep the cheap inline reset.
+        self._report_backlog()
+        if self.storage.op_n <= MAX_OP_N:
+            return
+        if self.path is None:
+            # Memory-only: nothing to rewrite — reset inline under the
+            # already-held fragment lock. (Never route through
+            # snapshot() here: that takes _snapshot_mutex, and
+            # mutex-under-lock is the reverse of the snapshot path's
+            # mutex -> lock order — an AB/BA deadlock.)
+            self.storage.optimize()
+            self.storage.op_n = 0
+            self._report_backlog()
+            return
+        if not self._snapshotting:
+            # Hand the rewrite to the process-global scheduler (ISSUE
+            # r19 tentpole 1) instead of spawning a per-fragment thread:
+            # the worker pool bounds concurrent rewrites and the shared
+            # token bucket paces their writes. _snapshot_idle is the
+            # join handle for await_snapshot()/close().
+            self._snapshotting = True
+            _SNAPSHOT_PENDING.adjust(+1)
+            self._snapshot_idle.clear()
+            SNAPSHOT_SCHEDULER.enqueue(self)
+
+    def _snapshot_bg(self) -> None:
+        """Run by a SnapshotScheduler worker (never spawned directly)."""
+        self._snapshot_thread = threading.current_thread()
+        try:
+            self._snapshot_once()
+        except Exception as e:  # noqa: BLE001 — counted crash barrier
+            from pilosa_tpu_torch.utils.stats import global_stats
+
+            global_stats.count("fragment_snapshot_failures_total")
+            _recovery_log.printf("fragment %s: snapshot failed: %s",
+                                 self.path, e)
+        finally:
+            self._snapshot_thread = None
+            self._snapshot_done()
+
+    def _snapshot_done(self) -> None:
+        """Clear the in-flight markers set by _increment_op_n: called by
+        the scheduler worker when the run finishes, or by
+        SnapshotScheduler.cancel for an entry dequeued before start.
+        Idempotent — the flag check makes a cancel/finish race safe."""
+        with self.lock:
+            if not self._snapshotting:
+                return
+            self._snapshotting = False
+        _SNAPSHOT_PENDING.adjust(-1)
+        self._snapshot_idle.set()
+
+    def await_snapshot(self) -> None:
+        """Block until any queued or in-flight background snapshot has
+        finished — the write-path acknowledgment contract does NOT
+        include the rewrite, so tests/maintenance that need the
+        compacted file wait here instead of spinning on op_n."""
+        if self._snapshot_thread is threading.current_thread():
+            return
+        self._snapshot_idle.wait()
+
+    def snapshot(self) -> None:
+        """Synchronously rewrite the storage file without the op log
+        (reference fragment.go:2311-2394). Waits out any in-flight
+        background rewrite first so callers (tests, maintenance) observe
+        a fully-compacted file on return."""
+        self.await_snapshot()
+        self._snapshot_once()
+
+    def _snapshot_once(self) -> None:
+        """The rewrite itself, structured so the fragment lock is never
+        held across the O(storage) serialize:
+
+        phase 1 (lock):    clone the storage — container copy-on-write
+                           makes this a dict copy — and note the current
+                           file size (where post-clone WAL records start)
+                           and op_n.
+        phase 2 (no lock): optimize + serialize the clone into the
+                           `.snapshotting` temp, fsync. Imports keep
+                           landing in the live WAL meanwhile.
+        phase 3 (lock):    splice the WAL records appended since phase 1
+                           onto the temp (they are self-contained
+                           checksummed records; snapshot + tail replay
+                           equals live state), fsync, release the WAL fd
+                           and os.replace — the same atomicity contract
+                           as before. op_n drops by what the snapshot
+                           absorbed; the spliced tail remains pending.
+        """
+        import time as _time
+
+        from pilosa_tpu_torch.utils.stats import global_stats
+
+        t0 = _time.perf_counter()
+        with self._snapshot_mutex:
+            # lint: allow-lock-discipline(the token-bucket sleep pacing phase 2 is the feature; _snapshot_mutex only serializes THIS fragment's rewrites — readers and WAL appends run on Fragment.lock, which phase 2 never holds)
+            self._snapshot_locked(t0, global_stats)
+
+    def _snapshot_locked(self, t0, global_stats) -> None:
+        import time as _time
+
+        t_l1 = _time.perf_counter()
+        with self._wal_drain_lock:
+            with self.lock:
+                if self._closed:
+                    # A rewrite that lost the start race with close()
+                    # (or delete_fragment) must not resurrect the file.
+                    return
+                if self.path is None:
+                    # Re-pack runny containers as RLE while we're
+                    # already paying attention (reference calls Optimize
+                    # on snapshot); memory-only fragments have no file
+                    # to rewrite.
+                    self.storage.optimize()
+                    # lint: allow-shared-state(every storage mutation holds Fragment.lock; lock-free readers pin the reference once and read per the PR 8 snapshot contract)
+                    self.storage.op_n = 0
+                    self._report_backlog()
+                    global_stats.count(
+                        "snapshot_stall_seconds_total",
+                        _time.perf_counter() - t_l1,
+                    )
+                    return
+                # Group-commit interplay: records staged but not yet
+                # drained are already applied to the storage the clone
+                # copies — if they landed in the file AFTER wal_base,
+                # the phase-3 tail splice would apply them twice. Drain
+                # first so wal_base covers every staged record.
+                self._drain_wal_locked()
+                clone = self.storage.clone()
+                clone.flags = self.storage.flags
+                op_n_at_clone = self.storage.op_n
+                wal_base = os.path.getsize(self.path)
+                global_stats.count(
+                    "snapshot_stall_seconds_total",
+                    _time.perf_counter() - t_l1,
+                )
+        # -- phase 2: O(storage) work with NO fragment lock held --------
+        pre = dict(clone._cs)  # pre-optimize containers (shared w/ live)
+        clone.optimize()
+        tmp = self.path + ".snapshotting"
+        data = serialize(clone)
+        with open(tmp, "wb") as f:
+            # Chunked + token-bucket-paced (ISSUE r19 tentpole 1): the
+            # rewrite's disk pressure is shaped to snapshot-bandwidth
+            # instead of bursting the whole serialize against the read
+            # plane's I/O. A close() mid-wait aborts the pacing (the
+            # remaining writes go down unpaced; phase 3 discards tmp).
+            view = memoryview(data)
+            for off in range(0, len(view), SNAPSHOT_CHUNK):
+                chunk = view[off:off + SNAPSHOT_CHUNK]
+                SNAPSHOT_SCHEDULER.throttle(
+                    len(chunk), aborted=lambda: self._closed
+                )
+                f.write(chunk)
+            f.flush()
+            os.fsync(f.fileno())
+        t_l3 = _time.perf_counter()
+        with self._wal_drain_lock:
+            with self.lock:
+                if self._closed:
+                    # close() landed during the unlocked serialize:
+                    # abandon the temp; the WAL on disk still holds
+                    # every record.
+                    try:
+                        os.remove(tmp)
+                    except OSError:
+                        pass
+                    global_stats.count(
+                        "snapshot_stall_seconds_total",
+                        _time.perf_counter() - t_l3,
+                    )
+                    return
+                # Stragglers staged since phase 1 go down now so the
+                # tail read below captures them (they are NOT in the
+                # clone — post-clone mutations — so the splice is their
+                # only route into the rewritten file).
+                self._drain_wal_locked()
+                tail = b""
+                size_now = os.path.getsize(self.path)
+                if size_now > wal_base:
+                    with open(self.path, "rb") as src:
+                        src.seek(wal_base)
+                        tail = src.read(size_now - wal_base)
+                if tail:
+                    with open(tmp, "ab", buffering=0) as f:
+                        # Same short-write loop as _WalFile.write: a raw
+                        # unbuffered write may land a prefix, and a cut
+                        # tail here would be fsynced + published as a
+                        # legitimate-looking torn tail — silent loss of
+                        # acknowledged records.
+                        view = memoryview(tail)
+                        n = 0
+                        while n < len(view):
+                            n += f.write(view[n:])
+                        os.fsync(f.fileno())
+                if self._file is not None:
+                    # Release the fd across the rename; the next WAL
+                    # write reopens against the NEW file.
+                    self._file.release()
+                os.replace(tmp, self.path)
+                self.storage.op_n -= op_n_at_clone
+                self._report_backlog()
+                # The rewrite changed the storage file's size: refresh
+                # the epoch sidecar under the same lock so a crash after
+                # this point still finds a size-matched sidecar (a crash
+                # BETWEEN replace and save just degrades to union
+                # repair).
+                self._save_block_epochs()
+                # Adopt the clone's RLE-repacked containers into LIVE
+                # storage wherever the live container is still the exact
+                # object the clone snapshotted (no write touched it
+                # since): same bits, smaller host form — the RAM-reclaim
+                # the old inline `storage.optimize()` provided, without
+                # an O(storage) runs() scan under the lock. Containers
+                # are immutable, and the key set is unchanged, so
+                # readers holding old refs and the cached key sort both
+                # stay valid.
+                live_cs = self.storage._cs
+                for k, oc in clone._cs.items():
+                    old = pre.get(k)
+                    if oc is not old and live_cs.get(k) is old:
+                        live_cs[k] = oc
+                global_stats.count(
+                    "snapshot_stall_seconds_total",
+                    _time.perf_counter() - t_l3,
+                )
+        global_stats.count("fragment_snapshots_total")
+        global_stats.timing(
+            "fragment_snapshot_seconds", _time.perf_counter() - t0
+        )
+
+    # -- mutation ---------------------------------------------------------
+
+    def _mint_epoch(self) -> int:
+        """One hybrid last-write epoch: wall nanoseconds, clamped to
+        strictly-after this fragment's previous mint so a stepped-back
+        clock cannot reorder our own writes. Called with self.lock held.
+        Wall clock is the point — replicas compare these stamps to
+        decide whose block is newer (directed anti-entropy), the same
+        cross-node-ordering class as the tracing span-start waiver; the
+        value never enters duration/deadline arithmetic."""
+        # lint: allow-monotonic-time(cross-replica write ordering: directed repair compares these stamps between nodes, which only the wall clock can order)
+        now = time.time_ns()
+        self._epoch_clock = max(now, self._epoch_clock + 1)
+        return self._epoch_clock
+
+    def _mutated(self, row_ids: Iterable[int],
+                 epoch: Optional[int] = None) -> None:
+        """row_ids is REQUIRED on purpose: every mutation path knows its
+        touched rows, and an argless "stamp everything" default would
+        re-date blocks whose content didn't change — a re-dated stale
+        block WINS directed repair over a peer's genuinely newer one
+        (silent write loss). A new mutation path that truly can't name
+        its rows must degrade those blocks to epoch-unknown instead."""
+        self.version += 1
+        # Owning view's data-generation bump (set in view._new_fragment):
+        # lets stack caches check freshness in O(1) instead of walking
+        # every fragment's (uid, version) per query. The shard arg feeds
+        # the view's mutation journal (view.dirty_shards_since).
+        if self.on_mutate is not None:
+            self.on_mutate(self.shard)
+        # epoch: None mints a fresh local write stamp; a repair adopting
+        # a peer's block passes the PEER's epoch so both replicas
+        # converge to the same (checksum, epoch); 0 marks the block
+        # epoch-unknown (union-merged mixtures).
+        if epoch is None:
+            epoch = self._mint_epoch()
+        for r in row_ids:
+            self._row_cache.pop(r, None)
+            b = r // HASH_BLOCK_SIZE
+            self._block_sums.pop(b, None)
+            self._block_epochs[b] = epoch
+
+    def _present_blocks(self) -> set:
+        """Block ids with at least one container of data right now."""
+        block_span = HASH_BLOCK_SIZE * SHARD_WIDTH
+        return {(k << 16) // block_span for k in self.storage.keys()}
+
+    #: bit_ops ring capacity: covers any realistic point-write burst
+    #: between two stats-table refreshes; overflow just means the next
+    #: refresh re-derives the shard slab instead of applying deltas.
+    BIT_OPS_MAX = 512
+
+    def _record_bit_op(self, row_id: int, column_id: int, sign: int) -> None:
+        """Called with self.lock held, right after _mutated bumped
+        version for exactly this one-bit change."""
+        if self.bit_ops is None:
+            self.bit_ops = deque(maxlen=self.BIT_OPS_MAX)
+        self.bit_ops.append(
+            (self.version, row_id, int(column_id % SHARD_WIDTH), sign)
+        )
+
+    def bit_ops_between(self, v0: int, v1: int):
+        """The exact single-bit mutations [(version, row, local_col,
+        sign), ...] covering versions (v0, v1], or None when the window
+        is not fully explained by recorded point writes (bulk import,
+        ClearRow/Store, set_value, or ring eviction). Every mutation
+        bumps version exactly once, so coverage is checkable by count:
+        the window is covered iff the ring holds one entry per version
+        in (v0, v1]."""
+        if v1 <= v0:
+            return []
+        with self.lock:
+            ops = self.bit_ops
+            if ops is None:
+                return None
+            window = [op for op in ops if v0 < op[0] <= v1]
+        return window if len(window) == v1 - v0 else None
+
+    def _record_value_op(self, old_ok, old_v, new_ok, new_v) -> None:
+        """Called with self.lock held, right after _mutated bumped
+        version for exactly this one value change."""
+        if self.value_ops is None:
+            self.value_ops = deque(maxlen=self.BIT_OPS_MAX)
+        self.value_ops.append((self.version, old_ok, old_v, new_ok, new_v))
+
+    def value_ops_between(self, v0: int, v1: int):
+        """The exact value mutations covering versions (v0, v1], or None
+        when the window isn't fully explained by recorded point value
+        writes (bulk import_value, ring eviction, mixed mutations) —
+        same contract as bit_ops_between."""
+        if v1 <= v0:
+            return []
+        with self.lock:
+            ops = self.value_ops
+            if ops is None:
+                return None
+            window = [op for op in ops if v0 < op[0] <= v1]
+        return window if len(window) == v1 - v0 else None
+
+    @_drains_wal
+    def set_bit(self, row_id: int, column_id: int) -> bool:
+        """reference fragment.go setBit :647 (+ handleMutex :670)."""
+        with self.lock:
+            changed = False
+            if self.mutex:
+                changed = self._clear_mutex_column(row_id, column_id) or changed
+            if self.storage.add(pos(row_id, column_id)):
+                changed = True
+                self.cache.add(row_id, self.row_count(row_id))
+                self._mutated([row_id])
+                self._record_bit_op(row_id, column_id, +1)
+                if row_id > self.max_row_id:
+                    self.max_row_id = row_id
+            self._increment_op_n()
+            return changed
+
+    @_drains_wal
+    def clear_bit(self, row_id: int, column_id: int) -> bool:
+        with self.lock:
+            if self.storage.remove(pos(row_id, column_id)):
+                self.cache.add(row_id, self.row_count(row_id))
+                self._mutated([row_id])
+                self._record_bit_op(row_id, column_id, -1)
+                self._increment_op_n()
+                return True
+            return False
+
+    def _clear_mutex_column(self, keep_row: int, column_id: int) -> bool:
+        """Clear any other row's bit for this column (mutex fields,
+        reference fragment.go handleMutex + mutexVector fragment.go:3242).
+        The mutex invariant means at most ONE other row holds the column,
+        so the scan stops at the first hit."""
+        col = column_id % SHARD_WIDTH
+        for row_id in self.row_ids():
+            if row_id == keep_row:
+                continue
+            if self.storage.contains(row_id * SHARD_WIDTH + col):
+                self.storage.remove(row_id * SHARD_WIDTH + col)
+                self.cache.add(row_id, self.row_count(row_id))
+                self._mutated([row_id])
+                self._record_bit_op(row_id, col, -1)
+                return True
+        return False
+
+    @_drains_wal
+    def clear_row(self, row_id: int) -> bool:
+        """Remove all bits in a row (reference fragment.go unprotectedClearRow)."""
+        with self.lock:
+            return self._clear_row_locked(row_id)
+
+    def _clear_row_locked(self, row_id: int) -> bool:
+        """Body of clear_row, for callers already holding self.lock
+        (set_row): staged records drain with the OUTER mutator — a
+        nested drain under a held fragment lock would invert the
+        _wal_drain_lock -> self.lock order."""
+        row_bm = self._row_bitmap(row_id)
+        vals = row_bm.to_array() + np.uint64(row_id * SHARD_WIDTH)
+        if vals.size == 0:
+            return False
+        self.storage.remove_many(vals)
+        self.cache.add(row_id, 0)
+        self._mutated([row_id])
+        self._increment_op_n()
+        return True
+
+    @_drains_wal
+    def set_row(self, row: Row, row_id: int) -> bool:
+        """Overwrite a row with the given Row's segment for this shard
+        (reference fragment.go unprotectedSetRow, used by Store)."""
+        with self.lock:
+            self._clear_row_locked(row_id)
+            seg = row.shard_bitmap(self.shard)
+            vals = seg.to_array() + np.uint64(row_id * SHARD_WIDTH)
+            if vals.size:
+                self.storage.add_many(vals)
+            self.cache.add(row_id, int(vals.size))
+            self._mutated([row_id])
+            if vals.size and row_id > self.max_row_id:
+                self.max_row_id = row_id
+            self._increment_op_n()
+            return True
+
+    # -- reads ------------------------------------------------------------
+
+    def _row_bitmap(self, row_id: int) -> Bitmap:
+        cached = self._row_cache.pop(row_id, None)
+        if cached is not None:
+            self._row_cache[row_id] = cached  # LRU touch (dict order)
+            return cached
+        bm = self.storage.offset_range(0, row_id * SHARD_WIDTH, (row_id + 1) * SHARD_WIDTH)
+        self._row_cache[row_id] = bm
+        while len(self._row_cache) > ROW_CACHE_MAX:
+            self._row_cache.pop(next(iter(self._row_cache)))
+        return bm
+
+    def row(self, row_id: int) -> Row:
+        """One row as a Row with this shard's segment (reference fragment.row
+        :602 -> rowFromStorage via OffsetRange)."""
+        with self.lock:
+            return Row.from_segment(self.shard, self._row_bitmap(row_id))
+
+    def row_count(self, row_id: int) -> int:
+        return self.storage.count_range(row_id * SHARD_WIDTH, (row_id + 1) * SHARD_WIDTH)
+
+    def row_ids(self) -> list[int]:
+        """All row IDs with at least one bit (container-key derived; a shard
+        row spans SHARD_WIDTH/2^16 container keys, reference fragment.go:55)."""
+        shift = SHARD_WIDTH_EXP - 16
+        seen = sorted({k >> shift for k in self.storage.keys()})
+        return seen
+
+    def columns(self) -> Row:
+        """Union of all rows as absolute columns (used by existence checks)."""
+        out = Bitmap()
+        with self.lock:  # _row_bitmap mutates the LRU row cache
+            for row_id in self.row_ids():
+                out.union_in_place(self._row_bitmap(row_id))
+        return Row.from_segment(self.shard, out)
+
+    def for_each_bit(self, fn: Callable[[int, int], None]) -> None:
+        """fn(row_id, absolute_column_id) for every bit (reference :1553)."""
+        arr = self.storage.to_array()
+        rows = arr // np.uint64(SHARD_WIDTH)
+        cols = self.shard * SHARD_WIDTH + (arr % np.uint64(SHARD_WIDTH))
+        for r, c in zip(rows.tolist(), cols.tolist()):
+            fn(r, c)
+
+    # -- BSI ops (reference fragment.go:932-1537) --------------------------
+
+    @_drains_wal
+    def set_value(self, column_id: int, bit_depth: int, value: int) -> bool:
+        """Sign-magnitude BSI write (reference setValueBase :988).
+
+        The OLD value (for the Sum delta ring) falls out of the plane
+        writes for free: each add/remove returns whether the bit
+        changed, so old_bit = new_bit XOR changed — no pre-read."""
+        with self.lock:
+            uvalue = -value if value < 0 else value
+            changed = False
+            old_u = 0
+            col = column_id % SHARD_WIDTH
+            for i in range(bit_depth):
+                p = (BSI_OFFSET_BIT + i) * SHARD_WIDTH + col
+                nb = (uvalue >> i) & 1
+                ch = self.storage.add(p) if nb else self.storage.remove(p)
+                changed = ch or changed
+                old_u |= (nb ^ ch) << i
+            p = BSI_EXISTS_BIT * SHARD_WIDTH + col
+            ch = self.storage.add(p)
+            changed = ch or changed
+            old_ok = not ch  # the add changed it -> wasn't present
+            p = BSI_SIGN_BIT * SHARD_WIDTH + col
+            if value < 0:
+                ch = self.storage.add(p)
+                old_sign = 1 ^ ch
+            else:
+                ch = self.storage.remove(p)
+                old_sign = 0 ^ ch
+            changed = ch or changed
+            if changed:
+                self._mutated(range(BSI_OFFSET_BIT + bit_depth))
+                old_v = -old_u if old_sign else old_u
+                self._record_value_op(old_ok, old_v if old_ok else 0, True, value)
+                top = BSI_OFFSET_BIT + bit_depth - 1
+                if top > self.max_row_id:
+                    self.max_row_id = top
+            self._increment_op_n()
+            return changed
+
+    @_drains_wal
+    def clear_value(self, column_id: int, bit_depth: int) -> bool:
+        with self.lock:
+            col = column_id % SHARD_WIDTH
+            changed = False
+            old_u = 0
+            old_sign = 0
+            old_ok = False
+            for r in range(BSI_OFFSET_BIT + bit_depth):
+                ch = self.storage.remove(r * SHARD_WIDTH + col)
+                changed = ch or changed
+                if ch:  # removed -> the old bit was set
+                    if r == BSI_EXISTS_BIT:
+                        old_ok = True
+                    elif r == BSI_SIGN_BIT:
+                        old_sign = 1
+                    else:
+                        old_u |= 1 << (r - BSI_OFFSET_BIT)
+            if changed:
+                self._mutated(range(BSI_OFFSET_BIT + bit_depth))
+                old_v = -old_u if old_sign else old_u
+                self._record_value_op(old_ok, old_v if old_ok else 0, False, 0)
+            self._increment_op_n()
+            return changed
+
+    def value(self, column_id: int, bit_depth: int) -> tuple[int, bool]:
+        """Read one column's BSI value (reference fragment.value :896)."""
+        with self.lock:
+            col = column_id % SHARD_WIDTH
+            if not self.storage.contains(BSI_EXISTS_BIT * SHARD_WIDTH + col):
+                return 0, False
+            value = 0
+            for i in range(bit_depth):
+                if self.storage.contains((BSI_OFFSET_BIT + i) * SHARD_WIDTH + col):
+                    value |= 1 << i
+            if self.storage.contains(BSI_SIGN_BIT * SHARD_WIDTH + col):
+                value = -value
+            return value, True
+
+    def _brow(self, plane: int) -> Bitmap:
+        return self._row_bitmap(plane)
+
+    def not_null(self) -> Row:
+        return self.row(BSI_EXISTS_BIT)
+
+    def sum(self, filter_row: Optional[Row], bit_depth: int) -> tuple[int, int]:
+        """Σ values + count (reference fragment.sum :1111): popcount per
+        plane × place value, positives minus negatives."""
+        with self.lock:
+            consider = self._brow(BSI_EXISTS_BIT)
+            if filter_row is not None:
+                consider = consider.intersect(filter_row.shard_bitmap(self.shard))
+            count = consider.count()
+            nrow = self._brow(BSI_SIGN_BIT).intersect(consider)
+            prow = consider.difference(nrow)
+            total = 0
+            for i in range(bit_depth):
+                plane = self._brow(BSI_OFFSET_BIT + i)
+                total += (1 << i) * (plane.intersection_count(prow) - plane.intersection_count(nrow))
+            return total, count
+
+    def min(self, filter_row: Optional[Row], bit_depth: int) -> tuple[int, int]:
+        """reference fragment.min :1146."""
+        with self.lock:
+            consider = self._brow(BSI_EXISTS_BIT)
+            if filter_row is not None:
+                consider = consider.intersect(filter_row.shard_bitmap(self.shard))
+            if not consider.any():
+                return 0, 0
+            neg = self._brow(BSI_SIGN_BIT).intersect(consider)
+            if neg.any():
+                v, cnt = self._max_unsigned(neg, bit_depth)
+                return -v, cnt
+            return self._min_unsigned(consider, bit_depth)
+
+    def max(self, filter_row: Optional[Row], bit_depth: int) -> tuple[int, int]:
+        """reference fragment.max :1191."""
+        with self.lock:
+            consider = self._brow(BSI_EXISTS_BIT)
+            if filter_row is not None:
+                consider = consider.intersect(filter_row.shard_bitmap(self.shard))
+            if not consider.any():
+                return 0, 0
+            pos_ = consider.difference(self._brow(BSI_SIGN_BIT))
+            if not pos_.any():
+                v, cnt = self._min_unsigned(consider, bit_depth)
+                return -v, cnt
+            return self._max_unsigned(pos_, bit_depth)
+
+    def _min_unsigned(self, filt: Bitmap, bit_depth: int) -> tuple[int, int]:
+        value, count = 0, 0
+        for i in range(bit_depth - 1, -1, -1):
+            row = filt.difference(self._brow(BSI_OFFSET_BIT + i))
+            count = row.count()
+            if count > 0:
+                filt = row
+            else:
+                value += 1 << i
+                if i == 0:
+                    count = filt.count()
+        return value, count
+
+    def _max_unsigned(self, filt: Bitmap, bit_depth: int) -> tuple[int, int]:
+        value, count = 0, 0
+        for i in range(bit_depth - 1, -1, -1):
+            row = self._brow(BSI_OFFSET_BIT + i).intersect(filt)
+            count = row.count()
+            if count > 0:
+                value += 1 << i
+                filt = row
+            elif i == 0:
+                count = filt.count()
+        return value, count
+
+    def range_op(self, op: str, bit_depth: int, predicate: int) -> Row:
+        """BSI comparison scan (reference fragment.rangeOp :1273). op is a
+        pql condition token string."""
+        with self.lock:
+            if op == "==":
+                bm = self._range_eq(bit_depth, predicate)
+            elif op == "!=":
+                bm = self._range_neq(bit_depth, predicate)
+            elif op in ("<", "<="):
+                bm = self._range_lt(bit_depth, predicate, op == "<=")
+            elif op in (">", ">="):
+                bm = self._range_gt(bit_depth, predicate, op == ">=")
+            else:
+                raise ValueError(f"invalid range operation: {op}")
+            return Row.from_segment(self.shard, bm)
+
+    def range_between(self, bit_depth: int, pmin: int, pmax: int) -> Row:
+        """reference fragment.rangeBetween :1504."""
+        with self.lock:
+            b = self._brow(BSI_EXISTS_BIT)
+            sign = self._brow(BSI_SIGN_BIT)
+            upmin, upmax = abs(pmin), abs(pmax)
+            if pmin >= 0:
+                bm = self._range_between_unsigned(b.difference(sign), bit_depth, upmin, upmax)
+            elif pmax < 0:
+                bm = self._range_between_unsigned(b.intersect(sign), bit_depth, upmax, upmin)
+            else:
+                pos_ = self._range_lt_unsigned(b.difference(sign), bit_depth, upmax, True)
+                neg = self._range_lt_unsigned(b.intersect(sign), bit_depth, upmin, True)
+                bm = pos_.union(neg)
+            return Row.from_segment(self.shard, bm)
+
+    def _range_eq(self, bit_depth: int, predicate: int) -> Bitmap:
+        b = self._brow(BSI_EXISTS_BIT)
+        sign = self._brow(BSI_SIGN_BIT)
+        upredicate = abs(predicate)
+        b = b.intersect(sign) if predicate < 0 else b.difference(sign)
+        for i in range(bit_depth - 1, -1, -1):
+            plane = self._brow(BSI_OFFSET_BIT + i)
+            if (upredicate >> i) & 1:
+                b = b.intersect(plane)
+            else:
+                b = b.difference(plane)
+        return b
+
+    def _range_neq(self, bit_depth: int, predicate: int) -> Bitmap:
+        return self._brow(BSI_EXISTS_BIT).difference(self._range_eq(bit_depth, predicate))
+
+    def _range_lt(self, bit_depth: int, predicate: int, allow_eq: bool) -> Bitmap:
+        # Divergence from the reference: it routes predicate==-1 (strict)
+        # through the positive branch (`predicate >= -1 && !allowEquality`,
+        # fragment.go:1343), which yields value-0 columns for `v < -1`.
+        # Negative predicates belong entirely to the negative-magnitude
+        # branch; `predicate >= 0` is the correct split.
+        b = self._brow(BSI_EXISTS_BIT)
+        sign = self._brow(BSI_SIGN_BIT)
+        upredicate = abs(predicate)
+        if predicate >= 0:
+            pos_ = self._range_lt_unsigned(b.difference(sign), bit_depth, upredicate, allow_eq)
+            return sign.intersect(b).union(pos_)
+        return self._range_gt_unsigned(b.intersect(sign), bit_depth, upredicate, allow_eq)
+
+    def _range_gt(self, bit_depth: int, predicate: int, allow_eq: bool) -> Bitmap:
+        # Same -1 misroute as _range_lt (reference fragment.go:1412):
+        # `v > -1` must include 0 and all positives; split on predicate >= 0.
+        b = self._brow(BSI_EXISTS_BIT)
+        sign = self._brow(BSI_SIGN_BIT)
+        upredicate = abs(predicate)
+        if predicate >= 0:
+            return self._range_gt_unsigned(b.difference(sign), bit_depth, upredicate, allow_eq)
+        neg = self._range_lt_unsigned(b.intersect(sign), bit_depth, upredicate, allow_eq)
+        return b.difference(sign).union(neg)
+
+    def _range_lt_unsigned(self, filt: Bitmap, bit_depth: int, predicate: int, allow_eq: bool) -> Bitmap:
+        # Divergence from the reference: its rangeLTUnsigned(pred=0, strict)
+        # falls through the leading-zeros loop and returns value-0 columns,
+        # so Go Pilosa's `Row(v < 0)` includes v==0 (untested edge in
+        # fragment_internal_test.go:571; fixed upstream post-1.4 by the
+        # twos-complement BSI rewrite). Strict "< 0" has no unsigned
+        # solutions; return empty.
+        if predicate == 0 and not allow_eq:
+            return Bitmap()
+        keep = Bitmap()
+        leading_zeros = True
+        for i in range(bit_depth - 1, -1, -1):
+            plane = self._brow(BSI_OFFSET_BIT + i)
+            bit = (predicate >> i) & 1
+            if leading_zeros:
+                if bit == 0:
+                    filt = filt.difference(plane)
+                    continue
+                leading_zeros = False
+            if i == 0 and not allow_eq:
+                if bit == 0:
+                    return keep
+                return filt.difference(plane.difference(keep))
+            if bit == 0:
+                filt = filt.difference(plane.difference(keep))
+                continue
+            if i > 0:
+                keep = keep.union(filt.difference(plane))
+        return filt
+
+    def _range_gt_unsigned(self, filt: Bitmap, bit_depth: int, predicate: int, allow_eq: bool) -> Bitmap:
+        keep = Bitmap()
+        for i in range(bit_depth - 1, -1, -1):
+            plane = self._brow(BSI_OFFSET_BIT + i)
+            bit = (predicate >> i) & 1
+            if i == 0 and not allow_eq:
+                if bit == 1:
+                    return keep
+                return filt.difference(filt.difference(plane).difference(keep))
+            if bit == 1:
+                filt = filt.difference(filt.difference(plane).difference(keep))
+                continue
+            if i > 0:
+                keep = keep.union(filt.intersect(plane))
+        return filt
+
+    def _range_between_unsigned(self, filt: Bitmap, bit_depth: int, pmin: int, pmax: int) -> Bitmap:
+        keep1 = Bitmap()  # GTE min
+        keep2 = Bitmap()  # LTE max
+        for i in range(bit_depth - 1, -1, -1):
+            plane = self._brow(BSI_OFFSET_BIT + i)
+            bit1 = (pmin >> i) & 1
+            bit2 = (pmax >> i) & 1
+            if bit1 == 1:
+                filt = filt.difference(filt.difference(plane).difference(keep1))
+            elif i > 0:
+                keep1 = keep1.union(filt.intersect(plane))
+            if bit2 == 0:
+                filt = filt.difference(plane.difference(keep2))
+            elif i > 0:
+                keep2 = keep2.union(filt.difference(plane))
+        return filt
+
+    # -- TopN / Rows -------------------------------------------------------
+
+    def top(
+        self,
+        n: int = 0,
+        src: Optional[Row] = None,
+        row_ids: Optional[list[int]] = None,
+        min_threshold: int = 0,
+        tanimoto_threshold: int = 0,
+    ) -> list[Pair]:
+        """Top rows by count (reference fragment.top :1570). Candidates come
+        from the rank cache; when src is given counts are exact
+        intersection counts."""
+        with self.lock:
+            if row_ids is not None:
+                # Explicit ids (TopN pass 2): exact recount, not cache values
+                # (reference executor.go:879-898 exact recount protocol).
+                candidates = [Pair(id=r, count=self.row_count(r)) for r in row_ids]
+            else:
+                candidates = self.cache.top()
+            if src is not None:
+                src_bm = src.shard_bitmap(self.shard)
+                src_count = src_bm.count()
+                out = []
+                for p in candidates:
+                    if tanimoto_threshold > 0:
+                        # prune: count must be within tanimoto bound
+                        # (reference fragment.go:1657-1676)
+                        if p.count < tanimoto_threshold * src_count // 100:
+                            continue
+                    c = self._row_bitmap(p.id).intersection_count(src_bm)
+                    if tanimoto_threshold > 0:
+                        union = p.count + src_count - c
+                        if union == 0 or c * 100 // union < tanimoto_threshold:
+                            continue
+                    if c > 0 and c >= min_threshold:
+                        out.append(Pair(id=p.id, count=c))
+            else:
+                out = [p for p in candidates if p.count > 0 and p.count >= min_threshold]
+            return top_n_pairs(out, n)
+
+    def rows(
+        self,
+        column: Optional[int] = None,
+        start_row: int = 0,
+        limit: int = 0,
+    ) -> list[int]:
+        """Row-ID scan with filters (reference fragment.rows :2618)."""
+        with self.lock:
+            ids = [r for r in self.row_ids() if r >= start_row]
+            if column is not None:
+                col = column % SHARD_WIDTH
+                ids = [r for r in ids if self.storage.contains(r * SHARD_WIDTH + col)]
+            if limit:
+                ids = ids[:limit]
+            return ids
+
+    # -- bulk import -------------------------------------------------------
+
+    @_drains_wal
+    def bulk_import(self, row_ids: np.ndarray, column_ids: np.ndarray, clear: bool = False) -> None:
+        """Batched bit import: one WAL record (reference fragment.bulkImport
+        :1997 -> importPositions :2053)."""
+        with self.lock:
+            row_ids = np.asarray(row_ids)
+            if row_ids.dtype != np.uint8:  # see field.import_bits
+                row_ids = row_ids.astype(np.uint64, copy=False)
+            column_ids = np.asarray(column_ids)
+            if column_ids.dtype != np.uint32:
+                column_ids = column_ids.astype(np.uint64, copy=False)
+            if self.mutex and not clear:
+                self._bulk_import_mutex(row_ids, column_ids)
+                return
+            if not clear and row_ids.size:
+                # Container-granular import (reference ImportRoaringBits
+                # roaring/roaring.go:1511 via VERDICT r3 #6): the native
+                # counting sort groups bits by container key and unions
+                # whole containers — no comparison sort, no per-value
+                # Python. Falls through to the positions path when the
+                # native library is absent or rows exceed the counting
+                # table (key_cap).
+                from pilosa_tpu_torch import native
+
+                groups = native.import_containers(
+                    row_ids, column_ids, SHARD_WIDTH_EXP
+                )
+                if groups is not None:
+                    keys, counts, lows = groups
+                    changed = self.storage.import_container_groups(
+                        keys, counts, lows
+                    )
+                    if changed and self.storage.op_writer is not None:
+                        positions = row_ids * np.uint64(SHARD_WIDTH) + (
+                            column_ids % np.uint64(SHARD_WIDTH)
+                        )
+                        self.storage.op_writer.append_add_batch(positions)
+                        self.storage.op_n += int(positions.size)
+                    shift = SHARD_WIDTH_EXP - 16
+                    rows_touched = np.unique(keys >> np.uint32(shift))
+                    self._rebuild_cache_rows(rows_touched.astype(np.uint64))
+                    # Only the touched rows' blocks get a fresh write
+                    # epoch, and only when bits actually moved: an
+                    # argless or no-op stamp would re-date blocks whose
+                    # content didn't change, and a re-dated stale block
+                    # WINS directed repair over a peer's genuinely
+                    # newer one.
+                    if changed:
+                        self._mutated(int(r) for r in rows_touched)
+                    if keys.size:
+                        self.max_row_id = max(
+                            self.max_row_id, int(keys[-1]) >> shift
+                        )
+                    self._increment_op_n()
+                    return
+            positions = row_ids * np.uint64(SHARD_WIDTH) + (
+                column_ids % np.uint64(SHARD_WIDTH)
+            )
+            if clear:
+                nchanged = self.storage.remove_many(positions)
+            else:
+                nchanged = self.storage.add_many(positions)
+            rows_touched = np.unique(row_ids)
+            self._rebuild_cache_rows(rows_touched)
+            # Block-granular stamp, skipped entirely on a no-op import
+            # (an idempotent re-import must not re-date blocks and win
+            # directed repair over a peer's newer data). A PARTIAL
+            # no-op still stamps every touched row's block — per-block
+            # change split isn't available from the batch return.
+            if nchanged:
+                self._mutated(int(r) for r in rows_touched)
+            if not clear and row_ids.size:
+                self.max_row_id = max(self.max_row_id, int(row_ids.max()))
+            self._increment_op_n()
+
+    def _bulk_import_mutex(self, row_ids: np.ndarray, column_ids: np.ndarray) -> None:
+        """Mutex import: last write per column wins, other rows cleared
+        (reference fragment.bulkImportMutex :2133 via the vectorized
+        mutexVector idea :3242): per existing row, ONE bitmap intersection
+        against the imported column set + a searchsorted target lookup —
+        no per-(row, column) Python scanning (r1 weak #5)."""
+        # Deduplicate: keep the last (row, column) per column.
+        last: dict[int, int] = {}
+        for r, c in zip(row_ids.tolist(), column_ids.tolist()):
+            last[c % SHARD_WIDTH] = r
+        cols = np.array(sorted(last), dtype=np.uint64)
+        targets = np.array([last[int(c)] for c in cols], dtype=np.uint64)
+        cols_bm = Bitmap(cols)
+        to_clear = []
+        cleared_rows = []
+        for row_id in self.row_ids():
+            hit = self._row_bitmap(row_id).intersect(cols_bm).to_array()
+            if not hit.size:
+                continue
+            tgt = targets[np.searchsorted(cols, hit)]
+            stale = hit[tgt != np.uint64(row_id)]
+            if stale.size:
+                to_clear.append(np.uint64(row_id * SHARD_WIDTH) + stale)
+                cleared_rows.append(np.uint64(row_id))
+        nchanged = 0
+        if to_clear:
+            nchanged += self.storage.remove_many(np.concatenate(to_clear))
+        nchanged += self.storage.add_many(
+            targets * np.uint64(SHARD_WIDTH) + cols
+        )
+        rows_touched = np.unique(np.concatenate(
+            [targets, np.asarray(row_ids, dtype=np.uint64),
+             np.asarray(cleared_rows, dtype=np.uint64)]
+        ))
+        self._rebuild_cache_rows(rows_touched)
+        if nchanged:  # no-op imports never re-date blocks
+            self._mutated(int(r) for r in rows_touched)
+        if targets.size:
+            self.max_row_id = max(self.max_row_id, int(targets.max()))
+        self._increment_op_n()
+
+    @_drains_wal
+    def import_value(
+        self, column_ids: np.ndarray, values: np.ndarray, bit_depth: int, clear: bool = False
+    ) -> None:
+        """Bulk BSI write (reference fragment.importValue :2205): one batched
+        add/remove per plane instead of per-column loops."""
+        with self.lock:
+            fresh = not self.storage.any()  # before any add below
+            column_ids = np.asarray(column_ids, dtype=np.uint64)
+            values = np.asarray(values, dtype=np.int64)
+            cols = column_ids % np.uint64(SHARD_WIDTH)
+            # Last-write-wins dedup (ADVICE r5 #1, reference batch
+            # semantics): a repeated column must land its FINAL value
+            # only. Without this, the per-plane set/clear lists carry
+            # both occurrences — on the fresh-fragment path (clears
+            # skipped) the two values' plane bits OR into garbage, and
+            # on the general path clear-beats-set regardless of order.
+            # np.unique on the reversed stream keeps each column's last
+            # occurrence.
+            if cols.size:
+                _, rev_first = np.unique(cols[::-1], return_index=True)
+                if rev_first.size != cols.size:
+                    keep = cols.size - 1 - rev_first
+                    cols = cols[keep]
+                    values = values[keep]
+            uvals = np.abs(values).astype(np.uint64)
+            to_set = []
+            to_clear = []
+            for i in range(bit_depth):
+                plane_base = np.uint64((BSI_OFFSET_BIT + i) * SHARD_WIDTH)
+                bit_set = (uvals >> np.uint64(i)) & np.uint64(1) == 1
+                to_set.append(plane_base + cols[bit_set])
+                to_clear.append(plane_base + cols[~bit_set])
+            exists = np.uint64(BSI_EXISTS_BIT * SHARD_WIDTH) + cols
+            sign_base = np.uint64(BSI_SIGN_BIT * SHARD_WIDTH)
+            neg = values < 0
+            if clear:
+                to_clear.append(exists)
+                to_clear.append(sign_base + cols)
+            else:
+                to_set.append(exists)
+                to_set.append(sign_base + cols[neg])
+                to_clear.append(sign_base + cols[~neg])
+            if clear:
+                to_clear.extend(to_set)
+                to_set = []
+            nchanged = 0
+            if to_set:
+                nchanged += self.storage.add_many(np.concatenate(to_set))
+            # The clear pass erases any PREVIOUS values of these columns
+            # (overwrite semantics). A fresh fragment has nothing to
+            # erase — skipping the per-plane remove sweep cut the bench
+            # BSI build ~2.5x (it dominated import_value on cold loads).
+            if to_clear and not fresh:
+                nchanged += self.storage.remove_many(np.concatenate(to_clear))
+            if nchanged:  # no-op imports never re-date blocks
+                self._mutated(range(BSI_OFFSET_BIT + bit_depth))
+            top = BSI_OFFSET_BIT + bit_depth - 1
+            if not clear and top > self.max_row_id:
+                self.max_row_id = top
+            self._increment_op_n()
+
+    @_drains_wal
+    def import_roaring(self, data: bytes, clear: bool = False,
+                       epoch_unknown: bool = False) -> int:
+        """Union/clear a pre-serialized roaring bitmap in one op
+        (reference fragment.importRoaring :2255). `epoch_unknown` is for
+        COPIES of data that already exists elsewhere (resize shard
+        migration): minting a fresh epoch would out-date the genuinely
+        newer blocks surviving replicas hold, and directed repair would
+        then wipe them with this stale copy — unknown degrades those
+        blocks to union repair until a real write stamps them."""
+        with self.lock:
+            # One parse serves both the import and the epoch stamping.
+            other = deserialize(data)
+            changed = self.storage.import_roaring_bits(
+                data, clear=clear, parsed=other
+            )
+            if changed:
+                self._rebuild_cache_rows(np.array(self.row_ids()))
+                # Stamp only the rows the blob spans (container key >>
+                # shift is the row, SHARD_WIDTH being a multiple of the
+                # 2^16 container span) and only when bits actually
+                # moved: an argless or no-op stamp would re-date blocks
+                # whose content didn't change, and a re-dated stale
+                # block wins directed repair over a peer's genuinely
+                # newer one (an idempotent re-import must not out-date
+                # a write the re-imported data predates).
+                shift = SHARD_WIDTH_EXP - 16
+                rows = sorted({int(k) >> shift for k in other.keys()})
+                self._mutated(rows, epoch=0 if epoch_unknown else None)
+                if epoch_unknown:
+                    # 0 = absent entry (merge_block's discipline): these
+                    # blocks are honestly unknown, not tombstoned-at-0.
+                    for r in rows:
+                        self._block_epochs.pop(r // HASH_BLOCK_SIZE, None)
+            if self.storage.any():
+                self.max_row_id = self.storage.max() // SHARD_WIDTH
+            self._increment_op_n()
+            return changed
+
+    def _rebuild_cache_rows(self, row_ids: np.ndarray) -> None:
+        for r in row_ids.tolist():
+            self.cache.bulk_add(int(r), self.row_count(int(r)))
+        self.cache.invalidate()
+
+    # -- anti-entropy block checksums (reference fragment.go:1778-1875) ----
+
+    def checksum_blocks(self) -> list[tuple[int, int]]:
+        """[(block_id, checksum)] for each 100-row block with data. Checksum
+        is xxhash64 of the block's serialized sub-bitmap (the reference
+        hashes (row,col) pair streams with xxhash, fragment.go:2814; any
+        deterministic digest works as long as all nodes agree). Checksums
+        are cached per block and invalidated by row on mutation (reference
+        fragment.go:1762-1776) so anti-entropy passes don't re-serialize
+        unchanged blocks (r1 weak #9)."""
+        with self.lock:
+            out = []
+            block_span = HASH_BLOCK_SIZE * SHARD_WIDTH
+            blocks = sorted(self._present_blocks())
+            for b in blocks:
+                cached = self._block_sums.get(b)
+                if cached is not None:
+                    if cached:  # 0 marks an empty block
+                        out.append((b, cached))
+                    continue
+                sub = self.storage.offset_range(0, b * block_span, (b + 1) * block_span)
+                if sub.any():
+                    h = xxhash64(serialize(sub))
+                    self._block_sums[b] = h
+                    out.append((b, h))
+                else:
+                    self._block_sums[b] = 0
+            return out
+
+    def block_sums_epochs(self) -> list[tuple[int, int, int]]:
+        """[(block_id, checksum, epoch)] — the directed-repair wire
+        payload (ISSUE r15 tentpole 1). Unlike checksum_blocks this
+        ALSO reports tombstones: a block with no data but a known epoch
+        ships as (id, 0, epoch), which is how a block-wide clear
+        propagates to a replica still holding the old bits. epoch 0 =
+        unknown (pre-upgrade data, dropped sidecar) — the peer must
+        union, never directed-copy."""
+        with self.lock:  # RLock: checksum_blocks re-enters safely
+            sums = dict(self.checksum_blocks())
+            out = []
+            for b in sorted(set(sums) | set(self._block_epochs)):
+                out.append((b, sums.get(b, 0), self._block_epochs.get(b, 0)))
+            return out
+
+    def block_epoch(self, block_id: int) -> int:
+        with self.lock:
+            return self._block_epochs.get(block_id, 0)
+
+    def block_data_epoch(self, block_id: int) -> tuple[bytes, int]:
+        """Serialized block + its CURRENT epoch under ONE lock
+        acquisition — the directed-repair wire pair. Reading them in
+        two separate acquisitions would let a write land in between and
+        pair newer data with an older epoch: the adopter would hold the
+        peer's post-write bits dated pre-write, permanently diverged on
+        the epoch axis (and a skewed clock could then lose a genuine
+        write to the peer's older block)."""
+        with self.lock:  # RLock: block_data re-enters safely
+            return self.block_data(block_id), self._block_epochs.get(
+                block_id, 0
+            )
+
+    def block_data(self, block_id: int) -> bytes:
+        """Serialized sub-bitmap for one block (positions block-relative),
+        for anti-entropy merge (reference fragment.BlockData)."""
+        with self.lock:
+            block_span = HASH_BLOCK_SIZE * SHARD_WIDTH
+            sub = self.storage.offset_range(0, block_id * block_span, (block_id + 1) * block_span)
+            return serialize(sub)
+
+    def _block_rows(self, block_id: int) -> np.ndarray:
+        lo = block_id * HASH_BLOCK_SIZE
+        return np.array(
+            [r for r in self.row_ids() if lo <= r < lo + HASH_BLOCK_SIZE],
+            dtype=np.uint64,
+        )
+
+    @_drains_wal
+    def merge_block(self, block_id: int, data: bytes) -> tuple[int, int]:
+        """Union a peer's block into ours; returns (added, _) counts
+        (reference fragment.mergeBlock :1875 — the reference computes
+        set/clear diffs; we union, matching its add-path). The union
+        path is the epoch-UNKNOWN fallback: the merged block is a
+        mixture no single write epoch describes, so its epoch resets to
+        unknown until the next real write stamps it (a block the union
+        left unchanged keeps its epoch — nothing moved)."""
+        with self.lock:
+            other = deserialize(data)
+            block_span = HASH_BLOCK_SIZE * SHARD_WIDTH
+            abs_bm = other.offset_range(block_id * block_span, 0, block_span)
+            before = self.storage.count()
+            self.storage.union_in_place(abs_bm)
+            added = self.storage.count() - before
+            if added == 0:
+                return 0, 0
+            # Log the change so the WAL stays consistent.
+            if self.storage.op_writer is not None:
+                self.storage.op_writer.append_roaring(serialize(abs_bm), added, False)
+            self._rebuild_cache_rows(np.array(self.row_ids()))
+            self._mutated(
+                range(block_id * HASH_BLOCK_SIZE,
+                      (block_id + 1) * HASH_BLOCK_SIZE),
+                epoch=0,
+            )
+            self._block_epochs.pop(block_id, None)  # 0 = absent entry
+            if self.storage.any():
+                self.max_row_id = max(
+                    self.max_row_id, self.storage.max() // SHARD_WIDTH
+                )
+            return added, 0
+
+    @_drains_wal
+    def replace_block(self, block_id: int, data: bytes, epoch: int,
+                      expected_local_epoch: Optional[int] = None):
+        """Directed repair (ISSUE r15 tentpole 1): make this block
+        byte-identical to the peer's — clears included — and ADOPT the
+        peer's epoch, so both replicas converge to the same
+        (checksum, epoch) pair. Returns (added, removed) bit counts.
+        The WAL logs the remove-then-add as two self-contained roaring
+        ops, so crash replay reproduces the repaired state exactly.
+
+        `expected_local_epoch` closes the snapshot-to-replace race: the
+        sync pass decides "remote wins" from a (checksum, epoch)
+        snapshot taken BEFORE its block_data RPCs, and a client write
+        landing in that window mints a higher local epoch the decision
+        never saw — replacing anyway would remove just-acknowledged
+        bits and re-date the block to the peer's OLDER epoch. When the
+        block's current epoch no longer matches, returns None without
+        touching anything (the next pass re-evaluates against fresh
+        epochs)."""
+        with self.lock:
+            if (
+                expected_local_epoch is not None
+                and self._block_epochs.get(block_id, 0)
+                != expected_local_epoch
+            ):
+                return None
+            other = deserialize(data)
+            block_span = HASH_BLOCK_SIZE * SHARD_WIDTH
+            new_abs = other.offset_range(block_id * block_span, 0, block_span)
+            # offset == start keeps the slice in ABSOLUTE positions —
+            # block_data() ships block-relative (offset 0), so both
+            # sides of the diff must rebase to the same space.
+            old_abs = self.storage.offset_range(
+                block_id * block_span,
+                block_id * block_span,
+                (block_id + 1) * block_span,
+            )
+            to_remove = old_abs.difference(new_abs)
+            to_add = new_abs.difference(old_abs)
+            removed = to_remove.count()
+            added = to_add.count()
+            # Rows present BEFORE the removal: a row the tombstone copy
+            # wholly clears is gone from row_ids() afterwards, and
+            # rebuilding only the after-rows would leave its stale rank
+            # cache entry serving TopN (bulk_add(r, 0) is what pops it).
+            rows_before = self._block_rows(block_id)
+            if removed:
+                self.storage.remove_many(to_remove.to_array())
+                if self.storage.op_writer is not None:
+                    self.storage.op_writer.append_roaring(
+                        serialize(to_remove), removed, True
+                    )
+            if added:
+                self.storage.add_many(to_add.to_array())
+                if self.storage.op_writer is not None:
+                    self.storage.op_writer.append_roaring(
+                        serialize(to_add), added, False
+                    )
+            if added or removed:
+                self._rebuild_cache_rows(
+                    np.union1d(rows_before, self._block_rows(block_id))
+                )
+                rows_touched = range(
+                    block_id * HASH_BLOCK_SIZE, (block_id + 1) * HASH_BLOCK_SIZE
+                )
+                self._mutated(rows_touched, epoch=epoch)
+            # The adopted epoch lands even when the data already agreed
+            # (replicas converge on the epoch axis too).
+            self._block_epochs[block_id] = epoch
+            # HLC receive rule (same floor discipline as sidecar
+            # reload): our next mint must land strictly AFTER any epoch
+            # we adopted, or a skewed-back local clock would stamp a
+            # subsequent genuine write BELOW the epoch the block already
+            # carries — and the peer's older block would win directed
+            # repair, wiping the newer write everywhere.
+            self._epoch_clock = max(self._epoch_clock, epoch)
+            if self.storage.any():
+                self.max_row_id = max(
+                    self.max_row_id, self.storage.max() // SHARD_WIDTH
+                )
+            return added, removed
+
+    # -- maintenance -------------------------------------------------------
+
+    def min_row_id(self) -> tuple[int, bool]:
+        if not self.storage.any():
+            return 0, False
+        lo, _ = self.storage.min()
+        return lo // SHARD_WIDTH, True
+
+    def min_row(self, filter_row: Optional[Row]) -> tuple[int, int]:
+        """reference fragment.minRow :1232."""
+        with self.lock:
+            lo, ok = self.min_row_id()
+            if not ok:
+                return 0, 0
+            if filter_row is None:
+                return lo, 1
+            for r in self.row_ids():
+                cnt = self.row(r).intersection_count(filter_row)
+                if cnt > 0:
+                    return r, cnt
+            return 0, 0
+
+    def max_row(self, filter_row: Optional[Row]) -> tuple[int, int]:
+        with self.lock:
+            lo, ok = self.min_row_id()
+            if not ok:
+                return 0, 0
+            if filter_row is None:
+                return self.max_row_id, 1
+            for r in reversed(self.row_ids()):
+                cnt = self.row(r).intersection_count(filter_row)
+                if cnt > 0:
+                    return r, cnt
+            return 0, 0

@@ -1,0 +1,117 @@
+"""Holder: the process-wide container of indexes (reference holder.go:50).
+
+In the TPU framework the holder is also the runtime root that owns the
+device-block registry (pilosa_tpu_torch/ops) — fragments register their versions
+there so query execution can keep HBM blocks in sync with host storage.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import threading
+from typing import Callable, Optional
+
+from pilosa_tpu_torch.core.index import Index, IndexOptions
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+
+class Holder:
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        self.indexes: dict[str, Index] = {}
+        self.lock = threading.RLock()
+        self.opened = False
+        # Seam for the cluster layer (reference view.go:263 broadcasts
+        # CreateShardMessage when a shard first appears).
+        self.broadcast_shard: Optional[Callable[[str, str, int], None]] = None
+
+    def _shard_broadcaster(self, index: str, field: str, shard: int) -> None:
+        if self.broadcast_shard is not None:
+            self.broadcast_shard(index, field, shard)
+
+    def open(self) -> "Holder":
+        """Scan the data directory and open all indexes (reference
+        holder.go Open :137)."""
+        with self.lock:
+            if self.path is not None:
+                os.makedirs(self.path, exist_ok=True)
+                for entry in sorted(os.listdir(self.path)):
+                    full = os.path.join(self.path, entry)
+                    if not os.path.isdir(full) or entry.startswith("."):
+                        continue
+                    idx = Index(full, entry, broadcast_shard=self._shard_broadcaster)
+                    self.indexes[entry] = idx.open()
+            self.opened = True
+        return self
+
+    def close(self) -> None:
+        with self.lock:
+            for idx in self.indexes.values():
+                idx.close()
+            self.opened = False
+
+    def index(self, name: str) -> Optional[Index]:
+        return self.indexes.get(name)
+
+    def _index_path(self, name: str) -> Optional[str]:
+        return os.path.join(self.path, name) if self.path else None
+
+    def create_index(self, name: str, options: Optional[IndexOptions] = None) -> Index:
+        with self.lock:
+            if name in self.indexes:
+                raise ValueError(f"index already exists: {name}")
+            return self._create_index(name, options)
+
+    def create_index_if_not_exists(self, name: str, options: Optional[IndexOptions] = None) -> Index:
+        with self.lock:
+            idx = self.indexes.get(name)
+            if idx is not None:
+                return idx
+            return self._create_index(name, options)
+
+    def _create_index(self, name: str, options: Optional[IndexOptions]) -> Index:
+        idx = Index(
+            self._index_path(name),
+            name,
+            options or IndexOptions(),
+            broadcast_shard=self._shard_broadcaster,
+        )
+        idx.open()
+        idx.save_meta()
+        self.indexes[name] = idx
+        return idx
+
+    def delete_index(self, name: str) -> None:
+        with self.lock:
+            idx = self.indexes.pop(name, None)
+            if idx is None:
+                raise KeyError(f"index not found: {name}")
+            idx.close()
+            if idx.path and os.path.exists(idx.path):
+                shutil.rmtree(idx.path)
+
+    def schema(self) -> list[dict]:
+        """Schema description for /schema (reference api.go Schema)."""
+        out = []
+        with self.lock:
+            for iname in sorted(self.indexes):
+                idx = self.indexes[iname]
+                fields = []
+                for fname in sorted(idx.fields):
+                    if fname.startswith("_"):
+                        continue
+                    f = idx.fields[fname]
+                    fields.append({"name": fname, "options": f.options.to_dict()})
+                out.append(
+                    {
+                        "name": iname,
+                        "options": idx.options.to_dict(),
+                        "fields": fields,
+                        "shardWidth": SHARD_WIDTH,
+                    }
+                )
+        return out
+
+    def __repr__(self) -> str:
+        return f"Holder(indexes={sorted(self.indexes)})"

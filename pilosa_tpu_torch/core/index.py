@@ -1,0 +1,210 @@
+"""Index: a namespace of fields (reference index.go).
+
+Owns fields, the optional existence field "_exists" (tracked when
+track_existence is on, reference index.go:215, holder.go:46), and — once
+the side stores land — the column AttrStore and key TranslateStore.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import threading
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from pilosa_tpu_torch.core.field import Field, FieldOptions
+from pilosa_tpu_torch.roaring import Bitmap
+
+EXISTENCE_FIELD_NAME = "_exists"
+
+_NAME_RE = re.compile(r"^[a-z][a-z0-9_-]{0,63}$")
+
+
+def validate_name(name: str) -> None:
+    """reference validateName (pilosa.go): lowercase, 64 chars max."""
+    if not _NAME_RE.match(name):
+        raise ValueError(f"invalid index or field name: {name!r}")
+
+
+@dataclass
+class IndexOptions:
+    keys: bool = False
+    track_existence: bool = True
+
+    def to_dict(self) -> dict:
+        return {"keys": self.keys, "trackExistence": self.track_existence}
+
+    @staticmethod
+    def from_dict(d: dict) -> "IndexOptions":
+        return IndexOptions(
+            keys=d.get("keys", False),
+            track_existence=d.get("trackExistence", True),
+        )
+
+
+class Index:
+    def __init__(
+        self,
+        path: Optional[str],
+        name: str,
+        options: Optional[IndexOptions] = None,
+        broadcast_shard: Optional[Callable[[str, str, int], None]] = None,
+    ):
+        validate_name(name)
+        self.path = path
+        self.name = name
+        self.options = options or IndexOptions()
+        self.fields: dict[str, Field] = {}
+        self.lock = threading.RLock()
+        self._shards_cache: Optional[tuple] = None
+        self.broadcast_shard = broadcast_shard
+        self.column_attr_store = None  # wired by Holder when attr stores exist
+        self.translate_store = None
+
+    # -- lifecycle --------------------------------------------------------
+
+    def open(self) -> "Index":
+        from pilosa_tpu_torch.store import AttrStore, TranslateStore
+
+        if self.path is not None:
+            os.makedirs(self.path, exist_ok=True)
+            self._load_meta()
+            for entry in sorted(os.listdir(self.path)):
+                full = os.path.join(self.path, entry)
+                if not os.path.isdir(full) or entry.startswith(".") or entry == "keys":
+                    continue
+                f = Field(full, self.name, entry, broadcast_shard=self.broadcast_shard)
+                self.fields[entry] = f.open()
+        # Column attr store at <index>/.data (reference holder.go:443); key
+        # translation at <index>/keys (reference index.go:153).
+        self.column_attr_store = AttrStore(
+            os.path.join(self.path, ".data") if self.path else None
+        )
+        if self.options.keys:
+            self.translate_store = TranslateStore(
+                os.path.join(self.path, "keys") if self.path else None
+            )
+        if self.options.track_existence and EXISTENCE_FIELD_NAME not in self.fields:
+            self._create_existence_field()
+        return self
+
+    def close(self) -> None:
+        with self.lock:
+            for f in self.fields.values():
+                f.close()
+            if self.column_attr_store is not None:
+                self.column_attr_store.close()
+            if self.translate_store is not None:
+                self.translate_store.close()
+
+    def _meta_path(self) -> str:
+        return os.path.join(self.path, ".meta")
+
+    def _load_meta(self) -> None:
+        if os.path.exists(self._meta_path()):
+            with open(self._meta_path()) as f:
+                self.options = IndexOptions.from_dict(json.load(f))
+
+    def save_meta(self) -> None:
+        if self.path is None:
+            return
+        tmp = self._meta_path() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.options.to_dict(), f)
+        os.replace(tmp, self._meta_path())
+
+    # -- fields -----------------------------------------------------------
+
+    def _field_path(self, name: str) -> Optional[str]:
+        return os.path.join(self.path, name) if self.path else None
+
+    def _create_existence_field(self) -> Field:
+        f = Field(
+            self._field_path(EXISTENCE_FIELD_NAME),
+            self.name,
+            EXISTENCE_FIELD_NAME,
+            FieldOptions(type="set", cache_type="none", cache_size=0),
+            broadcast_shard=self.broadcast_shard,
+        )
+        self.fields[EXISTENCE_FIELD_NAME] = f.open()
+        return f
+
+    def existence_field(self) -> Optional[Field]:
+        return self.fields.get(EXISTENCE_FIELD_NAME)
+
+    def field(self, name: str) -> Optional[Field]:
+        return self.fields.get(name)
+
+    def create_field(self, name: str, options: Optional[FieldOptions] = None) -> Field:
+        with self.lock:
+            if name in self.fields:
+                raise ValueError(f"field already exists: {name}")
+            return self._create_field(name, options)
+
+    def create_field_if_not_exists(self, name: str, options: Optional[FieldOptions] = None) -> Field:
+        with self.lock:
+            f = self.fields.get(name)
+            if f is not None:
+                return f
+            return self._create_field(name, options)
+
+    def _create_field(self, name: str, options: Optional[FieldOptions]) -> Field:
+        if not name.startswith("_"):
+            validate_name(name)
+        f = Field(
+            self._field_path(name),
+            self.name,
+            name,
+            options or FieldOptions(),
+            broadcast_shard=self.broadcast_shard,
+        )
+        f.open()
+        f.save_meta()
+        self.fields[name] = f
+        return f
+
+    def delete_field(self, name: str) -> None:
+        with self.lock:
+            f = self.fields.pop(name, None)
+            if f is None:
+                raise KeyError(f"field not found: {name}")
+            f.close()
+            if f.path and os.path.exists(f.path):
+                import shutil
+
+                shutil.rmtree(f.path)
+
+    def _shards_entry(self) -> tuple:
+        """The (key, bitmap, list) available-shards cache entry, rebuilt
+        when any field's structure version moved. Caller must hold no
+        assumption of ownership: the bitmap/list are shared."""
+        with self.lock:
+            key = tuple(
+                (name, f.structure_version) for name, f in self.fields.items()
+            )
+            cached = self._shards_cache
+            if cached is not None and cached[0] == key:
+                return cached
+            out = Bitmap()
+            for f in self.fields.values():
+                out.union_in_place(f.available_shards())
+            self._shards_cache = (key, out, out.to_array().tolist())
+            return self._shards_cache
+
+    def available_shards(self) -> Bitmap:
+        """Union of all fields' shard sets (reference index.go:292).
+        Cached against the fields' structure versions — the executor
+        resolves the shard list on every query."""
+        return self._shards_entry()[1].clone()
+
+    def available_shards_list(self) -> list:
+        """The available-shards set as a READ-ONLY int list — the form
+        the executor needs on every query. Shares the structure-version
+        cache, so the hot path is one tuple compare instead of a bitmap
+        clone + to_array per query. Callers must not mutate."""
+        return self._shards_entry()[2]
+
+    def __repr__(self) -> str:
+        return f"Index({self.name}, fields={sorted(self.fields)})"

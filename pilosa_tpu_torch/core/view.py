@@ -1,0 +1,282 @@
+"""View: a layout of rows within a field (reference view.go).
+
+Views are "standard", time-quantum views like "standard_20190101", or BSI
+views "bsig_<field>" (reference view.go:37-41). A view owns one fragment
+per shard, laid out on disk at <field>/views/<view>/fragments/<shard>.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+from pilosa_tpu_torch.core.fragment import CACHE_EXT, EPOCHS_EXT, Fragment
+
+# Process-global version source: next() is atomic under the GIL, values
+# are unique and monotonic, so concurrent bumps can never collapse into
+# one observable token (used for view generations and field structure
+# versions alike). Seeded from the wall clock (nanoseconds) so a
+# RESTARTED process can never re-mint a generation value an earlier
+# incarnation already handed out: peer nodes equality-compare these
+# tokens (the piggybacked view-epoch plane, ISSUE r15 tentpole 3), and
+# a counter restarting at 1 would let a rebooted peer's fresh
+# generation collide with a value a coordinator recorded before the
+# reboot — a stale cache entry would revalidate against new data.
+# Within one process the seed is just an origin shift: increments stay
+# +1 per mutation, so max-staleness "generations behind" arithmetic is
+# unchanged.
+# lint: allow-monotonic-time(epoch seed: cross-restart/cross-node token uniqueness needs the wall clock; never used in duration math)
+_generation_counter = itertools.count(time.time_ns())
+
+# Process-wide freshness watermark: "is every generation minted up to
+# this value already VISIBLE where epoch-report walks read?" in one
+# lockless int read. Lets per-request epoch reports (the
+# X-Pilosa-View-Epochs piggyback) memoize their encoded payload and
+# rebuild only when something actually changed. The publish protocol
+# is two-step ON PURPOSE: mint_generation() hands out the token, the
+# caller STORES it where readers look (view.generation /
+# field.structure_version), and only then publish_watermark() raises
+# the watermark — so a reader that observes watermark >= g is
+# guaranteed the store of g already landed. Publishing the watermark
+# inside the mint (one-step) would let a walker read the NEW watermark
+# but the OLD generation attr mid-store, memoize the stale payload
+# under the new watermark, and serve it until the next mint anywhere.
+# max-under-lock keeps the watermark monotone across racing
+# publishers; the store itself is a plain GIL-atomic int publish, so
+# readers never need the lock.
+_mint_lock = threading.Lock()
+_generation_watermark = 0
+
+# Process-incarnation token (unique per boot for the same reason
+# generations are: the counter is wall-seeded). Carried on epoch
+# reports so a peer can tell "this node restarted" apart from "this
+# report is older" — a restart after a backwards clock step mints
+# generations BELOW the previous incarnation's, and an order-only fold
+# guard would reject every fresh report from the reborn process.
+BOOT_ID = next(_generation_counter)
+
+
+def mint_generation() -> int:
+    """One fresh generation token. Store it where readers look BEFORE
+    calling publish_watermark(g) — see the protocol note above."""
+    return next(_generation_counter)
+
+
+def publish_watermark(g: int) -> None:
+    """Raise the watermark to g (monotone; no-op if already past)."""
+    global _generation_watermark
+    with _mint_lock:
+        if g > _generation_watermark:
+            # lint: allow-shared-state(plain GIL-atomic int publish, stores serialized by _mint_lock and guarded monotone; the lockless reader sees old-or-new, never torn — a lagging read only costs one memo rebuild, never staleness, because consumers re-check the watermark AFTER building what they memoize)
+            _generation_watermark = g
+
+
+def generation_watermark() -> int:
+    """Newest PUBLISHED generation process-wide (lockless read)."""
+    return _generation_watermark
+
+
+VIEW_STANDARD = "standard"
+VIEW_BSI_PREFIX = "bsig_"
+
+
+def view_by_time(name: str, t, unit: str) -> str:
+    from pilosa_tpu_torch.core.timequantum import view_by_time_unit
+
+    return view_by_time_unit(name, t, unit)
+
+
+def bsi_view_name(field_name: str) -> str:
+    return VIEW_BSI_PREFIX + field_name
+
+
+class View:
+    def __init__(
+        self,
+        path: Optional[str],
+        index: str,
+        field: str,
+        name: str,
+        cache_type: str = "ranked",
+        cache_size: int = 50000,
+        mutex: bool = False,
+        broadcast_shard: Optional[Callable[[str, str, int], None]] = None,
+    ):
+        self.path = path  # .../<field>/views/<name>
+        self.index = index
+        self.field = field
+        self.name = name
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.mutex = mutex
+        self.fragments: dict[int, Fragment] = {}
+        self.lock = threading.RLock()
+        # Called the first time a shard appears so the cluster layer can
+        # broadcast CreateShardMessage (reference view.go:263-305).
+        self.broadcast_shard = broadcast_shard
+        # Data generation: bumped on ANY fragment mutation or fragment
+        # create/delete under this view. O(1) freshness token for the
+        # device stack cache (exec/tpu.py _StackedBlocks). Values come
+        # from a process-global atomic counter: a plain += 1 from two
+        # fragments' threads can lose an increment and leave the token
+        # equal to a cached fingerprint while data changed underneath.
+        # Seeded from the counter: pristine views must NOT share a token,
+        # or a deleted-and-recreated field could match a stale cache
+        # fingerprint keyed by (index, field) alone.
+        self.generation = mint_generation()
+        publish_watermark(self.generation)  # after the store, per protocol
+        # Structure-only callback (fragment create/delete): invalidates
+        # the owning field's available-shards cache without paying for it
+        # on every data write.
+        self.on_structure_change: Optional[Callable[[], None]] = None
+        # Mutation journal: (gen_first, gen_last, shard) RUNS of data
+        # bumps, shard None for structural events. Lets epoch-incremental
+        # stats tiers discover WHICH shards moved in O(writes) instead of
+        # walking every fragment's (uid, version) per epoch — at 954
+        # shards the walk cost ~1.8 ms x3 aggregate kinds per write
+        # epoch, the bench minmax churn leg's dominant cost (r5).
+        # Journal-complete since r7: every serving tier consumes it
+        # (Sum/Min/Max, pair, TopN, GroupN — exec/tpu.py
+        # _epoch_versions). Run-compacted since r8 (ISSUE r8 tentpole
+        # 4): contiguous bumps of the SAME shard extend one run instead
+        # of appending entries, so a sustained per-fragment import storm
+        # occupies O(distinct dirty shards) journal slots — JOURNAL_MAX
+        # then bounds the INTERLEAVING depth (shard alternations), not
+        # the raw write count, before a freshness check degrades to a
+        # full walk. Correctness: dirty_shards_since only needs "did
+        # this shard bump after gen", which a run's gen_last answers.
+        self._journal: deque = deque()
+        self._journal_floor = 0  # newest generation ever evicted
+        # Journal lock invariant (ADVICE r5): this is a strict LEAF
+        # acquired while HOLDING other locks — fragment writers call
+        # _bump_data under their fr.lock, and create/delete_fragment
+        # under view.lock — and nothing ever acquires another lock while
+        # holding it, which is what keeps the nesting deadlock-free.
+        # It exists because an unlocked reader could miss a dirty shard
+        # (two writers can append out of generation order, breaking the
+        # reader's early-exit) or crash iterating a mutating deque —
+        # both would silently or loudly break the exactness invariant
+        # (code review r5).
+        self._journal_lock = threading.Lock()
+
+    JOURNAL_MAX = 512
+
+    def _bump_data(self, shard: Optional[int] = None) -> None:
+        with self._journal_lock:
+            self.generation = mint_generation()
+            # Watermark raised only once the new generation is readable
+            # on the attr — a walker observing the watermark must never
+            # still read the old value (see the module protocol note).
+            publish_watermark(self.generation)
+            j = self._journal
+            if j and shard is not None and j[-1][2] == shard:
+                # Contiguous same-shard run: extend in place. Any
+                # generation this VIEW minted between gen_first and the
+                # new gen_last belongs to this shard — other views'
+                # interleaved generations never enter this journal, so
+                # the run claims nothing it didn't do.
+                j[-1] = (j[-1][0], self.generation, shard)
+            else:
+                j.append((self.generation, self.generation, shard))
+            while len(j) > self.JOURNAL_MAX:
+                self._journal_floor = j.popleft()[1]
+
+    def dirty_shards_since(self, gen: int) -> Optional[set]:
+        """Shards mutated after generation `gen`, or None when the
+        journal cannot fully explain the window (evicted past `gen`, or
+        a structural event — fragment create/delete — inside it).
+        Callers carry forward their recorded per-shard versions for
+        every shard NOT returned; that is exact because an unjournaled
+        shard had no _bump_data, hence no _mutated, hence an unchanged
+        (uid, version)."""
+        with self._journal_lock:
+            if self._journal_floor > gen:
+                return None
+            snapshot = list(self._journal)
+        out: set = set()
+        for _g0, g1, s in reversed(snapshot):
+            if g1 <= gen:
+                break
+            if s is None:
+                return None
+            out.add(s)
+        return out
+
+    def open(self) -> "View":
+        if self.path is not None:
+            frag_dir = os.path.join(self.path, "fragments")
+            os.makedirs(frag_dir, exist_ok=True)
+            for entry in sorted(os.listdir(frag_dir)):
+                if not entry.isdigit():
+                    continue
+                shard = int(entry)
+                self.fragments[shard] = self._new_fragment(shard).open()
+        return self
+
+    def close(self) -> None:
+        with self.lock:
+            for f in self.fragments.values():
+                f.close()
+
+    def _fragment_path(self, shard: int) -> Optional[str]:
+        if self.path is None:
+            return None
+        return os.path.join(self.path, "fragments", str(shard))
+
+    def _new_fragment(self, shard: int) -> Fragment:
+        frag = Fragment(
+            self._fragment_path(shard),
+            self.index,
+            self.field,
+            self.name,
+            shard,
+            cache_type=self.cache_type,
+            cache_size=self.cache_size,
+            mutex=self.mutex,
+        )
+        frag.on_mutate = self._bump_data
+        return frag
+
+    def fragment(self, shard: int) -> Optional[Fragment]:
+        return self.fragments.get(shard)
+
+    def create_fragment_if_not_exists(self, shard: int) -> Fragment:
+        """reference view.go CreateFragmentIfNotExists :263."""
+        created = False
+        with self.lock:
+            frag = self.fragments.get(shard)
+            if frag is None:
+                frag = self._new_fragment(shard).open()
+                # lint: allow-shared-state(writes serialized under the view lock; the lock-free fragment getter is one GIL-atomic dict read and a pre-insert miss routes back through this create path)
+                self.fragments[shard] = frag
+                created = True
+                self._bump_data()
+                if self.on_structure_change is not None:
+                    self.on_structure_change()
+        # Broadcast outside the lock: peer RPCs must not block other
+        # fragment lookups on this view.
+        if created and self.broadcast_shard is not None:
+            self.broadcast_shard(self.index, self.field, shard)
+        return frag
+
+    def available_shards(self) -> list[int]:
+        return sorted(self.fragments)
+
+    def delete_fragment(self, shard: int) -> None:
+        with self.lock:
+            frag = self.fragments.pop(shard, None)
+            if frag is not None:
+                frag.close()
+                if frag.path and os.path.exists(frag.path):
+                    os.remove(frag.path)
+                self._bump_data()
+                if self.on_structure_change is not None:
+                    self.on_structure_change()
+                for ext in (CACHE_EXT, EPOCHS_EXT):
+                    side = (frag.path or "") + ext
+                    if frag.path and os.path.exists(side):
+                        os.remove(side)

@@ -52,6 +52,11 @@ def pytest_configure(config):
         "markers",
         "slow: excluded from the tier-1 gate (`-m 'not slow'`)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's hand-written kernels); "
+        "skips where none is present (python -m pytest -m cuda on the card)",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,96 @@
+"""The port's CUDA kernels and backend on the card, against their plain
+PyTorch versions and the CPU oracle. Every test here needs a CUDA card and
+skips without one. The file imports no JAX, so it also runs where JAX is
+not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pilosa_tpu_torch.carry import stack_from_reference
+from pilosa_tpu_torch.ops import kernels as K
+
+W = 32768
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    return torch.device("cuda")
+
+
+def _stacks(seed, s, rf, rg):
+    rng = np.random.default_rng(seed)
+
+    def one(r):
+        words = np.bitwise_and.reduce(
+            rng.integers(0, 2**32, (4, s, r, W), dtype=np.uint32), axis=0
+        )
+        words[:, 0, :] = 0
+        words[:, -1, :] = 0xFFFFFFFF
+        return words
+
+    return one(rf), one(rg)
+
+
+@pytest.mark.parametrize(
+    "s,rf,rg", [(2, 8, 8), (3, 8, 16), (2, 16, 8), (2, 8, 12), (1, 8, 8),
+                (3, 64, 64), (5, 1, 3), (2, 9, 130)]
+)
+def test_kernels_equal_plain_versions(card, s, rf, rg):
+    f, g = _stacks(s + rf * rg, s, rf, rg)
+    fd, gd = stack_from_reference(f, card), stack_from_reference(g, card)
+    fc, gc = stack_from_reference(f, "cpu"), stack_from_reference(g, "cpu")
+    before = K.launch_counts()
+    per = K.pair_stats_pershard(fd, gd)
+    tot = K.pair_stats(fd, gd)
+    rows = K.popcount_rows(fd.reshape(-1, W))
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after)
+    assert per.device.type == tot.device.type == rows.device.type == "cuda"
+    assert torch.equal(per.cpu(), K.pair_stats_torch(fc, gc, True))
+    assert torch.equal(tot.cpu(), K.pair_stats_torch(fc, gc, False))
+    assert torch.equal(rows.cpu(), K.popcount_rows_torch(fc.reshape(-1, W)))
+
+
+def test_kernels_refuse_misaligned_words(card):
+    flat = torch.zeros(4 * W + 1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.popcount_rows(flat[1:].view(4, W))  # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="multiple of 4"):
+        K.popcount_rows(torch.zeros((2, 6), dtype=torch.int32, device=card))
+
+
+def test_backend_on_card_matches_cpu_oracle(card):
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(3)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name, rows in (("f", 8), ("g", 8)):
+        field = idx.create_field(name)
+        for row in range(rows):
+            cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 5000, dtype=np.uint64))
+            field.import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+    dev = Executor(h, backend=CUDABackend(h))
+    cpu = Executor(h, backend=CPUBackend(h))
+    K.reset_launch_counts()
+    queries = ["Count(Intersect(Row(f=1), Row(g=2)))", "Count(Xor(Row(f=3), Row(g=3)))",
+               " ".join(f"Count(Union(Row(f={a}), Row(g={a})))" for a in range(8))]
+    for q in queries:
+        assert dev.execute("i", q) == cpu.execute("i", q), q
+    got = dev.execute("i", "Row(f=4)")[0].columns()
+    np.testing.assert_array_equal(got, cpu.execute("i", "Row(f=4)")[0].columns())
+    counts = K.launch_counts()
+    assert counts["popcount_rows"] == 2 and counts["pair_stats_pershard"] == 1
