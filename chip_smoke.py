@@ -19,14 +19,30 @@ nvcc, then:
    kernel. Every answer is checked against the port's CPU oracle
    (Executor(holder, backend=CPUBackend(holder))). The kernels' launch
    counters are zeroed before this phase and read after it: every kernel
-   must have launched. Launches per request are printed beside it;
-3. each kernel against its plain PyTorch version on the card, on the
+   of the count path must have launched. Launches per request are printed
+   beside it;
+3. GroupBy on the same index, with bench.py's third field h (4 rows of
+   n_bits // 4 columns per shard): bench.py's four GroupBy queries, a
+   filtered 3-field one and a limit/offset one, through the same Executor.
+   Every group's count must equal the Count of its rows' Intersect through
+   the port's Count path, every combination left out must count 0, and the
+   same queries over the first 32 shards must equal the CPU oracle's.
+   Launch counters are zeroed before the requests and read after: the
+   group-tile kernels must have launched, and each request launches what
+   its route should. No GroupBy may be routed to the CPU oracle. Then a
+   2-shard index whose 70-row extra field crosses the 64-slot tile
+   boundary, on the maintained and the generic route;
+4. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes, exactly; with its
-   median time, the plain version's, and its bound;
-4. a small holder with an existence field: the whole Count/Row/Not/All
+   median time, the plain version's, and its bound; and the cross-check of
+   the odometer kernels (nary_stats, nary_stats_pershard) against the
+   group tensor that GroupBy served;
+5. a small holder with an existence field: the whole Count/Row/Not/All
    query list through two write-churn epochs, checked against the CPU
    oracle after each; the resident stacks must be spliced, not rebuilt,
    and no query may be routed to the CPU oracle.
+
+cpu_routed_total is printed after each phase.
 
 Prints a JSON line of every kernel, then, last, one JSON object whose
 "ok" is true. Any failed check raises; the exit code is then not 0.
@@ -64,13 +80,45 @@ POPC_PER_SM_CLOCK = 16
 INT32_PER_SM_CLOCK = 64
 RATES = {}
 
-SOURCE = "pilosa_tpu_torch/ops/csrc/bitcount.cu"
+# GroupBy: bench.py's 3-field query, its groups checked through the Count
+# path, and its answers over the first ORACLE_SHARDS shards against the CPU
+# oracle (the host iterator over 954 shards would take minutes).
+H_ROWS = 4
+ORACLE_SHARDS = 32
+GROUP_QUERIES = [
+    "GroupBy(Rows(f))",
+    "GroupBy(Rows(f), Rows(g))",
+    "GroupBy(Rows(f), Rows(g), filter=Row(f=2))",
+    "GroupBy(Rows(f), Rows(g), Rows(h))",
+    "GroupBy(Rows(f), Rows(g), Rows(h), filter=Row(g=1))",
+    "GroupBy(Rows(f), Rows(g), Rows(h), limit=5, offset=3)",
+]
+# The 2-shard cardinality index: a 70-row fully-live extra field, so the
+# live combinations span two 64-slot tiles.
+CARD_SHARDS = 2
+CARD_ROWS = 70
+
+SOURCES = {
+    "pair_stats_pershard": "pilosa_tpu_torch/ops/csrc/bitcount.cu",
+    "pair_stats": "pilosa_tpu_torch/ops/csrc/bitcount.cu",
+    "popcount_rows": "pilosa_tpu_torch/ops/csrc/bitcount.cu",
+    "group_tile_stats": "pilosa_tpu_torch/ops/csrc/group.cu",
+    "group_tile_stats_pershard": "pilosa_tpu_torch/ops/csrc/group.cu",
+    "nary_stats": "pilosa_tpu_torch/ops/csrc/group.cu",
+    "nary_stats_pershard": "pilosa_tpu_torch/ops/csrc/group.cu",
+}
 REPLACES = {
     "pair_stats_pershard": "pilosa_tpu/ops/kernels.py:142",
     "pair_stats": "pilosa_tpu/ops/kernels.py:81",
     # Not a Pallas kernel: the popcount-reduce of the fused count program.
     "popcount_rows": "pilosa_tpu/exec/tpu.py:2074",
+    # Fused-XLA tile programs of the serving GroupBy.
+    "group_tile_stats": "pilosa_tpu/ops/kernels.py:642",
+    "group_tile_stats_pershard": "pilosa_tpu/ops/kernels.py:656",
+    "nary_stats": "pilosa_tpu/ops/kernels.py:253",
+    "nary_stats_pershard": "pilosa_tpu/ops/kernels.py:349",
 }
+COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "popcount_rows")
 
 
 def log(*args) -> None:
@@ -179,7 +227,7 @@ def phase_card():
         f"memory {HBM_BYTES_PER_S:.4g} B/s")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
-    build.library()
+    build.library("bitcount")  # builds every kernel library, in parallel
     log(f"kernel build seconds: {build.build_seconds:.2f}")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -193,24 +241,33 @@ def phase_card():
 
 
 def build_bench_index(holder):
-    """bench.py build_index's f and g: per shard, ROWS * SHARD_WIDTH *
-    DENSITY uniform columns per row from SFC64(42)'s raw stream."""
+    """bench.py build_index: per shard, f and g hold ROWS * SHARD_WIDTH *
+    DENSITY uniform columns per row, and h H_ROWS rows of n_bits // 4, all
+    from SFC64(42)'s raw stream in that order."""
     import numpy as np
 
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     idx = holder.create_index("bench")
     n_bits = int(SHARD_WIDTH * DENSITY)
-    rows = np.repeat(np.arange(ROWS, dtype=np.uint8), n_bits)
     bitgen = np.random.SFC64(42)
     mask = np.uint32(SHARD_WIDTH - 1)
+
+    def rand_cols(shard, size):
+        raw = bitgen.random_raw((size + 1) // 2).view(np.uint32)[:size]
+        np.bitwise_and(raw, mask, out=raw)
+        np.bitwise_or(raw, np.uint32(shard * SHARD_WIDTH), out=raw)
+        return raw
+
+    rows = np.repeat(np.arange(ROWS, dtype=np.uint8), n_bits)
     for fname in ("f", "g"):
         field = idx.create_field(fname)
         for shard in range(SHARDS):
-            raw = bitgen.random_raw((rows.size + 1) // 2).view(np.uint32)[: rows.size]
-            np.bitwise_and(raw, mask, out=raw)
-            np.bitwise_or(raw, np.uint32(shard * SHARD_WIDTH), out=raw)
-            field.import_bits(rows, raw)
+            field.import_bits(rows, rand_cols(shard, rows.size))
+    hrows = np.repeat(np.arange(H_ROWS, dtype=np.uint8), n_bits // 4)
+    field = idx.create_field("h")
+    for shard in range(SHARDS):
+        field.import_bits(hrows, rand_cols(shard, hrows.size))
 
 
 def build_wide_index(holder):
@@ -260,7 +317,8 @@ def phase_main(results: dict):
     t0 = time.perf_counter()
     build_bench_index(holder)
     log(f"main: index build seconds {time.perf_counter() - t0:.1f} "
-        f"({SHARDS} shards x 2 fields x {ROWS} rows, density {DENSITY})")
+        f"({SHARDS} shards x 2 fields x {ROWS} rows, density {DENSITY}, "
+        f"and h: {H_ROWS} rows)")
     t0 = time.perf_counter()
     build_wide_index(holder)
     log(f"main: wide index build seconds {time.perf_counter() - t0:.1f} "
@@ -310,7 +368,8 @@ def phase_main(results: dict):
         t0 = time.perf_counter()
         out = fn()
         ms = (time.perf_counter() - t0) * 1e3
-        per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()}
+        per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()
+                              if v != before[k]}
         return ms, out
 
     launches_of("single Count", lambda: dev.execute("bench", singles[0]))
@@ -338,13 +397,13 @@ def phase_main(results: dict):
         "16-Count wide request": {"pair_stats": 1},
     }
     for label, expect in want.items():
-        got = {k: v for k, v in per_request[label].items() if v}
-        check(got == expect, f"main: {label} launched {got}, expected {expect}")
+        check(per_request[label] == expect,
+              f"main: {label} launched {per_request[label]}, expected {expect}")
     log("main: launches " + json.dumps(launches))
     log("main: latencies " + json.dumps(latencies))
     log(f"main: resident stack bytes {backend.blocks.resident_bytes()}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in COUNT_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
 
     for q in singles + ["Row(f=2)", pair_request]:
         t0 = time.perf_counter()
@@ -361,25 +420,204 @@ def phase_main(results: dict):
     log("main: answers " + json.dumps(
         {q[:40]: [r if isinstance(r, int) else int(r.count()) for r in answers[q]]
          for q in singles + ["Row(f=2)"]}))
+    log_routed("main")
 
     results["launches"] = launches
-    f_stack, _ = backend.blocks.get("bench", holder.index("bench").field("f"),
-                                    tuple(range(SHARDS)))
-    g_stack, _ = backend.blocks.get("bench", holder.index("bench").field("g"),
-                                    tuple(range(SHARDS)))
     a_stack, _ = backend.blocks.get("wide", holder.index("wide").field("a"),
                                     tuple(range(WIDE_SHARDS)))
     b_stack, _ = backend.blocks.get("wide", holder.index("wide").field("b"),
                                     tuple(range(WIDE_SHARDS)))
-    check(f_stack.shape == (SHARDS, ROWS, 32768), f"f stack {tuple(f_stack.shape)}")
     check(a_stack.shape == (WIDE_SHARDS, WIDE_ROWS, 32768),
           f"a stack {tuple(a_stack.shape)}")
-    holder.close()
-    return (f_stack, g_stack), (a_stack, b_stack)
+    return holder, backend, (a_stack, b_stack)
+
+
+def log_routed(phase: str) -> None:
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    log(f"{phase}: cpu_routed_total " + json.dumps(
+        global_stats.counter_totals("cpu_routed_total"), sort_keys=True))
+
+
+def bench_stack(backend, holder, fname, shards=SHARDS):
+    stack, _ = backend.blocks.get("bench", holder.index("bench").field(fname),
+                                  tuple(range(shards)))
+    return stack
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernels against their plain versions
+# phase 3: GroupBy
+# ---------------------------------------------------------------------------
+
+
+def group_tuples(result):
+    return [(tuple((fr.field, fr.row_id) for fr in g.group), g.count) for g in result]
+
+
+def check_groups_by_count(dev, q, groups, filt):
+    """Every group's count equals Count(Intersect(its rows [, filt])) on
+    the port's Count path, and every combination left out counts 0."""
+    import itertools
+
+    heights = {"f": ROWS, "g": ROWS, "h": H_ROWS}
+    fields = [c.split("(")[1].split(")")[0] for c in q.split("Rows")[1:]]
+    combos = list(itertools.product(*(range(heights[f]) for f in fields)))
+    counts = dev.execute("bench", " ".join(
+        "Count(Intersect({}))".format(", ".join(
+            [f"Row({f}={r})" for f, r in zip(fields, combo)] + ([filt] if filt else [])))
+        for combo in combos))
+    want = {tuple(zip(fields, combo)): n for combo, n in zip(combos, counts) if n}
+    check(dict(groups) == want, f"groupby: {q} disagrees with the Count path")
+    return len(combos)
+
+
+def phase_groupby(holder, backend):
+    """GroupBy at 954 shards through the main path's Executor."""
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    dev = Executor(holder, backend=backend)
+    oracle = Executor(holder, backend=CPUBackend(holder))
+    routed_key = 'cpu_routed_total{call="GroupBy"}'
+    routed0 = global_stats.counter_totals("cpu_routed_total").get(routed_key, 0)
+    three = GROUP_QUERIES[3]
+    per_request = {}
+    latencies = {}
+    answers = {}
+
+    def request(label, q):
+        before = K.launch_counts()
+        t0 = time.perf_counter()
+        out = dev.execute("bench", q)
+        torch.cuda.synchronize()
+        latencies[label] = (time.perf_counter() - t0) * 1e3
+        per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()
+                              if v != before[k]}
+        return group_tuples(out[0])
+
+    K.reset_launch_counts()
+    for q in GROUP_QUERIES[:3]:
+        answers[q] = request(q, q)
+    answers[three] = request("3-field, cold", three)
+    check(request("3-field, warm", three) == answers[three], "groupby: warm answer moved")
+    answers[GROUP_QUERIES[4]] = request("3-field filtered", GROUP_QUERIES[4])
+    answers[GROUP_QUERIES[5]] = request("3-field limit/offset", GROUP_QUERIES[5])
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    log("groupby: launches per request " + json.dumps(per_request))
+    log("groupby: launches " + json.dumps(launches))
+    want = {
+        "GroupBy(Rows(f))": {"popcount_rows": 1},
+        "GroupBy(Rows(f), Rows(g), filter=Row(f=2))": {"pair_stats": 1},
+        "3-field, cold": {"popcount_rows": 1, "group_tile_stats_pershard": 1},
+        "3-field, warm": {},
+        "3-field filtered": {"popcount_rows": 1, "group_tile_stats": 1},
+        "3-field limit/offset": {},
+    }
+    for label, expect in want.items():
+        check(per_request[label] == expect,
+              f"groupby: {label} launched {per_request[label]}, expected {expect}")
+    for name in ("group_tile_stats", "group_tile_stats_pershard", "popcount_rows"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the GroupBy path")
+    check(answers[GROUP_QUERIES[5]] == answers[three][3:8], "groupby: limit/offset window")
+
+    # Timings: the re-dispatched sweep (tensor caches dropped, stacks
+    # resident) and the warm request, with their device share.
+    def sweep():
+        backend._groupn_cache.clear()
+        return dev.execute("bench", three)
+
+    def uncached(q):
+        def run():
+            backend._agg_cache.clear()
+            return dev.execute("bench", q)
+        return run
+
+    for label, fn in (("3-field sweep", sweep),
+                      ("3-field warm", lambda: dev.execute("bench", three)),
+                      ("3-field filtered sweep", uncached(GROUP_QUERIES[4])),
+                      ("1-field sweep", uncached(GROUP_QUERIES[0])),
+                      ("2-field, pair cache", lambda: dev.execute("bench", GROUP_QUERIES[1])),
+                      ("2-field filtered sweep", uncached(GROUP_QUERIES[2]))):
+        first, med, out = host_ms(fn)
+        latencies[label + " median"] = med
+    device_share(sweep, "3-field GroupBy, sweep")
+    device_share(lambda: dev.execute("bench", three), "3-field GroupBy, warm")
+    log("groupby: latencies ms " + json.dumps(latencies))
+
+    n_checked = 0
+    for q, filt in ((GROUP_QUERIES[0], None), (GROUP_QUERIES[1], None),
+                    (GROUP_QUERIES[2], "Row(f=2)"), (three, None),
+                    (GROUP_QUERIES[4], "Row(g=1)")):
+        n_checked += check_groups_by_count(dev, q, answers[q], filt)
+    log(f"groupby: {n_checked} combinations agree with the Count path")
+    log("groupby: groups " + json.dumps({q: len(a) for q, a in answers.items()}))
+    check(global_stats.counter_totals("cpu_routed_total").get(routed_key, 0) == routed0,
+          "groupby: a GroupBy was routed to the CPU oracle")
+
+    stacks = {name: bench_stack(backend, holder, name) for name in ("f", "g", "h")}
+    served = backend._groupn_cache[("groupn", "bench", ("f", "g", "h"))].stats
+
+    # The same queries over the first shards, against the CPU oracle. This
+    # replaces the resident stacks with 32-shard ones, so it runs last.
+    sub = list(range(ORACLE_SHARDS))
+    for q in GROUP_QUERIES:
+        t0 = time.perf_counter()
+        got = group_tuples(dev.execute("bench", q, shards=sub)[0])
+        check(got == group_tuples(oracle.execute("bench", q, shards=sub)[0]),
+              f"groupby: {q} over {ORACLE_SHARDS} shards disagrees with the oracle")
+        log(f"groupby: oracle agrees on {q} over {ORACLE_SHARDS} shards "
+            f"({len(got)} groups, {time.perf_counter() - t0:.1f} s)")
+    check(global_stats.counter_totals("cpu_routed_total").get(routed_key, 0) == routed0,
+          "groupby: a GroupBy was routed to the CPU oracle")
+    log_routed("groupby")
+    return launches, stacks, served
+
+
+def phase_groupby_tiles():
+    """A 2-shard index whose 70-row extra field is fully live: 8 x 8 x 70
+    groups, 70 live combinations, so both routes cut 2 tiles."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    holder = Holder(None).open()
+    idx = holder.create_index("card")
+    rng = np.random.default_rng(19)
+    for fname, nrows in (("f", ROWS), ("g", ROWS), ("e", CARD_ROWS)):
+        field = idx.create_field(fname)
+        for row in range(nrows):
+            cols = np.concatenate([rng.integers(0, 4096, 1500, dtype=np.uint64)
+                                   + np.uint64(s * SHARD_WIDTH) for s in range(CARD_SHARDS)])
+            field.import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+    oracle = Executor(holder, backend=CPUBackend(holder))
+    q = "GroupBy(Rows(f), Rows(g), Rows(e))"
+    want = group_tuples(oracle.execute("card", q)[0])
+    for route, budget in (("maintained", None), ("generic", 1)):
+        backend = CUDABackend(holder)
+        if budget is not None:
+            backend.MAX_PAIR_PERSHARD_BYTES = budget
+        tiles0 = sum(global_stats.counter_totals("groupby_tiles_total").values())
+        got = group_tuples(Executor(holder, backend=backend).execute("card", q)[0])
+        tiles = sum(global_stats.counter_totals("groupby_tiles_total").values()) - tiles0
+        check(tiles == 2, f"tiles: the {route} route cut {tiles} tiles, expected 2")
+        check(got == want, f"tiles: the {route} route disagrees with the oracle")
+        log(f"tiles: {route} route: 2 tiles, {len(got)} groups agree with the oracle")
+    log_routed("tiles")
+    holder.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -393,12 +631,25 @@ def pair_bound(s, rf, rg, w, pershard):
     return nbytes, (popc, alu)
 
 
+def group_bound(s, rf, rg, w, slots, extra_rows, n_extra, filtered, pershard):
+    """(bytes, (popcounts, int32 add/AND)) of a group sweep: F, G, the
+    extra rows the slots read and the filter slab read once, the output
+    written once; per slot and word, one popcount, AND and add per pair
+    cell, one AND per F row, and n_extra - 1 (+1 filtered) ANDs forming
+    the slot's mask."""
+    out_cells = slots * (s if pershard else 1) * rf * rg
+    nbytes = 4 * s * w * (rf + rg + extra_rows + (1 if filtered else 0)) + 4 * out_cells
+    popc = slots * s * w * rf * rg
+    alu = slots * s * w * (2 * rf * rg + rf + n_extra - 1 + (1 if filtered else 0))
+    return nbytes, (popc, alu)
+
+
 def kernel_line(name, ms, plain_ms, nbytes, ops, err, launches):
     popc, alu = ops
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(popc / RATES["popc"], alu / RATES["int32"]) * 1e3
     return {
-        "name": name, "route": "cuda", "source": SOURCE,
+        "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
@@ -414,11 +665,43 @@ def max_abs_err(got, want) -> int:
     return int(diff.abs().max())
 
 
-def phase_kernels(main_stacks, wide_stacks, launches):
+def cross_check(gstacks, served):
+    """The odometer kernels against the group tensor GroupBy served:
+    nary_stats_pershard summed over shards equals the maintained tensor
+    on the live k (and both are 0 on the pruned k), and nary_stats equals
+    group_tile_stats over the full odometer. Returns the launches it made."""
+    import numpy as np
     import torch
 
     from pilosa_tpu_torch.ops import kernels as K
 
+    f, g, h = gstacks["f"], gstacks["g"], gstacks["h"]
+    rh = h.shape[1]
+    K.reset_launch_counts()
+    per = K.nary_stats_pershard(f, g, (h,))
+    full = K.nary_stats(f, g, (h,))
+    tiles = K.group_tile_stats(f, g, (h,), [[r] for r in range(rh)], [1] * rh)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    summed = per.sum(dim=1, dtype=torch.int64).cpu().numpy()
+    live = summed.reshape(rh, -1).any(axis=1)
+    check(list(np.nonzero(live)[0]) == list(range(H_ROWS)), f"cross: live k {live}")
+    check(np.array_equal(summed[live], served[live]),
+          "cross: nary_stats_pershard disagrees with the served group tensor")
+    check(not served[~live].any(), "cross: the served tensor has a pruned k")
+    check(torch.equal(full, tiles), "cross: nary_stats disagrees with group_tile_stats")
+    log(f"cross: nary_stats_pershard summed over shards equals the served tensor on "
+        f"the {int(live.sum())} live k; nary_stats equals group_tile_stats over "
+        f"all {rh} k; launches {json.dumps(launches)}")
+    return launches
+
+
+def phase_kernels(gstacks, wide_stacks, launches):
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+
+    main_stacks = (gstacks["f"], gstacks["g"])
     dev = main_stacks[0].device
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -440,6 +723,32 @@ def phase_kernels(main_stacks, wide_stacks, launches):
         check(max_abs_err(K.popcount_rows(x), K.popcount_rows_torch(x)) == 0,
               f"popcount_rows differs at N={x.shape[0]}")
         log(f"kernels: exact at S={s} Rf={rf} Rg={rg}")
+
+    # The group kernels at edge shapes: E = 2 with heights 3 and 5, Rf != Rg,
+    # Rg = 13, 7 slots with 2 inactive, S = 1, filtered.
+    cpu_gen = torch.Generator().manual_seed(99)
+    active = [1, 1, 0, 1, 1, 0, 1]
+    for s, rf, rg, heights, filtered in [(2, 8, 8, (3, 5), False), (3, 8, 13, (3, 5), True),
+                                         (1, 16, 8, (4,), True), (2, 9, 13, (8,), False),
+                                         (1, 8, 8, (2, 3, 2), True)]:
+        f, g = rand_stack(s, rf), rand_stack(s, rg)
+        hs = tuple(rand_stack(s, r) for r in heights)
+        filt = rand_stack(s, 1)[:, 0].contiguous() if filtered else None
+        rows = torch.stack([torch.randint(0, r, (7,), generator=cpu_gen) for r in heights],
+                           dim=1).to(torch.int32)
+        for name, got, want in [
+            ("group_tile_stats", K.group_tile_stats(f, g, hs, rows, active, filt),
+             K.group_tile_stats_torch(f, g, hs, rows, active, filt)),
+            ("group_tile_stats_pershard", K.group_tile_stats_pershard(f, g, hs, rows, active),
+             K.group_tile_stats_pershard_torch(f, g, hs, rows, active)),
+            ("nary_stats", K.nary_stats(f, g, hs, filt), K.nary_stats_torch(f, g, hs, filt)),
+            ("nary_stats_pershard", K.nary_stats_pershard(f, g, hs),
+             K.nary_stats_pershard_torch(f, g, hs)),
+        ]:
+            check(max_abs_err(got, want) == 0,
+                  f"{name} differs at S={s} Rf={rf} Rg={rg} heights={heights}")
+        log(f"kernels: group kernels exact at S={s} Rf={rf} Rg={rg} heights={heights} "
+            f"filtered={filtered}")
 
     lines = []
     f, g = main_stacks
@@ -478,6 +787,34 @@ def phase_kernels(main_stacks, wide_stacks, launches):
     ms_sq = time_ms(lambda: K.pair_stats(f, g))
     log(f"kernels: pair_stats at S={f.shape[0]} Rf={f.shape[1]} Rg={g.shape[1]}: "
         f"{ms_sq:.4f} ms")
+
+    # The group kernels on the GroupBy path's inputs: the 4 live rows of h
+    # as 4 slots (K4 filtered by Row(g=1)'s slab, as the filtered 3-field
+    # request), and the full 8-row odometer of h's padded stack (K6, K7).
+    h = gstacks["h"]
+    s, rf, w = f.shape
+    rg, rh = g.shape[1], h.shape[1]
+    live = [[r] for r in range(H_ROWS)]
+    ones = [1] * H_ROWS
+    filt = g[:, 1, :].contiguous()
+    for name, kern, plain, (nbytes, ops) in [
+        ("group_tile_stats", lambda: K.group_tile_stats(f, g, (h,), live, ones, filt),
+         lambda: K.group_tile_stats_torch(f, g, (h,), live, ones, filt),
+         group_bound(s, rf, rg, w, H_ROWS, H_ROWS, 1, True, False)),
+        ("group_tile_stats_pershard", lambda: K.group_tile_stats_pershard(f, g, (h,), live, ones),
+         lambda: K.group_tile_stats_pershard_torch(f, g, (h,), live, ones),
+         group_bound(s, rf, rg, w, H_ROWS, H_ROWS, 1, False, True)),
+        ("nary_stats", lambda: K.nary_stats(f, g, (h,)), lambda: K.nary_stats_torch(f, g, (h,)),
+         group_bound(s, rf, rg, w, rh, rh, 1, False, False)),
+        ("nary_stats_pershard", lambda: K.nary_stats_pershard(f, g, (h,)),
+         lambda: K.nary_stats_pershard_torch(f, g, (h,)),
+         group_bound(s, rf, rg, w, rh, rh, 1, False, True)),
+    ]:
+        err = max_abs_err(kern(), plain())
+        check(err == 0, f"{name} differs on the GroupBy path's stacks")
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, reps=1, warm=0)
+        lines.append(kernel_line(name, ms, plain_ms, nbytes, ops, err, launches[name]))
     for ln in lines:
         log(f"kernels: {ln['name']}: {ln['ms']:.4f} ms, plain {ln['plain_ms']:.4f} ms, "
             f"bound {ln['bound_ms']:.4f} ms by {ln['bound_by']}; no single PyTorch "
@@ -583,10 +920,21 @@ def main() -> int:
     phase_card()
     log("reduced: none (954 shards, full size)")
     results: dict = {}
-    main_stacks, wide_stacks = phase_main(results)
-    lines = phase_kernels(main_stacks, wide_stacks, results["launches"])
-    del main_stacks, wide_stacks
+    holder, backend, wide_stacks = phase_main(results)
+    group_launches, gstacks, served = phase_groupby(holder, backend)
+    holder.close()
+    del backend
+    phase_groupby_tiles()
+    launches = dict(results["launches"])
+    for name in ("group_tile_stats", "group_tile_stats_pershard"):
+        launches[name] = group_launches[name]
+    cross = cross_check(gstacks, served)
+    for name in ("nary_stats", "nary_stats_pershard"):
+        launches[name] = cross[name]
+    lines = phase_kernels(gstacks, wide_stacks, launches)
+    del gstacks, wide_stacks
     phase_small()
+    log_routed("small")
     log(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,10 @@ The counterpart of the JAX package's TPUBackend, for Count and Row queries:
   of K1 (pair_stats_pershard), or of K2 (pair_stats) when the per-shard
   table is too big to keep; the host derives every verb from the pair
   matrix and the row counts.
+- GroupBy computes its group-count tensor on the card and enumerates the
+  nonzero groups on the host: one field through K3, two through the pair
+  kernels, three or more through the group-tile kernels K4/K5 over the
+  extra fields' live row combinations (ops/kernels.py).
 
 Calls without a device lowering here (BSI conditions, time ranges, Shift)
 raise _Unsupported while their tree is assembled and are answered by the
@@ -25,6 +29,7 @@ caught: they raise to the caller.
 from __future__ import annotations
 
 import functools
+import itertools
 import threading
 from typing import Callable, Optional
 
@@ -34,6 +39,7 @@ import torch
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec.cpu import CPUBackend, NotFoundError, QueryError
+from pilosa_tpu_torch.exec.result import FieldRow, GroupCount
 from pilosa_tpu_torch.ops.blocks import (
     WORDS_PER_SHARD,
     _padded_rows,
@@ -42,12 +48,16 @@ from pilosa_tpu_torch.ops.blocks import (
     unpack_slab_columns,
 )
 from pilosa_tpu_torch.ops.kernels import (
+    MAX_GROUP_EXTRAS,
+    MAX_GROUP_TILE_SLOTS,
     MAX_PAIR_SHARDS,
+    group_tile_stats,
+    group_tile_stats_pershard,
     pair_stats,
     pair_stats_pershard,
     popcount_rows,
 )
-from pilosa_tpu_torch.pql.ast import Call, Condition
+from pilosa_tpu_torch.pql.ast import Call, Condition, canonical_key, is_reserved_arg
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils.locks import InstrumentedRLock
 from pilosa_tpu_torch.utils.qprofile import current_profile
@@ -58,6 +68,11 @@ _DEVICE_LOWERED = ("Row", "Range", "Union", "Intersect", "Difference", "Xor", "N
 # Pair-stats host cache bound: entries may hold in-flight device tables, so
 # the LRU cap keeps many-field indexes from pinning device memory.
 MAX_PAIR_CACHE_ENTRIES = 16
+
+# Host-side cap on one GroupBy result tensor's cells (live_K * Rf * Rg).
+# Bounds the aggregate-cache charge and the enumeration working set;
+# combinations past it go to the CPU oracle rather than exhausting the host.
+MAX_GROUP_RESULT_CELLS = 1 << 24
 
 
 class _Unsupported(Exception):
@@ -253,6 +268,28 @@ class _PairEntry:
         self.gen_g = gen_g
 
 
+class _GroupNEntry:
+    """One N>=3 field tuple's cached group tensor: totals int64[K, rf, rg]
+    served to queries, the per-shard int32[S, K*rf*rg] table they were
+    summed from, and the row counts (padded stack heights) fixing the
+    tensor geometry. cfp: the (shards, view generations) it was swept at."""
+
+    __slots__ = ("cfp", "stats", "pershard", "rs")
+
+    def __init__(self, cfp, stats, pershard, rs):
+        self.cfp = cfp
+        self.stats = stats
+        self.pershard = pershard
+        self.rs = rs
+
+
+def _prod(xs) -> int:
+    out = 1
+    for x in xs:
+        out *= int(x)
+    return out
+
+
 def _eval_spec(spec, blocks_it, scalars_it) -> torch.Tensor:
     """Evaluate a spec tree over [S, W] int32 slabs. Both iterators are
     consumed in the exact order _build emitted them."""
@@ -321,6 +358,10 @@ class CUDABackend:
         # Pair-plan memo keyed by the (parse-cached, shared) calls' ids.
         self._plan_cache: dict = {}
         self._plan_lock = threading.Lock()
+        # GroupBy tensors, under _pair_lock: (cfp, payload) by (index,
+        # fields, filter), and the N>=3 per-shard tables (_GroupNEntry).
+        self._agg_cache: dict = {}
+        self._groupn_cache: dict = {}
 
     # -- routing and counters ----------------------------------------------
 
@@ -629,6 +670,12 @@ class CUDABackend:
 
     def _pair_batch_dispatch(self, index, plan, shards_t):
         entries, fa, fb = plan
+        return functools.partial(self._pair_fetch, entries,
+                                 self._pair_entry(index, fa, fb, shards_t))
+
+    def _pair_entry(self, index, fa, fb, shards_t) -> _PairEntry:
+        """The fresh pair entry of (fa, fb) over shards_t: a cache hit, or
+        one sweep. Raises _Unsupported when a gate refuses the sweep."""
         f_obj = self._field(index, fa)
         g_obj = self._field(index, fb)
         ckey = (index, fa, fb)
@@ -636,10 +683,7 @@ class CUDABackend:
         # the loop so a waiter re-checks against the freshest epoch.
         with current_profile().phase("freshness"):
             while True:
-                fv = f_obj.view(VIEW_STANDARD)
-                gv = g_obj.view(VIEW_STANDARD)
-                gen_f = fv.generation if fv is not None else -1
-                gen_g = gv.generation if gv is not None else -1
+                gen_f, gen_g = self._generation(f_obj), self._generation(g_obj)
                 with self._pair_lock:
                     hit = self._pair_cache.get(ckey)
                     if (
@@ -650,7 +694,7 @@ class CUDABackend:
                     ):
                         self._pair_cache[ckey] = self._pair_cache.pop(ckey)  # LRU
                         self.stats.count("pair_stats_cache_hits_total")
-                        return functools.partial(self._pair_fetch, entries, hit)
+                        return hit
                     latch = self._stats_updating.get(ckey)
                     if latch is None:
                         self._stats_updating[ckey] = threading.Event()
@@ -658,7 +702,7 @@ class CUDABackend:
                 latch.wait(timeout=60)
         try:
             return self._pair_refresh(
-                index, entries, fa, fb, f_obj, g_obj, shards_t, ckey, gen_f, gen_g
+                index, fa, fb, f_obj, g_obj, shards_t, ckey, gen_f, gen_g
             )
         finally:
             with self._pair_lock:
@@ -666,8 +710,8 @@ class CUDABackend:
             if ev is not None:
                 ev.set()
 
-    def _pair_refresh(self, index, entries, fa, fb, f_obj, g_obj,
-                      shards_t, ckey, gen_f, gen_g):
+    def _pair_refresh(self, index, fa, fb, f_obj, g_obj,
+                      shards_t, ckey, gen_f, gen_g) -> _PairEntry:
         """The single-flight body: fetch (build or splice) the stacks, then
         one sweep. The generations were read before the stacks, so an entry
         is never fresher than its key says (a write racing the build costs
@@ -689,7 +733,7 @@ class CUDABackend:
             self._pair_cache[ckey] = ent
             while len(self._pair_cache) > MAX_PAIR_CACHE_ENTRIES:
                 self._pair_cache.pop(next(iter(self._pair_cache)))
-        return functools.partial(self._pair_fetch, entries, ent)
+        return ent
 
     def _pair_gates(self, s_pad, rf, rg):
         """Size gates for a pair sweep. Returns (reject_reason_or_None,
@@ -705,20 +749,23 @@ class CUDABackend:
         return None, pershard_ok
 
     def _pair_fetch(self, entries, ent) -> list[int]:
-        """Resolve the stats (device table on first touch, host totals
-        after) and derive the batch's counts."""
+        """Derive the batch's counts from the entry's stats."""
         with current_profile().phase("host_reduce"):
-            stats = ent.stats
-            if not isinstance(stats, np.ndarray):
-                raw = stats.cpu().numpy()  # ONE readback for all stats
-                totals = (raw.sum(axis=0, dtype=np.int64) if raw.ndim == 2
-                          else raw.astype(np.int64))
-                with self._pair_lock:
-                    if ent.stats is stats:  # idempotent: racers read back too
-                        ent.stats = totals
-            else:
-                totals = stats
-            return self._pair_resolve(entries, totals, ent.rf, ent.rg)
+            return self._pair_resolve(entries, self._pair_totals(ent), ent.rf, ent.rg)
+
+    def _pair_totals(self, ent) -> np.ndarray:
+        """The entry's int64 host totals [D]: the device table is read back
+        on first touch and replaced by its totals."""
+        stats = ent.stats
+        if isinstance(stats, np.ndarray):
+            return stats
+        raw = stats.cpu().numpy()  # ONE readback for all stats
+        totals = (raw.sum(axis=0, dtype=np.int64) if raw.ndim == 2
+                  else raw.astype(np.int64))
+        with self._pair_lock:
+            if ent.stats is stats:  # idempotent: racers read back too
+                ent.stats = totals
+        return totals
 
     @staticmethod
     def _pair_resolve(entries, stats_np, rf, rg) -> list[int]:
@@ -743,4 +790,477 @@ class CUDABackend:
             else:  # X
                 v = ca + cb - 2 * pi
             out.append(v)
+        return out
+
+    # -- GroupBy ---------------------------------------------------------------
+
+    def group_by(self, index, c: Call, filter_call, child_rows, shards,
+                 cap=None) -> Optional[list]:
+        """Whole-query GroupBy: the group-count tensor over every shard on
+        the card (one K3 or pair sweep for one or two fields, the tiled
+        K4/K5 sweep over the live extra-row combinations for three or
+        more), then the nonzero groups enumerated on the host in odometer
+        order (reference groupByIterator, executor.go:3063), stopping at
+        ``cap`` groups when the executor passes its limit+offset bound.
+        Returns None when a gate refuses the query; the executor's host
+        iterator then answers it, counted in cpu_routed_total{call}."""
+        out = self._group_by(index, c, filter_call, child_rows, shards, cap)
+        if out is None:
+            self._cpu_routed(c)
+        return out
+
+    def _group_by(self, index, c, filter_call, child_rows, shards, cap):
+        n = len(c.children)
+        if n == 0 or n - 2 > MAX_GROUP_EXTRAS:
+            return None  # the group kernels take at most MAX_GROUP_EXTRAS extras
+        shards_t = tuple(shards)
+        fields = []
+        starts = []
+        for child in c.children:
+            if "from" in child.args or "to" in child.args:
+                return None  # time-ranged Rows: the host unions quantum views
+            fname = child.args.get("field") or child.args.get("_field")
+            fields.append((fname, self._field(index, fname)))  # reference error
+            prev, has_prev = child.uint64_arg("previous")
+            starts.append(prev + 1 if has_prev else 0)
+        # Unfiltered 2-field groups ARE the pair-count matrix, which the
+        # pair batch path sweeps and caches. (The JAX package also serves
+        # unfiltered 1-field groups from its TopN rank tables; the port has
+        # no TopN tables yet, so they take the tensor path below, which
+        # gives the same counts.)
+        if filter_call is None and n == 2:
+            pm = self._pair_matrix(index, fields[0][0], fields[1][0], shards_t)
+            if pm is not None:
+                matrix, rf, rg = pm
+                return self._group_enumerate(
+                    fields, starts, child_rows, [rf, rg], matrix, n, cap
+                )
+        # Unfiltered N>=3: the retained per-shard group tensor.
+        if filter_call is None and n >= 3:
+            served = self._groupn_tensor(index, fields, shards_t)
+            if served is not None:
+                stats_np, rs = served
+                return self._group_enumerate(
+                    fields, starts, child_rows, rs, stats_np, n, cap
+                )
+        # Group-tensor cache: the stats do not depend on candidate
+        # restrictions (limit/column/previous act in the enumeration), so
+        # the child views' generations key a reusable tensor. A filtered
+        # tensor keys on the filter's canonical PQL too and fingerprints
+        # the generations of every field the filter reads. The fingerprint
+        # is taken BEFORE the stack fetch: a write racing this query must
+        # make a never-matching entry, not a stale one.
+        fkey = ffp = None
+        if filter_call is not None:
+            ffp = self._filter_epochs(index, filter_call)
+            if ffp is not None:
+                fkey = canonical_key(filter_call)
+        ckey = cfp = None
+        if filter_call is None or fkey is not None:
+            ckey = ("groupby", index, tuple(f for f, _ in fields), fkey)
+            cfp = (shards_t, tuple(self._generation(fo) for _, fo in fields), ffp)
+        try:
+            stacks = [self._get_block(index, fo, shards_t)[0] for _, fo in fields]
+            filt = None
+            if filter_call is not None:
+                spec, blocks, scalars = self._assemble(index, filter_call, shards_t)
+                filt = self._vec_program(spec, blocks, scalars).contiguous()
+        except _Unsupported:
+            return None
+        if stacks[0].shape[0] > MAX_PAIR_SHARDS:
+            return None  # int32 accumulator bound of the summed kernels
+        rs = [int(st.shape[1]) for st in stacks]
+        # The first two fields' row product is a dense [Rf, Rg] face in
+        # every slot, so it keeps the pair sweep's bound; the extras'
+        # product is bounded after pruning (MAX_GROUP_RESULT_CELLS).
+        if n >= 2 and rs[0] * rs[1] > (1 << 16):
+            return None
+        if n <= 2 and _prod(rs) > (1 << 16):
+            return None
+        payload = None
+        if ckey is not None:
+            with self._pair_lock:
+                hit = self._agg_cache.get(ckey)
+                if hit is not None and hit[0] == cfp:
+                    self._agg_cache[ckey] = self._agg_cache.pop(ckey)  # LRU
+                    payload = hit[1]
+            if payload is not None:
+                self.stats.count("agg_cache_hits_total")
+        if payload is None:
+            with current_profile().phase("device_dispatch"):
+                if n >= 3:
+                    payload = self._group_tiled_sweep(stacks, filt, rs)
+                    if payload is None:
+                        return None  # live product past the cell budget
+                else:
+                    payload = ("dense", self._group_dense(stacks, filt))
+            if ckey is not None:
+                with self._pair_lock:
+                    self._agg_cache[ckey] = (cfp, payload)
+                    while len(self._agg_cache) > MAX_PAIR_CACHE_ENTRIES:
+                        self._agg_cache.pop(next(iter(self._agg_cache)))
+                    self._agg_cache_charge()
+        if payload[0] == "dense":
+            return self._group_enumerate(
+                fields, starts, child_rows, rs, payload[1], n, cap
+            )
+        _, live_rows, stats_live = payload
+        return self._group_enumerate_live(
+            fields, starts, child_rows, rs, live_rows, stats_live, n, cap
+        )
+
+    @staticmethod
+    def _generation(field_obj) -> int:
+        v = field_obj.view(VIEW_STANDARD)
+        return v.generation if v is not None else -1
+
+    def _filter_epochs(self, index, filter_call):
+        """Epoch fingerprint of every field a GroupBy filter tree
+        references: sorted (field, ((view, generation), ...)) tuples.
+        None = uncacheable (a missing field, whose error the assemble path
+        raises, or a time-ranged call, whose views depend on the clock)."""
+        idx = self.holder.index(index)
+        if idx is None:
+            return None
+        names = set()
+        stack = [filter_call]
+        while stack:
+            call = stack.pop()
+            if "from" in call.args or "to" in call.args:
+                return None
+            fn = call.args.get("field") or call.args.get("_field")
+            if isinstance(fn, str):
+                names.add(fn)
+            for k, v in call.args.items():
+                if isinstance(v, Call):
+                    stack.append(v)
+                elif not is_reserved_arg(k) and k != "field":
+                    # Bitmap leaves spell the field as the arg KEY (Row(a=1),
+                    # Row(v > 3)), so every non-reserved key names a field.
+                    names.add(k)
+            stack.extend(call.children)
+        out = []
+        for fn in sorted(names):
+            f = idx.field(fn)
+            if f is None:
+                return None
+            vs = tuple(sorted(
+                (vn, f.view(vn).generation)
+                for vn in list(f.views)
+                if f.view(vn) is not None
+            ))
+            out.append((fn, vs))
+        return tuple(out)
+
+    def _agg_cache_charge(self) -> None:
+        """Gauge of the host bytes the cached group tensors pin; called
+        under _pair_lock after every store, so it tracks the LRU exactly."""
+        total = 0
+        for _, payload in self._agg_cache.values():
+            total += sum(p.nbytes for p in payload if isinstance(p, np.ndarray))
+        self.stats.gauge("agg_cache_bytes", total)
+
+    def _pair_matrix(self, index, fa, fb, shards_t):
+        """(int64[rf, rg] pair-count matrix, rf, rg) through the pair
+        batch path's sweep and cache; None when a gate refuses the sweep."""
+        try:
+            ent = self._pair_entry(index, fa, fb, shards_t)
+        except _Unsupported:
+            return None
+        totals = self._pair_totals(ent)
+        return totals[: ent.rf * ent.rg].reshape(ent.rf, ent.rg), ent.rf, ent.rg
+
+    def _group_dense(self, stacks, filt) -> np.ndarray:
+        """The 1- or 2-field group tensor over the filtered first stack:
+        int64[R] row counts (K3 over the [S*R, W] view, summed over shards
+        on the card) or the int64[Rf, Rg] pair matrix (K2)."""
+        f = stacks[0]
+        if filt is not None:
+            f = f & filt[:, None, :]
+        self._launched("groupby")
+        if len(stacks) == 1:
+            s, r, w = f.shape
+            counts = popcount_rows(f.reshape(s * r, w)).reshape(s, r)
+            return counts.sum(dim=0, dtype=torch.int64).cpu().numpy()
+        rf, rg = f.shape[1], stacks[1].shape[1]
+        flat = pair_stats(f, stacks[1])
+        return flat[: rf * rg].reshape(rf, rg).cpu().numpy().astype(np.int64)
+
+    def _group_live_rows(self, stacks) -> list:
+        """Per extra field, its live row ids: the rows with any bit in the
+        swept stacks (K3 per-row popcounts). Sound by construction: the
+        counts come from the tensors every tile sweeps, so a pruned row is
+        zero in every cell it would have produced."""
+        out = []
+        for st in stacks[2:]:
+            s, r, w = st.shape
+            self._launched("groupby")
+            counts = popcount_rows(st.reshape(s * r, w)).reshape(s, r)
+            live = counts.sum(dim=0, dtype=torch.int64).cpu().numpy() > 0
+            out.append(np.nonzero(live)[0].astype(np.int32))
+        return out
+
+    def _prune(self, stacks):
+        """(live_rows, combos): each extra field's live row ids, and every
+        combination of them as int32[K_live, E] in odometer order (last
+        extra fastest). A combination holding a globally empty row is zero
+        in every cell, so only these are swept; the pruned ones are
+        counted."""
+        live_rows = self._group_live_rows(stacks)
+        if any(len(lr) == 0 for lr in live_rows):
+            combos = np.zeros((0, len(live_rows)), np.int32)
+        else:
+            grids = np.meshgrid(*live_rows, indexing="ij")
+            combos = np.stack([g.ravel() for g in grids], axis=1).astype(np.int32)
+        pruned = _prod(st.shape[1] for st in stacks[2:]) - len(combos)
+        if pruned:
+            self.stats.count("groupby_pruned_groups_total", pruned)
+        return live_rows, combos
+
+    def _group_tiles(self, stacks, filt, combos, pershard: bool = False) -> np.ndarray:
+        """Sweep every live combination, MAX_GROUP_TILE_SLOTS slots a
+        launch (K4, or K5 per shard): int32[K_live, Rf, Rg] totals, or
+        [K_live, S, Rf, Rg]. Every tile is enqueued before the first
+        readback, so the card runs the tiles back to back."""
+        f, g, extras = stacks[0], stacks[1], tuple(stacks[2:])
+        rf, rg = int(f.shape[1]), int(g.shape[1])
+        if len(combos) == 0:
+            shape = (0, int(f.shape[0]), rf, rg) if pershard else (0, rf, rg)
+            return np.zeros(shape, np.int32)
+        kind = "group_tile_pershard" if pershard else "group_tile"
+        pending = []
+        for c0 in range(0, len(combos), MAX_GROUP_TILE_SLOTS):
+            rows_idx = combos[c0 : c0 + MAX_GROUP_TILE_SLOTS]
+            active = np.ones(len(rows_idx), np.int32)
+            self.stats.count("groupby_tiles_total")
+            self.stats.histogram("groupby_tile_occupancy", len(rows_idx))
+            self._launched(kind)
+            if pershard:
+                pending.append(group_tile_stats_pershard(f, g, extras, rows_idx, active))
+            else:
+                pending.append(group_tile_stats(f, g, extras, rows_idx, active, filt))
+        return np.concatenate([t.cpu().numpy() for t in pending])
+
+    def _group_tiled_sweep(self, stacks, filt, rs):
+        """Prune + tile + sweep the N>=3 group tensor: the ("live",
+        live_rows, stats_live) payload, or None when the live combination
+        product exceeds the host cell budget. live_rows holds each extra
+        field's live row ids; stats_live is [K_live, Rf, Rg] in odometer
+        order over them."""
+        live_rows, combos = self._prune(stacks)
+        if len(combos) * rs[0] * rs[1] > MAX_GROUP_RESULT_CELLS:
+            return None
+        stats_live = self._group_tiles(stacks, filt, combos)
+        return (
+            "live",
+            tuple(tuple(int(r) for r in lr) for lr in live_rows),
+            stats_live,
+        )
+
+    def _groupn_predicted_shapes(self, fobjs, shards_t):
+        """The stack shapes a sweep of these fields will see, from the
+        fragments' heights, without packing anything."""
+        shapes = []
+        for f in fobjs:
+            v = f.view(VIEW_STANDARD)
+            n_rows = 1
+            if v is not None:
+                n_rows = max(
+                    [fr.max_row_id + 1
+                     for fr in (v.fragment(sh) for sh in shards_t)
+                     if fr is not None]
+                    + [1]
+                )
+            shapes.append((len(shards_t), _padded_rows(n_rows), WORDS_PER_SHARD))
+        return tuple(shapes)
+
+    def _groupn_tensor(self, index, fields, shards_t):
+        """(totals int64[K, rf, rg], rs) for an unfiltered N>=3 GroupBy from
+        the retained per-shard table, or None when this path cannot serve
+        (repeated field, size gates) and the generic tiled path should. A
+        write epoch re-dispatches the sweep (the JAX package's host-side
+        incremental tier is not ported yet)."""
+        fobjs = [fo for _, fo in fields]
+        if len({id(f) for f in fobjs}) != len(fobjs):
+            return None  # repeated field
+        ckey = ("groupn", index, tuple(fn for fn, _ in fields))
+        while True:
+            cfp = (shards_t, tuple(self._generation(f) for f in fobjs))
+            with self._pair_lock:
+                hit = self._groupn_cache.get(ckey)
+                if hit is not None and hit.cfp == cfp:
+                    self._groupn_cache[ckey] = self._groupn_cache.pop(ckey)  # LRU
+                    self.stats.count("groupn_cache_hits_total")
+                    return hit.stats, hit.rs
+                latch = self._stats_updating.get(ckey)
+                if latch is None:
+                    self._stats_updating[ckey] = threading.Event()
+                    break
+            latch.wait(timeout=60)
+        try:
+            shapes = self._groupn_predicted_shapes(fobjs, shards_t)
+            if shapes[0][0] * _prod(sh[1] for sh in shapes) * 4 > self.MAX_PAIR_PERSHARD_BYTES:
+                # A table of this geometry could never be retained: refuse
+                # before packing anything; the generic tiled path serves.
+                return None
+            return self._groupn_dispatch(index, fobjs, shards_t, ckey, cfp)
+        finally:
+            with self._pair_lock:
+                ev = self._stats_updating.pop(ckey, None)
+            if ev is not None:
+                ev.set()
+
+    def _groupn_dispatch(self, index, fobjs, shards_t, ckey, cfp):
+        prof = current_profile()
+        try:
+            with prof.phase("stack_fetch"):
+                stacks = [self._get_block(index, f, shards_t)[0] for f in fobjs]
+        except _Unsupported:
+            return None  # over the device budget: the generic path decides
+        rs = [int(st.shape[1]) for st in stacks]
+        k_total = _prod(rs[2:])
+        face = rs[0] * rs[1]
+        s = int(stacks[0].shape[0])
+        if s > MAX_PAIR_SHARDS or face > (1 << 16):
+            return None
+        if s * k_total * face * 4 > self.MAX_PAIR_PERSHARD_BYTES:
+            return None  # table too big to retain: the generic path sweeps
+        with prof.phase("device_dispatch"):
+            # The pruned slots of the dense table stay exactly zero.
+            _, combos = self._prune(stacks)
+            tiles = self._group_tiles(stacks, None, combos, pershard=True)
+        with prof.phase("host_reduce"):
+            # Scatter the live tiles [K_live, S, rf, rg] into the dense
+            # table rows [S, K*rf*rg] at their odometer slots.
+            pershard = np.zeros((s, k_total * face), np.int32)
+            if len(combos):
+                flat = None
+                for t in range(combos.shape[1]):
+                    col = combos[:, t].astype(np.int64)
+                    flat = col if flat is None else flat * rs[2 + t] + col
+                table = pershard.reshape(s, k_total, face)
+                table[:, flat, :] = tiles.transpose(1, 0, 2, 3).reshape(s, len(combos), face)
+            totals = pershard.sum(axis=0, dtype=np.int64).reshape(k_total, rs[0], rs[1])
+        ent = _GroupNEntry(cfp, totals, pershard, rs)
+        with self._pair_lock:
+            self._groupn_cache.pop(ckey, None)
+            self._groupn_cache[ckey] = ent
+            while len(self._groupn_cache) > MAX_PAIR_CACHE_ENTRIES:
+                self._groupn_cache.pop(next(iter(self._groupn_cache)))
+        return totals, rs
+
+    @staticmethod
+    def _group_candidates(starts, child_rows, rs, n) -> list:
+        cand = []
+        for i in range(n):
+            if child_rows[i] is not None:
+                cand.append([r for r in child_rows[i] if r >= starts[i]])
+            else:
+                cand.append(list(range(starts[i], rs[i])))
+        return cand
+
+    def _group_enumerate(self, fields, starts, child_rows, rs, stats_np, n,
+                         cap=None) -> list:
+        """Candidate enumeration over the dense group stats, in the
+        reference groupByIterator's order. Stops after ``cap`` nonzero
+        groups when set: the executor's limit+offset window is a prefix of
+        the odometer order, so the early exit is exact."""
+        cand = self._group_candidates(starts, child_rows, rs, n)
+        out = []
+        full = cap if cap is not None else float("inf")
+        if n == 1:
+            for a in cand[0]:
+                v = int(stats_np[a]) if a < rs[0] else 0
+                if v > 0:
+                    out.append(GroupCount([FieldRow(fields[0][0], a)], v))
+                    if len(out) >= full:
+                        return out
+        elif n == 2:
+            for a in cand[0]:
+                for b in cand[1]:
+                    v = int(stats_np[a, b]) if (a < rs[0] and b < rs[1]) else 0
+                    if v > 0:
+                        out.append(GroupCount(
+                            [FieldRow(fields[0][0], a), FieldRow(fields[1][0], b)], v
+                        ))
+                        if len(out) >= full:
+                            return out
+        else:
+            # The tensor's k axis runs over fields 3..n (last fastest), while
+            # enumeration follows child order (first field outermost), as
+            # the reference groupByIterator does.
+            extra_rs = rs[2:]
+            for a in cand[0]:
+                for b in cand[1]:
+                    if not (a < rs[0] and b < rs[1]):
+                        continue
+                    for extra in itertools.product(*cand[2:]):
+                        if any(e >= extra_rs[t] for t, e in enumerate(extra)):
+                            continue
+                        k = 0
+                        for t, e in enumerate(extra):
+                            k = k * extra_rs[t] + e
+                        v = int(stats_np[k, a, b])
+                        if v > 0:
+                            out.append(GroupCount(
+                                [FieldRow(fields[0][0], a), FieldRow(fields[1][0], b)]
+                                + [FieldRow(fields[2 + t][0], e)
+                                   for t, e in enumerate(extra)],
+                                v,
+                            ))
+                            if len(out) >= full:
+                                return out
+        return out
+
+    def _group_enumerate_live(self, fields, starts, child_rows, rs,
+                              live_rows, stats_live, n, cap=None) -> list:
+        """Streamed enumeration over the PRUNED group tensor [K_live, Rf,
+        Rg]: nonzero extraction per (a-row x combination) slice in
+        enumeration order (first field outermost, the extras' odometer
+        innermost), so the dense product tensor never materialises on the
+        host and a ``cap`` exits after the first slices that fill it.
+        Pruned combinations held a globally empty row, so their count is
+        zero and the reference iterator skips them too."""
+        cand = self._group_candidates(starts, child_rows, rs, n)
+        cand_a = [a for a in cand[0] if a < rs[0]]
+        cand_b = np.asarray([b for b in cand[1] if b < rs[1]], dtype=np.int64)
+        # Per extra field: the candidate rows that are live, with their
+        # position in the live row list (the tiles run over live-list
+        # POSITIONS; enumeration keeps CANDIDATE order).
+        dims = [len(lr) for lr in live_rows]
+        pos_lists = []
+        row_lists = []
+        for t in range(n - 2):
+            lookup = {int(r): p for p, r in enumerate(live_rows[t])}
+            keep = [(lookup[r], r) for r in cand[2 + t]
+                    if r < rs[2 + t] and r in lookup]
+            pos_lists.append(np.asarray([p for p, _ in keep], dtype=np.int64))
+            row_lists.append(np.asarray([r for _, r in keep], dtype=np.int64))
+        if (not cand_a or cand_b.size == 0
+                or any(p.size == 0 for p in pos_lists) or stats_live.shape[0] == 0):
+            return []
+        grids = np.meshgrid(*pos_lists, indexing="ij")
+        flat = None
+        for t, gpos in enumerate(grids):
+            flat = gpos if flat is None else flat * dims[t] + gpos
+        flat = flat.ravel()
+        extra_rows = [g.ravel() for g in np.meshgrid(*row_lists, indexing="ij")]
+        sel = stats_live[flat]  # [M, Rf, Rg], bounded by the live tensor
+        out = []
+        full = cap if cap is not None else float("inf")
+        fname_a, fname_b = fields[0][0], fields[1][0]
+        enames = [fields[2 + t][0] for t in range(n - 2)]
+        for a in cand_a:
+            # [B, M] for this a-row: nonzero walks b-major, then combination.
+            arr = sel[:, a][:, cand_b].T
+            bi, mi = np.nonzero(arr)
+            vals = arr[bi, mi]
+            for j in range(bi.size):
+                m = int(mi[j])
+                frs = [FieldRow(fname_a, int(a)), FieldRow(fname_b, int(cand_b[bi[j]]))]
+                frs.extend(FieldRow(enames[t], int(extra_rows[t][m]))
+                           for t in range(n - 2))
+                out.append(GroupCount(frs, int(vals[j])))
+                if len(out) >= full:
+                    return out
         return out

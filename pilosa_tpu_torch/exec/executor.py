@@ -405,6 +405,13 @@ class Executor:
             result = v if result is None else reduce_fn(result, v)
         return result
 
+    def _host_routed(self, c, lowering: str) -> None:
+        """Count a call that a device backend leaves to the host iterator
+        because it has no ``lowering``, in cpu_routed_total{call}, as the
+        backend counts the calls it routes to the CPU oracle itself."""
+        if not isinstance(self.backend, CPUBackend) and not hasattr(self.backend, lowering):
+            self.stats.with_tags(f"call:{c.name}").count("cpu_routed_total")
+
     # ------------------------------------------------------------------
     # bitmap calls
     # ------------------------------------------------------------------
@@ -644,6 +651,7 @@ class Executor:
             if exact is not None:
                 return PairsField(exact, field_name)
 
+        self._host_routed(c, "topn_field")
         # Pass 1: approximate candidates from rank caches.
         pairs = self._execute_topn_shards(index, c, shards, opt)
 
@@ -728,6 +736,7 @@ class Executor:
             if ids is not None:
                 return RowIDs(ids[:limit] if has_lim else ids)
 
+        self._host_routed(c, "rows_field")
         map_fn = lambda shard: self._execute_rows_shard(index, field_name, c, shard)
 
         def reduce_fn(a, b):

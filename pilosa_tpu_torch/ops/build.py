@@ -1,15 +1,17 @@
-"""Builds and loads the hand-written CUDA kernels (ops/csrc/bitcount.cu).
+"""Builds and loads the hand-written CUDA kernels (ops/csrc/*.cu).
 
-The source is compiled at first use with nvcc for Hopper (sm_90a) into a
-shared library with a plain C interface, which ctypes loads:
+Each source is compiled at first use with nvcc for Hopper (sm_90a) into a
+shared library of its own with a plain C interface, which ctypes loads:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o ops/build/libbitcount.so ops/csrc/bitcount.cu
+         -Xcompiler -fPIC -Xptxas -v -o ops/build/lib<name>.so ops/csrc/<name>.cu
 
-``-Xptxas -v`` makes ptxas report each kernel's registers, shared memory
-and spills; the report of the last build is kept in ``build_log``.
+The sources that need a build are compiled together, one nvcc process for
+each, all started at once. ``-Xptxas -v`` makes ptxas report each kernel's
+registers, shared memory and spills; the report of the last build is kept
+in ``build_log``.
 
-The library is rebuilt when the source's digest differs from the one
+A library is rebuilt when its source's digest differs from the one
 recorded beside it. A missing nvcc or a failed compile raises with the
 compiler's output: nothing on the device path falls back to another form.
 """
@@ -25,10 +27,12 @@ import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "bitcount.cu")
 BUILD_DIR = os.path.join(_HERE, "build")
-LIBRARY = os.path.join(BUILD_DIR, "libbitcount.so")
-_DIGEST = LIBRARY + ".sha256"
+#: Kernel sources by library name: bitcount.cu (K1-K3, the count path) and
+#: group.cu (K4-K7, the GroupBy tensor).
+SOURCES = {
+    name: os.path.join(_HERE, "csrc", f"{name}.cu") for name in ("bitcount", "group")
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -36,17 +40,17 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_lib = None
-#: Seconds the last build in this process took (0.0 when the library was
-#: already built for this source); None until the library is loaded.
+_libs: dict = {}
+#: Wall seconds the last build in this process took (0.0 when every library
+#: was already built for its source); None until the libraries are loaded.
 build_seconds = None
-#: nvcc's output (the ptxas resource report) of the last build, "" when
-#: the library was already built for this source.
+#: nvcc's output (the ptxas resource reports) of the last build, "" when
+#: every library was already built for its source.
 build_log = ""
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused the kernel source."""
+    """nvcc is missing or refused a kernel source."""
 
 
 def nvcc_path() -> str:
@@ -61,55 +65,90 @@ def nvcc_path() -> str:
     )
 
 
-def _source_digest() -> str:
-    with open(SOURCE, "rb") as fh:
+def _library_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _source_digest(name: str) -> str:
+    with open(SOURCES[name], "rb") as fh:
         return hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
 
 
-def _compile(digest: str) -> tuple[float, str]:
+def _fresh(name: str, digest: str) -> bool:
+    try:
+        with open(_library_path(name) + ".sha256") as fh:
+            return fh.read().strip() == digest and os.path.exists(_library_path(name))
+    except FileNotFoundError:
+        return False
+
+
+def _compile(stale: dict) -> str:
+    """Compile every stale source at once, one nvcc each; returns their
+    output. stale: name -> source digest."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"{' '.join(cmd)} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, LIBRARY)
-    with open(_DIGEST, "w") as fh:
-        fh.write(digest)
-    return time.perf_counter() - t0, proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    procs = {}
+    try:
+        for name in stale:
+            tmp = f"{_library_path(name)}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+            procs[name] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outputs = {name: p.communicate()[0] for name, (_, _, p) in procs.items()}
+    finally:
+        for _, _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, (cmd, tmp, p) in procs.items():
+        if p.returncode != 0:
+            raise KernelBuildError(
+                f"{' '.join(cmd)} failed ({p.returncode}):\n{outputs[name]}"
+            )
+    for name, (_, tmp, _) in procs.items():
+        os.replace(tmp, _library_path(name))
+        with open(_library_path(name) + ".sha256", "w") as fh:
+            fh.write(stale[name])
+    return "".join(f"== {name}.cu\n{out}" for name, out in outputs.items())
 
 
-def _bind(lib) -> None:
+def _bind(name: str, lib) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("pair_stats_pershard_launch", "pair_stats_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    if name == "bitcount":
+        for fn_name in ("pair_stats_pershard_launch", "pair_stats_launch"):
+            fn = getattr(lib, fn_name)
+            fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            fn.restype = i32
+        lib.popcount_rows_launch.argtypes = [ptr, ptr, i32, i32, ptr]
+        lib.popcount_rows_launch.restype = i32
+        return
+    for fn_name in ("group_tile_stats_launch", "group_tile_stats_pershard_launch",
+                    "nary_stats_launch", "nary_stats_pershard_launch"):
+        fn = getattr(lib, fn_name)
+        # f, g, extra pointers, extra heights, n_extra, rows_idx, active,
+        # filt, out, s, rf, rg, w, n_slots, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr,
+                       i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
-    lib.popcount_rows_launch.argtypes = [ptr, ptr, i32, i32, ptr]
-    lib.popcount_rows_launch.restype = i32
 
 
-def library():
-    """The loaded kernel library, built first if the source changed."""
-    global _lib, build_seconds, build_log
-    if _lib is not None:
-        return _lib
+def library(name: str):
+    """The loaded kernel library ``name`` ("bitcount" or "group"). The
+    first call builds every library whose source changed."""
+    global build_seconds, build_log
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
-        if _lib is None:
-            digest = _source_digest()
-            built, log = 0.0, ""
-            try:
-                with open(_DIGEST) as fh:
-                    fresh = fh.read().strip() == digest and os.path.exists(LIBRARY)
-            except FileNotFoundError:
-                fresh = False
-            if not fresh:
-                built, log = _compile(digest)
-            lib = ctypes.CDLL(LIBRARY)
-            _bind(lib)
+        if not _libs:
+            digests = {n: _source_digest(n) for n in SOURCES}
+            stale = {n: d for n, d in digests.items() if not _fresh(n, d)}
+            t0 = time.perf_counter()
+            log = _compile(stale) if stale else ""
+            built = time.perf_counter() - t0 if stale else 0.0
+            for n in SOURCES:
+                loaded = ctypes.CDLL(_library_path(n))
+                _bind(n, loaded)
+                _libs[n] = loaded
             build_seconds, build_log = built, log
-            _lib = lib
-    return _lib
+    return _libs[name]

@@ -53,11 +53,67 @@ def test_kernels_equal_plain_versions(card, s, rf, rg):
     rows = K.popcount_rows(fd.reshape(-1, W))
     torch.cuda.synchronize()
     after = K.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    assert all(after[k] == before[k] + 1
+               for k in ("pair_stats_pershard", "pair_stats", "popcount_rows"))
     assert per.device.type == tot.device.type == rows.device.type == "cuda"
     assert torch.equal(per.cpu(), K.pair_stats_torch(fc, gc, True))
     assert torch.equal(tot.cpu(), K.pair_stats_torch(fc, gc, False))
     assert torch.equal(rows.cpu(), K.popcount_rows_torch(fc.reshape(-1, W)))
+
+
+def _words(rng, *shape):
+    """uint32 words at bit density 1/4 (the AND of two random words)."""
+    return (rng.integers(0, 2**32, shape, dtype=np.uint32)
+            & rng.integers(0, 2**32, shape, dtype=np.uint32))
+
+
+# (S, Rf, Rg, extra heights, filtered): E = 2 with heights 3 and 5, Rf != Rg,
+# Rg = 13 (off the 8-row tile), S = 1, and filtered.
+GROUP_SHAPES = [
+    (2, 8, 8, (3, 5), False),
+    (3, 8, 13, (3, 5), True),
+    (1, 16, 8, (4,), True),
+    (2, 9, 13, (8,), False),
+    (1, 8, 8, (2, 3, 2), True),
+]
+
+
+@pytest.mark.parametrize("s,rf,rg,heights,filtered", GROUP_SHAPES)
+def test_group_kernels_equal_plain_versions(card, s, rf, rg, heights, filtered):
+    rng = np.random.default_rng(s * 1000 + rf * 10 + rg)
+    f, g = _words(rng, s, rf, W), _words(rng, s, rg, W)
+    hs = [_words(rng, s, r, W) for r in heights]
+    filt = _words(rng, s, W) | _words(rng, s, W) if filtered else None
+    dev = [stack_from_reference(x, card) for x in [f, g, *hs]]
+    cpu = [stack_from_reference(x, "cpu") for x in [f, g, *hs]]
+    fd, gd, ed = dev[0], dev[1], tuple(dev[2:])
+    fc, gc, ec = cpu[0], cpu[1], tuple(cpu[2:])
+    filt_d = None if filt is None else stack_from_reference(filt, card)
+    filt_c = None if filt is None else stack_from_reference(filt, "cpu")
+    # 7 slots (not a power of two) over random rows, slots 2 and 5 inactive.
+    rows = np.stack([rng.integers(0, r, 7) for r in heights], axis=1).astype(np.int32)
+    active = np.array([1, 1, 0, 1, 1, 0, 1], dtype=np.int32)
+    before = K.launch_counts()
+    got = {
+        "group_tile_stats": K.group_tile_stats(fd, gd, ed, rows, active, filt_d),
+        "group_tile_stats_pershard": K.group_tile_stats_pershard(fd, gd, ed, rows, active),
+        "nary_stats": K.nary_stats(fd, gd, ed, filt_d),
+        "nary_stats_pershard": K.nary_stats_pershard(fd, gd, ed),
+    }
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    want = {
+        "group_tile_stats": K.group_tile_stats_torch(fc, gc, ec, rows, active, filt_c),
+        "group_tile_stats_pershard": K.group_tile_stats_pershard_torch(fc, gc, ec, rows,
+                                                                       active),
+        "nary_stats": K.nary_stats_torch(fc, gc, ec, filt_c),
+        "nary_stats_pershard": K.nary_stats_pershard_torch(fc, gc, ec),
+    }
+    for name, out in got.items():
+        assert after[name] == before[name] + 1, name
+        assert out.device.type == "cuda", name
+        assert torch.equal(out.cpu(), want[name]), name
+    assert not got["group_tile_stats"][[2, 5]].any()
 
 
 def test_kernels_refuse_misaligned_words(card):

@@ -159,5 +159,12 @@ def test_cpu_calls_launch_nothing():
     K.pair_stats_pershard(x, x)
     K.pair_stats(x, x)
     K.popcount_rows(x[0])
-    assert K.launch_counts() == {"pair_stats_pershard": 0, "pair_stats": 0,
-                                 "popcount_rows": 0}
+    K.group_tile_stats(x, x, (x,), [[1]], [1], x[:, 0].contiguous())
+    K.group_tile_stats_pershard(x, x, (x,), [[1]], [1])
+    K.nary_stats(x, x, (x,), x[:, 0].contiguous())
+    K.nary_stats_pershard(x, x, (x,))
+    assert K.launch_counts() == {
+        "pair_stats_pershard": 0, "pair_stats": 0, "popcount_rows": 0,
+        "group_tile_stats": 0, "group_tile_stats_pershard": 0,
+        "nary_stats": 0, "nary_stats_pershard": 0,
+    }
