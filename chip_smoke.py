@@ -8,6 +8,9 @@ nvcc, then:
 
 1. card: prints the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, and the kernel build seconds with ptxas's report;
+   then the AND-popcount rate probe (ops/csrc/bmma.cu, ops/probe.py): the
+   b1 tensor-core MMA's and the CUDA cores' popcount rates in bit-products
+   a second, which set the kernels' operations bounds;
 2. main path, at full size: a 1B-column index (fields f and g, 954 shards
    of 2^20 columns, 8 rows, bit density 0.05, the content of bench.py's
    build_index) built through the port's Holder / Field.import_bits and
@@ -16,8 +19,9 @@ nvcc, then:
    one request of 16 fused Counts (per-shard pair kernel) and Row(f=2);
    then a 256 x 256-row field pair over 128 shards, whose per-shard pair
    table is past the retention gate, so it takes the shard-summed pair
-   kernel. Every answer is checked against the port's CPU oracle
-   (Executor(holder, backend=CPUBackend(holder))). The kernels' launch
+   kernel (the binary GEMM on the tensor cores), cold and then with the
+   pair cache dropped. Every answer is checked against the port's CPU
+   oracle (Executor(holder, backend=CPUBackend(holder))). The kernels' launch
    counters are zeroed before this phase and read after it: every kernel
    of the count path must have launched. Launches per request are printed
    beside it;
@@ -33,8 +37,10 @@ nvcc, then:
    2-shard index whose 70-row extra field crosses the 64-slot tile
    boundary, on the maintained and the generic route;
 4. each kernel against its plain PyTorch version on the card, on the
-   inputs the main path gave it and at edge shapes, exactly; with its
-   median time, the plain version's, and its bound; and the cross-check of
+   inputs the main path gave it and at edge shapes (pair faces off 8 and
+   16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
+   with inactive ones), exactly; with its median time, the plain
+   version's, its bound and its earlier time; and the cross-check of
    the odometer kernels (nary_stats, nary_stats_pershard) against the
    group tensor that GroupBy served;
 5. a small holder with an existence field: the whole Count/Row/Not/All
@@ -69,16 +75,15 @@ WIDE_SHARDS = 128
 WIDE_ROWS = 256
 WIDE_BITS_PER_ROW = 256
 
-# Published H100 SXM memory rate (NVIDIA data sheet).
-HBM_BYTES_PER_S = 3.35e12
-# Issue rates a clock per SM of the kernels' instructions (CUDA C++
-# Programming Guide, arithmetic instruction throughput, compute capability
-# 9.0): population count, and 32-bit integer add / bitwise AND. Times the
-# card's SM count and maximum SM clock (read in phase_card) they give the
-# operations bound.
+# Popcount issue rate a clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0). Times the
+# card's SM count and maximum SM clock (read in phase_card) it gives the
+# CUDA cores' popcount route; the probe phase adds the measured b1 MMA
+# route and the published int8 one (ops/probe.py routes), and each
+# kernel's bound takes the fastest.
 POPC_PER_SM_CLOCK = 16
-INT32_PER_SM_CLOCK = 64
 RATES = {}
+ROUTES = {}
 
 # GroupBy: bench.py's 3-field query, its groups checked through the Count
 # path, and its answers over the first ORACLE_SHARDS shards against the CPU
@@ -100,9 +105,9 @@ CARD_ROWS = 70
 
 SOURCES = {
     "pair_stats_pershard": "pilosa_tpu_torch/ops/csrc/bitcount.cu",
-    "pair_stats": "pilosa_tpu_torch/ops/csrc/bitcount.cu",
+    "pair_stats": "pilosa_tpu_torch/ops/csrc/bmma.cu",
     "popcount_rows": "pilosa_tpu_torch/ops/csrc/bitcount.cu",
-    "group_tile_stats": "pilosa_tpu_torch/ops/csrc/group.cu",
+    "group_tile_stats": "pilosa_tpu_torch/ops/csrc/bmma.cu",
     "group_tile_stats_pershard": "pilosa_tpu_torch/ops/csrc/group.cu",
     "nary_stats": "pilosa_tpu_torch/ops/csrc/group.cu",
     "nary_stats_pershard": "pilosa_tpu_torch/ops/csrc/group.cu",
@@ -119,6 +124,14 @@ REPLACES = {
     "nary_stats_pershard": "pilosa_tpu/ops/kernels.py:349",
 }
 COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "popcount_rows")
+# Each kernel's earlier time at the shape timed here (chip_smoke.py, NVIDIA
+# H100 80GB HBM3, 700.00 W, before K2 and K4 moved to the tensor cores).
+EARLIER_MS = {
+    "pair_stats_pershard": 1.2364, "pair_stats": 141.80, "popcount_rows": 0.06478,
+    "group_tile_stats": 4.0985, "group_tile_stats_pershard": 3.9087,
+    "nary_stats": 6.7276, "nary_stats_pershard": 6.6438,
+}
+EARLIER_PAIR_STATS_SQUARE_MS = 1.1986  # K2 at the main path's S=954, 8 x 8
 
 
 def log(*args) -> None:
@@ -204,7 +217,7 @@ def device_share(fn, label: str, n: int = 10) -> None:
 def phase_card():
     import torch
 
-    from pilosa_tpu_torch.ops import build
+    from pilosa_tpu_torch.ops import build, probe
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -221,10 +234,8 @@ def phase_card():
     sm_hz = float(clk.stdout.strip().splitlines()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     RATES["popc"] = POPC_PER_SM_CLOCK * sms * sm_hz
-    RATES["int32"] = INT32_PER_SM_CLOCK * sms * sm_hz
-    log(f"card: {sms} SMs, max SM clock {sm_hz / 1e6:.0f} MHz: popcount "
-        f"{RATES['popc']:.4g}/s, int32 add/AND {RATES['int32']:.4g}/s, "
-        f"memory {HBM_BYTES_PER_S:.4g} B/s")
+    log(f"card: {sms} SMs, max SM clock {sm_hz / 1e6:.0f} MHz: popcount issue "
+        f"rate {RATES['popc']:.4g}/s, memory {probe.HBM_BYTES_PER_S:.4g} B/s")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     build.library("bitcount")  # builds every kernel library, in parallel
@@ -233,6 +244,19 @@ def phase_card():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
     return card_line
+
+
+def phase_probe(card_line):
+    """The AND-popcount rate probe, and the routes the bounds take."""
+    from pilosa_tpu_torch.ops import probe
+
+    rates = probe.and_popc_rates()
+    log(f"probe: {card_line}: b1 AND-popc MMA {rates['b1']:.6e} bit-products/s, "
+        f"CUDA-core popcount {rates['popc']:.6e} bit-products/s, s8 MMA "
+        f"{rates['s8']:.6e} MAC/s; b1 / popcount {rates['b1'] / rates['popc']:.2f}")
+    ROUTES.update(probe.routes(RATES["popc"], rates["b1"]))
+    log("probe: bound routes, bit-products/s " + json.dumps(ROUTES))
+    return rates
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +410,16 @@ def phase_main(results: dict):
     cold, answers[wide_request] = launches_of(
         "16-Count wide request", lambda: dev.execute("wide", wide_request))
     latencies["16-Count wide pair request (cold)"] = {"first_ms": cold}
+
+    def wide_uncached():  # stacks resident, the wide pair's cache entry dropped: one K2 sweep
+        for key in [k for k in backend._pair_cache if k[0] == "wide"]:
+            del backend._pair_cache[key]
+        return dev.execute("wide", wide_request)
+
+    launches_of("16-Count wide request, uncached", wide_uncached)
+    _, med, out = host_ms(wide_uncached)
+    check(same_answers(out, answers[wide_request]), "uncached wide answers moved")
+    latencies["16-Count wide pair request, uncached"] = {"median_ms": med}
     torch.cuda.synchronize()
     launches = K.launch_counts()
     log("main: launches per request " + json.dumps(per_request))
@@ -395,6 +429,7 @@ def phase_main(results: dict):
         "16-Count request, uncached": {"pair_stats_pershard": 1},
         "16-Count request, cached": {},
         "16-Count wide request": {"pair_stats": 1},
+        "16-Count wide request, uncached": {"pair_stats": 1},
     }
     for label, expect in want.items():
         check(per_request[label] == expect,
@@ -621,40 +656,23 @@ def phase_groupby_tiles():
 # ---------------------------------------------------------------------------
 
 
-def pair_bound(s, rf, rg, w, pershard):
-    """(bytes, popcounts, int32 add/AND) of a pair sweep: per word, one
-    AND, popcount and add per pair, one popcount and add per row."""
-    out_cells = (s if pershard else 1) * (rf * rg + rf + rg)
-    nbytes = 4 * s * (rf + rg) * w + 4 * out_cells
-    popc = s * w * (rf * rg + rf + rg)
-    alu = s * w * (2 * rf * rg + rf + rg)
-    return nbytes, (popc, alu)
+def kernel_bound(work):
+    """(bound ms, "bytes" or "operations", route) of (bytes, bit-products)
+    at this card's routes (ops/probe.py bound)."""
+    from pilosa_tpu_torch.ops import probe
+
+    sec, by, route = probe.bound(*work, ROUTES)
+    return sec * 1e3, by, route
 
 
-def group_bound(s, rf, rg, w, slots, extra_rows, n_extra, filtered, pershard):
-    """(bytes, (popcounts, int32 add/AND)) of a group sweep: F, G, the
-    extra rows the slots read and the filter slab read once, the output
-    written once; per slot and word, one popcount, AND and add per pair
-    cell, one AND per F row, and n_extra - 1 (+1 filtered) ANDs forming
-    the slot's mask."""
-    out_cells = slots * (s if pershard else 1) * rf * rg
-    nbytes = 4 * s * w * (rf + rg + extra_rows + (1 if filtered else 0)) + 4 * out_cells
-    popc = slots * s * w * rf * rg
-    alu = slots * s * w * (2 * rf * rg + rf + n_extra - 1 + (1 if filtered else 0))
-    return nbytes, (popc, alu)
-
-
-def kernel_line(name, ms, plain_ms, nbytes, ops, err, launches):
-    popc, alu = ops
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(popc / RATES["popc"], alu / RATES["int32"]) * 1e3
+def kernel_line(name, ms, plain_ms, work, err, launches):
+    bound_ms, by, route = kernel_bound(work)
     return {
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+        "bound_route": route, "earlier_ms": EARLIER_MS[name],
     }
 
 
@@ -710,23 +728,36 @@ def phase_kernels(gstacks, wide_stacks, launches):
         return torch.randint(-(2**31), 2**31, (s, r, w), dtype=torch.int32,
                              device=dev, generator=gen)
 
-    # Edge shapes: Rf != Rg, Rg off the 8-row tile, a 64 x 64 pair, S = 1,
-    # one-row stacks.
-    for s, rf, rg in [(16, 8, 16), (7, 16, 8), (5, 8, 13), (3, 64, 64),
-                      (1, 8, 8), (2, 1, 3)]:
-        f, g = rand_stack(s, rf), rand_stack(s, rg)
+    # Pair edge shapes: Rf != Rg, Rg off the 8-row tile, a 64 x 64 pair,
+    # S = 1, one-row stacks; the tensor-core K2's faces off 16 and 8 rows
+    # on both of its routes, a 2 x 2 grid of its 128 x 128 tiles, and word
+    # axes that are not a multiple of its 8-word k-chunk (36, 100).
+    from pilosa_tpu_torch.ops import probe
+
+    for s, rf, rg, w in [(16, 8, 16, 32768), (7, 16, 8, 32768), (5, 8, 13, 32768),
+                         (3, 64, 64, 32768), (1, 8, 8, 32768), (2, 1, 3, 32768),
+                         (2, 256, 256, 32768), (3, 17, 130, 32768), (1, 16, 8, 32768),
+                         (2, 40, 24, 36), (1, 17, 130, 100), (3, 16, 8, 36), (2, 8, 8, 36)]:
+        f, g = rand_stack(s, rf, w), rand_stack(s, rg, w)
         check(max_abs_err(K.pair_stats_pershard(f, g), K.pair_stats_torch(f, g, True)) == 0,
-              f"pair_stats_pershard differs at S={s} Rf={rf} Rg={rg}")
+              f"pair_stats_pershard differs at S={s} Rf={rf} Rg={rg} W={w}")
         check(max_abs_err(K.pair_stats(f, g), K.pair_stats_torch(f, g, False)) == 0,
-              f"pair_stats differs at S={s} Rf={rf} Rg={rg}")
+              f"pair_stats differs at S={s} Rf={rf} Rg={rg} W={w}")
         x = f.reshape(-1, f.shape[-1])
         check(max_abs_err(K.popcount_rows(x), K.popcount_rows_torch(x)) == 0,
-              f"popcount_rows differs at N={x.shape[0]}")
-        log(f"kernels: exact at S={s} Rf={rf} Rg={rg}")
+              f"popcount_rows differs at N={x.shape[0]} W={w}")
+        log(f"kernels: exact at S={s} Rf={rf} Rg={rg} W={w}")
 
     # The group kernels at edge shapes: E = 2 with heights 3 and 5, Rf != Rg,
-    # Rg = 13, 7 slots with 2 inactive, S = 1, filtered.
+    # Rg = 13, 7 slots with 2 inactive, S = 1, filtered; then K4's slot
+    # pairs: 1 to 9 slots (every third inactive) at Rf = 9 and 16, filtered
+    # and not, and a 36-word axis.
     cpu_gen = torch.Generator().manual_seed(99)
+
+    def slot_table(heights, n):
+        return torch.stack([torch.randint(0, r, (n,), generator=cpu_gen) for r in heights],
+                           dim=1).to(torch.int32)
+
     active = [1, 1, 0, 1, 1, 0, 1]
     for s, rf, rg, heights, filtered in [(2, 8, 8, (3, 5), False), (3, 8, 13, (3, 5), True),
                                          (1, 16, 8, (4,), True), (2, 9, 13, (8,), False),
@@ -734,8 +765,7 @@ def phase_kernels(gstacks, wide_stacks, launches):
         f, g = rand_stack(s, rf), rand_stack(s, rg)
         hs = tuple(rand_stack(s, r) for r in heights)
         filt = rand_stack(s, 1)[:, 0].contiguous() if filtered else None
-        rows = torch.stack([torch.randint(0, r, (7,), generator=cpu_gen) for r in heights],
-                           dim=1).to(torch.int32)
+        rows = slot_table(heights, 7)
         for name, got, want in [
             ("group_tile_stats", K.group_tile_stats(f, g, hs, rows, active, filt),
              K.group_tile_stats_torch(f, g, hs, rows, active, filt)),
@@ -749,6 +779,20 @@ def phase_kernels(gstacks, wide_stacks, launches):
                   f"{name} differs at S={s} Rf={rf} Rg={rg} heights={heights}")
         log(f"kernels: group kernels exact at S={s} Rf={rf} Rg={rg} heights={heights} "
             f"filtered={filtered}")
+    for s, rf, rg, heights, w in [(2, 9, 8, (5,), 32768), (1, 16, 13, (3, 4), 32768),
+                                  (3, 9, 16, (6,), 36)]:
+        f, g = rand_stack(s, rf, w), rand_stack(s, rg, w)
+        hs = tuple(rand_stack(s, r, w) for r in heights)
+        filt = rand_stack(s, 1, w)[:, 0].contiguous()
+        for n in range(1, 10):
+            rows, act = slot_table(heights, n), [int(q % 3 != 2) for q in range(n)]
+            for fl in (filt, None):
+                check(max_abs_err(K.group_tile_stats(f, g, hs, rows, act, fl),
+                                  K.group_tile_stats_torch(f, g, hs, rows, act, fl)) == 0,
+                      f"group_tile_stats differs at S={s} Rf={rf} Rg={rg} W={w} "
+                      f"slots={n} filtered={fl is not None}")
+        log(f"kernels: group_tile_stats exact at S={s} Rf={rf} Rg={rg} W={w}, "
+            f"1 to 9 slots, filtered and not")
 
     lines = []
     f, g = main_stacks
@@ -758,9 +802,8 @@ def phase_kernels(gstacks, wide_stacks, launches):
     check(err == 0, "pair_stats_pershard differs on the main path's stacks")
     ms = time_ms(lambda: K.pair_stats_pershard(f, g))
     plain = time_ms(lambda: K.pair_stats_torch(f, g, True), reps=3, warm=1)
-    nbytes, ops = pair_bound(s, rf, rg, w, True)
-    lines.append(kernel_line("pair_stats_pershard", ms, plain, nbytes, ops, err,
-                             launches["pair_stats_pershard"]))
+    lines.append(kernel_line("pair_stats_pershard", ms, plain, probe.pair_work(s, rf, rg, w, True),
+                             err, launches["pair_stats_pershard"]))
 
     # The count program's slab: Intersect(Row(f=1), Row(g=2)) over all shards.
     slab = (f[:, 1, :] & g[:, 2, :]).contiguous()
@@ -768,57 +811,63 @@ def phase_kernels(gstacks, wide_stacks, launches):
     check(err == 0, "popcount_rows differs on the main path's slab")
     ms = time_ms(lambda: K.popcount_rows(slab))
     plain = time_ms(lambda: K.popcount_rows_torch(slab), reps=5, warm=1)
-    nbytes = slab.numel() * 4 + slab.shape[0] * 4
-    ops = (slab.numel(), slab.numel())  # one popcount and one add a word
-    lines.append(kernel_line("popcount_rows", ms, plain, nbytes, ops, err,
-                             launches["popcount_rows"]))
+    # Bytes: the slab read once, the counts written once; one popcount (32
+    # bit-products' worth) a word.
+    work = (slab.numel() * 4 + slab.shape[0] * 4, 32 * slab.numel())
+    lines.append(kernel_line("popcount_rows", ms, plain, work, err, launches["popcount_rows"]))
 
     a, b = wide_stacks
-    s, rf, w = a.shape
-    rg = b.shape[1]
+    sa, ra, wa = a.shape
     err = max_abs_err(K.pair_stats(a, b), K.pair_stats_torch(a, b, False))
     check(err == 0, "pair_stats differs on the wide pair's stacks")
-    ms = time_ms(lambda: K.pair_stats(a, b), reps=3, warm=1)
+    ms = time_ms(lambda: K.pair_stats(a, b), reps=5, warm=1)
     plain = time_ms(lambda: K.pair_stats_torch(a, b, False), reps=1, warm=0)
-    nbytes, ops = pair_bound(s, rf, rg, w, False)
-    lines.append(kernel_line("pair_stats", ms, plain, nbytes, ops, err,
-                             launches["pair_stats"]))
-    # The shard-summed kernel on the main path's square shape too.
+    line = kernel_line("pair_stats", ms, plain, probe.pair_work(sa, ra, b.shape[1], wa, False),
+                       err, launches["pair_stats"])
+    # The shard-summed kernel on the main path's square shape too: the
+    # filtered 2-field GroupBy's launch.
+    err_sq = max_abs_err(K.pair_stats(f, g), K.pair_stats_torch(f, g, False))
+    check(err_sq == 0, "pair_stats differs on the main path's stacks")
     ms_sq = time_ms(lambda: K.pair_stats(f, g))
-    log(f"kernels: pair_stats at S={f.shape[0]} Rf={f.shape[1]} Rg={g.shape[1]}: "
-        f"{ms_sq:.4f} ms")
+    bound_sq, by_sq, _ = kernel_bound(probe.pair_work(s, rf, rg, w, False))
+    line.update({"square_shape": [s, rf, rg, w], "square_ms": ms_sq,
+                 "square_bound_ms": bound_sq, "square_max_abs_err": err_sq,
+                 "square_earlier_ms": EARLIER_PAIR_STATS_SQUARE_MS})
+    lines.append(line)
+    log(f"kernels: pair_stats at S={s} Rf={rf} Rg={rg}: {ms_sq:.4f} ms, bound "
+        f"{bound_sq:.4f} ms by {by_sq}, earlier {EARLIER_PAIR_STATS_SQUARE_MS} ms, exact")
 
     # The group kernels on the GroupBy path's inputs: the 4 live rows of h
     # as 4 slots (K4 filtered by Row(g=1)'s slab, as the filtered 3-field
     # request), and the full 8-row odometer of h's padded stack (K6, K7).
     h = gstacks["h"]
-    s, rf, w = f.shape
-    rg, rh = g.shape[1], h.shape[1]
+    rh = h.shape[1]
     live = [[r] for r in range(H_ROWS)]
     ones = [1] * H_ROWS
     filt = g[:, 1, :].contiguous()
-    for name, kern, plain, (nbytes, ops) in [
+    for name, kern, plain, work in [
         ("group_tile_stats", lambda: K.group_tile_stats(f, g, (h,), live, ones, filt),
          lambda: K.group_tile_stats_torch(f, g, (h,), live, ones, filt),
-         group_bound(s, rf, rg, w, H_ROWS, H_ROWS, 1, True, False)),
+         probe.group_work(s, rf, rg, w, H_ROWS, H_ROWS, True, False)),
         ("group_tile_stats_pershard", lambda: K.group_tile_stats_pershard(f, g, (h,), live, ones),
          lambda: K.group_tile_stats_pershard_torch(f, g, (h,), live, ones),
-         group_bound(s, rf, rg, w, H_ROWS, H_ROWS, 1, False, True)),
+         probe.group_work(s, rf, rg, w, H_ROWS, H_ROWS, False, True)),
         ("nary_stats", lambda: K.nary_stats(f, g, (h,)), lambda: K.nary_stats_torch(f, g, (h,)),
-         group_bound(s, rf, rg, w, rh, rh, 1, False, False)),
+         probe.group_work(s, rf, rg, w, rh, rh, False, False)),
         ("nary_stats_pershard", lambda: K.nary_stats_pershard(f, g, (h,)),
          lambda: K.nary_stats_pershard_torch(f, g, (h,)),
-         group_bound(s, rf, rg, w, rh, rh, 1, False, True)),
+         probe.group_work(s, rf, rg, w, rh, rh, False, True)),
     ]:
         err = max_abs_err(kern(), plain())
         check(err == 0, f"{name} differs on the GroupBy path's stacks")
         ms = time_ms(kern)
         plain_ms = time_ms(plain, reps=1, warm=0)
-        lines.append(kernel_line(name, ms, plain_ms, nbytes, ops, err, launches[name]))
+        lines.append(kernel_line(name, ms, plain_ms, work, err, launches[name]))
     for ln in lines:
-        log(f"kernels: {ln['name']}: {ln['ms']:.4f} ms, plain {ln['plain_ms']:.4f} ms, "
-            f"bound {ln['bound_ms']:.4f} ms by {ln['bound_by']}; no single PyTorch "
-            f"call computes a popcount, so no library yardstick")
+        log(f"kernels: {ln['name']}: {ln['ms']:.4f} ms (earlier {ln['earlier_ms']} ms), "
+            f"plain {ln['plain_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms by "
+            f"{ln['bound_by']} (route {ln['bound_route']}); no single PyTorch call "
+            f"computes a popcount, so no library yardstick")
     return lines
 
 
@@ -917,7 +966,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.cuda.set_device(0)
 
-    phase_card()
+    card_line = phase_card()
+    phase_probe(card_line)
     log("reduced: none (954 shards, full size)")
     results: dict = {}
     holder, backend, wide_stacks = phase_main(results)

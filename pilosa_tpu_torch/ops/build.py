@@ -28,10 +28,12 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
-#: Kernel sources by library name: bitcount.cu (K1-K3, the count path) and
-#: group.cu (K4-K7, the GroupBy tensor).
+#: Kernel sources by library name: bitcount.cu (K1, K3: the count path on
+#: the CUDA cores), group.cu (K5-K7, the GroupBy tensor) and bmma.cu (K2,
+#: K4 on the tensor cores' binary MMA, and the AND-popcount rate probe).
 SOURCES = {
-    name: os.path.join(_HERE, "csrc", f"{name}.cu") for name in ("bitcount", "group")
+    name: os.path.join(_HERE, "csrc", f"{name}.cu")
+    for name in ("bitcount", "group", "bmma")
 }
 
 NVCC_FLAGS = (
@@ -114,26 +116,28 @@ def _compile(stale: dict) -> str:
 
 def _bind(name: str, lib) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "bitcount":
-        for fn_name in ("pair_stats_pershard_launch", "pair_stats_launch"):
-            fn = getattr(lib, fn_name)
-            fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-            fn.restype = i32
-        lib.popcount_rows_launch.argtypes = [ptr, ptr, i32, i32, ptr]
-        lib.popcount_rows_launch.restype = i32
-        return
-    for fn_name in ("group_tile_stats_launch", "group_tile_stats_pershard_launch",
-                    "nary_stats_launch", "nary_stats_pershard_launch"):
+    # f, g, out, s, rf, rg, w, stream
+    pair = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    # f, g, extra pointers, extra heights, n_extra, rows_idx, active, filt,
+    # out, s, rf, rg, w, n_slots, stream
+    group = [ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    signatures = {
+        "bitcount": {"pair_stats_pershard_launch": pair,
+                     "popcount_rows_launch": [ptr, ptr, i32, i32, ptr]},
+        "group": {"group_tile_stats_pershard_launch": group,
+                  "nary_stats_launch": group, "nary_stats_pershard_launch": group},
+        "bmma": {"pair_stats_launch": pair, "group_tile_stats_launch": group,
+                 # mode, iters, out, blocks, stream
+                 "and_popc_probe_launch": [i32, i32, ptr, i32, ptr]},
+    }
+    for fn_name, argtypes in signatures[name].items():
         fn = getattr(lib, fn_name)
-        # f, g, extra pointers, extra heights, n_extra, rows_idx, active,
-        # filt, out, s, rf, rg, w, n_slots, stream
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr,
-                       i32, i32, i32, i32, i32, ptr]
+        fn.argtypes = argtypes
         fn.restype = i32
 
 
 def library(name: str):
-    """The loaded kernel library ``name`` ("bitcount" or "group"). The
+    """The loaded kernel library ``name`` ("bitcount", "group" or "bmma"). The
     first call builds every library whose source changed."""
     global build_seconds, build_log
     lib = _libs.get(name)

@@ -2,24 +2,21 @@
 //
 // Stacks are int32[S, R, W] with W = 32768 words per shard row (one shard of
 // 2^20 columns); the bits are the same as the uint32 layout the host packs.
-// Every kernel here is a stream over device memory with no tensor-core
-// work: each word is read once, ANDed and popcounted. Two rates bound
-// them on an H100 SXM: the memory rate (3.35 TB/s), and the popcount issue
-// rate, 16 a clock per SM (CUDA C++ Programming Guide, arithmetic
-// instruction throughput, compute capability 9.0): 132 SMs x 1.98 GHz x 16
-// = 4.2e12 a second. The popcount-reduce does one popcount per 4 bytes and
-// is bound by bytes. An 8 x 8 pair sweep does 64 + 16 = 80 popcounts per
-// 64 bytes read, which takes the same time at either rate, so both bound
-// it; with more rows the popcounts (Rf*Rg per word) bound it. Design
-// against that:
+// The kernels here run on the CUDA cores: each word is read once, ANDed and
+// popcounted. Two rates bound them on an H100 SXM: the memory rate (3.35
+// TB/s), and the popcount issue rate, 16 a clock per SM (CUDA C++
+// Programming Guide, arithmetic instruction throughput, compute capability
+// 9.0): 132 SMs x 1.98 GHz x 16 = 4.2e12 a second. The popcount-reduce does
+// one popcount per 4 bytes and is bound by bytes. An 8 x 8 per-shard pair
+// sweep does 64 + 16 = 80 popcounts per 64 bytes read, which takes the same
+// time at either rate. (The shard-summed pair kernel K2 runs on the tensor
+// cores' binary MMA, in bmma.cu.) Design against that:
 //
 //   - threads read 16-byte vectors (uint4), neighbouring threads on
 //     neighbouring addresses, so every warp load is a full 512-byte burst;
 //   - partial sums live in registers for the whole stream and are reduced
 //     once per block, with warp shuffles and a small shared-memory table;
-//   - each block owns its outputs, so the per-shard kernel needs no
-//     atomics and the shard-summed kernel needs one atomicAdd per output
-//     cell per block.
+//   - each block owns its outputs, so no atomics are needed.
 //
 // Each entry point returns cudaGetLastError() right after its launch, so a
 // launch the card refuses is reported to the caller instead of being lost.
@@ -52,24 +49,20 @@ __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
   return v;
 }
 
-// K1 / K2. Replaces the Pallas kernels pair_stats_pershard (K1,
-// pilosa_tpu/ops/kernels.py:142) and pair_stats (K2, :81). The TPU
-// kernels carry the sum in VMEM across a sequential (shard, word-tile)
-// grid; blocks on Hopper run in no order, so the grid here is (shard, pair
-// tile) and the word axis is a loop inside the block. At the main path's
-// 8 x 8 rows one tile is the whole pair matrix and each word is read
-// once; with more rows each tile re-reads its 2 x kTile rows, and the
-// popcount issue rate, not the bytes, bounds the sweep.
+// K1. Replaces the Pallas kernel pair_stats_pershard
+// (pilosa_tpu/ops/kernels.py:142). The TPU kernel carries the sum in VMEM
+// across a sequential (shard, word-tile) grid; blocks on Hopper run in no
+// order, so the grid here is (shard, pair tile) and the word axis is a loop
+// inside the block. At the main path's 8 x 8 rows one tile is the whole
+// pair matrix and each word is read once; with more rows each tile re-reads
+// its 2 x kTile rows, and the popcount issue rate, not the bytes, bounds
+// the sweep.
 //
 // Block (s, t) computes, for the kTile x kTile tile t of (a, b) pairs:
 //   pair[s, a, b] = popcount(F[s, a, :] & G[s, b, :])
 // and, in the blocks of the first tile row / column, cf[s, a] and cg[s, b].
 // Output row layout (per shard, D = rf*rg + rf + rg int32 cells):
-//   [pair (row-major rf x rg) | cf (rf) | cg (rg)].
-// PERSHARD writes out[s * D + cell]; otherwise out is one zeroed row of D
-// cells and each block adds its shard's values with atomicAdd (exact in
-// int32 while S * 2^20 < 2^31, the caller's MAX_PAIR_SHARDS bound).
-template <bool PERSHARD>
+//   [pair (row-major rf x rg) | cf (rf) | cg (rg)], at out[s * D + cell].
 __global__ void __launch_bounds__(kThreads)
 pair_stats_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
                   int32_t* __restrict__ out, int rf, int rg, int w4,
@@ -148,12 +141,7 @@ pair_stats_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
       const int b = k - kTile * kTile - kTile;
       if (ta == 0 && b < nb) cell = rf * rg + rf + b0 + b;
     }
-    if (cell < 0) continue;
-    if (PERSHARD) {
-      out[(size_t)s * d + cell] = (int32_t)v;
-    } else {
-      atomicAdd(out + cell, (int32_t)v);
-    }
+    if (cell >= 0) out[(size_t)s * d + cell] = (int32_t)v;
   }
 }
 
@@ -180,24 +168,6 @@ popcount_rows_kernel(const uint4* __restrict__ x, int32_t* __restrict__ out,
   }
 }
 
-int pair_launch(bool pershard, const void* f, const void* g, void* out, int s,
-                int rf, int rg, int w, void* stream) {
-  const int tiles_a = (rf + kTile - 1) / kTile;
-  const int tiles_b = (rg + kTile - 1) / kTile;
-  const dim3 grid(s, tiles_a * tiles_b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pershard) {
-    pair_stats_kernel<true><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint4*>(f), static_cast<const uint4*>(g),
-        static_cast<int32_t*>(out), rf, rg, w / 4, tiles_b);
-  } else {
-    pair_stats_kernel<false><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint4*>(f), static_cast<const uint4*>(g),
-        static_cast<int32_t*>(out), rf, rg, w / 4, tiles_b);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Pointers are 16-byte aligned,
@@ -207,14 +177,13 @@ int pair_launch(bool pershard, const void* f, const void* g, void* out, int s,
 extern "C" int pair_stats_pershard_launch(const void* f, const void* g,
                                           void* out, int s, int rf, int rg,
                                           int w, void* stream) {
-  return pair_launch(true, f, g, out, s, rf, rg, w, stream);
-}
-
-// The same stats summed over shards into out int32[rf*rg + rf + rg], which
-// the caller has zeroed on the same stream.
-extern "C" int pair_stats_launch(const void* f, const void* g, void* out,
-                                 int s, int rf, int rg, int w, void* stream) {
-  return pair_launch(false, f, g, out, s, rf, rg, w, stream);
+  const int tiles_a = (rf + kTile - 1) / kTile;
+  const int tiles_b = (rg + kTile - 1) / kTile;
+  const dim3 grid(s, tiles_a * tiles_b);
+  pair_stats_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(f), static_cast<const uint4*>(g),
+      static_cast<int32_t*>(out), rf, rg, w / 4, tiles_b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // x int32[n, w] -> out int32[n], the popcount of each row.

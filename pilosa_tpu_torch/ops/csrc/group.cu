@@ -6,12 +6,12 @@
 //   out[q, (s,) a, b] = popcount(F[s, a, :] & G[s, b, :] & m_q[s, :])
 //   m_q[s, :]         = H1[s, r1(q), :] & ... & HE[s, rE(q), :] [& filt[s, :]]
 //
-// for slots q, each naming one row of every extra field H. Four kernels,
-// instantiations of one template:
+// for slots q, each naming one row of every extra field H. Three kernels,
+// instantiations of one template (the fourth, K4 group_tile_stats, the
+// filtered and shard-summed tile, runs on the tensor cores in bmma.cu):
 //
-//   K4 group_tile_stats           rows r_e(q) from an int32[T, E] table,
-//                                 summed over shards, optional filter;
-//   K5 group_tile_stats_pershard  the same per shard, unfiltered;
+//   K5 group_tile_stats_pershard  rows r_e(q) from an int32[T, E] table,
+//                                 per shard, unfiltered;
 //   K6 nary_stats                 every row combination: q runs as an
 //                                 odometer over the extras' rows (last extra
 //                                 fastest), decoded in the kernel; summed,
@@ -20,16 +20,17 @@
 //
 // They replace the TPU's Pallas kernels nary_stats (K6,
 // pilosa_tpu/ops/kernels.py:253) and nary_stats_pershard (K7, :349), and
-// the fused-XLA tile programs group_tile_stats (K4, :642) and
-// group_tile_stats_pershard (K5, :656). On the TPU the k axis and the
-// shard axis are sequential grid axes with the sum carried in VMEM; here
-// each block owns one (slot, shard, 8 x 8 pair tile) and loops over the
-// words, like the pair kernels.
+// the fused-XLA tile program group_tile_stats_pershard (K5, :656). On the
+// TPU the k axis and the shard axis are sequential grid axes with the sum
+// carried in VMEM; here each block owns one (slot, shard, 8 x 8 pair tile)
+// and loops over the words, like the per-shard pair kernel.
 //
 // What bounds them: every slot does Rf * Rg popcounts a word, so at the
 // main path's 8 x 8 pair face the popcount issue rate (16 a clock per SM,
 // 4.2e12 a second on an H100 SXM) bounds a sweep, not its bytes: a slot
 // reads its F and G words (16 a word) plus E extra words for 64 popcounts.
+// (On the tensor cores' b1 MMA, bmma.cu, the same work is bound by its
+// bytes: that is where K4 went, and where these three are to follow.)
 // The design keeps that to one pass over device memory:
 //
 //   - the slot axis is the fastest grid axis, so the T slots of one
@@ -88,7 +89,7 @@ __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
 
 // Block (q, s, t): slot q, shard s, pair tile t. ODOMETER decodes the
 // slot's rows from q (K6/K7); otherwise rows_idx[q, :] names them and
-// active[q] == 0 makes the slot write nothing (K4/K5). PERSHARD writes
+// active[q] == 0 makes the slot write nothing (K5). PERSHARD writes
 // out[((q * S + s) * rf + a) * rg + b]; otherwise out[(q * rf + a) * rg + b]
 // gathers every shard's part by atomicAdd.
 template <bool PERSHARD, bool FILTERED, bool ODOMETER>
@@ -207,7 +208,7 @@ int group_launch(bool pershard, bool odometer, const void* f, const void* g,
   const bool filtered = filt != nullptr;
   if (n_extra < 1 || n_extra > kMaxExtras || n_slots < 1 || s < 1 ||
       s > kMaxGridYZ || tiles_a * tiles_b > kMaxGridYZ ||
-      (pershard && filtered) || (!odometer && (!rows_idx || !active))) {
+      (pershard && filtered) || (!odometer && (!pershard || !rows_idx || !active))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ExtraTable ex;
@@ -229,34 +230,20 @@ int group_launch(bool pershard, bool odometer, const void* f, const void* g,
     return launch<false, false, true>(grid, st, f, g, ex, rows_idx, active,
                                       filt, out, s, rf, rg, w4, tiles_b);
   }
-  if (pershard)
-    return launch<true, false, false>(grid, st, f, g, ex, rows_idx, active,
-                                      filt, out, s, rf, rg, w4, tiles_b);
-  if (filtered)
-    return launch<false, true, false>(grid, st, f, g, ex, rows_idx, active,
-                                      filt, out, s, rf, rg, w4, tiles_b);
-  return launch<false, false, false>(grid, st, f, g, ex, rows_idx, active,
-                                     filt, out, s, rf, rg, w4, tiles_b);
+  return launch<true, false, false>(grid, st, f, g, ex, rows_idx, active,
+                                    filt, out, s, rf, rg, w4, tiles_b);
 }
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes; one signature for all four.
+// Plain C entry points, bound with ctypes; one signature for all three
+// (and for bmma.cu's group_tile_stats_launch).
 // f int32[s, rf, w], g int32[s, rg, w]; ptrs / heights: host arrays of
 // n_extra (<= 8) extra stacks int32[s, heights[e], w]; rows_idx int32[T,
-// n_extra] and active int32[T] on the device (K4/K5, null for K6/K7);
-// filt int32[s, w] or null (K4/K6 only); out zeroed by the caller on the
+// n_extra] and active int32[T] on the device (K5, null for K6/K7);
+// filt int32[s, w] or null (K6 only); out zeroed by the caller on the
 // same stream. Pointers are 16-byte aligned, w is a multiple of 4, and
 // the caller has checked every shape and row index.
-
-// out int32[T, rf, rg], summed over shards.
-extern "C" int group_tile_stats_launch(
-    const void* f, const void* g, const void* const* ptrs, const int* heights,
-    int n_extra, const void* rows_idx, const void* active, const void* filt,
-    void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
-  return group_launch(false, false, f, g, ptrs, heights, n_extra, rows_idx,
-                      active, filt, out, s, rf, rg, w, n_slots, stream);
-}
 
 // out int32[T, s, rf, rg].
 extern "C" int group_tile_stats_pershard_launch(

@@ -1,8 +1,11 @@
 """Popcount kernels of the count and GroupBy paths, each with its plain
 PyTorch version.
 
-Three hand-written CUDA kernels of the count path (ops/csrc/bitcount.cu) and
-four of the group tensor (ops/csrc/group.cu), built by ops/build.py:
+Hand-written CUDA kernels, built by ops/build.py: the per-shard pair and
+the popcount-reduce of the count path on the CUDA cores (ops/csrc/
+bitcount.cu), the shard-summed pair and the filtered group tile on the
+tensor cores' binary MMA (ops/csrc/bmma.cu), and three more group-tensor
+kernels (ops/csrc/group.cu):
 
 - ``pair_stats_pershard`` (K1): per shard s, over int32[S, Rf, W] and
   int32[S, Rg, W] stacks,
@@ -14,16 +17,16 @@ four of the group tensor (ops/csrc/group.cu), built by ops/build.py:
   returned as one flat int32[S, Rf*Rg + Rf + Rg] table, each row laid out
   ``[pair.ravel() | cf | cg]``. Per-shard counts are <= 2^20, so int32 is
   exact for any shard count.
-- ``pair_stats`` (K2): the same stats summed over shards, int32[D]. Exact
-  while S <= MAX_PAIR_SHARDS (S * 2^20 < 2^31).
+- ``pair_stats`` (K2, bmma.cu): the same stats summed over shards,
+  int32[D]. Exact while S <= MAX_PAIR_SHARDS (S * 2^20 < 2^31).
 - ``popcount_rows`` (K3): int32[N, W] -> int32[N], the popcount of each row.
 - the group tensor of an N-field GroupBy (K4-K7): for slots q, with m_q the
   AND of one row of each extra field (and of a filter slab),
 
       out[q, (s,) a, b] = popcount(F[s, a, :] & G[s, b, :] & m_q[s, :])
 
-  ``group_tile_stats`` (K4, summed over shards, optional filter) and
-  ``group_tile_stats_pershard`` (K5, per shard) take each slot's extra rows
+  ``group_tile_stats`` (K4, bmma.cu, summed over shards, optional filter)
+  and ``group_tile_stats_pershard`` (K5, per shard) take each slot's extra rows
   from an int32[T, E] table and an ``active`` flag per slot (an inactive
   slot is exactly 0); ``nary_stats`` (K6, summed, optional filter) and
   ``nary_stats_pershard`` (K7) run the full odometer over the extras, slot
@@ -245,14 +248,21 @@ def _check_pair_args(name: str, f: torch.Tensor, g: torch.Tensor) -> None:
         )
 
 
+#: The library that holds each kernel's entry point.
+_LIBRARY = {
+    "pair_stats_pershard": "bitcount", "pair_stats": "bmma", "popcount_rows": "bitcount",
+    "group_tile_stats": "bmma", "group_tile_stats_pershard": "group",
+    "nary_stats": "group", "nary_stats_pershard": "group",
+}
+
+
 def _launch_pair(name: str, f: torch.Tensor, g: torch.Tensor,
                  out: torch.Tensor) -> None:
     from pilosa_tpu_torch.ops.build import library
 
     s, rf, w = f.shape
     rg = g.shape[1]
-    lib = library("bitcount")
-    fn = getattr(lib, name + "_launch")
+    fn = getattr(library(_LIBRARY[name]), name + "_launch")
     stream = torch.cuda.current_stream(f.device).cuda_stream
     _LAUNCHES[name] += 1
     _check_rc(name, fn(f.data_ptr(), g.data_ptr(), out.data_ptr(),
@@ -366,7 +376,7 @@ def _launch_group(name, f, g, extras, filt, rows, act, out, n_slots) -> None:
 
     s, rf, w = f.shape
     rg = g.shape[1]
-    lib = library("group")
+    lib = library(_LIBRARY[name])
     ptrs = (ctypes.c_void_p * MAX_GROUP_EXTRAS)(*[h.data_ptr() for h in extras])
     heights = (ctypes.c_int * MAX_GROUP_EXTRAS)(*[h.shape[1] for h in extras])
     stream = torch.cuda.current_stream(f.device).cuda_stream

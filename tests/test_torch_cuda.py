@@ -116,6 +116,60 @@ def test_group_kernels_equal_plain_versions(card, s, rf, rg, heights, filtered):
     assert not got["group_tile_stats"][[2, 5]].any()
 
 
+# (S, Rf, Rg, W) of the tensor-core K2: a 2 x 2 grid of its 128 x 128
+# staged tiles, faces off its m16 / n8 sub-tiles, the largest register-direct
+# face, and 36-word axes (not a multiple of its 8-word k-chunk) on both routes.
+TENSOR_PAIR_SHAPES = [(2, 256, 256, W), (3, 17, 130, W), (1, 16, 8, W),
+                      (2, 40, 24, 36), (3, 16, 8, 36)]
+
+
+@pytest.mark.parametrize("s,rf,rg,w", TENSOR_PAIR_SHAPES)
+def test_tensor_core_pair_stats_equals_plain(card, s, rf, rg, w):
+    rng = np.random.default_rng(s * 1000 + rf + rg + w)
+    f, g = _words(rng, s, rf, w), _words(rng, s, rg, w)
+    fd, gd = stack_from_reference(f, card), stack_from_reference(g, card)
+    before = K.launch_counts()["pair_stats"]
+    got = K.pair_stats(fd, gd)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["pair_stats"] == before + 1
+    want = K.pair_stats_torch(stack_from_reference(f, "cpu"), stack_from_reference(g, "cpu"),
+                              False)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("rf,rg,w", [(9, 8, W), (16, 13, W), (9, 16, 36)])
+def test_tensor_core_group_tile_equals_plain(card, rf, rg, w):
+    """K4's slot pairs: 1 to 9 slots, every third inactive, filtered and not."""
+    rng = np.random.default_rng(rf * 100 + rg + w)
+    s, heights = 2, (3, 5)
+    f, g = _words(rng, s, rf, w), _words(rng, s, rg, w)
+    hs = [_words(rng, s, r, w) for r in heights]
+    filt = _words(rng, s, w) | _words(rng, s, w)
+    dev = [stack_from_reference(x, card) for x in [f, g, filt, *hs]]
+    cpu = [stack_from_reference(x, "cpu") for x in [f, g, filt, *hs]]
+    for n in range(1, 10):
+        rows = np.stack([rng.integers(0, r, n) for r in heights], axis=1).astype(np.int32)
+        active = np.array([int(q % 3 != 2) for q in range(n)], dtype=np.int32)
+        for filtered in (False, True):
+            before = K.launch_counts()["group_tile_stats"]
+            got = K.group_tile_stats(dev[0], dev[1], tuple(dev[3:]), rows, active,
+                                     dev[2] if filtered else None)
+            torch.cuda.synchronize()
+            assert K.launch_counts()["group_tile_stats"] == before + 1
+            want = K.group_tile_stats_torch(cpu[0], cpu[1], tuple(cpu[3:]), rows, active,
+                                            cpu[2] if filtered else None)
+            assert torch.equal(got.cpu(), want), (n, filtered)
+            assert not got[torch.from_numpy(active == 0).to(card)].any()
+
+
+def test_and_popc_probe_rates(card):
+    from pilosa_tpu_torch.ops.probe import and_popc_rates
+
+    rates = and_popc_rates(card, target_ms=5.0)
+    assert set(rates) == {"b1", "s8", "popc"}
+    assert all(0 < r < float("inf") for r in rates.values())
+
+
 def test_kernels_refuse_misaligned_words(card):
     flat = torch.zeros(4 * W + 1, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="16-byte"):

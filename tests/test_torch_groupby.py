@@ -119,6 +119,25 @@ def test_group_tile_stats_match_jax_with_padded_slots(s, rf, rg, heights, filter
             assert torch.equal(got[q], full[k])
 
 
+@pytest.mark.parametrize("rf,rg", [(9, 8), (16, 13)])
+@pytest.mark.parametrize("n_slots", [1, 3, 7])
+@pytest.mark.parametrize("filtered", [False, True])
+def test_group_tile_stats_slot_pairs_match_jax(rf, rg, n_slots, filtered):
+    """The tensor-core K4 stacks slots in pairs along the MMA's M axis and
+    takes F and G in 8-row tiles: odd slot counts (the last slot paired
+    with nothing), inactive slots (every third), and Rf = 9 and 16."""
+    f, g, hs, filt = _case(2, rf, rg, (3, 5), filtered)
+    rng = np.random.default_rng(rf * 10 + n_slots)
+    rows_idx = np.stack([rng.integers(0, r, n_slots) for r in (3, 5)], axis=1).astype(np.int32)
+    active = np.array([int(q % 3 != 2) for q in range(n_slots)], dtype=np.uint32)
+    got = K.group_tile_stats(_t(f), _t(g), tuple(map(_t, hs)), rows_idx, active,
+                             None if filt is None else _t(filt))
+    want = np.asarray(JK.group_tile_stats(f, g, hs, rows_idx, active, filt))
+    assert tuple(got.shape) == (n_slots, rf, rg)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[active == 0].any()
+
+
 def test_group_wrappers_reject_bad_inputs():
     rng = np.random.default_rng(5)
     f, g = _t(_words(rng, 2, 8, 64)), _t(_words(rng, 2, 8, 64))

@@ -22,17 +22,24 @@ from pilosa_tpu_torch.ops import kernels as K
 W = 32768
 
 # (shards, Rf, Rg): the main path's square 8 x 8 pair, Rf != Rg both ways,
-# a tile edge (Rg not a multiple of the CUDA kernel's 8-row tile), S = 1.
-SHAPES = [(2, 8, 8), (3, 8, 16), (2, 16, 8), (2, 8, 12), (1, 8, 8)]
+# a tile edge (Rg not a multiple of the CUDA kernel's 8-row tile), S = 1;
+# faces off the tensor-core K2's m16 and n8 sub-tiles on its staged route.
+SHAPES = [(2, 8, 8), (3, 8, 16), (2, 16, 8), (2, 8, 12), (1, 8, 8), (2, 40, 24),
+          (1, 17, 130)]
+# (shards, Rf, Rg, words): word axes that are not a multiple of the
+# tensor-core K2's 8-word k-chunk or of its 32-word stage, on both of its
+# routes (Rf <= 16 and Rg <= 8 load registers directly; larger faces stage).
+SHORT_WORD_SHAPES = [(2, 40, 24, 36), (1, 17, 130, 100), (3, 16, 8, 36), (2, 8, 8, 36),
+                     (1, 1, 1, 4)]
 
 
-def _stacks(seed, s, rf, rg):
+def _stacks(seed, s, rf, rg, w=W):
     """uint32 stacks with row 0 all zeros and the last row all ones, the
     rest random at bit density 1/16 (the AND of four random words)."""
     rng = np.random.default_rng(seed)
 
     def one(r):
-        words = rng.integers(0, 2**32, (4, s, r, W), dtype=np.uint32)
+        words = rng.integers(0, 2**32, (4, s, r, w), dtype=np.uint32)
         words = np.bitwise_and.reduce(words, axis=0)
         words[:, 0, :] = 0
         words[:, -1, :] = 0xFFFFFFFF
@@ -71,6 +78,18 @@ def test_pair_stats_summed_matches_pallas_and_xla(s, rf, rg):
         got.numpy(), _jax_flat(*jax_pair_stats(f, g, interpret=True), False)
     )
     np.testing.assert_array_equal(got.numpy(), _jax_flat(*pair_stats_xla(f, g), False))
+
+
+@pytest.mark.parametrize("s,rf,rg,w", SHORT_WORD_SHAPES)
+def test_pair_stats_short_word_axes_match_pallas(s, rf, rg, w):
+    f, g = _stacks(s * 300 + rf + rg + w, s, rf, rg, w)
+    ft, gt = stack_from_reference(f, "cpu"), stack_from_reference(g, "cpu")
+    np.testing.assert_array_equal(
+        K.pair_stats(ft, gt).numpy(),
+        _jax_flat(*jax_pair_stats(f, g, interpret=True), False))
+    np.testing.assert_array_equal(
+        K.pair_stats_pershard(ft, gt).numpy(),
+        _jax_flat(*jax_pair_stats_pershard(f, g, interpret=True), True))
 
 
 def test_pair_table_layout():
