@@ -47,16 +47,6 @@ __device__ __forceinline__ void mma_b1(uint32_t (&d)[4], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void mma_s8(uint32_t (&d)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t popc4(const uint4& v) {
   return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
 }
@@ -97,23 +87,19 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "memory");
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n <= 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        n <= 0) {
-      n = 132;
-    }
-  }
-  return n;
+// The SM count of the current device, asked at every launch (the runtime
+// answers from its cached properties), so that each device gets its own.
+cudaError_t sm_count(int* n) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  return e;
 }
 
 // Word slices of a shard row for the register-direct kernels: enough
 // blocks for several waves, each slice at least 1024 words.
-int word_slices(int blocks_per_slice, int w4) {
-  const int want = 16 * sm_count();
+int word_slices(int sms, int blocks_per_slice, int w4) {
+  const int want = 16 * sms;
   int n = (want + blocks_per_slice - 1) / blocks_per_slice;
   const int most = w4 / 256 > 1 ? w4 / 256 : 1;
   if (n > most) n = most;
@@ -128,14 +114,14 @@ int word_slices(int blocks_per_slice, int w4) {
 constexpr int kProbeThreads = 512;
 constexpr int kProbeChains = 4;
 
-// MODE 0: m16n8k256 b1 AND-popc MMAs; 1: m16n8k32 s8 MMAs; 2: __popc(a & b)
-// on the CUDA cores. Each thread writes one word so that the loop is live.
+// MODE 0: m16n8k256 b1 AND-popc MMAs; 1: __popc(a & b) on the CUDA cores.
+// Each thread writes one word so that the loop is live.
 template <int MODE>
 __global__ void __launch_bounds__(kProbeThreads)
 probe_kernel(uint32_t* __restrict__ out, int iters) {
   const uint32_t seed = blockIdx.x * kProbeThreads + threadIdx.x;
   uint32_t sink = 0u;
-  if (MODE == 2) {
+  if (MODE == 1) {
     uint32_t a[8], b[8], acc[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -164,13 +150,7 @@ probe_kernel(uint32_t* __restrict__ out, int iters) {
     }
     for (int i = 0; i < iters; ++i) {
 #pragma unroll
-      for (int c = 0; c < kProbeChains; ++c) {
-        if (MODE == 0) {
-          mma_b1(acc[c], a[0], a[1], a[2], a[3], b0, b1);
-        } else {
-          mma_s8(acc[c], a[0], a[1], a[2], a[3], b0, b1);
-        }
-      }
+      for (int c = 0; c < kProbeChains; ++c) mma_b1(acc[c], a[0], a[1], a[2], a[3], b0, b1);
     }
 #pragma unroll
     for (int c = 0; c < kProbeChains; ++c) {
@@ -633,10 +613,10 @@ group_pair_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
 // Plain C entry points, bound with ctypes. Pointers are 16-byte aligned,
 // w is a multiple of 4, and the caller has checked every shape.
 
-// The rate probe. mode 0: b1 AND-popc MMA, 1: s8 MMA, 2: CUDA-core popcount.
-// out uint32[blocks * 512]. Work per launch, in bit-products (mode 1: MACs):
-//   modes 0 / 1: blocks * 16 warps * iters * 4 chains * 16*8*256 (or 16*8*32);
-//   mode 2:      blocks * 512 threads * iters * 8 words * 32.
+// The rate probe. mode 0: b1 AND-popc MMA, 1: CUDA-core popcount.
+// out uint32[blocks * 512]. Work per launch, in bit-products:
+//   mode 0: blocks * 16 warps * iters * 4 chains * 16*8*256;
+//   mode 1: blocks * 512 threads * iters * 8 words * 32.
 extern "C" int and_popc_probe_launch(int mode, int iters, void* out, int blocks,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -645,8 +625,6 @@ extern "C" int and_popc_probe_launch(int mode, int iters, void* out, int blocks,
     probe_kernel<0><<<blocks, kProbeThreads, 0, st>>>(o, iters);
   } else if (mode == 1) {
     probe_kernel<1><<<blocks, kProbeThreads, 0, st>>>(o, iters);
-  } else if (mode == 2) {
-    probe_kernel<2><<<blocks, kProbeThreads, 0, st>>>(o, iters);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -662,10 +640,13 @@ extern "C" int pair_stats_launch(const void* f, const void* g, void* out, int s,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (rf <= 16 && rg <= 8) {
     if (s > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
     const int w4 = w / 4;
-    const int slices = word_slices(s, w4);
+    const int slices = word_slices(sms, s, w4);
     const int slice_w4 = (w4 + slices - 1) / slices;
     const dim3 grid((w4 + slice_w4 - 1) / slice_w4, s);
     pair_face_kernel<<<grid, kThreads, 0, st>>>(
@@ -673,18 +654,15 @@ extern "C" int pair_stats_launch(const void* f, const void* g, void* out, int s,
         static_cast<int32_t*>(out), rf, rg, w4, slice_w4);
     return static_cast<int>(cudaGetLastError());
   }
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pair_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
-  }
+  // Set on every launch: the attribute belongs to the current device.
+  e = cudaFuncSetAttribute(pair_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kGemmSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_m = (rf + kBM - 1) / kBM;
   const int tiles_n = (rg + kBN - 1) / kBN;
   const int n_tiles = tiles_m * tiles_n;
   const int k_stages = s * ((w + kBKW - 1) / kBKW);
-  int splits = sm_count() / n_tiles;
+  int splits = sms / n_tiles;
   if (splits < 1) splits = 1;
   if (splits > k_stages) splits = k_stages;
   const int per_split = (k_stages + splits - 1) / splits;
@@ -718,8 +696,11 @@ extern "C" int group_tile_stats_launch(
     ex.rows[e] = e < n_extra ? heights[e] : 0;
   }
   ex.n = n_extra;
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int w4 = w / 4;
-  int slices = word_slices(groups * s * tiles_a * tiles_b, w4);
+  int slices = word_slices(sms, groups * s * tiles_a * tiles_b, w4);
   while (slices > 1 && (long long)s * slices > kMaxGridYZ) --slices;
   const int slice_w4 = (w4 + slices - 1) / slices;
   slices = (w4 + slice_w4 - 1) / slice_w4;

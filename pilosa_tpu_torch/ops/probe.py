@@ -4,12 +4,10 @@ One block per SM runs a register-only loop of one instruction kind:
 
 - ``b1``: ``mma.sync.m16n8k256.b1.and.popc`` on the tensor cores, 16 * 8 *
   256 bit-products an instruction;
-- ``s8``: ``mma.sync.m16n8k32.s8`` on the tensor cores, 16 * 8 * 32
-  multiply-adds an instruction (on 0/1 bytes, one bit-product each);
 - ``popc``: ``__popc(a & b)`` on the CUDA cores, 32 bit-products each.
 
 ``and_popc_rates()`` times each with CUDA events and returns bit-products
-(for ``s8``, multiply-adds) a second. It needs a CUDA card.
+a second. It needs a CUDA card.
 
 The bound of a pair or group kernel is the least time the card could take
 for its work: the larger of its bytes (each input read once, each output
@@ -33,11 +31,10 @@ INT8_MACS_PER_S = 9.9e14
 
 PROBE_THREADS = 512
 PROBE_CHAINS = 4
-MODES = {"b1": 0, "s8": 1, "popc": 2}
+MODES = {"b1": 0, "popc": 1}
 #: Work one thread-iteration of each mode does.
 _WORK = {
     "b1": PROBE_CHAINS * 16 * 8 * 256 / 32,  # per lane: a warp's MMAs / 32
-    "s8": PROBE_CHAINS * 16 * 8 * 32 / 32,
     "popc": 8 * 32,
 }
 

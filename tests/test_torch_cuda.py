@@ -166,7 +166,7 @@ def test_and_popc_probe_rates(card):
     from pilosa_tpu_torch.ops.probe import and_popc_rates
 
     rates = and_popc_rates(card, target_ms=5.0)
-    assert set(rates) == {"b1", "s8", "popc"}
+    assert set(rates) == {"b1", "popc"}
     assert all(0 < r < float("inf") for r in rates.values())
 
 
