@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--root DIR]
 
 Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
-nvcc, then:
+nvcc, then runs the phases below. ``--root DIR`` drives the
+pilosa_tpu_torch package of another checkout DIR instead of this script's
+own (its kernels built under DIR), so that two trees can be compared in
+turns by the same script on one card.
 
 1. card: prints the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, and the kernel build seconds with ptxas's report;
@@ -16,7 +19,8 @@ nvcc, then:
    build_index) built through the port's Holder / Field.import_bits and
    queried through Executor(holder, backend=CUDABackend(holder)): single
    Count(Intersect|Union|Difference|Xor(Row, Row)) calls (popcount kernel),
-   one request of 16 fused Counts (per-shard pair kernel) and Row(f=2);
+   one request of 16 fused Counts (per-shard pair kernel: cold, cached, and
+   with its pair-cache entry dropped, profiled) and Row(f=2);
    then a 256 x 256-row field pair over 128 shards, whose per-shard pair
    table is past the retention gate, so it takes the shard-summed pair
    kernel (the binary GEMM on the tensor cores), cold and then with the
@@ -39,10 +43,13 @@ nvcc, then:
 4. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
-   with inactive ones), exactly; with its median time, the plain
-   version's and its bound (each kernel's earlier time, recorded before
-   K2 and K4 moved to the tensor cores, is printed on a line of its own
-   and is not measured here); and the cross-check of
+   with inactive ones), exactly; with its median time by CUDA events
+   around a wrapper call, its own time by CUDA events around back-to-back
+   bare launches (kernel_ms: without the wrapper's host checks, output
+   zeroing and slot-table uploads), the plain version's time and
+   its bound (each kernel's earlier time, recorded before it moved to the
+   tensor cores, is printed on a line of its own and is not measured
+   here); and the cross-check of
    the odometer kernels (nary_stats, nary_stats_pershard) against the
    group tensor that GroupBy served;
 5. a small holder with an existence field: the whole Count/Row/Not/All
@@ -105,15 +112,6 @@ GROUP_QUERIES = [
 CARD_SHARDS = 2
 CARD_ROWS = 70
 
-SOURCES = {
-    "pair_stats_pershard": "pilosa_tpu_torch/ops/csrc/bitcount.cu",
-    "pair_stats": "pilosa_tpu_torch/ops/csrc/bmma.cu",
-    "popcount_rows": "pilosa_tpu_torch/ops/csrc/bitcount.cu",
-    "group_tile_stats": "pilosa_tpu_torch/ops/csrc/bmma.cu",
-    "group_tile_stats_pershard": "pilosa_tpu_torch/ops/csrc/group.cu",
-    "nary_stats": "pilosa_tpu_torch/ops/csrc/group.cu",
-    "nary_stats_pershard": "pilosa_tpu_torch/ops/csrc/group.cu",
-}
 REPLACES = {
     "pair_stats_pershard": "pilosa_tpu/ops/kernels.py:142",
     "pair_stats": "pilosa_tpu/ops/kernels.py:81",
@@ -127,12 +125,14 @@ REPLACES = {
 }
 COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "popcount_rows")
 # Each kernel's earlier time at the shape timed here, recorded by this
-# script on an NVIDIA H100 80GB HBM3 at 700.00 W before K2 and K4 moved to
-# the tensor cores. Printed for comparison on a line of its own, never in
-# the kernels line, whose numbers are all of this run.
+# script on an NVIDIA H100 80GB HBM3 at 700.00 W on the CUDA cores: K2 and
+# K4 before they moved to the tensor cores, K1 and K5 before they followed;
+# K3, K6 and K7, which have not moved, from the same run as K2's and K4's.
+# Printed for comparison on a line of its own, never in the kernels line,
+# whose numbers are all of this run.
 EARLIER_MS = {
-    "pair_stats_pershard": 1.2364, "pair_stats": 141.80, "popcount_rows": 0.06478,
-    "group_tile_stats": 4.0985, "group_tile_stats_pershard": 3.9087,
+    "pair_stats_pershard": 1.1817, "pair_stats": 141.80, "popcount_rows": 0.06478,
+    "group_tile_stats": 4.0985, "group_tile_stats_pershard": 3.8494,
     "nary_stats": 6.7276, "nary_stats_pershard": 6.6438,
     "pair_stats at S=954, 8 x 8": 1.1986,
 }
@@ -182,6 +182,77 @@ def host_ms(fn, reps: int = 5):
         out = fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return first, statistics.median(times), out
+
+
+def kernel_ms(launch, n: int = 20) -> float:
+    """A kernel's own device ms: CUDA events around n back-to-back calls of
+    ``launch``, which enqueues the bare kernel on inputs, output and slot
+    tables staged once (no zeroing, no host-to-device copy), over n. The
+    launches queue behind each other, so the host's cost of a launch is
+    hidden after the first. (torch.profiler lost between a third and all
+    of the kernels of such back-to-back windows on the card, so it does not
+    time them.)"""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+# Bare launches for kernel_ms: each enqueues one kernel through the
+# package's own launch helpers, its output and slot tables allocated once.
+# Outputs accumulate across calls (int32 atomics wrap): only the time is read.
+
+
+def bare_pair(name, f, g):
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+
+    width = K.pair_stats_width(f.shape[1], g.shape[1])
+    shape = (f.shape[0], width) if name == "pair_stats_pershard" else (width,)
+    out = torch.zeros(shape, dtype=torch.int32, device=f.device)
+    return lambda: K._launch_pair(name, f, g, out)
+
+
+def bare_group(name, f, g, extras, rows_idx=None, active=None, filt=None):
+    """A group kernel's bare launch: the slot table's kernels (K4, K5) take
+    rows_idx and active, the odometer kernels (K6, K7) neither."""
+    from pilosa_tpu_torch.ops import kernels as K
+
+    if rows_idx is None:
+        rows = act = None
+        n_slots = K._odometer_slots(extras)
+    else:
+        rows, act = (t.to(f.device) for t in K._slot_table(name, extras, rows_idx, active))
+        n_slots = rows.shape[0]
+    out = K._group_out(f, g, n_slots, name.endswith("_pershard"))
+    return lambda: K._launch_group(name, f, g, extras, filt, rows, act, out, n_slots)
+
+
+def bare_popcount_rows(x):
+    import torch
+
+    from pilosa_tpu_torch.ops import build
+    from pilosa_tpu_torch.ops import kernels as K
+
+    lib = build.library(K._LIBRARY["popcount_rows"])
+    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def launch():
+        rc = lib.popcount_rows_launch(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+                                      stream)
+        check(rc == 0, f"popcount_rows: CUDA launch failed with cudaError {rc}")
+
+    return launch
 
 
 def device_share(fn, label: str, n: int = 10) -> None:
@@ -411,6 +482,16 @@ def phase_main(results: dict):
     latencies["16-Count pair request"] = {"first_ms": first, "median_cached_ms": med}
     check(sum(global_stats.counter_totals("pair_stats_sweeps_total").values())
           == sum(sweeps0.values()) + 1, "the 16-Count request did not sweep once")
+
+    def pair_uncached():  # stacks resident, the f x g pair's cache entry dropped: one K1 sweep
+        backend._pair_cache.pop(("bench", "f", "g"), None)
+        return dev.execute("bench", pair_request)
+
+    launches_of("16-Count request, cache entry dropped", pair_uncached)
+    _, med, out = host_ms(pair_uncached)
+    check(same_answers(out, answers[pair_request]), "uncached pair answers moved")
+    latencies["16-Count pair request, uncached"] = {"median_ms": med}
+    device_share(pair_uncached, "16-Count request, uncached")
     cold, answers[wide_request] = launches_of(
         "16-Count wide request", lambda: dev.execute("wide", wide_request))
     latencies["16-Count wide pair request (cold)"] = {"first_ms": cold}
@@ -432,6 +513,7 @@ def phase_main(results: dict):
         "Row(f=2)": {},
         "16-Count request, uncached": {"pair_stats_pershard": 1},
         "16-Count request, cached": {},
+        "16-Count request, cache entry dropped": {"pair_stats_pershard": 1},
         "16-Count wide request": {"pair_stats": 1},
         "16-Count wide request, uncached": {"pair_stats": 1},
     }
@@ -586,6 +668,7 @@ def phase_groupby(holder, backend):
         latencies[label + " median"] = med
     device_share(sweep, "3-field GroupBy, sweep")
     device_share(lambda: dev.execute("bench", three), "3-field GroupBy, warm")
+    device_share(uncached(GROUP_QUERIES[4]), "3-field filtered GroupBy, sweep")
     log("groupby: latencies ms " + json.dumps(latencies))
 
     n_checked = 0
@@ -669,12 +752,15 @@ def kernel_bound(work):
     return sec * 1e3, by, route
 
 
-def kernel_line(name, ms, plain_ms, work, err, launches):
+def kernel_line(name, ms, k_ms, plain_ms, work, err, launches):
+    from pilosa_tpu_torch.ops import kernels as K
+
     bound_ms, by, route = kernel_bound(work)
     return {
-        "name": name, "route": "cuda", "source": SOURCES[name],
+        "name": name, "route": "cuda",
+        "source": f"pilosa_tpu_torch/ops/csrc/{K._LIBRARY[name]}.cu",
         "replaces": REPLACES[name], "launches": launches,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
         "bound_route": route,
     }
@@ -753,9 +839,9 @@ def phase_kernels(gstacks, wide_stacks, launches):
         log(f"kernels: exact at S={s} Rf={rf} Rg={rg} W={w}")
 
     # The group kernels at edge shapes: E = 2 with heights 3 and 5, Rf != Rg,
-    # Rg = 13, 7 slots with 2 inactive, S = 1, filtered; then K4's slot
-    # pairs: 1 to 9 slots (every third inactive) at Rf = 9 and 16, filtered
-    # and not, and a 36-word axis.
+    # Rg = 13, 7 slots with 2 inactive, S = 1, filtered; then K4's and K5's
+    # slot pairs: 1 to 9 slots (every third inactive, whose cells must stay
+    # 0) at Rf = 9 and 16, K4 filtered and not, and a 36-word axis.
     cpu_gen = torch.Generator().manual_seed(99)
 
     def slot_table(heights, n):
@@ -795,8 +881,14 @@ def phase_kernels(gstacks, wide_stacks, launches):
                                   K.group_tile_stats_torch(f, g, hs, rows, act, fl)) == 0,
                       f"group_tile_stats differs at S={s} Rf={rf} Rg={rg} W={w} "
                       f"slots={n} filtered={fl is not None}")
-        log(f"kernels: group_tile_stats exact at S={s} Rf={rf} Rg={rg} W={w}, "
-            f"1 to 9 slots, filtered and not")
+            per = K.group_tile_stats_pershard(f, g, hs, rows, act)
+            check(max_abs_err(per, K.group_tile_stats_pershard_torch(f, g, hs, rows, act)) == 0,
+                  f"group_tile_stats_pershard differs at S={s} Rf={rf} Rg={rg} W={w} "
+                  f"slots={n}")
+            check(not per[torch.tensor(act, device=dev) == 0].any(),
+                  f"group_tile_stats_pershard wrote an inactive slot at slots={n}")
+        log(f"kernels: group_tile_stats (filtered and not) and group_tile_stats_pershard "
+            f"exact at S={s} Rf={rf} Rg={rg} W={w}, 1 to 9 slots")
 
     lines = []
     f, g = main_stacks
@@ -805,40 +897,48 @@ def phase_kernels(gstacks, wide_stacks, launches):
     err = max_abs_err(K.pair_stats_pershard(f, g), K.pair_stats_torch(f, g, True))
     check(err == 0, "pair_stats_pershard differs on the main path's stacks")
     ms = time_ms(lambda: K.pair_stats_pershard(f, g))
+    k_ms = kernel_ms(bare_pair("pair_stats_pershard", f, g))
     plain = time_ms(lambda: K.pair_stats_torch(f, g, True), reps=3, warm=1)
-    lines.append(kernel_line("pair_stats_pershard", ms, plain, probe.pair_work(s, rf, rg, w, True),
-                             err, launches["pair_stats_pershard"]))
+    lines.append(kernel_line("pair_stats_pershard", ms, k_ms, plain,
+                             probe.pair_work(s, rf, rg, w, True), err,
+                             launches["pair_stats_pershard"]))
 
     # The count program's slab: Intersect(Row(f=1), Row(g=2)) over all shards.
     slab = (f[:, 1, :] & g[:, 2, :]).contiguous()
     err = max_abs_err(K.popcount_rows(slab), K.popcount_rows_torch(slab))
     check(err == 0, "popcount_rows differs on the main path's slab")
     ms = time_ms(lambda: K.popcount_rows(slab))
+    k_ms = kernel_ms(bare_popcount_rows(slab))
     plain = time_ms(lambda: K.popcount_rows_torch(slab), reps=5, warm=1)
     # Bytes: the slab read once, the counts written once; one popcount (32
     # bit-products' worth) a word.
     work = (slab.numel() * 4 + slab.shape[0] * 4, 32 * slab.numel())
-    lines.append(kernel_line("popcount_rows", ms, plain, work, err, launches["popcount_rows"]))
+    lines.append(kernel_line("popcount_rows", ms, k_ms, plain, work, err,
+                             launches["popcount_rows"]))
 
     a, b = wide_stacks
     sa, ra, wa = a.shape
     err = max_abs_err(K.pair_stats(a, b), K.pair_stats_torch(a, b, False))
     check(err == 0, "pair_stats differs on the wide pair's stacks")
     ms = time_ms(lambda: K.pair_stats(a, b), reps=5, warm=1)
+    k_ms = kernel_ms(bare_pair("pair_stats", a, b), n=5)
     plain = time_ms(lambda: K.pair_stats_torch(a, b, False), reps=1, warm=0)
-    line = kernel_line("pair_stats", ms, plain, probe.pair_work(sa, ra, b.shape[1], wa, False),
-                       err, launches["pair_stats"])
+    line = kernel_line("pair_stats", ms, k_ms, plain,
+                       probe.pair_work(sa, ra, b.shape[1], wa, False), err,
+                       launches["pair_stats"])
     # The shard-summed kernel on the main path's square shape too: the
     # filtered 2-field GroupBy's launch.
     err_sq = max_abs_err(K.pair_stats(f, g), K.pair_stats_torch(f, g, False))
     check(err_sq == 0, "pair_stats differs on the main path's stacks")
     ms_sq = time_ms(lambda: K.pair_stats(f, g))
+    k_ms_sq = kernel_ms(bare_pair("pair_stats", f, g))
     bound_sq, by_sq, _ = kernel_bound(probe.pair_work(s, rf, rg, w, False))
     line.update({"square_shape": [s, rf, rg, w], "square_ms": ms_sq,
-                 "square_bound_ms": bound_sq, "square_max_abs_err": err_sq})
+                 "square_kernel_ms": k_ms_sq, "square_bound_ms": bound_sq,
+                 "square_max_abs_err": err_sq})
     lines.append(line)
-    log(f"kernels: pair_stats at S={s} Rf={rf} Rg={rg}: {ms_sq:.4f} ms, bound "
-        f"{bound_sq:.4f} ms by {by_sq}, exact")
+    log(f"kernels: pair_stats at S={s} Rf={rf} Rg={rg}: {ms_sq:.4f} ms, kernel "
+        f"{k_ms_sq:.4f} ms, bound {bound_sq:.4f} ms by {by_sq}, exact")
 
     # The group kernels on the GroupBy path's inputs: the 4 live rows of h
     # as 4 slots (K4 filtered by Row(g=1)'s slab, as the filtered 3-field
@@ -848,31 +948,37 @@ def phase_kernels(gstacks, wide_stacks, launches):
     live = [[r] for r in range(H_ROWS)]
     ones = [1] * H_ROWS
     filt = g[:, 1, :].contiguous()
-    for name, kern, plain, work in [
+    for name, kern, bare, plain, work in [
         ("group_tile_stats", lambda: K.group_tile_stats(f, g, (h,), live, ones, filt),
+         bare_group("group_tile_stats", f, g, (h,), live, ones, filt),
          lambda: K.group_tile_stats_torch(f, g, (h,), live, ones, filt),
          probe.group_work(s, rf, rg, w, H_ROWS, H_ROWS, True, False)),
         ("group_tile_stats_pershard", lambda: K.group_tile_stats_pershard(f, g, (h,), live, ones),
+         bare_group("group_tile_stats_pershard", f, g, (h,), live, ones),
          lambda: K.group_tile_stats_pershard_torch(f, g, (h,), live, ones),
          probe.group_work(s, rf, rg, w, H_ROWS, H_ROWS, False, True)),
-        ("nary_stats", lambda: K.nary_stats(f, g, (h,)), lambda: K.nary_stats_torch(f, g, (h,)),
+        ("nary_stats", lambda: K.nary_stats(f, g, (h,)), bare_group("nary_stats", f, g, (h,)),
+         lambda: K.nary_stats_torch(f, g, (h,)),
          probe.group_work(s, rf, rg, w, rh, rh, False, False)),
         ("nary_stats_pershard", lambda: K.nary_stats_pershard(f, g, (h,)),
+         bare_group("nary_stats_pershard", f, g, (h,)),
          lambda: K.nary_stats_pershard_torch(f, g, (h,)),
          probe.group_work(s, rf, rg, w, rh, rh, False, True)),
     ]:
         err = max_abs_err(kern(), plain())
         check(err == 0, f"{name} differs on the GroupBy path's stacks")
         ms = time_ms(kern)
+        k_ms = kernel_ms(bare)
         plain_ms = time_ms(plain, reps=1, warm=0)
-        lines.append(kernel_line(name, ms, plain_ms, work, err, launches[name]))
+        lines.append(kernel_line(name, ms, k_ms, plain_ms, work, err, launches[name]))
     for ln in lines:
-        log(f"kernels: {ln['name']}: {ln['ms']:.4f} ms, plain {ln['plain_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms by "
+        log(f"kernels: {ln['name']}: {ln['ms']:.4f} ms, kernel {ln['kernel_ms']:.4f} ms, "
+            f"plain {ln['plain_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms by "
             f"{ln['bound_by']} (route {ln['bound_route']}); no single PyTorch call "
             f"computes a popcount, so no library yardstick")
-    log("kernels: earlier times ms, recorded before K2 and K4 moved to the tensor "
-        "cores (NVIDIA H100 80GB HBM3, 700.00 W), not measured in this run: "
-        + json.dumps(EARLIER_MS))
+    log("kernels: earlier times ms on the CUDA cores, recorded before each kernel "
+        "moved to the tensor cores (NVIDIA H100 80GB HBM3, 700.00 W), not measured "
+        "in this run: " + json.dumps(EARLIER_MS))
     return lines
 
 
@@ -954,7 +1060,14 @@ def phase_small():
     holder.close()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of pilosa_tpu_torch on one card.")
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose pilosa_tpu_torch to drive (default: this "
+                         "script's own)")
+    root = os.path.abspath(ap.parse_args(argv).root)
     t_start = time.perf_counter()
     try:
         import torch
@@ -964,12 +1077,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(ROOT, "pilosa_tpu_torch")):
+    if not os.path.isdir(os.path.join(root, "pilosa_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
-              "(pilosa_tpu_torch/ is missing)", file=sys.stderr)
+              f"(pilosa_tpu_torch/ is missing under {root})", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, root)
     torch.cuda.set_device(0)
+    import pilosa_tpu_torch
+
+    log(f"package: {os.path.dirname(pilosa_tpu_torch.__file__)}")
 
     card_line = phase_card()
     phase_probe(card_line)

@@ -28,9 +28,10 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
-#: Kernel sources by library name: bitcount.cu (K1, K3: the count path on
-#: the CUDA cores), group.cu (K5-K7, the GroupBy tensor) and bmma.cu (K2,
-#: K4 on the tensor cores' binary MMA, and the AND-popcount rate probe).
+#: Kernel sources by library name: bmma.cu (the pair kernels K1, K2 and the
+#: group tiles K4, K5 on the tensor cores' binary MMA, and the AND-popcount
+#: rate probe), bitcount.cu (K3, the count path's popcount-reduce) and
+#: group.cu (K6, K7, the odometer group tensor), both on the CUDA cores.
 SOURCES = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
     for name in ("bitcount", "group", "bmma")
@@ -122,11 +123,12 @@ def _bind(name: str, lib) -> None:
     # out, s, rf, rg, w, n_slots, stream
     group = [ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     signatures = {
-        "bitcount": {"pair_stats_pershard_launch": pair,
-                     "popcount_rows_launch": [ptr, ptr, i32, i32, ptr]},
-        "group": {"group_tile_stats_pershard_launch": group,
-                  "nary_stats_launch": group, "nary_stats_pershard_launch": group},
-        "bmma": {"pair_stats_launch": pair, "group_tile_stats_launch": group,
+        # x, out, n, w, stream
+        "bitcount": {"popcount_rows_launch": [ptr, ptr, i32, i32, ptr]},
+        "group": {"nary_stats_launch": group, "nary_stats_pershard_launch": group},
+        "bmma": {"pair_stats_pershard_launch": pair, "pair_stats_launch": pair,
+                 "group_tile_stats_launch": group,
+                 "group_tile_stats_pershard_launch": group,
                  # mode, iters, out, blocks, stream
                  "and_popc_probe_launch": [i32, i32, ptr, i32, ptr]},
     }

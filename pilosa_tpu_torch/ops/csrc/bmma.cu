@@ -1,8 +1,9 @@
-// AND-popcount on Hopper's tensor cores (sm_90a): the shard-summed pair
-// kernel (K2) and the filtered group-tile kernel (K4), with a rate probe.
+// AND-popcount on Hopper's tensor cores (sm_90a): the pair kernels, per
+// shard (K1) and summed over shards (K2), and the group-tile kernels,
+// summed and filtered (K4) and per shard (K5), with a rate probe.
 //
 // Stacks are int32[S, R, W] (W = 32768 words per shard row), the bits of
-// the host's uint32 layout. Both kernels compute sums of popcount(x & y)
+// the host's uint32 layout. All four kernels compute sums of popcount(x & y)
 // over words, which is exactly what the binary tensor-core MMA computes:
 //
 //   mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc
@@ -162,34 +163,57 @@ probe_kernel(uint32_t* __restrict__ out, int iters) {
 }
 
 // ---------------------------------------------------------------------------
-// K2, narrow faces (Rf <= 16, Rg <= 8): the main path's 8 x 8 pair, which a
-// filtered 2-field GroupBy sweeps at S = 954. The whole pair matrix is one
-// m16n8 MMA face, so no tile is staged: lane 4g+t loads 16-byte vectors of
-// F rows g and g+8 and G row g straight from device memory (neighbouring
-// lanes on neighbouring vectors), and each vector feeds two MMAs (words x,
-// y, then z, w). cf and cg are popcounts of the same registers on the CUDA
-// cores. Each word is read once; the bytes bound the sweep.
+// K1 and K2's narrow route: m16n8 faces. The main path's 8 x 8 pair (the
+// uncached batched Count's K1 at S = 954, the filtered 2-field GroupBy's K2)
+// is one m16n8 MMA face, so no tile is staged: lane 4g+t loads 16-byte
+// vectors of F rows g and g+8 and G row g of the face straight from device
+// memory (neighbouring lanes on neighbouring vectors), and each vector
+// feeds two MMAs (words x, y, then z, w). cf and cg are popcounts of the
+// same registers on the CUDA cores. Each word is read once; the bytes bound
+// the sweep.
 //
-// Block (slice, s) sums its word slice of shard s; the block's sums are
-// reduced over warps in shared memory and added with one atomicAdd per
-// cell into the zeroed int32[rf*rg + rf + rg] output (exact while S * 2^20
-// < 2^31, the caller's MAX_PAIR_SHARDS bound).
+// A pair past 16 x 8 (K1 only: K2 stages those) is cut into 16 x 8 faces,
+// one a block; the faces of one word slice of one shard are neighbours in
+// the grid (blockIdx.x = slice * faces + face), so they run together and
+// their re-reads of a row come from L2. cf is counted only by the faces of
+// the first face column, cg only by those of the first face row, so each
+// is counted once.
+//
+// Block (slice * faces + face, s) sums its word slice of shard s; the
+// block's sums are reduced over warps in shared memory and added with one
+// atomicAdd per cell into the zeroed output: K2's int32[rf*rg + rf + rg]
+// (exact while S * 2^20 < 2^31, the caller's MAX_PAIR_SHARDS bound), or,
+// PERSHARD (K1), row s of int32[S, rf*rg + rf + rg] (every cell <= 2^20).
+// Blocks that each own a whole shard row and store plainly would need one
+// word slice a shard, which leaves the grid too small to fill the card at
+// small S; the atomics cost one add a cell and slice.
 // ---------------------------------------------------------------------------
 
+template <bool PERSHARD>
 __global__ void __launch_bounds__(kThreads)
 pair_face_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
-                 int32_t* __restrict__ out, int rf, int rg, int w4, int slice_w4) {
+                 int32_t* __restrict__ out, int rf, int rg, int w4, int slice_w4,
+                 int faces, int tiles_b) {
+  // K2's face route has one face a launch: its body stays the plain face.
   const int s = blockIdx.y;
-  const int v_begin = blockIdx.x * slice_w4;
+  const int slice = PERSHARD ? blockIdx.x / faces : blockIdx.x;
+  const int face = PERSHARD ? blockIdx.x - slice * faces : 0;
+  const int ta = PERSHARD ? face / tiles_b : 0;
+  const int tb = PERSHARD ? face - ta * tiles_b : 0;
+  const int a0 = ta * 16;
+  const int b0 = tb * 8;
+  const bool do_cf = tb == 0;
+  const bool do_cg = ta == 0;
+  const int v_begin = slice * slice_w4;
   const int v_end = min(v_begin + slice_w4, w4);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2;
   const int tq = lane & 3;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const uint4* f0 = gq < rf ? f + ((size_t)s * rf + gq) * w4 : nullptr;
-  const uint4* f1 = gq + 8 < rf ? f + ((size_t)s * rf + gq + 8) * w4 : nullptr;
-  const uint4* g0 = gq < rg ? g + ((size_t)s * rg + gq) * w4 : nullptr;
+  const uint4* f0 = a0 + gq < rf ? f + ((size_t)s * rf + a0 + gq) * w4 : nullptr;
+  const uint4* f1 = a0 + gq + 8 < rf ? f + ((size_t)s * rf + a0 + gq + 8) * w4 : nullptr;
+  const uint4* g0 = b0 + gq < rg ? g + ((size_t)s * rg + b0 + gq) * w4 : nullptr;
 
   uint32_t acc[4] = {0u, 0u, 0u, 0u};
   uint32_t cf0 = 0u, cf1 = 0u, cg0 = 0u;
@@ -203,9 +227,11 @@ pair_face_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
     const uint4 b = in && g0 ? __ldg(g0 + v) : zero;
     mma_b1(acc, a.x, a8.x, a.y, a8.y, b.x, b.y);
     mma_b1(acc, a.z, a8.z, a.w, a8.w, b.z, b.w);
-    cf0 += popc4(a);
-    cf1 += popc4(a8);
-    cg0 += popc4(b);
+    if (do_cf) {
+      cf0 += popc4(a);
+      cf1 += popc4(a8);
+    }
+    if (do_cg) cg0 += popc4(b);
   }
   // Row counts: the four lanes of a row hold its parts.
 #pragma unroll
@@ -237,15 +263,16 @@ pair_face_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
   const int t4 = l & 3;
   int cell = -1;
   if (r < 4) {
-    const int row = g8 + (r >= 2 ? 8 : 0);
-    const int col = 2 * t4 + (r & 1);
+    const int row = a0 + g8 + (r >= 2 ? 8 : 0);
+    const int col = b0 + 2 * t4 + (r & 1);
     if (row < rf && col < rg) cell = row * rg + col;
   } else if (t4 == 0) {
-    if (r == 4 && g8 < rf) cell = rf * rg + g8;
-    if (r == 5 && g8 + 8 < rf) cell = rf * rg + g8 + 8;
-    if (r == 6 && g8 < rg) cell = rf * rg + rf + g8;
+    if (r == 4 && a0 + g8 < rf) cell = rf * rg + a0 + g8;
+    if (r == 5 && a0 + g8 + 8 < rf) cell = rf * rg + a0 + g8 + 8;
+    if (r == 6 && b0 + g8 < rg) cell = rf * rg + rf + b0 + g8;
   }
-  if (cell >= 0) atomicAdd(out + cell, (int32_t)v);
+  int32_t* row_out = PERSHARD ? out + (size_t)s * (rf * rg + rf + rg) : out;
+  if (cell >= 0) atomicAdd(row_out + cell, (int32_t)v);
 }
 
 // ---------------------------------------------------------------------------
@@ -473,8 +500,10 @@ pair_gemm_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// K4: the filtered group tile, slot pairs stacked along M. For slots q, q+1
-// of a launch, one m16n8k256 MMA computes both slots' 8 x 8 faces:
+// K4 and K5: the group tile, summed over shards with an optional filter
+// (K4), or per shard and unfiltered (K5, PERSHARD), slot pairs stacked
+// along M. For slots q, q+1 of a launch, one m16n8k256 MMA computes both
+// slots' 8 x 8 faces:
 //
 //   A rows 0-7  = F[a] & m_q,   A rows 8-15 = F[a] & m_{q+1},   B = G[b],
 //   m_q = H1[r1(q)] & ... & HE[rE(q)] [& filt]
@@ -487,8 +516,10 @@ pair_gemm_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ g,
 // neighbours in the grid, so more than 8 slots re-read F and G from L2. An
 // odd slot count pairs the last slot with a zero mask; an inactive slot's
 // mask is zero and its cells are not written; Rf or Rg above 8 take more
-// tiles. Sums go once per block and cell into the zeroed int32[T, Rf, Rg]
-// with atomicAdd (exact while S * 2^20 < 2^31).
+// tiles. Sums go once per block and cell into the zeroed output with
+// atomicAdd: K4's int32[T, Rf, Rg] (exact while S * 2^20 < 2^31), or K5's
+// int32[T, S, Rf, Rg] at cell ((q * S + s) * Rf + a) * Rg + b, where only
+// the word slices of one shard meet (every cell <= 2^20).
 // ---------------------------------------------------------------------------
 
 constexpr int kGroupSlots = 8;
@@ -502,13 +533,13 @@ struct ExtraTable {
 
 // At most 64 registers a thread, so 4 blocks (32 warps) fit an SM and keep
 // enough loads in flight.
-template <bool FILTERED>
+template <bool FILTERED, bool PERSHARD>
 __global__ void __launch_bounds__(kThreads, 4)
 group_pair_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
                   const ExtraTable ex, const int32_t* __restrict__ rows_idx,
                   const int32_t* __restrict__ active, const uint4* __restrict__ filt,
-                  int32_t* __restrict__ out, int n_slots, int rf, int rg, int w4,
-                  int slice_w4, int n_slices, int tiles_b) {
+                  int32_t* __restrict__ out, int n_slots, int n_shards, int rf, int rg,
+                  int w4, int slice_w4, int n_slices, int tiles_b) {
   const int q0 = blockIdx.x * kGroupSlots;
   const int s = blockIdx.y / n_slices;
   const int slice = blockIdx.y - s * n_slices;
@@ -603,9 +634,78 @@ group_pair_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
     const int a = a0 + (row & 7);
     const int b = b0 + 2 * (l & 3) + (r & 1);
     if (v != 0u && live[j] && a < rf && b < rg) {
-      atomicAdd(out + (size_t)(q0 + j) * face + (size_t)a * rg + b, (int32_t)v);
+      const size_t slot = PERSHARD ? (size_t)(q0 + j) * n_shards + s : (size_t)(q0 + j);
+      atomicAdd(out + slot * face + (size_t)a * rg + b, (int32_t)v);
     }
   }
+}
+
+// The face grid of K1 and K2's narrow route: (slices * faces, s), enough
+// word slices to fill the card several times over.
+template <bool PERSHARD>
+int face_launch(const void* f, const void* g, void* out, int s, int rf, int rg, int w,
+                int sms, cudaStream_t st) {
+  if (s > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_b = (rg + 7) / 8;
+  const int faces = ((rf + 15) / 16) * tiles_b;
+  const int w4 = w / 4;
+  const int slices = word_slices(sms, s * faces, w4);
+  const int slice_w4 = (w4 + slices - 1) / slices;
+  const dim3 grid(((w4 + slice_w4 - 1) / slice_w4) * faces, s);
+  pair_face_kernel<PERSHARD><<<grid, kThreads, 0, st>>>(
+      static_cast<const uint4*>(f), static_cast<const uint4*>(g),
+      static_cast<int32_t*>(out), rf, rg, w4, slice_w4, faces, tiles_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 (summed, filt optional) and K5 (pershard, filt null): grid (slot
+// groups, s * word slices, 8 x 8 tiles), the slot groups fastest.
+int group_pair_launch(bool pershard, const void* f, const void* g,
+                      const void* const* ptrs, const int* heights, int n_extra,
+                      const void* rows_idx, const void* active, const void* filt,
+                      void* out, int s, int rf, int rg, int w, int n_slots,
+                      void* stream) {
+  const int tiles_a = (rf + 7) / 8;
+  const int tiles_b = (rg + 7) / 8;
+  const int groups = (n_slots + kGroupSlots - 1) / kGroupSlots;
+  if (n_extra < 1 || n_extra > kMaxExtras || n_slots < 1 || s < 1 || rf < 1 ||
+      rg < 1 || w < 4 || w % 4 || s > kMaxGridYZ || tiles_a * tiles_b > kMaxGridYZ ||
+      !rows_idx || !active || (pershard && filt)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ExtraTable ex;
+  for (int e = 0; e < kMaxExtras; ++e) {
+    ex.base[e] = e < n_extra ? static_cast<const uint4*>(ptrs[e]) : nullptr;
+    ex.rows[e] = e < n_extra ? heights[e] : 0;
+  }
+  ex.n = n_extra;
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int w4 = w / 4;
+  int slices = word_slices(sms, groups * s * tiles_a * tiles_b, w4);
+  while (slices > 1 && (long long)s * slices > kMaxGridYZ) --slices;
+  const int slice_w4 = (w4 + slices - 1) / slices;
+  slices = (w4 + slice_w4 - 1) / slice_w4;
+  const dim3 grid(groups, s * slices, tiles_a * tiles_b);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint4* fv = static_cast<const uint4*>(f);
+  const uint4* gv = static_cast<const uint4*>(g);
+  const int32_t* ri = static_cast<const int32_t*>(rows_idx);
+  const int32_t* ac = static_cast<const int32_t*>(active);
+  const uint4* fl = static_cast<const uint4*>(filt);
+  int32_t* o = static_cast<int32_t*>(out);
+  if (pershard) {
+    group_pair_kernel<false, true><<<grid, kThreads, 0, st>>>(
+        fv, gv, ex, ri, ac, nullptr, o, n_slots, s, rf, rg, w4, slice_w4, slices, tiles_b);
+  } else if (filt) {
+    group_pair_kernel<true, false><<<grid, kThreads, 0, st>>>(
+        fv, gv, ex, ri, ac, fl, o, n_slots, s, rf, rg, w4, slice_w4, slices, tiles_b);
+  } else {
+    group_pair_kernel<false, false><<<grid, kThreads, 0, st>>>(
+        fv, gv, ex, ri, ac, nullptr, o, n_slots, s, rf, rg, w4, slice_w4, slices, tiles_b);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -631,6 +731,19 @@ extern "C" int and_popc_probe_launch(int mode, int iters, void* out, int blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1: f int32[s, rf, w], g int32[s, rg, w] -> out int32[s, rf*rg + rf + rg],
+// zeroed by the caller on the same stream; the face kernel at any Rf, Rg.
+extern "C" int pair_stats_pershard_launch(const void* f, const void* g, void* out, int s,
+                                          int rf, int rg, int w, void* stream) {
+  if (s < 1 || rf < 1 || rg < 1 || w < 4 || w % 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return face_launch<true>(f, g, out, s, rf, rg, w, sms, static_cast<cudaStream_t>(stream));
+}
+
 // K2: f int32[s, rf, w], g int32[s, rg, w] -> out int32[rf*rg + rf + rg],
 // summed over shards into the zeroed out. Rf <= 16 and Rg <= 8 take the
 // register-direct face kernel, larger pairs the staged binary GEMM.
@@ -643,17 +756,7 @@ extern "C" int pair_stats_launch(const void* f, const void* g, void* out, int s,
   int sms = 0;
   cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (rf <= 16 && rg <= 8) {
-    if (s > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
-    const int w4 = w / 4;
-    const int slices = word_slices(sms, s, w4);
-    const int slice_w4 = (w4 + slices - 1) / slices;
-    const dim3 grid((w4 + slice_w4 - 1) / slice_w4, s);
-    pair_face_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const uint4*>(f), static_cast<const uint4*>(g),
-        static_cast<int32_t*>(out), rf, rg, w4, slice_w4);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (rf <= 16 && rg <= 8) return face_launch<false>(f, g, out, s, rf, rg, w, sms, st);
   // Set on every launch: the attribute belongs to the current device.
   e = cudaFuncSetAttribute(pair_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kGemmSmem);
@@ -673,51 +776,25 @@ extern "C" int pair_stats_launch(const void* f, const void* g, void* out, int s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4: f int32[s, rf, w], g int32[s, rg, w]; ptrs / heights: host arrays of
-// n_extra (<= 8) extra stacks int32[s, heights[e], w]; rows_idx int32[T,
-// n_extra] and active int32[T] on the device; filt int32[s, w] or null;
-// out int32[T, rf, rg] zeroed by the caller on the same stream, summed
-// over shards. The same signature as group.cu's entry points.
+// K4 and K5: f int32[s, rf, w], g int32[s, rg, w]; ptrs / heights: host
+// arrays of n_extra (<= 8) extra stacks int32[s, heights[e], w]; rows_idx
+// int32[T, n_extra] and active int32[T] on the device; out zeroed by the
+// caller on the same stream. The same signature as group.cu's entry points.
+
+// K4: filt int32[s, w] or null; out int32[T, rf, rg], summed over shards.
 extern "C" int group_tile_stats_launch(
     const void* f, const void* g, const void* const* ptrs, const int* heights,
     int n_extra, const void* rows_idx, const void* active, const void* filt,
     void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
-  const int tiles_a = (rf + 7) / 8;
-  const int tiles_b = (rg + 7) / 8;
-  const int groups = (n_slots + kGroupSlots - 1) / kGroupSlots;
-  if (n_extra < 1 || n_extra > kMaxExtras || n_slots < 1 || s < 1 || rf < 1 ||
-      rg < 1 || w < 4 || w % 4 || s > kMaxGridYZ || tiles_a * tiles_b > kMaxGridYZ ||
-      !rows_idx || !active) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  ExtraTable ex;
-  for (int e = 0; e < kMaxExtras; ++e) {
-    ex.base[e] = e < n_extra ? static_cast<const uint4*>(ptrs[e]) : nullptr;
-    ex.rows[e] = e < n_extra ? heights[e] : 0;
-  }
-  ex.n = n_extra;
-  int sms = 0;
-  const cudaError_t e = sm_count(&sms);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int w4 = w / 4;
-  int slices = word_slices(sms, groups * s * tiles_a * tiles_b, w4);
-  while (slices > 1 && (long long)s * slices > kMaxGridYZ) --slices;
-  const int slice_w4 = (w4 + slices - 1) / slices;
-  slices = (w4 + slice_w4 - 1) / slice_w4;
-  const dim3 grid(groups, s * slices, tiles_a * tiles_b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* ri = static_cast<const int32_t*>(rows_idx);
-  const int32_t* ac = static_cast<const int32_t*>(active);
-  int32_t* o = static_cast<int32_t*>(out);
-  if (filt) {
-    group_pair_kernel<true><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint4*>(f), static_cast<const uint4*>(g), ex, ri, ac,
-        static_cast<const uint4*>(filt), o, n_slots, rf, rg, w4, slice_w4, slices,
-        tiles_b);
-  } else {
-    group_pair_kernel<false><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint4*>(f), static_cast<const uint4*>(g), ex, ri, ac,
-        nullptr, o, n_slots, rf, rg, w4, slice_w4, slices, tiles_b);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return group_pair_launch(false, f, g, ptrs, heights, n_extra, rows_idx, active, filt,
+                           out, s, rf, rg, w, n_slots, stream);
+}
+
+// K5: filt null; out int32[T, s, rf, rg].
+extern "C" int group_tile_stats_pershard_launch(
+    const void* f, const void* g, const void* const* ptrs, const int* heights,
+    int n_extra, const void* rows_idx, const void* active, const void* filt,
+    void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
+  return group_pair_launch(true, f, g, ptrs, heights, n_extra, rows_idx, active, filt,
+                           out, s, rf, rg, w, n_slots, stream);
 }

@@ -1,56 +1,50 @@
-// Group-tensor kernels for Hopper (sm_90a): the N-field GroupBy.
+// Group-tensor kernels for Hopper (sm_90a): the odometer sweeps of the
+// N-field GroupBy.
 //
 // Stacks are int32[S, R, W] with W = 32768 words per shard row, as in
 // bitcount.cu. For a GroupBy over fields F, G, H1..HE the group tensor is
 //
-//   out[q, (s,) a, b] = popcount(F[s, a, :] & G[s, b, :] & m_q[s, :])
-//   m_q[s, :]         = H1[s, r1(q), :] & ... & HE[s, rE(q), :] [& filt[s, :]]
+//   out[k, (s,) a, b] = popcount(F[s, a, :] & G[s, b, :] & m_k[s, :])
+//   m_k[s, :]         = H1[s, r1(k), :] & ... & HE[s, rE(k), :] [& filt[s, :]]
 //
-// for slots q, each naming one row of every extra field H. Three kernels,
-// instantiations of one template (the fourth, K4 group_tile_stats, the
-// filtered and shard-summed tile, runs on the tensor cores in bmma.cu):
+// where k runs as an odometer over the extras' rows (last extra fastest),
+// decoded in the kernel. Two kernels, instantiations of one template (the
+// slot-table tiles K4 group_tile_stats and K5 group_tile_stats_pershard run
+// on the tensor cores in bmma.cu):
 //
-//   K5 group_tile_stats_pershard  rows r_e(q) from an int32[T, E] table,
-//                                 per shard, unfiltered;
-//   K6 nary_stats                 every row combination: q runs as an
-//                                 odometer over the extras' rows (last extra
-//                                 fastest), decoded in the kernel; summed,
-//                                 optional filter;
-//   K7 nary_stats_pershard        K6 per shard, unfiltered.
+//   K6 nary_stats            summed over shards, optional filter;
+//   K7 nary_stats_pershard   per shard, unfiltered.
 //
 // They replace the TPU's Pallas kernels nary_stats (K6,
-// pilosa_tpu/ops/kernels.py:253) and nary_stats_pershard (K7, :349), and
-// the fused-XLA tile program group_tile_stats_pershard (K5, :656). On the
+// pilosa_tpu/ops/kernels.py:253) and nary_stats_pershard (K7, :349). On the
 // TPU the k axis and the shard axis are sequential grid axes with the sum
-// carried in VMEM; here each block owns one (slot, shard, 8 x 8 pair tile)
-// and loops over the words, like the per-shard pair kernel.
+// carried in VMEM; here each block owns one (k, shard, 8 x 8 pair tile) and
+// loops over the words.
 //
-// What bounds them: every slot does Rf * Rg popcounts a word, so at the
-// main path's 8 x 8 pair face the popcount issue rate (16 a clock per SM,
-// 4.2e12 a second on an H100 SXM) bounds a sweep, not its bytes: a slot
-// reads its F and G words (16 a word) plus E extra words for 64 popcounts.
-// (On the tensor cores' b1 MMA, bmma.cu, the same work is bound by its
-// bytes: that is where K4 went, and where these three are to follow.)
-// The design keeps that to one pass over device memory:
+// What bounds them: every k does Rf * Rg popcounts a word, so at the main
+// path's 8 x 8 pair face the popcount issue rate (16 a clock per SM, 4.2e12
+// a second on an H100 SXM) bounds a sweep, not its bytes: a k reads its F
+// and G words (16 a word) plus E extra words for 64 popcounts. (On the
+// tensor cores' b1 MMA, bmma.cu, the same work is bound by its bytes: that
+// is where K4 and K5 went, and where these two are to follow.) The design
+// keeps that to one pass over device memory:
 //
-//   - the slot axis is the fastest grid axis, so the T slots of one
-//     (shard, tile) run side by side and share that shard's F and G words
-//     through L2 (2 MB a shard at 8 rows, well inside the 50 MB L2)
-//     instead of re-reading 2 GB of stacks from device memory per slot;
+//   - the k axis is the fastest grid axis, so the K blocks of one (shard,
+//     tile) run side by side and share that shard's F and G words through
+//     L2 (2 MB a shard at 8 rows, well inside the 50 MB L2) instead of
+//     re-reading 2 GB of stacks from device memory per k;
 //   - m is formed once a word (E loads and ANDs) and folded into the 8 F
 //     words, so the 64 pair sums cost one AND and one popcount each;
 //   - the 64 sums live in registers for the whole word loop and are
-//     reduced once per block with warp shuffles; the summed kernels add
+//     reduced once per block with warp shuffles; the summed kernel adds
 //     one cell a block with atomicAdd into a zeroed output (exact while
 //     S * 2^20 < 2^31, the caller's MAX_PAIR_SHARDS bound), the per-shard
-//     kernels write their cells;
-//   - an inactive slot's blocks return at once and write nothing, so its
-//     cells keep the output's zeros.
+//     kernel writes its cells.
 //
 // The extras have different heights. Their base pointers and heights
 // travel by value in the launch's parameters (a table of kMaxExtras
-// entries, in the constant bank); a block puts its slot's E row pointers
-// in shared memory.
+// entries, in the constant bank); a block puts its k's E row pointers in
+// shared memory.
 //
 // Each entry point returns cudaGetLastError() right after its launch, or
 // cudaErrorInvalidValue for arguments the grid cannot take.
@@ -87,21 +81,17 @@ __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
   return v;
 }
 
-// Block (q, s, t): slot q, shard s, pair tile t. ODOMETER decodes the
-// slot's rows from q (K6/K7); otherwise rows_idx[q, :] names them and
-// active[q] == 0 makes the slot write nothing (K5). PERSHARD writes
-// out[((q * S + s) * rf + a) * rg + b]; otherwise out[(q * rf + a) * rg + b]
+// Block (k, s, t): odometer slot k, shard s, pair tile t. PERSHARD writes
+// out[((k * S + s) * rf + a) * rg + b]; otherwise out[(k * rf + a) * rg + b]
 // gathers every shard's part by atomicAdd.
-template <bool PERSHARD, bool FILTERED, bool ODOMETER>
+template <bool PERSHARD, bool FILTERED>
 __global__ void __launch_bounds__(kThreads)
 group_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
-             const ExtraTable ex, const int32_t* __restrict__ rows_idx,
-             const int32_t* __restrict__ active,
-             const uint4* __restrict__ filt, int32_t* __restrict__ out,
-             int n_shards, int rf, int rg, int w4, int tiles_b) {
+             const ExtraTable ex, const uint4* __restrict__ filt,
+             int32_t* __restrict__ out, int n_shards, int rf, int rg, int w4,
+             int tiles_b) {
   const int q = blockIdx.x;
   const int s = blockIdx.y;
-  if (!ODOMETER && active[q] == 0) return;  // the whole block leaves
   const int ta = blockIdx.z / tiles_b;
   const int tb = blockIdx.z - ta * tiles_b;
   const int a0 = ta * kTile;
@@ -119,13 +109,8 @@ group_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
     int rem = q;
     for (int e = n_extra - 1; e >= 0; --e) {
       const int height = ex.rows[e];
-      int row;
-      if (ODOMETER) {
-        row = rem % height;
-        rem /= height;
-      } else {
-        row = rows_idx[(size_t)q * n_extra + e];
-      }
+      const int row = rem % height;
+      rem /= height;
       hp[e] = ex.base[e] + ((size_t)s * height + row) * w4;
     }
   }
@@ -185,30 +170,25 @@ group_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
   }
 }
 
-template <bool PERSHARD, bool FILTERED, bool ODOMETER>
+template <bool PERSHARD, bool FILTERED>
 int launch(const dim3& grid, cudaStream_t st, const void* f, const void* g,
-           const ExtraTable& ex, const void* rows_idx, const void* active,
-           const void* filt, void* out, int s, int rf, int rg, int w4,
-           int tiles_b) {
-  group_kernel<PERSHARD, FILTERED, ODOMETER><<<grid, kThreads, 0, st>>>(
+           const ExtraTable& ex, const void* filt, void* out, int s, int rf, int rg,
+           int w4, int tiles_b) {
+  group_kernel<PERSHARD, FILTERED><<<grid, kThreads, 0, st>>>(
       static_cast<const uint4*>(f), static_cast<const uint4*>(g), ex,
-      static_cast<const int32_t*>(rows_idx), static_cast<const int32_t*>(active),
-      static_cast<const uint4*>(filt), static_cast<int32_t*>(out), s, rf, rg,
-      w4, tiles_b);
+      static_cast<const uint4*>(filt), static_cast<int32_t*>(out), s, rf, rg, w4,
+      tiles_b);
   return static_cast<int>(cudaGetLastError());
 }
 
-int group_launch(bool pershard, bool odometer, const void* f, const void* g,
-                 const void* const* ptrs, const int* heights, int n_extra,
-                 const void* rows_idx, const void* active, const void* filt,
-                 void* out, int s, int rf, int rg, int w, int n_slots,
-                 void* stream) {
+int group_launch(bool pershard, const void* f, const void* g, const void* const* ptrs,
+                 const int* heights, int n_extra, const void* filt, void* out, int s,
+                 int rf, int rg, int w, int n_slots, void* stream) {
   const int tiles_a = (rf + kTile - 1) / kTile;
   const int tiles_b = (rg + kTile - 1) / kTile;
   const bool filtered = filt != nullptr;
   if (n_extra < 1 || n_extra > kMaxExtras || n_slots < 1 || s < 1 ||
-      s > kMaxGridYZ || tiles_a * tiles_b > kMaxGridYZ ||
-      (pershard && filtered) || (!odometer && (!pershard || !rows_idx || !active))) {
+      s > kMaxGridYZ || tiles_a * tiles_b > kMaxGridYZ || (pershard && filtered)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ExtraTable ex;
@@ -220,54 +200,35 @@ int group_launch(bool pershard, bool odometer, const void* f, const void* g,
   const dim3 grid(n_slots, s, tiles_a * tiles_b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int w4 = w / 4;
-  if (odometer) {
-    if (pershard)
-      return launch<true, false, true>(grid, st, f, g, ex, rows_idx, active,
-                                       filt, out, s, rf, rg, w4, tiles_b);
-    if (filtered)
-      return launch<false, true, true>(grid, st, f, g, ex, rows_idx, active,
-                                       filt, out, s, rf, rg, w4, tiles_b);
-    return launch<false, false, true>(grid, st, f, g, ex, rows_idx, active,
-                                      filt, out, s, rf, rg, w4, tiles_b);
-  }
-  return launch<true, false, false>(grid, st, f, g, ex, rows_idx, active,
-                                    filt, out, s, rf, rg, w4, tiles_b);
+  if (pershard) return launch<true, false>(grid, st, f, g, ex, filt, out, s, rf, rg, w4, tiles_b);
+  if (filtered) return launch<false, true>(grid, st, f, g, ex, filt, out, s, rf, rg, w4, tiles_b);
+  return launch<false, false>(grid, st, f, g, ex, filt, out, s, rf, rg, w4, tiles_b);
 }
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes; one signature for all three
-// (and for bmma.cu's group_tile_stats_launch).
-// f int32[s, rf, w], g int32[s, rg, w]; ptrs / heights: host arrays of
-// n_extra (<= 8) extra stacks int32[s, heights[e], w]; rows_idx int32[T,
-// n_extra] and active int32[T] on the device (K5, null for K6/K7);
-// filt int32[s, w] or null (K6 only); out zeroed by the caller on the
-// same stream. Pointers are 16-byte aligned, w is a multiple of 4, and
-// the caller has checked every shape and row index.
+// Plain C entry points, bound with ctypes, with the signature of bmma.cu's
+// group-tile entry points (rows_idx and active are not read: the odometer
+// names each k's rows). f int32[s, rf, w], g int32[s, rg, w]; ptrs /
+// heights: host arrays of n_extra (<= 8) extra stacks int32[s, heights[e],
+// w]; out zeroed by the caller on the same stream; n_slots = K, the
+// product of the heights. Pointers are 16-byte aligned, w is a multiple of
+// 4, and the caller has checked every shape.
 
-// out int32[T, s, rf, rg].
-extern "C" int group_tile_stats_pershard_launch(
-    const void* f, const void* g, const void* const* ptrs, const int* heights,
-    int n_extra, const void* rows_idx, const void* active, const void* filt,
-    void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
-  return group_launch(true, false, f, g, ptrs, heights, n_extra, rows_idx,
-                      active, filt, out, s, rf, rg, w, n_slots, stream);
-}
-
-// out int32[K, rf, rg], K = n_slots = the product of the heights.
+// filt int32[s, w] or null -> out int32[K, rf, rg].
 extern "C" int nary_stats_launch(
     const void* f, const void* g, const void* const* ptrs, const int* heights,
     int n_extra, const void* rows_idx, const void* active, const void* filt,
     void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
-  return group_launch(false, true, f, g, ptrs, heights, n_extra, rows_idx,
-                      active, filt, out, s, rf, rg, w, n_slots, stream);
+  return group_launch(false, f, g, ptrs, heights, n_extra, filt, out, s, rf, rg, w,
+                      n_slots, stream);
 }
 
-// out int32[K, s, rf, rg].
+// filt null -> out int32[K, s, rf, rg].
 extern "C" int nary_stats_pershard_launch(
     const void* f, const void* g, const void* const* ptrs, const int* heights,
     int n_extra, const void* rows_idx, const void* active, const void* filt,
     void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
-  return group_launch(true, true, f, g, ptrs, heights, n_extra, rows_idx,
-                      active, filt, out, s, rf, rg, w, n_slots, stream);
+  return group_launch(true, f, g, ptrs, heights, n_extra, filt, out, s, rf, rg, w,
+                      n_slots, stream);
 }

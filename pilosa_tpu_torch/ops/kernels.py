@@ -1,13 +1,12 @@
 """Popcount kernels of the count and GroupBy paths, each with its plain
 PyTorch version.
 
-Hand-written CUDA kernels, built by ops/build.py: the per-shard pair and
-the popcount-reduce of the count path on the CUDA cores (ops/csrc/
-bitcount.cu), the shard-summed pair and the filtered group tile on the
-tensor cores' binary MMA (ops/csrc/bmma.cu), and three more group-tensor
-kernels (ops/csrc/group.cu):
+Hand-written CUDA kernels, built by ops/build.py: the pair kernels and the
+group-tile kernels on the tensor cores' binary MMA (ops/csrc/bmma.cu), the
+popcount-reduce of the count path (ops/csrc/bitcount.cu) and the odometer
+group-tensor kernels (ops/csrc/group.cu) on the CUDA cores:
 
-- ``pair_stats_pershard`` (K1): per shard s, over int32[S, Rf, W] and
+- ``pair_stats_pershard`` (K1, bmma.cu): per shard s, over int32[S, Rf, W] and
   int32[S, Rg, W] stacks,
 
       pair[s, a, b] = popcount(F[s, a, :] & G[s, b, :])
@@ -19,18 +18,20 @@ kernels (ops/csrc/group.cu):
   exact for any shard count.
 - ``pair_stats`` (K2, bmma.cu): the same stats summed over shards,
   int32[D]. Exact while S <= MAX_PAIR_SHARDS (S * 2^20 < 2^31).
-- ``popcount_rows`` (K3): int32[N, W] -> int32[N], the popcount of each row.
+- ``popcount_rows`` (K3, bitcount.cu): int32[N, W] -> int32[N], the popcount
+  of each row.
 - the group tensor of an N-field GroupBy (K4-K7): for slots q, with m_q the
   AND of one row of each extra field (and of a filter slab),
 
       out[q, (s,) a, b] = popcount(F[s, a, :] & G[s, b, :] & m_q[s, :])
 
   ``group_tile_stats`` (K4, bmma.cu, summed over shards, optional filter)
-  and ``group_tile_stats_pershard`` (K5, per shard) take each slot's extra rows
-  from an int32[T, E] table and an ``active`` flag per slot (an inactive
-  slot is exactly 0); ``nary_stats`` (K6, summed, optional filter) and
-  ``nary_stats_pershard`` (K7) run the full odometer over the extras, slot
-  k decoded in the kernel, last extra fastest.
+  and ``group_tile_stats_pershard`` (K5, bmma.cu, per shard) take each
+  slot's extra rows from an int32[T, E] table and an ``active`` flag per
+  slot (an inactive slot is exactly 0); ``nary_stats`` (K6, group.cu,
+  summed, optional filter) and ``nary_stats_pershard`` (K7, group.cu) run
+  the full odometer over the extras, slot k decoded in the kernel, last
+  extra fastest.
 
 From the pair stats the host derives any two-row verb in O(1):
 Intersect = pair, Union = cf + cg - pair, Difference = cf - pair,
@@ -250,8 +251,8 @@ def _check_pair_args(name: str, f: torch.Tensor, g: torch.Tensor) -> None:
 
 #: The library that holds each kernel's entry point.
 _LIBRARY = {
-    "pair_stats_pershard": "bitcount", "pair_stats": "bmma", "popcount_rows": "bitcount",
-    "group_tile_stats": "bmma", "group_tile_stats_pershard": "group",
+    "pair_stats_pershard": "bmma", "pair_stats": "bmma", "popcount_rows": "bitcount",
+    "group_tile_stats": "bmma", "group_tile_stats_pershard": "bmma",
     "nary_stats": "group", "nary_stats_pershard": "group",
 }
 
@@ -276,7 +277,8 @@ def pair_stats_pershard(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return pair_stats_torch(f, g, pershard=True)
     s, rf, _ = f.shape
     rg = g.shape[1]
-    out = torch.empty((s, pair_stats_width(rf, rg)), dtype=torch.int32,
+    # Zeroed: the kernel's word slices add into their shard's row.
+    out = torch.zeros((s, pair_stats_width(rf, rg)), dtype=torch.int32,
                       device=f.device)
     if s:
         _launch_pair("pair_stats_pershard", f, g, out)

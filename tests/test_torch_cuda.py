@@ -137,9 +137,30 @@ def test_tensor_core_pair_stats_equals_plain(card, s, rf, rg, w):
     assert torch.equal(got.cpu(), want)
 
 
+# (S, Rf, Rg, W) of the tensor-core K1: 16 x 8 faces tiled 4 x 8 and 2 x 17
+# (cf and cg each counted once), one face exactly, one face of 8 x 8 over a
+# 36-word axis, and Rg off the 8-row face.
+TENSOR_PAIR_PERSHARD_SHAPES = [(3, 64, 64, W), (3, 17, 130, 100), (1, 16, 8, W),
+                               (2, 8, 8, 36), (5, 8, 13, W)]
+
+
+@pytest.mark.parametrize("s,rf,rg,w", TENSOR_PAIR_PERSHARD_SHAPES)
+def test_tensor_core_pair_stats_pershard_equals_plain(card, s, rf, rg, w):
+    rng = np.random.default_rng(s * 2000 + rf + rg + w)
+    f, g = _words(rng, s, rf, w), _words(rng, s, rg, w)
+    fd, gd = stack_from_reference(f, card), stack_from_reference(g, card)
+    before = K.launch_counts()["pair_stats_pershard"]
+    got = K.pair_stats_pershard(fd, gd)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["pair_stats_pershard"] == before + 1
+    # The plain version on the card: the same arithmetic, in seconds less.
+    assert torch.equal(got, K.pair_stats_torch(fd, gd, True))
+
+
 @pytest.mark.parametrize("rf,rg,w", [(9, 8, W), (16, 13, W), (9, 16, 36)])
 def test_tensor_core_group_tile_equals_plain(card, rf, rg, w):
-    """K4's slot pairs: 1 to 9 slots, every third inactive, filtered and not."""
+    """K4's and K5's slot pairs: 1 to 9 slots, every third inactive (its
+    cells stay 0), K4 filtered and not."""
     rng = np.random.default_rng(rf * 100 + rg + w)
     s, heights = 2, (3, 5)
     f, g = _words(rng, s, rf, w), _words(rng, s, rg, w)
@@ -160,6 +181,13 @@ def test_tensor_core_group_tile_equals_plain(card, rf, rg, w):
                                             cpu[2] if filtered else None)
             assert torch.equal(got.cpu(), want), (n, filtered)
             assert not got[torch.from_numpy(active == 0).to(card)].any()
+        before = K.launch_counts()["group_tile_stats_pershard"]
+        per = K.group_tile_stats_pershard(dev[0], dev[1], tuple(dev[3:]), rows, active)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["group_tile_stats_pershard"] == before + 1
+        want = K.group_tile_stats_pershard_torch(cpu[0], cpu[1], tuple(cpu[3:]), rows, active)
+        assert torch.equal(per.cpu(), want), n
+        assert not per[torch.from_numpy(active == 0).to(card)].any()
 
 
 def test_and_popc_probe_rates(card):

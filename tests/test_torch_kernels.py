@@ -9,6 +9,10 @@ exact. tests/test_torch_cuda.py holds the CUDA kernels against these plain
 versions on the card.
 """
 
+import ctypes
+import re
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -187,3 +191,60 @@ def test_cpu_calls_launch_nothing():
         "group_tile_stats": 0, "group_tile_stats_pershard": 0,
         "nary_stats": 0, "nary_stats_pershard": 0,
     }
+
+
+class _StubLibrary:
+    """A stand-in for a loaded ctypes library: every attribute is a plain
+    object on which ``_bind`` can set argtypes and restype."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return self.fns.setdefault(name, types.SimpleNamespace())
+
+
+def _entry_points(source_path):
+    """{name: [ctypes type of each parameter]} of the ``extern "C" int``
+    functions of a kernel source: c_void_p for a pointer, c_int otherwise."""
+    with open(source_path) as fh:
+        src = fh.read()
+    out = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\s*\(([^)]*)\)', src):
+        out[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                     for p in " ".join(params.split()).split(",")]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(K._LIBRARY))
+def test_kernel_entry_point_is_defined_and_bound(name):
+    """The library _LIBRARY names for a kernel defines its C entry point,
+    and _bind gives it argtypes matching the C parameters, so no pointer
+    goes through ctypes as a 32-bit int."""
+    from pilosa_tpu_torch.ops import build
+
+    lib_name = K._LIBRARY[name]
+    entries = _entry_points(build.SOURCES[lib_name])
+    assert name + "_launch" in entries, (name, lib_name)
+    stub = _StubLibrary()
+    build._bind(lib_name, stub)
+    fn = stub.fns[name + "_launch"]
+    assert fn.argtypes == entries[name + "_launch"]
+    assert fn.restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("lib_name", ["bitcount", "group", "bmma"])
+def test_bind_covers_exactly_the_entry_points_of_each_source(lib_name):
+    """_bind binds every entry point a source defines and nothing else (a
+    stale name would fail the real library's load), each with argtypes
+    matching its C parameters."""
+    from pilosa_tpu_torch.ops import build
+
+    entries = _entry_points(build.SOURCES[lib_name])
+    stub = _StubLibrary()
+    build._bind(lib_name, stub)
+    assert set(stub.fns) == set(entries)
+    for fn_name, argtypes in entries.items():
+        assert stub.fns[fn_name].argtypes == argtypes, fn_name
