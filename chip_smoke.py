@@ -10,7 +10,9 @@ own (its kernels built under DIR), so that two trees can be compared in
 turns by the same script on one card.
 
 1. card: prints the card's name and power limit (nvidia-smi), the torch
-   and CUDA versions, and the kernel build seconds with ptxas's report;
+   and CUDA versions, and the kernel build seconds with ptxas's report
+   (ops/csrc/bmma.cu: K1, K2 and K4 to K7 on the tensor cores' binary MMA,
+   and the probe; ops/csrc/bitcount.cu: K3);
    then the AND-popcount rate probe (ops/csrc/bmma.cu, ops/probe.py): the
    b1 tensor-core MMA's and the CUDA cores' popcount rates in bit-products
    a second, which set the kernels' operations bounds;
@@ -43,7 +45,9 @@ turns by the same script on one card.
 4. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
-   with inactive ones), exactly; with its median time by CUDA events
+   with inactive ones, odometers of 1 to 256 slots), exactly; the odometer
+   kernels also at K = 64 (extras h and g, 954 shards, held against the
+   plain versions over the first 64 shards); with its median time by CUDA events
    around a wrapper call, its own time by CUDA events around back-to-back
    bare launches (kernel_ms: without the wrapper's host checks, output
    zeroing and slot-table uploads), the plain version's time and
@@ -51,7 +55,8 @@ turns by the same script on one card.
    tensor cores, is printed on a line of its own and is not measured
    here); and the cross-check of
    the odometer kernels (nary_stats, nary_stats_pershard) against the
-   group tensor that GroupBy served;
+   group tensor that GroupBy served (one kernel body on both sides: the
+   plain versions are the independent check);
 5. a small holder with an existence field: the whole Count/Row/Not/All
    query list through two write-churn epochs, checked against the CPU
    oracle after each; the resident stacks must be spliced, not rebuilt,
@@ -126,16 +131,21 @@ REPLACES = {
 COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "popcount_rows")
 # Each kernel's earlier time at the shape timed here, recorded by this
 # script on an NVIDIA H100 80GB HBM3 at 700.00 W on the CUDA cores: K2 and
-# K4 before they moved to the tensor cores, K1 and K5 before they followed;
-# K3, K6 and K7, which have not moved, from the same run as K2's and K4's.
-# Printed for comparison on a line of its own, never in the kernels line,
-# whose numbers are all of this run.
+# K4 before they moved to the tensor cores, K1 and K5 before they followed
+# (events around a wrapper call); K6 and K7 before they followed, their
+# kernel_ms (events around bare launches); K3, which has not moved, from
+# the same run as K2's and K4's. Printed for comparison on a line of its
+# own, never in the kernels line, whose numbers are all of this run.
 EARLIER_MS = {
     "pair_stats_pershard": 1.1817, "pair_stats": 141.80, "popcount_rows": 0.06478,
     "group_tile_stats": 4.0985, "group_tile_stats_pershard": 3.8494,
-    "nary_stats": 6.7276, "nary_stats_pershard": 6.6438,
+    "nary_stats kernel_ms": 6.4030, "nary_stats_pershard kernel_ms": 6.4061,
     "pair_stats at S=954, 8 x 8": 1.1986,
 }
+# The odometer kernels' second shape: K = 64 over the extras (h, g), whose
+# output is held against the plain versions over the first K64_SHARDS
+# shards (the plain pass over all 954 would take about a minute).
+K64_SHARDS = 64
 
 
 def log(*args) -> None:
@@ -777,7 +787,11 @@ def cross_check(gstacks, served):
     """The odometer kernels against the group tensor GroupBy served:
     nary_stats_pershard summed over shards equals the maintained tensor
     on the live k (and both are 0 on the pruned k), and nary_stats equals
-    group_tile_stats over the full odometer. Returns the launches it made."""
+    group_tile_stats over the full odometer. Both sides run one kernel body
+    (bmma.cu's group_pair_kernel, odometer and slot table), so this checks
+    the odometer's decode and the served route's slot table against each
+    other; the plain versions (phase_kernels) are the independent check.
+    Returns the launches it made."""
     import numpy as np
     import torch
 
@@ -802,6 +816,51 @@ def cross_check(gstacks, served):
         f"the {int(live.sum())} live k; nary_stats equals group_tile_stats over "
         f"all {rh} k; launches {json.dumps(launches)}")
     return launches
+
+
+def odometer_k64(f, g, h, pershard):
+    """K6 (pershard False) or K7 at K = 64, the odometer over the extras
+    (h, g) of the GroupBy stacks: timed at all shards, its output held
+    exactly against the plain version over the first K64_SHARDS shards.
+    The k64_* keys of the kernel's line."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.ops import probe
+
+    name = "nary_stats_pershard" if pershard else "nary_stats"
+    kern = K.nary_stats_pershard if pershard else K.nary_stats
+    plain = K.nary_stats_pershard_torch if pershard else K.nary_stats_torch
+    extras = (h, g)
+    s, rf, w = f.shape
+    rg = g.shape[1]
+    k = K._odometer_slots(extras)
+    extra_rows = sum(x.shape[1] for x in extras)
+    full = kern(f, g, extras)
+    sub = [x[:K64_SHARDS] for x in (f, g, h)]
+    sub_extras = (sub[2], sub[1])
+    want = plain(sub[0], sub[1], sub_extras)
+    if pershard:
+        err = max_abs_err(full[:, :K64_SHARDS], want)
+        # The summed kernel over all shards equals this one's shard sum.
+        check(torch.equal(K.nary_stats(f, g, extras),
+                          full.sum(dim=1, dtype=torch.int64).to(torch.int32)),
+              "nary_stats at K=64 disagrees with nary_stats_pershard summed over shards")
+    else:
+        err = max_abs_err(kern(*sub[:2], sub_extras), want)
+    check(err == 0, f"{name} at K={k} differs from its plain version over the first "
+          f"{K64_SHARDS} shards")
+    ms = time_ms(lambda: kern(f, g, extras))
+    k_ms = kernel_ms(bare_group(name, f, g, extras))
+    plain_ms = time_ms(lambda: plain(sub[0], sub[1], sub_extras), reps=1, warm=0)
+    bound_ms, by, _ = kernel_bound(probe.group_work(s, rf, rg, w, k, extra_rows, False,
+                                                    pershard))
+    log(f"kernels: {name} at K={k} (extras h, g) S={s} Rf={rf} Rg={rg}: {ms:.4f} ms, "
+        f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms by {by}; exact over the first "
+        f"{K64_SHARDS} shards (plain {plain_ms:.4f} ms there)")
+    return {"k64_shape": [s, rf, rg, w, k], "k64_ms": ms, "k64_kernel_ms": k_ms,
+            "k64_plain_ms": plain_ms, "k64_plain_shards": K64_SHARDS,
+            "k64_bound_ms": bound_ms, "k64_bound_by": by, "k64_max_abs_err": err}
 
 
 def phase_kernels(gstacks, wide_stacks, launches):
@@ -839,7 +898,9 @@ def phase_kernels(gstacks, wide_stacks, launches):
         log(f"kernels: exact at S={s} Rf={rf} Rg={rg} W={w}")
 
     # The group kernels at edge shapes: E = 2 with heights 3 and 5, Rf != Rg,
-    # Rg = 13, 7 slots with 2 inactive, S = 1, filtered; then K4's and K5's
+    # Rg = 13, 7 slots with 2 inactive, S = 1, filtered, and odometers of K =
+    # 70 (9 slot groups), 1 and 256 (E = 8), and hoisted ones (a last extra
+    # of 8 or 16 rows after one or two others); then K4's and K5's
     # slot pairs: 1 to 9 slots (every third inactive, whose cells must stay
     # 0) at Rf = 9 and 16, K4 filtered and not, and a 36-word axis.
     cpu_gen = torch.Generator().manual_seed(99)
@@ -851,7 +912,9 @@ def phase_kernels(gstacks, wide_stacks, launches):
     active = [1, 1, 0, 1, 1, 0, 1]
     for s, rf, rg, heights, filtered in [(2, 8, 8, (3, 5), False), (3, 8, 13, (3, 5), True),
                                          (1, 16, 8, (4,), True), (2, 9, 13, (8,), False),
-                                         (1, 8, 8, (2, 3, 2), True)]:
+                                         (1, 8, 8, (2, 3, 2), True), (2, 8, 8, (70,), True),
+                                         (1, 8, 8, (1,), False), (1, 8, 8, (2,) * 8, True),
+                                         (2, 8, 8, (3, 8), True), (1, 9, 13, (2, 2, 16), False)]:
         f, g = rand_stack(s, rf), rand_stack(s, rg)
         hs = tuple(rand_stack(s, r) for r in heights)
         filt = rand_stack(s, 1)[:, 0].contiguous() if filtered else None
@@ -971,6 +1034,8 @@ def phase_kernels(gstacks, wide_stacks, launches):
         k_ms = kernel_ms(bare)
         plain_ms = time_ms(plain, reps=1, warm=0)
         lines.append(kernel_line(name, ms, k_ms, plain_ms, work, err, launches[name]))
+    lines[-2].update(odometer_k64(f, g, h, pershard=False))
+    lines[-1].update(odometer_k64(f, g, h, pershard=True))
     for ln in lines:
         log(f"kernels: {ln['name']}: {ln['ms']:.4f} ms, kernel {ln['kernel_ms']:.4f} ms, "
             f"plain {ln['plain_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms by "

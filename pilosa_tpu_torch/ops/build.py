@@ -28,13 +28,13 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
-#: Kernel sources by library name: bmma.cu (the pair kernels K1, K2 and the
-#: group tiles K4, K5 on the tensor cores' binary MMA, and the AND-popcount
-#: rate probe), bitcount.cu (K3, the count path's popcount-reduce) and
-#: group.cu (K6, K7, the odometer group tensor), both on the CUDA cores.
+#: Kernel sources by library name: bmma.cu (the pair kernels K1, K2, the
+#: group tiles K4, K5 and the odometer group tensor K6, K7 on the tensor
+#: cores' binary MMA, and the AND-popcount rate probe) and bitcount.cu (K3,
+#: the count path's popcount-reduce, on the CUDA cores).
 SOURCES = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
-    for name in ("bitcount", "group", "bmma")
+    for name in ("bitcount", "bmma")
 }
 
 NVCC_FLAGS = (
@@ -125,10 +125,10 @@ def _bind(name: str, lib) -> None:
     signatures = {
         # x, out, n, w, stream
         "bitcount": {"popcount_rows_launch": [ptr, ptr, i32, i32, ptr]},
-        "group": {"nary_stats_launch": group, "nary_stats_pershard_launch": group},
         "bmma": {"pair_stats_pershard_launch": pair, "pair_stats_launch": pair,
                  "group_tile_stats_launch": group,
                  "group_tile_stats_pershard_launch": group,
+                 "nary_stats_launch": group, "nary_stats_pershard_launch": group,
                  # mode, iters, out, blocks, stream
                  "and_popc_probe_launch": [i32, i32, ptr, i32, ptr]},
     }
@@ -139,7 +139,7 @@ def _bind(name: str, lib) -> None:
 
 
 def library(name: str):
-    """The loaded kernel library ``name`` ("bitcount", "group" or "bmma"). The
+    """The loaded kernel library ``name`` ("bitcount" or "bmma"). The
     first call builds every library whose source changed."""
     global build_seconds, build_log
     lib = _libs.get(name)

@@ -7,8 +7,8 @@
 // issue rate, 16 a clock per SM (CUDA C++ Programming Guide, arithmetic
 // instruction throughput, compute capability 9.0): 132 SMs x 1.98 GHz x 16
 // = 4.2e12 a second. One popcount per 4 bytes read is bound by the bytes.
-// (The pair and group-tile kernels K1, K2, K4 and K5 run on the tensor
-// cores' binary MMA, in bmma.cu.) Design against that:
+// (The pair and group kernels K1, K2 and K4 to K7 run on the tensor cores'
+// binary MMA, in bmma.cu.) Design against that:
 //
 //   - threads read 16-byte vectors (uint4), neighbouring threads on
 //     neighbouring addresses, so every warp load is a full 512-byte burst;

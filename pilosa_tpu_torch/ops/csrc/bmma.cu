@@ -1,9 +1,10 @@
 // AND-popcount on Hopper's tensor cores (sm_90a): the pair kernels, per
-// shard (K1) and summed over shards (K2), and the group-tile kernels,
-// summed and filtered (K4) and per shard (K5), with a rate probe.
+// shard (K1) and summed over shards (K2), the group-tile kernels, summed
+// and filtered (K4) and per shard (K5), and the odometer group-tensor
+// kernels, summed and filtered (K6) and per shard (K7), with a rate probe.
 //
 // Stacks are int32[S, R, W] (W = 32768 words per shard row), the bits of
-// the host's uint32 layout. All four kernels compute sums of popcount(x & y)
+// the host's uint32 layout. All six kernels compute sums of popcount(x & y)
 // over words, which is exactly what the binary tensor-core MMA computes:
 //
 //   mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc
@@ -500,13 +501,29 @@ pair_gemm_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// K4 and K5: the group tile, summed over shards with an optional filter
-// (K4), or per shard and unfiltered (K5, PERSHARD), slot pairs stacked
-// along M. For slots q, q+1 of a launch, one m16n8k256 MMA computes both
-// slots' 8 x 8 faces:
+// K4 to K7: the group tensor, summed over shards with an optional filter
+// (K4, K6), or per shard and unfiltered (K5, K7: PERSHARD), slot pairs
+// stacked along M. For slots q, q+1 of a launch, one m16n8k256 MMA
+// computes both slots' 8 x 8 faces:
 //
 //   A rows 0-7  = F[a] & m_q,   A rows 8-15 = F[a] & m_{q+1},   B = G[b],
 //   m_q = H1[r1(q)] & ... & HE[rE(q)] [& filt]
+//
+// K4 and K5 read each slot's rows r_e(q) from a device slot table
+// (rows_idx int32[T, E], active int32[T]). K6 and K7 (ODOMETER) run the
+// whole odometer, K slots for K the product of the extras' heights, and
+// decode slot q's rows from q itself, last extra fastest: no table is
+// uploaded and every q < K is live. They replace the TPU's Pallas kernels nary_stats
+// (K6, pilosa_tpu/ops/kernels.py:253) and nary_stats_pershard (K7, :349),
+// which carry the shard sum in VMEM across a sequential grid; here the
+// shard axis is a grid axis and the sum goes through atomicAdd.
+//
+// The odometer's prefix (HOIST): when the last extra's height is a multiple
+// of the 8 slots a block holds, the block's slots share every other extra's
+// row and differ only in the last extra's, which are 8 consecutive rows. So
+// F & H1 & ... & H_{E-1} [& filt] is formed once a vector, and each slot
+// loads one word of its last-extra row. A one-extra odometer has no extra
+// row to hoist, only the filter, and keeps the per-slot body.
 //
 // Lane 4g+t loads 16-byte vectors of F row g and G row g, and the slots'
 // mask words, which are the same for every g (a broadcast load); four ANDs
@@ -517,9 +534,10 @@ pair_gemm_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ g,
 // odd slot count pairs the last slot with a zero mask; an inactive slot's
 // mask is zero and its cells are not written; Rf or Rg above 8 take more
 // tiles. Sums go once per block and cell into the zeroed output with
-// atomicAdd: K4's int32[T, Rf, Rg] (exact while S * 2^20 < 2^31), or K5's
-// int32[T, S, Rf, Rg] at cell ((q * S + s) * Rf + a) * Rg + b, where only
-// the word slices of one shard meet (every cell <= 2^20).
+// atomicAdd: K4's int32[T, Rf, Rg] and K6's int32[K, Rf, Rg] (exact while
+// S * 2^20 < 2^31), or K5's int32[T, S, Rf, Rg] and K7's int32[K, S, Rf,
+// Rg] at cell ((q * S + s) * Rf + a) * Rg + b, where only the word slices
+// of one shard meet (every cell <= 2^20).
 // ---------------------------------------------------------------------------
 
 constexpr int kGroupSlots = 8;
@@ -533,7 +551,7 @@ struct ExtraTable {
 
 // At most 64 registers a thread, so 4 blocks (32 warps) fit an SM and keep
 // enough loads in flight.
-template <bool FILTERED, bool PERSHARD>
+template <bool FILTERED, bool PERSHARD, bool ODOMETER, bool HOIST>
 __global__ void __launch_bounds__(kThreads, 4)
 group_pair_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
                   const ExtraTable ex, const int32_t* __restrict__ rows_idx,
@@ -548,17 +566,30 @@ group_pair_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
   const int a0 = ta * 8;
   const int b0 = tb * 8;
   const int n_extra = ex.n;
+  static_assert(ODOMETER || !HOIST, "only the odometer has a prefix to hoist");
 
   __shared__ const uint4* hp[kGroupSlots][kMaxExtras];
   __shared__ int live[kGroupSlots];
   if (threadIdx.x < kGroupSlots) {
     const int j = threadIdx.x;
     const int q = q0 + j;
-    const int on = q < n_slots && active[q] != 0;
-    live[j] = on;
-    for (int e = 0; e < n_extra; ++e) {
-      hp[j][e] = on ? ex.base[e] + ((size_t)s * ex.rows[e] + rows_idx[(size_t)q * n_extra + e]) * w4
-                    : nullptr;
+    if constexpr (ODOMETER) {
+      const int on = q < n_slots;
+      live[j] = on;
+      int rem = q;
+      for (int e = n_extra - 1; e >= 0; --e) {
+        const int height = ex.rows[e];
+        const int row = rem % height;
+        rem /= height;
+        hp[j][e] = on ? ex.base[e] + ((size_t)s * height + row) * w4 : nullptr;
+      }
+    } else {
+      const int on = q < n_slots && active[q] != 0;
+      live[j] = on;
+      for (int e = 0; e < n_extra; ++e) {
+        hp[j][e] = on ? ex.base[e] + ((size_t)s * ex.rows[e] + rows_idx[(size_t)q * n_extra + e]) * w4
+                      : nullptr;
+      }
     }
   }
   __syncthreads();
@@ -581,6 +612,8 @@ group_pair_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
   const uint4* ms = FILTERED ? filt + (size_t)s * w4 : nullptr;
   const int v_begin = slice * slice_w4;
   const int v_end = min(v_begin + slice_w4, w4);
+  // HOIST: slot j's last-extra row is row j past slot 0's.
+  const uint4* last = HOIST ? hp[0][n_extra - 1] : nullptr;
 
   uint32_t acc[kGroupPairs][4];
 #pragma unroll
@@ -592,6 +625,11 @@ group_pair_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
     const uint4 a = in && fr ? __ldg(fr + v) : zero;
     const uint4 b = in && gr ? __ldg(gr + v) : zero;
     const uint4 flt = FILTERED && in ? __ldg(ms + v) : zero;
+    uint4 pre = a;  // F [& the hoisted prefix]
+    if constexpr (HOIST) {
+      for (int e = 0; e + 1 < n_extra; ++e) pre = and4(pre, in ? __ldg(hp[0][e] + v) : zero);
+      if (FILTERED) pre = and4(pre, flt);
+    }
 #pragma unroll
     for (int p = 0; p < kGroupPairs; ++p) {
       if (!(slot_on[2 * p] || slot_on[2 * p + 1])) continue;  // uniform
@@ -600,14 +638,16 @@ group_pair_kernel(const uint4* __restrict__ f, const uint4* __restrict__ g,
       for (int h = 0; h < 2; ++h) {
         const int j = 2 * p + h;
         m[h] = zero;
-        if (slot_on[j] && in) {
+        if constexpr (HOIST) {
+          if (in) m[h] = __ldg(last + (size_t)j * w4 + v);
+        } else if (slot_on[j] && in) {
           m[h] = __ldg(hp[j][0] + v);
           for (int e = 1; e < n_extra; ++e) m[h] = and4(m[h], __ldg(hp[j][e] + v));
           if (FILTERED) m[h] = and4(m[h], flt);
         }
       }
-      const uint4 x = and4(a, m[0]);
-      const uint4 y = and4(a, m[1]);
+      const uint4 x = and4(pre, m[0]);
+      const uint4 y = and4(pre, m[1]);
       mma_b1(acc[p], x.x, y.x, x.y, y.y, b.x, b.y);
       mma_b1(acc[p], x.z, y.z, x.w, y.w, b.z, b.w);
     }
@@ -658,9 +698,29 @@ int face_launch(const void* f, const void* g, void* out, int s, int rf, int rg, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 (summed, filt optional) and K5 (pershard, filt null): grid (slot
-// groups, s * word slices, 8 x 8 tiles), the slot groups fastest.
-int group_pair_launch(bool pershard, const void* f, const void* g,
+template <bool ODOMETER, bool HOIST>
+void group_pair_grid(const dim3& grid, cudaStream_t st, bool pershard, const uint4* fv,
+                     const uint4* gv, const ExtraTable& ex, const int32_t* ri,
+                     const int32_t* ac, const uint4* fl, int32_t* o, int n_slots, int s,
+                     int rf, int rg, int w4, int slice_w4, int slices, int tiles_b) {
+  if (pershard) {
+    group_pair_kernel<false, true, ODOMETER, HOIST><<<grid, kThreads, 0, st>>>(
+        fv, gv, ex, ri, ac, nullptr, o, n_slots, s, rf, rg, w4, slice_w4, slices, tiles_b);
+  } else if (fl) {
+    group_pair_kernel<true, false, ODOMETER, HOIST><<<grid, kThreads, 0, st>>>(
+        fv, gv, ex, ri, ac, fl, o, n_slots, s, rf, rg, w4, slice_w4, slices, tiles_b);
+  } else {
+    group_pair_kernel<false, false, ODOMETER, HOIST><<<grid, kThreads, 0, st>>>(
+        fv, gv, ex, ri, ac, nullptr, o, n_slots, s, rf, rg, w4, slice_w4, slices, tiles_b);
+  }
+}
+
+// K4 and K6 (summed, filt optional), K5 and K7 (pershard, filt null): grid
+// (slot groups, s * word slices, 8 x 8 tiles), the slot groups fastest.
+// The odometer kernels (K6, K7) read no slot table: rows_idx and active
+// may be null; they hoist the prefix when the last of two or more extras'
+// height is a multiple of the block's slots.
+int group_pair_launch(bool pershard, bool odometer, const void* f, const void* g,
                       const void* const* ptrs, const int* heights, int n_extra,
                       const void* rows_idx, const void* active, const void* filt,
                       void* out, int s, int rf, int rg, int w, int n_slots,
@@ -670,13 +730,14 @@ int group_pair_launch(bool pershard, const void* f, const void* g,
   const int groups = (n_slots + kGroupSlots - 1) / kGroupSlots;
   if (n_extra < 1 || n_extra > kMaxExtras || n_slots < 1 || s < 1 || rf < 1 ||
       rg < 1 || w < 4 || w % 4 || s > kMaxGridYZ || tiles_a * tiles_b > kMaxGridYZ ||
-      !rows_idx || !active || (pershard && filt)) {
+      (!odometer && (!rows_idx || !active)) || (pershard && filt)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ExtraTable ex;
   for (int e = 0; e < kMaxExtras; ++e) {
     ex.base[e] = e < n_extra ? static_cast<const uint4*>(ptrs[e]) : nullptr;
     ex.rows[e] = e < n_extra ? heights[e] : 0;
+    if (e < n_extra && heights[e] < 1) return static_cast<int>(cudaErrorInvalidValue);
   }
   ex.n = n_extra;
   int sms = 0;
@@ -695,15 +756,15 @@ int group_pair_launch(bool pershard, const void* f, const void* g,
   const int32_t* ac = static_cast<const int32_t*>(active);
   const uint4* fl = static_cast<const uint4*>(filt);
   int32_t* o = static_cast<int32_t*>(out);
-  if (pershard) {
-    group_pair_kernel<false, true><<<grid, kThreads, 0, st>>>(
-        fv, gv, ex, ri, ac, nullptr, o, n_slots, s, rf, rg, w4, slice_w4, slices, tiles_b);
-  } else if (filt) {
-    group_pair_kernel<true, false><<<grid, kThreads, 0, st>>>(
-        fv, gv, ex, ri, ac, fl, o, n_slots, s, rf, rg, w4, slice_w4, slices, tiles_b);
+  if (!odometer) {
+    group_pair_grid<false, false>(grid, st, pershard, fv, gv, ex, ri, ac, fl, o, n_slots, s,
+                                  rf, rg, w4, slice_w4, slices, tiles_b);
+  } else if (n_extra > 1 && heights[n_extra - 1] % kGroupSlots == 0) {
+    group_pair_grid<true, true>(grid, st, pershard, fv, gv, ex, ri, ac, fl, o, n_slots, s,
+                                rf, rg, w4, slice_w4, slices, tiles_b);
   } else {
-    group_pair_kernel<false, false><<<grid, kThreads, 0, st>>>(
-        fv, gv, ex, ri, ac, nullptr, o, n_slots, s, rf, rg, w4, slice_w4, slices, tiles_b);
+    group_pair_grid<true, false>(grid, st, pershard, fv, gv, ex, ri, ac, fl, o, n_slots, s,
+                                 rf, rg, w4, slice_w4, slices, tiles_b);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -776,18 +837,20 @@ extern "C" int pair_stats_launch(const void* f, const void* g, void* out, int s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 and K5: f int32[s, rf, w], g int32[s, rg, w]; ptrs / heights: host
-// arrays of n_extra (<= 8) extra stacks int32[s, heights[e], w]; rows_idx
-// int32[T, n_extra] and active int32[T] on the device; out zeroed by the
-// caller on the same stream. The same signature as group.cu's entry points.
+// K4 to K7: f int32[s, rf, w], g int32[s, rg, w]; ptrs / heights: host
+// arrays of n_extra (<= 8) extra stacks int32[s, heights[e], w]; out zeroed
+// by the caller on the same stream. K4 and K5 take rows_idx int32[T,
+// n_extra] and active int32[T] on the device; K6 and K7 read neither (the
+// odometer names each slot's rows), and n_slots = K, the product of the
+// heights.
 
 // K4: filt int32[s, w] or null; out int32[T, rf, rg], summed over shards.
 extern "C" int group_tile_stats_launch(
     const void* f, const void* g, const void* const* ptrs, const int* heights,
     int n_extra, const void* rows_idx, const void* active, const void* filt,
     void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
-  return group_pair_launch(false, f, g, ptrs, heights, n_extra, rows_idx, active, filt,
-                           out, s, rf, rg, w, n_slots, stream);
+  return group_pair_launch(false, false, f, g, ptrs, heights, n_extra, rows_idx, active,
+                           filt, out, s, rf, rg, w, n_slots, stream);
 }
 
 // K5: filt null; out int32[T, s, rf, rg].
@@ -795,6 +858,24 @@ extern "C" int group_tile_stats_pershard_launch(
     const void* f, const void* g, const void* const* ptrs, const int* heights,
     int n_extra, const void* rows_idx, const void* active, const void* filt,
     void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
-  return group_pair_launch(true, f, g, ptrs, heights, n_extra, rows_idx, active, filt,
-                           out, s, rf, rg, w, n_slots, stream);
+  return group_pair_launch(true, false, f, g, ptrs, heights, n_extra, rows_idx, active,
+                           filt, out, s, rf, rg, w, n_slots, stream);
+}
+
+// K6: filt int32[s, w] or null; out int32[K, rf, rg], summed over shards.
+extern "C" int nary_stats_launch(
+    const void* f, const void* g, const void* const* ptrs, const int* heights,
+    int n_extra, const void* rows_idx, const void* active, const void* filt,
+    void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
+  return group_pair_launch(false, true, f, g, ptrs, heights, n_extra, rows_idx, active,
+                           filt, out, s, rf, rg, w, n_slots, stream);
+}
+
+// K7: filt null; out int32[K, s, rf, rg].
+extern "C" int nary_stats_pershard_launch(
+    const void* f, const void* g, const void* const* ptrs, const int* heights,
+    int n_extra, const void* rows_idx, const void* active, const void* filt,
+    void* out, int s, int rf, int rg, int w, int n_slots, void* stream) {
+  return group_pair_launch(true, true, f, g, ptrs, heights, n_extra, rows_idx, active,
+                           filt, out, s, rf, rg, w, n_slots, stream);
 }

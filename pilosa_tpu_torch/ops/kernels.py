@@ -2,9 +2,9 @@
 PyTorch version.
 
 Hand-written CUDA kernels, built by ops/build.py: the pair kernels and the
-group-tile kernels on the tensor cores' binary MMA (ops/csrc/bmma.cu), the
-popcount-reduce of the count path (ops/csrc/bitcount.cu) and the odometer
-group-tensor kernels (ops/csrc/group.cu) on the CUDA cores:
+group-tensor kernels on the tensor cores' binary MMA (ops/csrc/bmma.cu), and
+the popcount-reduce of the count path on the CUDA cores
+(ops/csrc/bitcount.cu):
 
 - ``pair_stats_pershard`` (K1, bmma.cu): per shard s, over int32[S, Rf, W] and
   int32[S, Rg, W] stacks,
@@ -28,10 +28,10 @@ group-tensor kernels (ops/csrc/group.cu) on the CUDA cores:
   ``group_tile_stats`` (K4, bmma.cu, summed over shards, optional filter)
   and ``group_tile_stats_pershard`` (K5, bmma.cu, per shard) take each
   slot's extra rows from an int32[T, E] table and an ``active`` flag per
-  slot (an inactive slot is exactly 0); ``nary_stats`` (K6, group.cu,
-  summed, optional filter) and ``nary_stats_pershard`` (K7, group.cu) run
+  slot (an inactive slot is exactly 0); ``nary_stats`` (K6, bmma.cu,
+  summed, optional filter) and ``nary_stats_pershard`` (K7, bmma.cu) run
   the full odometer over the extras, slot k decoded in the kernel, last
-  extra fastest.
+  extra fastest. All four are instances of one kernel body.
 
 From the pair stats the host derives any two-row verb in O(1):
 Intersect = pair, Union = cf + cg - pair, Difference = cf - pair,
@@ -253,7 +253,7 @@ def _check_pair_args(name: str, f: torch.Tensor, g: torch.Tensor) -> None:
 _LIBRARY = {
     "pair_stats_pershard": "bmma", "pair_stats": "bmma", "popcount_rows": "bitcount",
     "group_tile_stats": "bmma", "group_tile_stats_pershard": "bmma",
-    "nary_stats": "group", "nary_stats_pershard": "group",
+    "nary_stats": "bmma", "nary_stats_pershard": "bmma",
 }
 
 

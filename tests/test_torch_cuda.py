@@ -68,13 +68,23 @@ def _words(rng, *shape):
 
 
 # (S, Rf, Rg, extra heights, filtered): E = 2 with heights 3 and 5, Rf != Rg,
-# Rg = 13 (off the 8-row tile), S = 1, and filtered.
+# Rg = 13 (off the 8-row tile), S = 1, and filtered; then odometers across
+# the tensor-core K6's and K7's 8-slot groups: K = 70 (9 groups, the last
+# part-full), K = 1 and E = 8 (K = 256, every decode step); and the
+# hoisted odometer (a last extra of 8 or 16 rows after one or two others:
+# the slots of a group share the prefix). A filtered shape runs K6 with
+# and without its filter (so heights 3 x 5 at Rg = 13 runs both).
 GROUP_SHAPES = [
     (2, 8, 8, (3, 5), False),
     (3, 8, 13, (3, 5), True),
     (1, 16, 8, (4,), True),
     (2, 9, 13, (8,), False),
     (1, 8, 8, (2, 3, 2), True),
+    (2, 8, 8, (70,), True),
+    (2, 8, 8, (1,), True),
+    (1, 8, 8, (2,) * 8, True),
+    (2, 8, 8, (3, 8), True),
+    (1, 9, 13, (2, 2, 16), True),
 ]
 
 
@@ -100,6 +110,8 @@ def test_group_kernels_equal_plain_versions(card, s, rf, rg, heights, filtered):
         "nary_stats": K.nary_stats(fd, gd, ed, filt_d),
         "nary_stats_pershard": K.nary_stats_pershard(fd, gd, ed),
     }
+    if filtered:
+        got["nary_stats, unfiltered"] = K.nary_stats(fd, gd, ed)
     torch.cuda.synchronize()
     after = K.launch_counts()
     want = {
@@ -109,8 +121,12 @@ def test_group_kernels_equal_plain_versions(card, s, rf, rg, heights, filtered):
         "nary_stats": K.nary_stats_torch(fc, gc, ec, filt_c),
         "nary_stats_pershard": K.nary_stats_pershard_torch(fc, gc, ec),
     }
-    for name, out in got.items():
+    if filtered:
+        want["nary_stats, unfiltered"] = K.nary_stats_torch(fc, gc, ec)
+    for name in ("group_tile_stats", "group_tile_stats_pershard", "nary_stats_pershard"):
         assert after[name] == before[name] + 1, name
+    assert after["nary_stats"] == before["nary_stats"] + 1 + int(filtered)
+    for name, out in got.items():
         assert out.device.type == "cuda", name
         assert torch.equal(out.cpu(), want[name]), name
     assert not got["group_tile_stats"][[2, 5]].any()

@@ -73,7 +73,19 @@ def _case(s, rf, rg, heights, filtered):
     return f, g, hs, filt
 
 
-@pytest.mark.parametrize("s,rf,rg,heights,filtered", KERNEL_CASES)
+# Odometer shapes the CUDA kernels' 8-slot groups make edges of: K = 9 (an
+# odd K across two groups), K = 1, E = 3, and 2 x 8 (a last extra of 8 rows
+# after another: the shape whose prefix the CUDA kernels hoist), filtered
+# and not.
+NARY_CASES = KERNEL_CASES + [
+    (s, rf, rg, heights, filtered)
+    for s, rf, rg, heights in ((2, 8, 8, (9,)), (1, 8, 5, (1,)), (2, 8, 8, (2, 2, 2)),
+                               (1, 8, 8, (2, 8)))
+    for filtered in (False, True)
+]
+
+
+@pytest.mark.parametrize("s,rf,rg,heights,filtered", NARY_CASES)
 def test_nary_stats_match_pallas(s, rf, rg, heights, filtered):
     f, g, hs, filt = _case(s, rf, rg, heights, filtered)
     got = K.nary_stats(_t(f), _t(g), tuple(map(_t, hs)), None if filt is None else _t(filt))
@@ -117,6 +129,23 @@ def test_group_tile_stats_match_jax_with_padded_slots(s, rf, rg, heights, filter
             for t, r in enumerate(live[q]):
                 k = k * heights[t] + int(r)
             assert torch.equal(got[q], full[k])
+
+
+@pytest.mark.parametrize("heights,filtered", [((3, 5), False), ((9,), True), ((1,), False),
+                                              ((2, 2, 2), True), ((3, 8), True)])
+def test_nary_stats_is_group_tile_over_the_full_odometer(heights, filtered):
+    """The CUDA K6 and K7 are K4's and K5's kernel body with each slot's
+    rows decoded from its index: the whole odometer, last extra fastest, as
+    the slot table, every slot active, gives the same tensor."""
+    f, g, hs, filt = _case(2, 8, 13, heights, filtered)
+    ft, gt, ht = _t(f), _t(g), tuple(map(_t, hs))
+    ftt = None if filt is None else _t(filt)
+    table = np.array(list(np.ndindex(*heights)), dtype=np.int32).reshape(-1, len(heights))
+    active = np.ones(len(table), dtype=np.int32)
+    assert torch.equal(K.nary_stats(ft, gt, ht, ftt),
+                       K.group_tile_stats(ft, gt, ht, table, active, ftt))
+    assert torch.equal(K.nary_stats_pershard(ft, gt, ht),
+                       K.group_tile_stats_pershard(ft, gt, ht, table, active))
 
 
 @pytest.mark.parametrize("rf,rg", [(9, 8), (16, 13)])

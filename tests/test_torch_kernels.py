@@ -235,7 +235,20 @@ def test_kernel_entry_point_is_defined_and_bound(name):
     assert fn.restype is ctypes.c_int
 
 
-@pytest.mark.parametrize("lib_name", ["bitcount", "group", "bmma"])
+def test_every_kernel_source_is_built():
+    """build.SOURCES names exactly the .cu files of ops/csrc: no source is
+    left unbuilt, and no library is built from a file that is gone."""
+    import glob
+    import os
+
+    from pilosa_tpu_torch.ops import build
+
+    on_disk = glob.glob(os.path.join(os.path.dirname(build.__file__), "csrc", "*.cu"))
+    assert sorted(build.SOURCES.values()) == sorted(on_disk)
+    assert set(K._LIBRARY.values()) == set(build.SOURCES)
+
+
+@pytest.mark.parametrize("lib_name", ["bitcount", "bmma"])
 def test_bind_covers_exactly_the_entry_points_of_each_source(lib_name):
     """_bind binds every entry point a source defines and nothing else (a
     stale name would fail the real library's load), each with argtypes
