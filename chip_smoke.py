@@ -46,8 +46,9 @@ turns by the same script on one card.
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
    with inactive ones, odometers of 1 to 256 slots), exactly; the odometer
-   kernels also at K = 64 (extras h and g, 954 shards, held against the
-   plain versions over the first 64 shards); with its median time by CUDA events
+   kernels also at K = 64 (extras h and g, g also being G; 954 shards,
+   held against the plain versions over the first 64 shards, K7 over the
+   last 64 too); with its median time by CUDA events
    around a wrapper call, its own time by CUDA events around back-to-back
    bare launches (kernel_ms: without the wrapper's host checks, output
    zeroing and slot-table uploads), the plain version's time and
@@ -142,9 +143,11 @@ EARLIER_MS = {
     "nary_stats kernel_ms": 6.4030, "nary_stats_pershard kernel_ms": 6.4061,
     "pair_stats at S=954, 8 x 8": 1.1986,
 }
-# The odometer kernels' second shape: K = 64 over the extras (h, g), whose
-# output is held against the plain versions over the first K64_SHARDS
-# shards (the plain pass over all 954 would take about a minute).
+# The odometer kernels' second shape: K = 64 over the extras (h, g), from
+# the resident stacks (so g is both G and an extra, and its bound counts g
+# once), whose output is held against the plain versions over the first
+# K64_SHARDS shards, K7's over the last as well (the plain pass over all
+# 954 would take about a minute).
 K64_SHARDS = 64
 
 
@@ -818,11 +821,22 @@ def cross_check(gstacks, served):
     return launches
 
 
+def distinct_rows(stacks) -> int:
+    """Rows of the distinct stacks among ``stacks``: a stack passed twice
+    (an extra that is also F or G) is read from device memory once."""
+    seen = {}
+    for x in stacks:
+        seen[(x.data_ptr(), tuple(x.shape))] = x.shape[1]
+    return sum(seen.values())
+
+
 def odometer_k64(f, g, h, pershard):
     """K6 (pershard False) or K7 at K = 64, the odometer over the extras
     (h, g) of the GroupBy stacks: timed at all shards, its output held
-    exactly against the plain version over the first K64_SHARDS shards.
-    The k64_* keys of the kernel's line."""
+    exactly against the plain version over the first K64_SHARDS shards
+    (K7 over the last K64_SHARDS as well). The extra g is also G, so the
+    bound reads f, g and h once each. The k64_* keys of the kernel's
+    line."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels as K
@@ -835,29 +849,34 @@ def odometer_k64(f, g, h, pershard):
     s, rf, w = f.shape
     rg = g.shape[1]
     k = K._odometer_slots(extras)
-    extra_rows = sum(x.shape[1] for x in extras)
+    extra_rows = distinct_rows((f, g) + extras) - rf - rg
     full = kern(f, g, extras)
     sub = [x[:K64_SHARDS] for x in (f, g, h)]
     sub_extras = (sub[2], sub[1])
     want = plain(sub[0], sub[1], sub_extras)
     if pershard:
         err = max_abs_err(full[:, :K64_SHARDS], want)
+        # The last shards too: the full grid's split over the shards.
+        tail = [x[-K64_SHARDS:] for x in (f, g, h)]
+        err = max(err, max_abs_err(full[:, -K64_SHARDS:],
+                                   plain(tail[0], tail[1], (tail[2], tail[1]))))
         # The summed kernel over all shards equals this one's shard sum.
         check(torch.equal(K.nary_stats(f, g, extras),
                           full.sum(dim=1, dtype=torch.int64).to(torch.int32)),
               "nary_stats at K=64 disagrees with nary_stats_pershard summed over shards")
     else:
         err = max_abs_err(kern(*sub[:2], sub_extras), want)
-    check(err == 0, f"{name} at K={k} differs from its plain version over the first "
-          f"{K64_SHARDS} shards")
+    held = f"the first and last {K64_SHARDS}" if pershard else f"the first {K64_SHARDS}"
+    check(err == 0, f"{name} at K={k} differs from its plain version over {held} shards")
     ms = time_ms(lambda: kern(f, g, extras))
     k_ms = kernel_ms(bare_group(name, f, g, extras))
     plain_ms = time_ms(lambda: plain(sub[0], sub[1], sub_extras), reps=1, warm=0)
     bound_ms, by, _ = kernel_bound(probe.group_work(s, rf, rg, w, k, extra_rows, False,
                                                     pershard))
-    log(f"kernels: {name} at K={k} (extras h, g) S={s} Rf={rf} Rg={rg}: {ms:.4f} ms, "
-        f"kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms by {by}; exact over the first "
-        f"{K64_SHARDS} shards (plain {plain_ms:.4f} ms there)")
+    log(f"kernels: {name} at K={k} (extras h, g; g is also G) S={s} Rf={rf} Rg={rg}: "
+        f"{ms:.4f} ms, kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} "
+        f"({rf + rg + extra_rows} distinct rows read); exact over {held} shards "
+        f"(plain {plain_ms:.4f} ms over the first {K64_SHARDS})")
     return {"k64_shape": [s, rf, rg, w, k], "k64_ms": ms, "k64_kernel_ms": k_ms,
             "k64_plain_ms": plain_ms, "k64_plain_shards": K64_SHARDS,
             "k64_bound_ms": bound_ms, "k64_bound_by": by, "k64_max_abs_err": err}

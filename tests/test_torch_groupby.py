@@ -134,9 +134,11 @@ def test_group_tile_stats_match_jax_with_padded_slots(s, rf, rg, heights, filter
 @pytest.mark.parametrize("heights,filtered", [((3, 5), False), ((9,), True), ((1,), False),
                                               ((2, 2, 2), True), ((3, 8), True)])
 def test_nary_stats_is_group_tile_over_the_full_odometer(heights, filtered):
-    """The CUDA K6 and K7 are K4's and K5's kernel body with each slot's
-    rows decoded from its index: the whole odometer, last extra fastest, as
-    the slot table, every slot active, gives the same tensor."""
+    """The identity the CUDA K6 and K7 rest on, checked on the plain
+    versions (each is held against the JAX package elsewhere): the whole
+    odometer, last extra fastest, as the slot table, every slot active,
+    gives the tile kernels the same tensor. The kernels themselves are held
+    against the plain versions by the cuda-marked tests."""
     f, g, hs, filt = _case(2, 8, 13, heights, filtered)
     ft, gt, ht = _t(f), _t(g), tuple(map(_t, hs))
     ftt = None if filt is None else _t(filt)
