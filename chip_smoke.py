@@ -7,7 +7,8 @@ Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
 pilosa_tpu_torch package of another checkout DIR instead of this script's
 own (its kernels built under DIR), so that two trees can be compared in
-turns by the same script on one card.
+turns by the same script on one card (a checkout from before the HTTP
+slice has no server, so its run stops at phase 4).
 
 1. card: prints the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, and the kernel build seconds with ptxas's report
@@ -36,13 +37,33 @@ turns by the same script on one card.
    filtered 3-field one and a limit/offset one, through the same Executor.
    Every group's count must equal the Count of its rows' Intersect through
    the port's Count path, every combination left out must count 0, and the
-   same queries over the first 32 shards must equal the CPU oracle's.
+   same queries over the first 32 shards must equal the CPU oracle's (run
+   after phase 4, as it replaces the resident stacks with 32-shard ones).
    Launch counters are zeroed before the requests and read after: the
    group-tile kernels must have launched, and each request launches what
    its route should. No GroupBy may be routed to the CPU oracle. Then a
    2-shard index whose 70-row extra field crosses the 64-slot tile
    boundary, on the maintained and the generic route;
-4. each kernel against its plain PyTorch version on the card, on the
+4. the HTTP server (pilosa_tpu_torch.server) over the same index and
+   backend: the north-star Count, the 16-Count pair request and three
+   GroupBys sent as JSON and as protobuf, each answer byte-identical to the
+   in-process executor's encoded the same way, with the pair and GroupBy
+   caches dropped first so that each request launches what its route
+   should (K3, K1, K2, K5 with K3, K4 with K3); one HTTP Count profiled
+   (wall and device time); then requests/s and p50/p99 latency under 1, 4
+   and 16 concurrent clients (the Count) and 1 and 4 (the pair request
+   and the 3-field GroupBy), each client a thread with its own keep-alive
+   connection in a process of its own, every answer checked, and the
+   Count without HTTP (threads calling Executor.execute) at 1 and 4; a
+   4-client window in which every request drops the pair, agg and groupn
+   caches first while a writer toggles one bit of f with Set/Clear, each
+   answer equal to the single-threaded answer of one of the two epochs,
+   with its launches per request; the device block of /debug/diagnostics;
+   and the CLI's server (`python -m pilosa_tpu_torch.cli server`) booted
+   as a process on a 4-shard on-disk index that `cli import` loads, its Count,
+   Row and GroupBy over HTTP equal to the in-process executor's over the
+   same directory, stopped by SIGINT with exit code 0;
+5. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
    with inactive ones, odometers of 1 to 256 slots), exactly; the odometer
@@ -58,7 +79,7 @@ turns by the same script on one card.
    the odometer kernels (nary_stats, nary_stats_pershard) against the
    group tensor that GroupBy served (one kernel body on both sides: the
    plain versions are the independent check);
-5. a small holder with an existence field: the whole Count/Row/Not/All
+6. a small holder with an existence field: the whole Count/Row/Not/All
    query list through two write-churn epochs, checked against the CPU
    oracle after each; the resident stacks must be spliced, not rebuilt,
    and no query may be routed to the CPU oracle.
@@ -610,12 +631,10 @@ def phase_groupby(holder, backend):
     import torch
 
     from pilosa_tpu_torch.exec import Executor
-    from pilosa_tpu_torch.exec.cpu import CPUBackend
     from pilosa_tpu_torch.ops import kernels as K
     from pilosa_tpu_torch.utils.stats import global_stats
 
     dev = Executor(holder, backend=backend)
-    oracle = Executor(holder, backend=CPUBackend(holder))
     routed_key = 'cpu_routed_total{call="GroupBy"}'
     routed0 = global_stats.counter_totals("cpu_routed_total").get(routed_key, 0)
     three = GROUP_QUERIES[3]
@@ -696,9 +715,21 @@ def phase_groupby(holder, backend):
 
     stacks = {name: bench_stack(backend, holder, name) for name in ("f", "g", "h")}
     served = backend._groupn_cache[("groupn", "bench", ("f", "g", "h"))].stats
+    return launches, stacks, served
 
-    # The same queries over the first shards, against the CPU oracle. This
-    # replaces the resident stacks with 32-shard ones, so it runs last.
+
+def groupby_oracle_check(holder, backend):
+    """The GroupBy queries over the first shards, against the CPU oracle.
+    This replaces the resident stacks with 32-shard ones, so it runs after
+    every phase that serves the 954-shard index."""
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    dev = Executor(holder, backend=backend)
+    oracle = Executor(holder, backend=CPUBackend(holder))
+    routed_key = 'cpu_routed_total{call="GroupBy"}'
+    routed0 = global_stats.counter_totals("cpu_routed_total").get(routed_key, 0)
     sub = list(range(ORACLE_SHARDS))
     for q in GROUP_QUERIES:
         t0 = time.perf_counter()
@@ -710,7 +741,6 @@ def phase_groupby(holder, backend):
     check(global_stats.counter_totals("cpu_routed_total").get(routed_key, 0) == routed0,
           "groupby: a GroupBy was routed to the CPU oracle")
     log_routed("groupby")
-    return launches, stacks, served
 
 
 def phase_groupby_tiles():
@@ -749,6 +779,473 @@ def phase_groupby_tiles():
         log(f"tiles: {route} route: 2 tiles, {len(got)} groups agree with the oracle")
     log_routed("tiles")
     holder.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the HTTP server and the CLI
+# ---------------------------------------------------------------------------
+
+# Client windows of the throughput measurement: seconds each, and the
+# client counts of the Count and of the pair and GroupBy requests; then
+# the Count's in-process windows (threads calling Executor.execute, no
+# HTTP), which part the HTTP layer's cost from the executor's.
+HTTP_SECONDS = 3.0
+HTTP_COUNT_CLIENTS = (1, 4, 16)
+HTTP_OTHER_CLIENTS = (1, 4)
+# Clients of the window whose every request misses the backend's caches.
+MISS_CLIENTS = 4
+INPROC_SECONDS = 1.5
+INPROC_THREADS = (1, 4)
+# The CLI's on-disk index: CLI_SHARDS shards, fields f and g of CLI_ROWS
+# rows, CLI_BITS bits a row, imported through `cli import`.
+CLI_SHARDS = 4
+CLI_ROWS = 4
+CLI_BITS = 3000
+CLI_QUERIES = ["Count(Intersect(Row(f=1), Row(g=2)))", "Row(f=3)",
+               "GroupBy(Rows(f), Rows(g))"]
+
+
+def http_post(conn, path, body, headers=None):
+    """One request on a keep-alive connection -> (status, body)."""
+    conn.request("POST", path, body=body, headers=headers or {})
+    r = conn.getresponse()
+    return r.status, r.read()
+
+
+def load_window(n: int, seconds: float, make_worker) -> dict:
+    """n threads, each running the request make_worker(i) returns over
+    and over for `seconds`: requests/s, p50/p99 latency, and the count of
+    requests whose answer was wrong (the request returns False)."""
+    import threading
+
+    lat = [[] for _ in range(n)]
+    bad = [0] * n
+    ready = threading.Barrier(n + 1)
+    stop = [0.0]
+
+    def run(i):
+        request = make_worker(i)
+        ready.wait()
+        while time.perf_counter() < stop[0]:
+            t0 = time.perf_counter()
+            ok = request()
+            lat[i].append(time.perf_counter() - t0)
+            bad[i] += not ok
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    stop[0] = t0 + seconds
+    ready.wait()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    all_lat = sorted(x for per in lat for x in per)
+    q = lambda p: all_lat[min(len(all_lat) - 1, int(p * len(all_lat)))] * 1e3
+    return {"clients": n, "requests": len(all_lat), "seconds": elapsed,
+            "rps": len(all_lat) / elapsed, "p50_ms": q(0.50), "p99_ms": q(0.99),
+            "mismatches": sum(bad)}
+
+
+def round_robin(items, i: int, n: int):
+    """Worker i of n's endless walk over items, offset by i."""
+    k = i
+    while True:
+        yield items[k % len(items)]
+        k += n
+
+
+def http_load(spec: dict) -> dict:
+    """Client side of one throughput window, run in a process of its own
+    (`chip_smoke.py --http-load SPEC`) so that the clients do not share
+    the server's interpreter lock: spec["clients"] threads, each with its
+    own keep-alive connection, send spec["queries"] (body, expected
+    response) round robin for spec["seconds"]; every response is held
+    against its expected bytes."""
+    import http.client
+
+    queries = [(q.encode("latin-1"), want.encode("latin-1"))
+               for q, want in spec["queries"]]
+    n = spec["clients"]
+
+    def client(i):
+        conn = http.client.HTTPConnection(spec["host"], spec["port"], timeout=120)
+        walk = round_robin(queries, i, n)
+
+        def request():
+            body, want = next(walk)
+            return http_post(conn, spec["path"], body) == (200, want)
+
+        return request
+
+    return load_window(n, spec["seconds"], client)
+
+
+def inproc_load(dev, queries, expected, threads: int, seconds: float) -> dict:
+    """The Count without HTTP: `threads` threads of this process call
+    dev.execute on `queries` round robin for `seconds`, every answer
+    checked against `expected`."""
+    def worker(i):
+        walk = round_robin(queries, i, threads)
+
+        def request():
+            q = next(walk)
+            return dev.execute("bench", q) == expected[q]
+
+        return request
+
+    r = load_window(threads, seconds, worker)
+    r["request"] = "Count, in-process"
+    return r
+
+
+def run_http_load(spec: dict) -> dict:
+    """One window of http_load in a child process of this script."""
+    import tempfile
+
+    with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+        json.dump(spec, f)
+    try:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--http-load",
+                              f.name], capture_output=True, text=True,
+                             timeout=spec["seconds"] + 120)
+    finally:
+        os.unlink(f.name)
+    check(out.returncode == 0, f"http: load client failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def toggle_column(holder) -> int:
+    """A column of shard 0 that lies in h=0 and in some g row but not in
+    f=1: setting f=1 there moves the 3-field GroupBy's answer."""
+    def frag(name):
+        return holder.index("bench").field(name).view("standard").fragment(0)
+
+    f1, g, h0 = frag("f").row(1), frag("g"), frag("h").row(0)
+    g_rows = [g.row(r) for r in range(ROWS)]
+    for col in h0.columns():
+        col = int(col)
+        if not f1.includes_column(col) and any(r.includes_column(col) for r in g_rows):
+            return col
+    raise AssertionError("http: no column to toggle in shard 0")
+
+
+def miss_window(port: int, path: str, backend, dev, queries, col: int,
+                clients: int, seconds: float) -> dict:
+    """`clients` threads of this process, each with its own keep-alive
+    connection, send `queries` in a seeded random order (so that two
+    threads often miss the same entry at once), and each drops the backend's
+    pair, agg and groupn caches (under their lock) before every request,
+    so that every request misses and concurrent misses race through the
+    build latches. Meanwhile a writer thread toggles bit (f=1, col) with
+    Set and Clear over HTTP, so the stacks are spliced under the readers.
+    Every answer must equal the single-threaded answer of one of the two
+    epochs, and both epochs must be served."""
+    import http.client
+    import random
+    import threading
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.utils import fastjson
+
+    def body(results):
+        return fastjson.response_body([fastjson.encode_result(r) for r in results])
+
+    to_b, to_a = f"Set({col}, f=1)", f"Clear({col}, f=1)"
+    check(dev.execute("bench", to_b) == [True], f"http: {to_b} changed nothing")
+    epoch_b = {q: body(dev.execute("bench", q)) for q in queries}
+    check(dev.execute("bench", to_a) == [True], f"http: {to_a} changed nothing")
+    epoch_a = {q: body(dev.execute("bench", q)) for q in queries}
+    moved = [q for q in queries if epoch_a[q] != epoch_b[q]]
+    check(moved, "http: the toggled bit moves no answer of the window")
+    seen = {"a": 0, "b": 0}
+    seen_lock = threading.Lock()
+
+    def reader(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        pick = random.Random(i).choice
+
+        def request():
+            q = pick(queries)
+            with backend._pair_lock:
+                backend._pair_cache.clear()
+                backend._agg_cache.clear()
+                backend._groupn_cache.clear()
+            status, got = http_post(conn, path, q.encode())
+            if q in moved and got in (epoch_a[q], epoch_b[q]):
+                with seen_lock:
+                    seen["a" if got == epoch_a[q] else "b"] += 1
+            return status == 200 and got in (epoch_a[q], epoch_b[q])
+
+        return request
+
+    done = threading.Event()
+    writes = {"n": 0, "bad": 0}
+
+    def writer():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        in_b = False
+        while not done.is_set() or in_b:
+            status, got = http_post(conn, path, (to_a if in_b else to_b).encode())
+            writes["n"] += 1
+            writes["bad"] += status != 200 or got != body([True])
+            in_b = not in_b
+            if not done.is_set():
+                time.sleep(0.05)
+        conn.close()
+
+    before = K.launch_counts()
+    w = threading.Thread(target=writer)
+    w.start()
+    try:
+        r = load_window(clients, seconds, reader)
+    finally:
+        done.set()
+        w.join()
+    after = K.launch_counts()
+    r["request"] = "cache-missing mix under Set/Clear epochs"
+    r["launches_per_request"] = {k: (after[k] - before[k]) / max(1, r["requests"])
+                                 for k in after if after[k] != before[k]}
+    r["writes"] = writes["n"]
+    r["answers_per_epoch"] = seen
+    check(writes["bad"] == 0, f"http: {writes['bad']} of {writes['n']} writes failed")
+    check(r["mismatches"] == 0,
+          f"http: {r['mismatches']} cache-missing answers match neither epoch")
+    check(seen["a"] > 0 and seen["b"] > 0, f"http: one epoch was never served {seen}")
+    for name in ("pair_stats_pershard", "pair_stats", "group_tile_stats",
+                 "group_tile_stats_pershard"):
+        check(after[name] > before[name], f"http: {name} never launched in the miss window")
+    check(all(body(dev.execute("bench", q)) == epoch_a[q] for q in queries),
+          "http: the index did not end in its first epoch")
+    return r
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_for_port(port: int, proc, seconds: float = 90.0) -> None:
+    import socket
+
+    deadline = time.perf_counter() + seconds
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            check(proc.poll() is None, f"cli: server exited with {proc.returncode}")
+            check(time.perf_counter() < deadline, "cli: server did not bind")
+            time.sleep(0.1)
+
+
+def phase_http(holder, backend, root):
+    """The port's HTTP server over the main path's index and backend: the
+    slice's requests in JSON and protobuf against the in-process executor,
+    their kernel launches, throughput under concurrent clients, and the
+    CLI's server booted as a process on a small on-disk index."""
+    import http.client
+
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.server import API, Server
+    from pilosa_tpu_torch.server.wire import QueryRequest, encode_query_response
+    from pilosa_tpu_torch.utils import fastjson
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    t_phase = time.perf_counter()
+    dev = Executor(holder, backend=backend)
+    routed0 = sum(global_stats.counter_totals("cpu_routed_total").values())
+    verbs = ("Intersect", "Union", "Difference", "Xor")
+    pair_request = " ".join(
+        f"Count({verbs[k % 4]}(Row(f={k % ROWS}), Row(g={(3 * k + 1) % ROWS})))"
+        for k in range(16))
+    north = "Count(Intersect(Row(f=1), Row(g=2)))"
+    three, three_filtered, two_filtered = GROUP_QUERIES[3], GROUP_QUERIES[4], GROUP_QUERIES[2]
+    requests = [("Count", north), ("16-Count pair request", pair_request),
+                ("2-field filtered GroupBy", two_filtered),
+                ("3-field GroupBy", three), ("3-field filtered GroupBy", three_filtered)]
+
+    def json_body(results):
+        return fastjson.response_body([fastjson.encode_result(r) for r in results])
+
+    inproc = {q: dev.execute("bench", q) for _, q in requests}
+    api = API(holder, dev)
+    server = Server(api, host="127.0.0.1", port=0).open()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
+        path = "/index/bench/query"
+        pb = {"Content-Type": "application/x-protobuf", "Accept": "application/x-protobuf"}
+        # Cold: the pair and GroupBy caches dropped, so each request
+        # launches what its route should; then the same in protobuf.
+        backend._pair_cache.clear()
+        backend._agg_cache.clear()
+        backend._groupn_cache.clear()
+        per_request = {}
+        K.reset_launch_counts()
+        for label, q in requests:
+            before = K.launch_counts()
+            status, body = http_post(conn, path, q.encode())
+            per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()
+                                  if v != before[k]}
+            check(status == 200 and body == json_body(inproc[q]),
+                  f"http: JSON {label} disagrees with the in-process executor")
+        for label, q in requests:
+            status, body = http_post(conn, path, QueryRequest(query=q).to_bytes(), pb)
+            check(status == 200 and body == encode_query_response(inproc[q], []),
+                  f"http: protobuf {label} disagrees with the in-process executor")
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        log("http: launches per request (JSON, caches dropped) " + json.dumps(per_request))
+        log("http: launches " + json.dumps(launches))
+        want = {
+            "Count": {"popcount_rows": 1},
+            "16-Count pair request": {"pair_stats_pershard": 1},
+            "2-field filtered GroupBy": {"pair_stats": 1},
+            "3-field GroupBy": {"popcount_rows": 1, "group_tile_stats_pershard": 1},
+            "3-field filtered GroupBy": {"popcount_rows": 1, "group_tile_stats": 1},
+        }
+        for label, expect in want.items():
+            check(per_request[label] == expect,
+                  f"http: {label} launched {per_request[label]}, expected {expect}")
+        log(f"http: {len(requests)} requests x JSON and protobuf agree with the "
+            "in-process executor")
+        device_share(lambda: http_post(conn, path, north.encode()), "HTTP Count")
+        conn.request("GET", "/debug/diagnostics")
+        inv = json.loads(conn.getresponse().read())["jax"]
+        kinds = [d.get("kind") for d in inv.get("devices", [])]
+        check(inv.get("device_count") == torch.cuda.device_count()
+              and kinds[:1] == [torch.cuda.get_device_name(0)],
+              f"http: /debug/diagnostics device block {inv}")
+        log("http: /debug/diagnostics device block " + json.dumps(inv))
+
+        # Throughput: client threads in a process of their own.
+        counts = [f"Count(Intersect(Row(f={a}), Row(g={b})))"
+                  for a in range(ROWS) for b in range(ROWS)]
+        expected = {q: json_body(dev.execute("bench", q)).decode("latin-1")
+                    for q in counts + [pair_request, three]}
+        windows = ([("Count", counts, n) for n in HTTP_COUNT_CLIENTS]
+                   + [("16-Count pair request", [pair_request], n) for n in HTTP_OTHER_CLIENTS]
+                   + [("3-field GroupBy", [three], n) for n in HTTP_OTHER_CLIENTS])
+        throughput = []
+        for label, qs, n in windows:
+            before = K.launch_counts()
+            r = run_http_load({"host": "127.0.0.1", "port": server.port, "path": path,
+                               "clients": n, "seconds": HTTP_SECONDS,
+                               "queries": [[q, expected[q]] for q in qs]})
+            after = K.launch_counts()
+            r["request"] = label
+            r["launches_per_request"] = {k: (after[k] - before[k]) / max(1, r["requests"])
+                                         for k in after if after[k] != before[k]}
+            check(r["mismatches"] == 0,
+                  f"http: {r['mismatches']} answers of {label} x{n} disagree")
+            throughput.append(r)
+            log("http: throughput " + json.dumps(r))
+        r = miss_window(server.port, path, backend, dev,
+                        [pair_request, two_filtered, three, three_filtered],
+                        toggle_column(holder), MISS_CLIENTS, HTTP_SECONDS)
+        throughput.append(r)
+        log("http: throughput " + json.dumps(r))
+        conn.close()
+    finally:
+        server.close()
+    answers = {q: dev.execute("bench", q) for q in counts}
+    for n in INPROC_THREADS:
+        r = inproc_load(dev, counts, answers, n, INPROC_SECONDS)
+        check(r["mismatches"] == 0, f"http: {r['mismatches']} in-process Counts x{n} disagree")
+        throughput.append(r)
+        log("http: throughput " + json.dumps(r))
+    check(sum(global_stats.counter_totals("cpu_routed_total").values()) == routed0,
+          "http: a request was routed to the CPU oracle")
+    log_routed("http")
+    phase_cli(root)
+    log(f"http: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return throughput
+
+
+def phase_cli(root):
+    """`python -m pilosa_tpu_torch.cli server` as a process on a
+    CLI_SHARDS-shard on-disk index that `cli import` loads: its answers
+    over HTTP equal the in-process executor's over the same directory
+    after it stops, and SIGINT stops it with exit code 0."""
+    import signal
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils import fastjson
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=root)
+    cli = [sys.executable, "-m", "pilosa_tpu_torch.cli"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        data_dir = os.path.join(tmp, "data")
+        port = free_port()
+        host = f"http://127.0.0.1:{port}"
+        rng = np.random.default_rng(7)
+        for name in ("f", "g"):
+            with open(os.path.join(tmp, f"{name}.csv"), "w") as f:
+                for row in range(CLI_ROWS):
+                    cols = rng.integers(0, CLI_SHARDS * SHARD_WIDTH, CLI_BITS)
+                    f.writelines(f"{row},{c}\n" for c in cols)
+        with open(os.path.join(tmp, "server.log"), "w") as out:
+            proc = subprocess.Popen(
+                cli + ["server", "-d", data_dir, "--bind", f"127.0.0.1:{port}"],
+                cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            wait_for_port(port, proc)
+            boot_s = time.perf_counter() - t0
+            for name in ("f", "g"):
+                imp = subprocess.run(
+                    cli + ["import", "--host", host, "-i", "small", "-f", name, "--create",
+                           os.path.join(tmp, f"{name}.csv")],
+                    cwd=root, env=env, capture_output=True, text=True, timeout=120)
+                check(imp.returncode == 0, f"cli: import {name} failed: {imp.stderr[-2000:]}")
+            got = {}
+            for q in CLI_QUERIES:
+                req = urllib.request.Request(f"{host}/index/small/query", data=q.encode(),
+                                             method="POST")
+                got[q] = urllib.request.urlopen(req, timeout=120).read()
+            metrics = urllib.request.urlopen(f"{host}/metrics", timeout=120).read().decode()
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log_text = open(os.path.join(tmp, "server.log")).read()
+        check(rc == 0, f"cli: server exited with {rc}: {log_text[-2000:]}")
+        check("executor=cuda: device backend on cuda" in log_text,
+              f"cli: the server did not serve on the card: {log_text[-2000:]}")
+        check("device_launches_total" in metrics and "cpu_routed_total" not in metrics,
+              "cli: the server's requests did not stay on the card")
+        holder = Holder(data_dir).open()
+        try:
+            dev = Executor(holder, backend=CUDABackend(holder))
+            oracle = Executor(holder, backend=CPUBackend(holder))
+            for q in CLI_QUERIES:
+                want = fastjson.response_body(
+                    [fastjson.encode_result(r) for r in dev.execute("small", q)])
+                check(got[q] == want, f"cli: {q} over HTTP disagrees with the in-process executor")
+                check(same_answers(dev.execute("small", q), oracle.execute("small", q)),
+                      f"cli: {q} disagrees with the CPU oracle")
+        finally:
+            holder.close()
+    log(f"cli: server booted in {boot_s:.1f} s, {len(CLI_QUERIES)} answers over HTTP "
+        f"agree with the in-process executor and the oracle, exit code {rc}, "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1151,7 +1648,13 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=ROOT,
                     help="the checkout whose pilosa_tpu_torch to drive (default: this "
                          "script's own)")
-    root = os.path.abspath(ap.parse_args(argv).root)
+    ap.add_argument("--http-load", metavar="SPEC", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.http_load:  # a throughput window's clients (phase_http)
+        with open(args.http_load) as f:
+            print(json.dumps(http_load(json.load(f))), flush=True)
+        return 0
+    root = os.path.abspath(args.root)
     t_start = time.perf_counter()
     try:
         import torch
@@ -1177,6 +1680,8 @@ def main(argv=None) -> int:
     results: dict = {}
     holder, backend, wide_stacks = phase_main(results)
     group_launches, gstacks, served = phase_groupby(holder, backend)
+    phase_http(holder, backend, root)
+    groupby_oracle_check(holder, backend)
     holder.close()
     del backend
     phase_groupby_tiles()

@@ -343,6 +343,10 @@ class CUDABackend:
                 "CUDABackend: no CUDA device is available; "
                 "pass device='cpu' to run the plain PyTorch versions"
             )
+        if device.type == "cuda" and device.index is None:
+            # Pin the index: server handler threads each have their own
+            # current device, and every allocation and launch names this one.
+            device = torch.device("cuda", torch.cuda.current_device())
         self.holder = holder
         self.device = device
         self.cpu = CPUBackend(holder)

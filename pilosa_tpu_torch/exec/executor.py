@@ -53,6 +53,14 @@ class ExecOptions:
     exclude_columns: bool = False
     column_attrs: bool = False
     shards: Optional[list[int]] = None
+    # Per-query result-cache bypass (HTTP `X-Pilosa-Cache: bypass`). The
+    # port has no result cache yet, so there is nothing to bypass.
+    cache_bypass: bool = False
+    # Wire-bytes plumbing: when the caller provides a list, the executor
+    # appends ONE item per result — the result-cache token, or None, as
+    # always here with no result cache — so the serialization layer
+    # encodes every result itself.
+    wire_sink: Optional[list] = None
 
 
 class Executor:
@@ -186,6 +194,8 @@ class Executor:
                         result = self._translate_result(idx, call, result)
                 results.append(result)
                 i += 1
+            if opt.wire_sink is not None:
+                opt.wire_sink.extend(None for _ in results)
             # Phase breakdown on the executor span.
             span.set_tag("qid", prof.qid)
             span.set_tag("phasesMs", prof.phases_ms())
@@ -453,10 +463,19 @@ class Executor:
     # aggregates
     # ------------------------------------------------------------------
 
-    def _filter_row_shard(self, index, c, shard) -> Optional[Row]:
+    def _filter_rows(self, index, c, shards):
+        """shard -> the filter child's Row in that shard (None without a
+        child). A backend with a whole-query bitmap_call evaluates the
+        child once over the shard set and the result is split per shard;
+        per-shard evaluation would run the whole resident stack once for
+        every shard."""
         if not c.children:
-            return None
-        return self.backend.bitmap_call_shard(index, c.children[0], shard)
+            return lambda shard: None
+        child = c.children[0]
+        if hasattr(self.backend, "bitmap_call"):
+            row = self.backend.bitmap_call(index, child, shards)
+            return lambda shard: Row.from_segment(shard, row.shard_bitmap(shard))
+        return lambda shard: self.backend.bitmap_call_shard(index, child, shard)
 
     def _execute_count(self, index, c, shards, opt) -> int:
         if len(c.children) != 1:
@@ -473,6 +492,7 @@ class Executor:
         """Device fast path for Sum/Min/Max when the backend has one.
         None = not lowerable; caller runs the map-reduce path."""
         if not hasattr(self.backend, kind):
+            self._host_routed(c, kind)
             return None
         filter_call = c.children[0] if c.children else None
         r = getattr(self.backend, kind)(index, f.name, shards, filter_call)
@@ -503,9 +523,10 @@ class Executor:
         fast = self._bsi_fast("bsi_sum", index, f, c, shards)
         if fast is not None:
             return fast
+        filter_of = self._filter_rows(index, c, shards)
 
         def map_fn(shard):
-            filt = self._filter_row_shard(index, c, shard)
+            filt = filter_of(shard)
             s, cnt = f.sum(filt, shard)
             return ValCount(s, cnt)
 
@@ -525,9 +546,10 @@ class Executor:
         fast = self._bsi_fast("bsi_min", index, f, c, shards)
         if fast is not None:
             return fast
+        filter_of = self._filter_rows(index, c, shards)
 
         def map_fn(shard):
-            filt = self._filter_row_shard(index, c, shard)
+            filt = filter_of(shard)
             v, cnt = f.min(filt, shard)
             return ValCount(v, cnt)
 
@@ -552,9 +574,10 @@ class Executor:
         fast = self._bsi_fast("bsi_max", index, f, c, shards)
         if fast is not None:
             return fast
+        filter_of = self._filter_rows(index, c, shards)
 
         def map_fn(shard):
-            filt = self._filter_row_shard(index, c, shard)
+            filt = filter_of(shard)
             v, cnt = f.max(filt, shard)
             return ValCount(v, cnt)
 
@@ -583,11 +606,13 @@ class Executor:
         return v.fragment(shard) if v is not None else None
 
     def _execute_min_row(self, index, c, shards, opt) -> PairField:
+        filter_of = self._filter_rows(index, c, shards)
+
         def map_fn(shard):
             frag = self._minmax_row_fragments(index, c, shard)
             if frag is None:
                 return PairField(Pair(0, 0), str(c.args.get("_field") or c.args.get("field") or ""))
-            filt = self._filter_row_shard(index, c, shard)
+            filt = filter_of(shard)
             row_id, cnt = frag.min_row(filt)
             return PairField(Pair(row_id, cnt), str(c.args.get("_field") or c.args.get("field") or ""))
 
@@ -607,11 +632,13 @@ class Executor:
         )
 
     def _execute_max_row(self, index, c, shards, opt) -> PairField:
+        filter_of = self._filter_rows(index, c, shards)
+
         def map_fn(shard):
             frag = self._minmax_row_fragments(index, c, shard)
             if frag is None:
                 return PairField(Pair(0, 0), str(c.args.get("_field") or c.args.get("field") or ""))
-            filt = self._filter_row_shard(index, c, shard)
+            filt = filter_of(shard)
             row_id, cnt = frag.max_row(filt)
             return PairField(Pair(row_id, cnt), str(c.args.get("_field") or c.args.get("field") or ""))
 
@@ -652,15 +679,17 @@ class Executor:
                 return PairsField(exact, field_name)
 
         self._host_routed(c, "topn_field")
+        # The source filter is evaluated once and serves both passes.
+        filter_of = self._filter_rows(index, c, shards)
         # Pass 1: approximate candidates from rank caches.
-        pairs = self._execute_topn_shards(index, c, shards, opt)
+        pairs = self._execute_topn_shards(index, c, shards, opt, filter_of)
 
         # Pass 2: exact recount of candidate ids (coordinator only).
         if n and not opt.remote and pairs.pairs:
             ids = [p.id for p in pairs.pairs]
             other = c.clone()
             other.args["ids"] = ids
-            pairs = self._execute_topn_shards(index, other, shards, opt)
+            pairs = self._execute_topn_shards(index, other, shards, opt, filter_of)
         # Remote (per-node) responses stay untrimmed: a candidate's count
         # may be split across nodes, so only the coordinator may cut to n
         # (reference fragment.go:1574 forces N=0 under pinned ids).
@@ -668,7 +697,7 @@ class Executor:
             pairs.pairs = top_n_pairs(pairs.pairs, n)
         return pairs
 
-    def _execute_topn_shards(self, index, c, shards, opt) -> PairsField:
+    def _execute_topn_shards(self, index, c, shards, opt, filter_of) -> PairsField:
         field_name = c.args["_field"]
         n, _ = c.uint64_arg("n")
         ids, _ = c.uint64_slice_arg("ids")
@@ -680,7 +709,7 @@ class Executor:
             f = idx.field(field_name)
             if f is None:
                 raise NotFoundError(f"field not found: {field_name}")
-            src = self._filter_row_shard(index, c, shard)
+            src = filter_of(shard)
             # With explicit ids (pass 2) or a src filter, never trim per
             # shard — a local top-n would drop cross-shard count
             # contributions before the merge (reference fragment.go:1574

@@ -47,6 +47,8 @@ to its unsigned value in int64.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 # int32 accumulator bound of the shard-summed pair and group kernels:
@@ -62,7 +64,9 @@ MAX_GROUP_TILE_SLOTS = 64
 #: their row pointers travel in a fixed table of the launch's parameters.
 MAX_GROUP_EXTRAS = 8
 
-#: Launches of each CUDA kernel in this process (CPU calls are not counted).
+#: Launches of each CUDA kernel in this process (CPU calls are not counted);
+#: server threads launch concurrently, so counts move under _LAUNCH_LOCK.
+_LAUNCH_LOCK = threading.Lock()
 _LAUNCHES = {
     "pair_stats_pershard": 0, "pair_stats": 0, "popcount_rows": 0,
     "group_tile_stats": 0, "group_tile_stats_pershard": 0,
@@ -71,12 +75,26 @@ _LAUNCHES = {
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in _LAUNCHES:
+            _LAUNCHES[k] = 0
+
+
+def _launch(name: str, device: torch.device, fn, *args) -> None:
+    """Count one launch of kernel `name` and make it on `device` and its
+    current stream (the last argument of every entry point): a server's
+    handler thread has its own current device, so the tensor's device
+    decides, never the thread's."""
+    with _LAUNCH_LOCK:
+        _LAUNCHES[name] += 1
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check_rc(name, fn(*args, stream))
 
 
 def pair_stats_width(rf: int, rg: int) -> int:
@@ -264,10 +282,8 @@ def _launch_pair(name: str, f: torch.Tensor, g: torch.Tensor,
     s, rf, w = f.shape
     rg = g.shape[1]
     fn = getattr(library(_LIBRARY[name]), name + "_launch")
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    _LAUNCHES[name] += 1
-    _check_rc(name, fn(f.data_ptr(), g.data_ptr(), out.data_ptr(),
-                       s, rf, rg, w, stream))
+    _launch(name, f.device, fn, f.data_ptr(), g.data_ptr(), out.data_ptr(),
+            s, rf, rg, w)
 
 
 def pair_stats_pershard(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -315,12 +331,9 @@ def popcount_rows(x: torch.Tensor) -> torch.Tensor:
     n, w = x.shape
     out = torch.empty(n, dtype=torch.int32, device=x.device)
     if n:
-        lib = library("bitcount")
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _LAUNCHES["popcount_rows"] += 1
-        _check_rc("popcount_rows",
-                  lib.popcount_rows_launch(x.data_ptr(), out.data_ptr(), n, w,
-                                           stream))
+        _launch("popcount_rows", x.device,
+                library("bitcount").popcount_rows_launch,
+                x.data_ptr(), out.data_ptr(), n, w)
     return out
 
 
@@ -381,16 +394,15 @@ def _launch_group(name, f, g, extras, filt, rows, act, out, n_slots) -> None:
     lib = library(_LIBRARY[name])
     ptrs = (ctypes.c_void_p * MAX_GROUP_EXTRAS)(*[h.data_ptr() for h in extras])
     heights = (ctypes.c_int * MAX_GROUP_EXTRAS)(*[h.shape[1] for h in extras])
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    _LAUNCHES[name] += 1
-    _check_rc(name, getattr(lib, name + "_launch")(
+    _launch(
+        name, f.device, getattr(lib, name + "_launch"),
         f.data_ptr(), g.data_ptr(), ctypes.addressof(ptrs), ctypes.addressof(heights),
         len(extras),
         None if rows is None else rows.data_ptr(),
         None if act is None else act.data_ptr(),
         None if filt is None else filt.data_ptr(),
-        out.data_ptr(), s, rf, rg, w, n_slots, stream,
-    ))
+        out.data_ptr(), s, rf, rg, w, n_slots,
+    )
 
 
 def _group_out(f, g, n_slots, pershard):

@@ -45,9 +45,15 @@ SLICE_QUERIES = [
     "Intersect(Row(f=3), Row(g=7))",
     "Count(Row(f=99))",
 ]
-# Routed to the CPU oracle by the port: a BSI condition (through
-# count_shards) and a TopN (answered on the host, the backend unused).
-ROUTED_QUERIES = ["Count(Row(v > 100))", "TopN(f, n=2)"]
+# Routed to the host by the port, each counted once in cpu_routed_total
+# under its call's name: a BSI condition (through count_shards), a TopN and
+# Sum/Min/Max (answered on the host, the backend unused but for a filter).
+ROUTED_QUERIES = [
+    "Count(Row(v > 100))", "TopN(f, n=2)",
+    "Sum(field=v)", "Sum(Row(f=1), field=v)",
+    "Min(field=v)", "Min(Row(g=7), field=v)",
+    "Max(field=v)", "Max(Intersect(Row(f=2), Row(g=7)), field=v)",
+]
 
 # One request of 16 Counts over the field pair (f, g): one pair sweep.
 PAIR_REQUEST = " ".join(
@@ -150,6 +156,34 @@ def test_bsi_condition_is_routed_and_counted(pair):
     after = global_stats.counter_totals("cpu_routed_total")
     key = 'cpu_routed_total{call="Row"}'
     assert after[key] == before.get(key, 0) + 1
+
+
+@pytest.mark.parametrize("q", ROUTED_QUERIES)
+def test_routed_queries_are_counted_once(pair, q):
+    call = q[: q.index("(")]
+    key = f'cpu_routed_total{{call="{"Row" if call == "Count" else call}"}}'
+    before = global_stats.counter_totals("cpu_routed_total")
+    want, _, _, got = _answers(pair, q)
+    assert got == want
+    after = global_stats.counter_totals("cpu_routed_total")
+    assert after[key] == before.get(key, 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("q", [
+    "Sum(Row(f=1), field=v)", "Min(Row(g=7), field=v)", "Max(Row(f=3), field=v)",
+    "MinRow(Row(g=7), field=f)", "MaxRow(Row(g=7), field=f)", "TopN(f, Row(g=7), n=2)",
+])
+def test_filter_is_evaluated_once_per_request(pair, q):
+    """A host-answered call's filter runs one whole-query evaluation over
+    the shard set, not one per shard (nor one per TopN pass)."""
+    tdev = pair[3]
+    key = 'device_launches_total{kind="vec"}'
+    before = global_stats.counter_totals("device_launches_total").get(key, 0)
+    want, _, _, got = _answers(pair, q)
+    assert got == want
+    assert global_stats.counter_totals("device_launches_total")[key] == before + 1
+    assert len(tdev.holder.index("i").available_shards_list()) == N_SHARDS
 
 
 def test_single_counts_take_popcount_program(pair):

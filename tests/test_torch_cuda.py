@@ -248,3 +248,43 @@ def test_backend_on_card_matches_cpu_oracle(card):
     np.testing.assert_array_equal(got, cpu.execute("i", "Row(f=4)")[0].columns())
     counts = K.launch_counts()
     assert counts["popcount_rows"] == 2 and counts["pair_stats_pershard"] == 1
+
+
+def test_http_count_round_trip_on_card(card):
+    """A Count sent over HTTP to the port's server runs on the card (one
+    K3 launch on a handler thread) and answers what the CPU oracle does."""
+    import http.client
+    import json
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.server import API, Server
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(4)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name in ("f", "g"):
+        cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 5000, dtype=np.uint64))
+        idx.create_field(name).import_bits(np.full(cols.size, 1, dtype=np.uint64), cols)
+    q = "Count(Intersect(Row(f=1), Row(g=1)))"
+    want = Executor(h, backend=CPUBackend(h)).execute("i", q)
+    srv = Server(API(h, Executor(h, backend=CUDABackend(h))), host="127.0.0.1", port=0).open()
+    try:
+        K.reset_launch_counts()
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=60)
+        conn.request("POST", "/index/i/query", body=q.encode())
+        r = conn.getresponse()
+        assert r.status == 200
+        assert json.loads(r.read()) == {"results": want}
+        assert K.launch_counts()["popcount_rows"] == 1
+        conn.request("GET", "/debug/diagnostics")
+        inv = json.loads(conn.getresponse().read())["jax"]
+        conn.close()
+        assert inv["platform"] == "gpu" and inv["device_count"] == torch.cuda.device_count()
+        assert inv["devices"][0]["kind"] == torch.cuda.get_device_name(0)
+    finally:
+        srv.close()
+        h.close()

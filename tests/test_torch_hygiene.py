@@ -46,6 +46,44 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+#: Port modules that code of the port imports (lazily, on paths this
+#: slice does not reach) but that are still queued in ROADMAP.md: the
+#: multi-node modules (queue 1 item 6) and the batcher and result cache
+#: (queue 1 item 3). The list shrinks as later slices land.
+QUEUED_MODULES = {
+    "pilosa_tpu_torch.cluster.sync": "cluster/sync.py",
+    "pilosa_tpu_torch.cluster.resize": "cluster/resize.py",
+    "pilosa_tpu_torch.cluster.consistency": "cluster/consistency.py",
+    "pilosa_tpu_torch.exec.batcher": "exec/batcher.py",
+    "pilosa_tpu_torch.exec.rescache": "exec/rescache.py",
+}
+
+
+def _module_exists(name):
+    path = ROOT.joinpath(*name.split("."))
+    return path.with_suffix(".py").exists() or (path / "__init__.py").exists()
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_name_existing_or_queued_modules(path):
+    """Every pilosa_tpu_torch.* module an import of the port names, lazy
+    ones included, exists or is queued."""
+    missing = sorted(
+        m for m in set(_imported_modules(path))
+        if m.split(".")[0] == "pilosa_tpu_torch"
+        and not _module_exists(m) and m not in QUEUED_MODULES
+    )
+    assert not missing, f"{path.relative_to(ROOT)} imports missing modules {missing}"
+
+
+@pytest.mark.parametrize("name", sorted(QUEUED_MODULES))
+def test_queued_modules_are_queued_and_absent(name):
+    """A queued module is not in the port yet (drop it from the list when
+    it lands) and ROADMAP.md names it."""
+    assert not _module_exists(name), f"{name} exists: take it off QUEUED_MODULES"
+    assert QUEUED_MODULES[name] in (ROOT / "ROADMAP.md").read_text()
+
+
 def test_scanner_sees_lazy_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text(
