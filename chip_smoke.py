@@ -7,13 +7,13 @@ Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
 pilosa_tpu_torch package of another checkout DIR instead of this script's
 own (its kernels built under DIR), so that two trees can be compared in
-turns by the same script on one card (a checkout from before the HTTP
-slice has no server, so its run stops at phase 4).
+turns by the same script on one card (a checkout from before the TopN
+and BSI slice has no K8 or K9, so its run stops at phase 3b).
 
 1. card: prints the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, and the kernel build seconds with ptxas's report
    (ops/csrc/bmma.cu: K1, K2 and K4 to K7 on the tensor cores' binary MMA,
-   and the probe; ops/csrc/bitcount.cu: K3);
+   and the probe; ops/csrc/bitcount.cu: K3, K8 and K9);
    then the AND-popcount rate probe (ops/csrc/bmma.cu, ops/probe.py): the
    b1 tensor-core MMA's and the CUDA cores' popcount rates in bit-products
    a second, which set the kernels' operations bounds;
@@ -44,12 +44,25 @@ slice has no server, so its run stops at phase 4).
    its route should. No GroupBy may be routed to the CPU oracle. Then a
    2-shard index whose 70-row extra field crosses the 64-slot tile
    boundary, on the maintained and the generic route;
+3b. TopN, Rows and the BSI plane on the same index, with bench.py's BSI
+   field v (build_bsi_field: up to 50 values a shard in [-9000, 9000],
+   bit depth 14): TopN(f, n=5), TopN(f) and Rows(f) against the Count of
+   each row (K3), TopN(f, Row(g=7), n=3) against the Counts of the rows'
+   Intersects, Rows(g, previous=2, limit=3), GroupBy(Rows(f)) from the
+   TopN table, Sum, Min and Max of v and five BSI-condition Counts against
+   numpy over the imported values; the launches of each request (an
+   uncached TopN launches K8 once, Sum K8 and K3 once each, Min and Max
+   K9 once), its median wall time with the TopN and aggregate caches
+   dropped and cached, and the device profiles of TopN(f), Sum and Min;
+   then, after phase 4, Sum/Min/Max with filters, a Count over a BSI
+   condition and Shifts over the first 32 shards against the CPU oracle;
 4. the HTTP server (pilosa_tpu_torch.server) over the same index and
-   backend: the north-star Count, the 16-Count pair request and three
-   GroupBys sent as JSON and as protobuf, each answer byte-identical to the
-   in-process executor's encoded the same way, with the pair and GroupBy
-   caches dropped first so that each request launches what its route
-   should (K3, K1, K2, K5 with K3, K4 with K3); one HTTP Count profiled
+   backend: the north-star Count, the 16-Count pair request, three
+   GroupBys, TopN(f, n=5) and Sum(field=v) sent as JSON and as protobuf,
+   each answer byte-identical to the in-process executor's encoded the
+   same way, with the pair, GroupBy, TopN and aggregate caches dropped
+   first so that each request launches what its route should (K3, K1, K2,
+   K5 with K3, K4 with K3, K8, K8 with K3); one HTTP Count profiled
    (wall and device time); then requests/s and p50/p99 latency under 1, 4
    and 16 concurrent clients (the Count) and 1 and 4 (the pair request
    and the 3-field GroupBy), each client a thread with its own keep-alive
@@ -78,9 +91,13 @@ slice has no server, so its run stops at phase 4).
    here); and the cross-check of
    the odometer kernels (nary_stats, nary_stats_pershard) against the
    group tensor that GroupBy served (one kernel body on both sides: the
-   plain versions are the independent check);
-6. a small holder with an existence field: the whole Count/Row/Not/All
-   query list through two write-churn epochs, checked against the CPU
+   plain versions are the independent check); K8 at the TopN, filtered
+   TopN and Sum shapes and K9 on v's stack, each also at edge shapes (K8:
+   0, 1 and 2 masks, row0 > 0; K9: depths 1, 14 and 63, an all-negative,
+   an empty and a filtered-out shard);
+6. a small holder with an existence field and a YMDH time field: the
+   whole Count/Row/Not/All/time-range query list through two write-churn
+   epochs, checked against the CPU
    oracle after each; the resident stacks must be spliced, not rebuilt,
    and no query may be routed to the CPU oracle.
 
@@ -149,6 +166,11 @@ REPLACES = {
     "group_tile_stats_pershard": "pilosa_tpu/ops/kernels.py:656",
     "nary_stats": "pilosa_tpu/ops/kernels.py:253",
     "nary_stats_pershard": "pilosa_tpu/ops/kernels.py:349",
+    # The per-row popcounts of the topn_plain / topn_src programs (:2134,
+    # :2156) and of bsi_sum's planes (:2172).
+    "row_popcounts": "pilosa_tpu/exec/tpu.py:2134",
+    # The bsi_min / bsi_max program body.
+    "bsi_minmax": "pilosa_tpu/exec/tpu.py:2201",
 }
 COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "popcount_rows")
 # Each kernel's earlier time at the shape timed here, recorded by this
@@ -289,33 +311,86 @@ def bare_popcount_rows(x):
     return launch
 
 
-def device_share(fn, label: str, n: int = 10) -> None:
+def bare_row_popcounts(stack, row0, n_rows, masks=()):
+    import torch
+
+    from pilosa_tpu_torch.ops import build
+    from pilosa_tpu_torch.ops import kernels as K
+
+    lib = build.library(K._LIBRARY["row_popcounts"])
+    s, r, w = stack.shape
+    out = torch.empty((max(len(masks), 1), s, n_rows), dtype=torch.int32, device=stack.device)
+    ptrs = [m.data_ptr() for m in masks] + [None] * (2 - len(masks))
+    stream = torch.cuda.current_stream(stack.device).cuda_stream
+
+    def launch():
+        rc = lib.row_popcounts_launch(stack.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(),
+                                      len(masks), s, r, row0, n_rows, w, stream)
+        check(rc == 0, f"row_popcounts: CUDA launch failed with cudaError {rc}")
+
+    return launch
+
+
+def bare_bsi_minmax(stack, depth, filt, kind):
+    import torch
+
+    from pilosa_tpu_torch.ops import build
+    from pilosa_tpu_torch.ops import kernels as K
+
+    lib = build.library(K._LIBRARY["bsi_minmax"])
+    s, r, w = stack.shape
+    out = torch.empty((2, s, depth + 2), dtype=torch.int32, device=stack.device)
+    stream = torch.cuda.current_stream(stack.device).cuda_stream
+
+    def launch():
+        rc = lib.bsi_minmax_launch(stack.data_ptr(), None if filt is None else filt.data_ptr(),
+                                   out.data_ptr(), 0 if kind == "min" else 1, s, r, depth, w,
+                                   stream)
+        check(rc == 0, f"bsi_minmax: CUDA launch failed with cudaError {rc}")
+
+    return launch
+
+
+def device_share(fn, label: str, n: int = 10, warm: int = 3) -> None:
     """Profile n calls of fn with torch.profiler: wall ms per call, device
     kernel ms per call and the device's busy share, and the kernels that
-    took the device time."""
+    took the device time. The profiler traces ``warm`` calls first and
+    keeps only the n after them (its schedule's warm-up): it can lose the
+    kernels launched soon after its tracing starts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warm, active=n, repeat=1)) as prof:
+        for _ in range(warm):
             fn()
+            prof.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn()
+            if i < n - 1:
+                prof.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()  # closes the active window
     rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+        # The schedule's ProfilerStep ranges span whole calls: not kernels.
+        if (us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA")
+                and not ev.key.startswith("ProfilerStep")):
             rows.append((us, ev.count, ev.key))
     dev_us = sum(r[0] for r in rows)
     log(f"profile {label}: wall {wall_us / n / 1e3:.4f} ms/call, device "
         f"{dev_us / n / 1e3:.4f} ms/call, device busy {dev_us / wall_us:.3f}")
     for us, count, key in sorted(rows, reverse=True)[:6]:
-        log(f"profile {label}:   {us / n / 1e3:.4f} ms/call x{count // n} {key[:90]}")
+        log(f"profile {label}:   {us / n / 1e3:.4f} ms/call, {count} in {n} calls "
+            f"{key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -664,7 +739,7 @@ def phase_groupby(holder, backend):
     log("groupby: launches per request " + json.dumps(per_request))
     log("groupby: launches " + json.dumps(launches))
     want = {
-        "GroupBy(Rows(f))": {"popcount_rows": 1},
+        "GroupBy(Rows(f))": {"row_popcounts": 1},  # the TopN rank vector
         "GroupBy(Rows(f), Rows(g), filter=Row(f=2))": {"pair_stats": 1},
         "3-field, cold": {"popcount_rows": 1, "group_tile_stats_pershard": 1},
         "3-field, warm": {},
@@ -674,7 +749,8 @@ def phase_groupby(holder, backend):
     for label, expect in want.items():
         check(per_request[label] == expect,
               f"groupby: {label} launched {per_request[label]}, expected {expect}")
-    for name in ("group_tile_stats", "group_tile_stats_pershard", "popcount_rows"):
+    for name in ("group_tile_stats", "group_tile_stats_pershard", "popcount_rows",
+                 "row_popcounts"):
         check(launches[name] > 0, f"kernel {name} was not launched on the GroupBy path")
     check(answers[GROUP_QUERIES[5]] == answers[three][3:8], "groupby: limit/offset window")
 
@@ -687,6 +763,7 @@ def phase_groupby(holder, backend):
     def uncached(q):
         def run():
             backend._agg_cache.clear()
+            backend._topn_cache.clear()
             return dev.execute("bench", q)
         return run
 
@@ -716,6 +793,207 @@ def phase_groupby(holder, backend):
     stacks = {name: bench_stack(backend, holder, name) for name in ("f", "g", "h")}
     served = backend._groupn_cache[("groupn", "bench", ("f", "g", "h"))].stats
     return launches, stacks, served
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: TopN, Rows and the BSI plane
+# ---------------------------------------------------------------------------
+
+# bench.py build_bsi_field: per shard up to BSI_COLS unique columns from
+# default_rng(43), values in [-BSI_ABS, BSI_ABS] of an int field over
+# [-BSI_RANGE, BSI_RANGE] (bit depth 14: a 16-row BSI stack).
+BSI_COLS = 50
+BSI_ABS = 9000
+BSI_RANGE = 10000
+# Over the first ORACLE_SHARDS shards against the CPU oracle (run after the
+# 954-shard phases, as groupby_oracle_check is).
+BSI_ORACLE_QUERIES = [
+    "Sum(Row(f=1), field=v)", "Min(Row(g=7), field=v)",
+    "Max(Intersect(Row(f=2), Row(g=7)), field=v)",
+    "Count(Intersect(Row(f=1), Row(v < 0)))", "Count(Shift(Row(f=1), n=3))",
+    "Count(Shift(Row(f=2), n=32))", "Shift(Row(f=2), n=40)",
+]
+
+
+def build_bsi_field(holder):
+    """bench.py build_bsi_field on the bench index: field v, per shard the
+    unique columns of BSI_COLS draws and their values. Returns the imported
+    (columns, values) arrays."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core.field import options_for_int
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    idx = holder.index("bench")
+    rng = np.random.default_rng(43)
+    field = idx.create_field("v", options_for_int(-BSI_RANGE, BSI_RANGE))
+    all_cols, all_vals = [], []
+    for shard in range(SHARDS):
+        cols = (np.unique(rng.integers(0, SHARD_WIDTH, BSI_COLS, dtype=np.uint64))
+                + np.uint64(shard * SHARD_WIDTH))
+        vals = rng.integers(-BSI_ABS, BSI_ABS + 1, cols.size)
+        field.import_value(cols, vals)
+        all_cols.append(cols)
+        all_vals.append(vals)
+    return np.concatenate(all_cols), np.concatenate(all_vals)
+
+
+def numpy_minmax(vals, pick):
+    """(value, count) of numpy's extreme ``pick`` over ``vals``."""
+    best = int(pick(vals))
+    return best, int((vals == best).sum())
+
+
+def phase_bsi(holder, backend):
+    """TopN, Rows, Sum, Min, Max and BSI conditions on the 954-shard index
+    through the main path's Executor, each answer checked; launches per
+    request; wall times with the caches dropped and cached; device
+    profiles of TopN(f), Sum and Min."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    t_phase = time.perf_counter()
+    cols, vals = build_bsi_field(holder)
+    log(f"bsi: field v built in {time.perf_counter() - t_phase:.1f} s, {cols.size} values "
+        f"over {SHARDS} shards, bit depth {holder.index('bench').field('v').bsi_group().bit_depth}")
+    dev = Executor(holder, backend=backend)
+    routed0 = sum(global_stats.counter_totals("cpu_routed_total").values())
+    x = int(vals[len(vals) // 2])
+    cond_queries = {
+        "Count(Row(v > 100))": int((vals > 100).sum()),
+        "Count(Row(v >< [-50, 50]))": int(((vals >= -50) & (vals <= 50)).sum()),
+        f"Count(Row(v == {x}))": int((vals == x).sum()),
+        "Count(Row(v != null))": int(vals.size),
+        "Count(Row(v < -8990))": int((vals < -8990).sum()),
+    }
+    agg_queries = {
+        "Sum(field=v)": (int(vals.sum()), int(vals.size)),
+        "Min(field=v)": numpy_minmax(vals, np.min),
+        "Max(field=v)": numpy_minmax(vals, np.max),
+    }
+    topn_queries = ["TopN(f, n=5)", "TopN(f)", "Rows(f)", "TopN(f, Row(g=7), n=3)",
+                    "Rows(g, previous=2, limit=3)", "GroupBy(Rows(f))"]
+
+    def drop_caches():
+        with backend._pair_lock:
+            backend._topn_cache.clear()
+            backend._agg_cache.clear()
+
+    per_request = {}
+    answers = {}
+    t0 = time.perf_counter()
+    drop_caches()
+    K.reset_launch_counts()
+    for q in topn_queries + list(agg_queries) + list(cond_queries):
+        before = K.launch_counts()
+        answers[q] = dev.execute("bench", q)[0]
+        torch.cuda.synchronize()
+        per_request[q] = {k: v - before[k] for k, v in K.launch_counts().items()
+                          if v != before[k]}
+    launches = K.launch_counts()
+    log(f"bsi: first pass {time.perf_counter() - t0:.1f} s (the BSI stack build included)")
+    log("bsi: launches per request " + json.dumps(per_request))
+    want = {"TopN(f, n=5)": {"row_popcounts": 1}, "TopN(f)": {}, "Rows(f)": {},
+            "TopN(f, Row(g=7), n=3)": {"row_popcounts": 1},
+            "Rows(g, previous=2, limit=3)": {"row_popcounts": 1}, "GroupBy(Rows(f))": {},
+            "Sum(field=v)": {"row_popcounts": 1, "popcount_rows": 1},
+            "Min(field=v)": {"bsi_minmax": 1}, "Max(field=v)": {"bsi_minmax": 1}}
+    want.update({q: {"popcount_rows": 1} for q in cond_queries})
+    for q, expect in want.items():
+        check(per_request[q] == expect, f"bsi: {q} launched {per_request[q]}, expected {expect}")
+
+    # TopN, Rows and GroupBy against the Count path (K3, one Count a row).
+    f_counts = [dev.execute("bench", f"Count(Row(f={r}))")[0] for r in range(ROWS)]
+    fg_counts = [dev.execute("bench", f"Count(Intersect(Row(f={r}), Row(g=7)))")[0]
+                 for r in range(ROWS)]
+
+    def ranked(counts):
+        return sorted(((r, c) for r, c in enumerate(counts) if c), key=lambda p: (-p[1], p[0]))
+
+    def pairs(result):
+        return [(p.id, p.count) for p in result.pairs]
+
+    check(pairs(answers["TopN(f)"]) == ranked(f_counts), "bsi: TopN(f) disagrees with Count")
+    check(pairs(answers["TopN(f, n=5)"]) == ranked(f_counts)[:5], "bsi: TopN(f, n=5)")
+    check(list(answers["Rows(f)"]) == [r for r in range(ROWS) if f_counts[r]], "bsi: Rows(f)")
+    check(pairs(answers["TopN(f, Row(g=7), n=3)"]) == ranked(fg_counts)[:3],
+          "bsi: TopN(f, Row(g=7), n=3) disagrees with the Count path")
+    check(list(answers["Rows(g, previous=2, limit=3)"]) == [3, 4, 5],
+          "bsi: Rows(g, previous=2, limit=3)")
+    check(group_tuples(answers["GroupBy(Rows(f))"])
+          == [((("f", r),), c) for r, c in enumerate(f_counts) if c],
+          "bsi: GroupBy(Rows(f)) disagrees with the Count path")
+    for q, (val, cnt) in agg_queries.items():
+        got = answers[q]
+        check((got.val, got.count) == (val, cnt),
+              f"bsi: {q} = {(got.val, got.count)}, numpy says {(val, cnt)}")
+    for q, n in cond_queries.items():
+        check(answers[q] == n, f"bsi: {q} = {answers[q]}, numpy says {n}")
+    log("bsi: answers agree with the Count path and numpy: " + json.dumps(
+        {q: (pairs(a) if hasattr(a, "pairs") else
+             [a.val, a.count] if hasattr(a, "val") else
+             a if isinstance(a, int) else len(a))
+         for q, a in answers.items()}))
+
+    # Wall times: caches dropped (stacks resident) and cached.
+    latencies = {}
+    for q in topn_queries + list(agg_queries) + list(cond_queries):
+        def uncached(q=q):
+            drop_caches()
+            return dev.execute("bench", q)
+        _, med_cold, _ = host_ms(uncached)
+        _, med_warm, _ = host_ms(lambda q=q: dev.execute("bench", q))
+        latencies[q] = {"p50_caches_dropped_ms": med_cold, "p50_cached_ms": med_warm}
+    log("bsi: latencies " + json.dumps(latencies))
+    for q in ("TopN(f)", "Sum(field=v)", "Min(field=v)"):
+        def uncached(q=q):
+            drop_caches()
+            return dev.execute("bench", q)
+        device_share(uncached, f"{q}, caches dropped")
+    check(sum(global_stats.counter_totals("cpu_routed_total").values()) == routed0,
+          "bsi: a request was routed to the CPU oracle")
+    log_routed("bsi")
+    log(f"bsi: phase seconds {time.perf_counter() - t_phase:.1f}")
+    # The served inputs of K8 and K9, for phase_bsi_kernels.
+    from pilosa_tpu_torch.core.view import bsi_view_name
+
+    depth = holder.index("bench").field("v").bsi_group().bit_depth
+    vstack, _ = backend.blocks.get("bench", holder.index("bench").field("v"),
+                                   tuple(range(SHARDS)), bsi_view_name("v"), 2 + depth)
+    consider = vstack[:, 0, :]
+    neg = (vstack[:, 1, :] & consider).contiguous()
+    stacks = {"f": bench_stack(backend, holder, "f"), "v": vstack, "depth": depth,
+              "src": bench_stack(backend, holder, "g")[:, 7, :].contiguous(),
+              "neg": neg, "pos": (consider & ~neg).contiguous()}
+    return launches, stacks
+
+
+def bsi_oracle_check(holder, backend):
+    """BSI_ORACLE_QUERIES over the first ORACLE_SHARDS shards, against the
+    CPU oracle (after every 954-shard phase: it replaces the resident
+    stacks with 32-shard ones)."""
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    dev = Executor(holder, backend=backend)
+    oracle = Executor(holder, backend=CPUBackend(holder))
+    routed0 = sum(global_stats.counter_totals("cpu_routed_total").values())
+    sub = list(range(ORACLE_SHARDS))
+    for q in BSI_ORACLE_QUERIES:
+        t0 = time.perf_counter()
+        got = dev.execute("bench", q, shards=sub)
+        check(same_answers(got, oracle.execute("bench", q, shards=sub)),
+              f"bsi: {q} over {ORACLE_SHARDS} shards disagrees with the oracle")
+        log(f"bsi: oracle agrees on {q} over {ORACLE_SHARDS} shards "
+            f"({time.perf_counter() - t0:.1f} s)")
+    check(sum(global_stats.counter_totals("cpu_routed_total").values()) == routed0,
+          "bsi: an oracle-checked query was routed to the CPU oracle")
+    log_routed("bsi oracle")
 
 
 def groupby_oracle_check(holder, backend):
@@ -1070,7 +1348,8 @@ def phase_http(holder, backend, root):
     three, three_filtered, two_filtered = GROUP_QUERIES[3], GROUP_QUERIES[4], GROUP_QUERIES[2]
     requests = [("Count", north), ("16-Count pair request", pair_request),
                 ("2-field filtered GroupBy", two_filtered),
-                ("3-field GroupBy", three), ("3-field filtered GroupBy", three_filtered)]
+                ("3-field GroupBy", three), ("3-field filtered GroupBy", three_filtered),
+                ("TopN", "TopN(f, n=5)"), ("Sum", "Sum(field=v)")]
 
     def json_body(results):
         return fastjson.response_body([fastjson.encode_result(r) for r in results])
@@ -1087,6 +1366,7 @@ def phase_http(holder, backend, root):
         backend._pair_cache.clear()
         backend._agg_cache.clear()
         backend._groupn_cache.clear()
+        backend._topn_cache.clear()
         per_request = {}
         K.reset_launch_counts()
         for label, q in requests:
@@ -1110,6 +1390,8 @@ def phase_http(holder, backend, root):
             "2-field filtered GroupBy": {"pair_stats": 1},
             "3-field GroupBy": {"popcount_rows": 1, "group_tile_stats_pershard": 1},
             "3-field filtered GroupBy": {"popcount_rows": 1, "group_tile_stats": 1},
+            "TopN": {"row_popcounts": 1},
+            "Sum": {"row_popcounts": 1, "popcount_rows": 1},
         }
         for label, expect in want.items():
             check(per_request[label] == expect,
@@ -1379,6 +1661,136 @@ def odometer_k64(f, g, h, pershard):
             "k64_bound_ms": bound_ms, "k64_bound_by": by, "k64_max_abs_err": err}
 
 
+def row_popcounts_work(s, n_rows, w, m):
+    """(bytes, bit-products) of K8: the rows and masks read once, the
+    counts written once; a popcount (32 bit-products) per row word and
+    mask."""
+    return ((s * n_rows * w + m * s * w + max(m, 1) * s * n_rows) * 4,
+            32 * s * n_rows * w * max(m, 1))
+
+
+def bsi_minmax_work(s, depth, w, filtered):
+    """(bytes, bit-products) of K9: exists, sign, the planes and the
+    filter read once, the table written once; each plane word tested once
+    a branch."""
+    return (((2 + depth + int(filtered)) * s * w + 2 * s * (depth + 2)) * 4,
+            32 * s * w * depth * 2)
+
+
+def bsi_edge_stack(gen, dev, s, depth, w=32768):
+    """A BSI stack [s, 2 + depth padded to 8, w] of random int32 words (bit
+    31 set in half of them): shard 1 all negative and shard 2 empty."""
+    import torch
+
+    rows = -(-(2 + depth) // 8) * 8
+
+    def rnd(*shape):
+        return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    st = torch.zeros((s, rows, w), dtype=torch.int32, device=dev)
+    exists = rnd(s, w)
+    st[:, 0] = exists
+    st[:, 1] = exists & rnd(s, w)
+    for i in range(depth):
+        st[:, 2 + i] = exists & rnd(s, w)
+    st[1, 1] = st[1, 0]
+    st[2] = 0
+    return st
+
+
+def phase_bsi_kernels(bsi, launches):
+    """K8 and K9 against their plain versions: at the served shapes (TopN
+    over f, TopN over f filtered by Row(g=7), Sum's 14 planes with their
+    two masks; the Min walk of v's 16-row stack), and at edge shapes, all
+    exactly; with times and bounds. Returns the two kernels' lines."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.ops import probe
+
+    f, src, vstack, pos, neg, depth = (bsi[k] for k in ("f", "src", "v", "pos", "neg", "depth"))
+    dev = f.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+
+    def rand(*shape):
+        return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    # K8 edges: M = 0, 1, 2; row0 > 0; one row; a 36-word axis.
+    for s, r, row0, n_rows, m, w in [(3, 8, 0, 8, 0, 32768), (2, 16, 3, 9, 1, 32768),
+                                     (5, 16, 2, 14, 2, 32768), (1, 8, 7, 1, 2, 32768),
+                                     (4, 24, 5, 11, 1, 36), (7, 8, 1, 6, 0, 36)]:
+        st = rand(s, r, w)
+        masks = tuple(rand(s, w) for _ in range(m))
+        check(max_abs_err(K.row_popcounts(st, row0, n_rows, masks),
+                          K.row_popcounts_torch(st, row0, n_rows, masks)) == 0,
+              f"row_popcounts differs at S={s} R={r} rows {row0}+{n_rows} M={m} W={w}")
+    log("kernels: row_popcounts exact at M = 0, 1, 2, row0 > 0, one row, 36-word axes")
+    # K9 edges: depth 1, 14 and 63, an all-negative shard, an empty shard, a
+    # filter that empties a shard, both kinds, filtered and not.
+    for s, d in [(4, 1), (5, 14), (3, 63)]:
+        st = bsi_edge_stack(gen, dev, s, d)
+        filt = rand(s, 32768)
+        filt[0] = 0
+        for kind in ("min", "max"):
+            for fl in (None, filt):
+                check(max_abs_err(K.bsi_minmax(st, d, fl, kind),
+                                  K.bsi_minmax_torch(st, d, fl, kind)) == 0,
+                      f"bsi_minmax differs at S={s} depth={d} {kind} "
+                      f"filtered={fl is not None}")
+    log("kernels: bsi_minmax exact at depths 1, 14, 63 with an all-negative, an empty "
+        "and a filtered-out shard, min and max, filtered and not")
+
+    lines = []
+    s, r, w = f.shape
+    cases = [("topn", f, 0, r, ()), ("src", f, 0, r, (src,)),
+             ("sum", vstack, 2, depth, (pos, neg))]
+    k8 = {}
+    for label, st, row0, n_rows, masks in cases:
+        err = max_abs_err(K.row_popcounts(st, row0, n_rows, masks),
+                          K.row_popcounts_torch(st, row0, n_rows, masks))
+        check(err == 0, f"row_popcounts differs on the {label} shape")
+        k8[label] = {
+            "shape": [st.shape[0], st.shape[1], row0, n_rows, len(masks), st.shape[2]],
+            "ms": time_ms(lambda: K.row_popcounts(st, row0, n_rows, masks)),
+            "kernel_ms": kernel_ms(bare_row_popcounts(st, row0, n_rows, masks)),
+            "plain_ms": time_ms(lambda: K.row_popcounts_torch(st, row0, n_rows, masks),
+                                reps=1, warm=0),
+            "work": row_popcounts_work(st.shape[0], n_rows, st.shape[2], len(masks)),
+            "max_abs_err": err,
+        }
+    main = k8["topn"]
+    line = kernel_line("row_popcounts", main["ms"], main["kernel_ms"], main["plain_ms"],
+                       main["work"], main["max_abs_err"], launches["row_popcounts"])
+    for label in ("src", "sum"):
+        b_ms, b_by, _ = kernel_bound(k8[label]["work"])
+        line.update({f"{label}_shape": k8[label]["shape"], f"{label}_ms": k8[label]["ms"],
+                     f"{label}_kernel_ms": k8[label]["kernel_ms"],
+                     f"{label}_plain_ms": k8[label]["plain_ms"],
+                     f"{label}_bound_ms": b_ms, f"{label}_bound_by": b_by,
+                     f"{label}_max_abs_err": k8[label]["max_abs_err"]})
+        log(f"kernels: row_popcounts {label} shape {k8[label]['shape']}: "
+            f"{k8[label]['ms']:.4f} ms, kernel {k8[label]['kernel_ms']:.4f} ms, "
+            f"plain {k8[label]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}, exact")
+    lines.append(line)
+
+    sv = vstack.shape[0]
+    err = max_abs_err(K.bsi_minmax(vstack, depth, None, "min"),
+                      K.bsi_minmax_torch(vstack, depth, None, "min"))
+    check(err == 0, "bsi_minmax differs on v's stack")
+    ms = time_ms(lambda: K.bsi_minmax(vstack, depth, None, "min"))
+    k_ms = kernel_ms(bare_bsi_minmax(vstack, depth, None, "min"))
+    plain = time_ms(lambda: K.bsi_minmax_torch(vstack, depth, None, "min"), reps=1, warm=0)
+    line = kernel_line("bsi_minmax", ms, k_ms, plain,
+                       bsi_minmax_work(sv, depth, vstack.shape[2], False), err,
+                       launches["bsi_minmax"])
+    line["shape"] = [sv, vstack.shape[1], depth, vstack.shape[2]]
+    lines.append(line)
+    return lines
+
+
 def phase_kernels(gstacks, wide_stacks, launches):
     import torch
 
@@ -1582,13 +1994,20 @@ SMALL_QUERIES = [
     "Count(Row(f=99))",
     " ".join(f"Count(Intersect(Row(f={a}), Row(g={b})))"
              for a in (0, 1, 2, 3) for b in (0, 1, 7, 9)),
+    # The YMDH time field t (tests/test_tpu.py test_time_range_on_device).
+    "Row(t=9, from='2019-08-01T00:00', to='2019-08-31T00:00')",
+    "Count(Row(t=9, from='2019-08-04T00:00', to='2019-08-31T00:00'))",
+    "Row(t=9, from='2019-08-03T10:00', to='2019-08-03T11:00')",
 ]
+TIME_SETS = ["Set(3, t=9, 2019-08-03T10:00)", "Set(1048579, t=9, 2019-08-05T12:00)",
+             "Set(3145730, t=9, 2019-08-20T01:00)"]
 
 
 def phase_small():
     import numpy as np
 
     from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.field import options_for_time
     from pilosa_tpu_torch.exec import Executor
     from pilosa_tpu_torch.exec.cpu import CPUBackend
     from pilosa_tpu_torch.exec.cuda import CUDABackend
@@ -1607,9 +2026,12 @@ def phase_small():
         idx.existence_field().import_bits(np.zeros(cols.size, dtype=np.uint64), cols)
     cols = np.unique(rng.integers(0, n * SHARD_WIDTH, 3000, dtype=np.uint64))
     idx.field("g").import_bits(np.full(cols.size, 7, dtype=np.uint64), cols)
+    idx.create_field("t", options_for_time("YMDH"))
 
     dev = Executor(holder, backend=CUDABackend(holder))
     oracle = Executor(holder, backend=CPUBackend(holder))
+    for q in TIME_SETS:
+        oracle.execute("i", q)
     epochs = [
         [], [f"Set({SHARD_WIDTH + 5}, f=1)", f"Set({SHARD_WIDTH + 6}, g=7)",
              f"Clear({SHARD_WIDTH + 5}, f=2)"],
@@ -1680,8 +2102,10 @@ def main(argv=None) -> int:
     results: dict = {}
     holder, backend, wide_stacks = phase_main(results)
     group_launches, gstacks, served = phase_groupby(holder, backend)
+    bsi_launches, bsi_stacks = phase_bsi(holder, backend)
     phase_http(holder, backend, root)
     groupby_oracle_check(holder, backend)
+    bsi_oracle_check(holder, backend)
     holder.close()
     del backend
     phase_groupby_tiles()
@@ -1691,8 +2115,11 @@ def main(argv=None) -> int:
     cross = cross_check(gstacks, served)
     for name in ("nary_stats", "nary_stats_pershard"):
         launches[name] = cross[name]
+    for name in ("row_popcounts", "bsi_minmax"):
+        launches[name] = bsi_launches[name]
     lines = phase_kernels(gstacks, wide_stacks, launches)
-    del gstacks, wide_stacks
+    lines += phase_bsi_kernels(bsi_stacks, launches)
+    del gstacks, wide_stacks, bsi_stacks
     phase_small()
     log_routed("small")
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

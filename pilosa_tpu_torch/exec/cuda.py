@@ -1,29 +1,38 @@
 """CUDA device backend: PQL bitmap calls on device-resident shard stacks.
 
-The counterpart of the JAX package's TPUBackend, for Count and Row queries:
+The counterpart of the JAX package's TPUBackend:
 
 - Per (index, field, view) the backend keeps a stacked int32[S, R_pad, W]
   tensor on the device (the bits of the host's uint32 pack), rebuilt when
   the view's generation moves. A write epoch that dirtied few shards
   re-packs only those shards and splices them into the resident stack in
   place (``index_copy_``).
-- A Count or Row call tree becomes torch bitwise ops over [S, W] slabs:
-  ``index_select`` gathers the rows, then ``&``, ``|``, ``^`` and ``~``.
-  The per-shard popcount is the hand-written kernel K3
-  (ops/kernels.py popcount_rows).
+- A bitmap call tree becomes torch bitwise ops over [S, W] slabs:
+  ``index_select`` gathers the rows, then ``&``, ``|``, ``^`` and ``~``; a
+  time range unions its quantum views' rows, ``Shift`` moves the bits up
+  within each shard, and a BSI condition (``Row(v > 3)``, ``v >< [a, b]``,
+  ``v != null``) walks the field's BSI planes with the predicate's bits
+  resolved on the host. The per-shard popcount is the hand-written kernel
+  K3 (ops/kernels.py popcount_rows).
 - A request of several Counts over one field pair is planned onto one sweep
   of K1 (pair_stats_pershard), or of K2 (pair_stats) when the per-shard
   table is too big to keep; the host derives every verb from the pair
   matrix and the row counts.
+- TopN, Rows and unfiltered 1-field GroupBy read a field's per-row counts
+  (K8, row_popcounts), cached on the view's generation. Sum counts the BSI
+  planes over the positive and the negative columns (K8 with two masks) and
+  the considered columns (K3); Min and Max walk the planes per shard (K9,
+  bsi_minmax). The host weights and reduces exactly.
 - GroupBy computes its group-count tensor on the card and enumerates the
-  nonzero groups on the host: one field through K3, two through the pair
-  kernels, three or more through the group-tile kernels K4/K5 over the
-  extra fields' live row combinations (ops/kernels.py).
+  nonzero groups on the host: one field from the TopN rank vector (or K3
+  when filtered), two through the pair kernels, three or more through the
+  group-tile kernels K4/K5 over the extra fields' live row combinations
+  (ops/kernels.py).
 
-Calls without a device lowering here (BSI conditions, time ranges, Shift)
-raise _Unsupported while their tree is assembled and are answered by the
-CPU oracle, counted in ``cpu_routed_total{call}``. Kernel failures are not
-caught: they raise to the caller.
+A call without a device lowering here raises _Unsupported while its tree is
+assembled (a stack over the byte budget, a BSI depth past MAX_BSI_DEPTH)
+and is answered on the host, counted in ``cpu_routed_total{call}``. Kernel
+failures are not caught: they raise to the caller.
 """
 
 from __future__ import annotations
@@ -36,8 +45,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core.cache import Pair
+from pilosa_tpu_torch.core.field import FIELD_TYPE_INT
+from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
 from pilosa_tpu_torch.core.row import Row
-from pilosa_tpu_torch.core.view import VIEW_STANDARD
+from pilosa_tpu_torch.core.timequantum import parse_time, views_by_time_range
+from pilosa_tpu_torch.core.view import VIEW_STANDARD, bsi_view_name
 from pilosa_tpu_torch.exec.cpu import CPUBackend, NotFoundError, QueryError
 from pilosa_tpu_torch.exec.result import FieldRow, GroupCount
 from pilosa_tpu_torch.ops.blocks import (
@@ -51,19 +64,26 @@ from pilosa_tpu_torch.ops.kernels import (
     MAX_GROUP_EXTRAS,
     MAX_GROUP_TILE_SLOTS,
     MAX_PAIR_SHARDS,
+    bsi_minmax,
     group_tile_stats,
     group_tile_stats_pershard,
     pair_stats,
     pair_stats_pershard,
     popcount_rows,
+    row_popcounts,
+    split_minmax,
 )
-from pilosa_tpu_torch.pql.ast import Call, Condition, canonical_key, is_reserved_arg
+from pilosa_tpu_torch.pql.ast import (
+    BETWEEN, Call, Condition, EQ, GT, GTE, LT, LTE, NEQ, canonical_key,
+    is_reserved_arg,
+)
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils.locks import InstrumentedRLock
 from pilosa_tpu_torch.utils.qprofile import current_profile
 from pilosa_tpu_torch.utils.stats import global_stats
 
-_DEVICE_LOWERED = ("Row", "Range", "Union", "Intersect", "Difference", "Xor", "Not", "All")
+_DEVICE_LOWERED = ("Row", "Range", "Union", "Intersect", "Difference", "Xor", "Not", "All",
+                   "Shift")
 
 # Pair-stats host cache bound: entries may hold in-flight device tables, so
 # the LRU cap keeps many-field indexes from pinning device memory.
@@ -73,6 +93,11 @@ MAX_PAIR_CACHE_ENTRIES = 16
 # Bounds the aggregate-cache charge and the enumeration working set;
 # combinations past it go to the CPU oracle rather than exhausting the host.
 MAX_GROUP_RESULT_CELLS = 1 << 24
+
+# BSI min/max assemble values from per-plane decision bits on the host, and
+# sums weight plane counts in exact Python ints, so depth is bounded only by
+# the int64 BSI range.
+MAX_BSI_DEPTH = 63
 
 
 class _Unsupported(Exception):
@@ -290,24 +315,192 @@ def _prod(xs) -> int:
     return out
 
 
+def _bsi_slabs(block, depth):
+    """exists/sign/plane slabs from a stacked BSI view block [S, R, W]."""
+    exists = block[:, BSI_EXISTS_BIT, :]
+    sign = block[:, BSI_SIGN_BIT, :]
+    planes = [block[:, BSI_OFFSET_BIT + i, :] for i in range(depth)]
+    return exists, sign, planes
+
+
+# The range helpers below keep the JAX package's control flow line for line
+# (pilosa_tpu/exec/tpu.py:1113-1179); its traced predicate bits are host
+# ints here, so each of its selects on a bit is a Python branch.
+
+
+def _lt_unsigned(filt, planes, bits, depth, allow_eq):
+    """Port of fragment.rangeLTUnsigned (fragment.go:1440) with the
+    documented strict-<0 fix (see core/fragment.py:481)."""
+    zeros = torch.zeros_like(filt)
+    keep = zeros
+    lz = True
+    zero_pred = not allow_eq and all(bits[i] == 0 for i in range(depth))
+    for i in range(depth - 1, -1, -1):
+        plane = planes[i]
+        bit = bits[i] != 0
+        skip = lz and not bit
+        if i == 0 and not allow_eq:
+            if zero_pred:
+                return zeros
+            if skip:
+                return filt & ~plane
+            return filt & ~(plane & ~keep) if bit else keep
+        if skip:
+            new_filt = filt & ~plane
+        elif bit:
+            new_filt = filt
+        else:
+            new_filt = filt & ~(plane & ~keep)
+        if i > 0 and not skip and bit:
+            keep = keep | (filt & ~plane)
+        filt = new_filt
+        lz = lz and not bit
+    return zeros if zero_pred else filt
+
+
+def _gt_unsigned(filt, planes, bits, depth, allow_eq):
+    """Port of fragment.rangeGTUnsigned (fragment.go:1471)."""
+    keep = torch.zeros_like(filt)
+    for i in range(depth - 1, -1, -1):
+        plane = planes[i]
+        bit = bits[i] != 0
+        if i == 0 and not allow_eq:
+            return keep if bit else filt & ~((filt & ~plane) & ~keep)
+        new_filt = filt & ~((filt & ~plane) & ~keep) if bit else filt
+        if i > 0 and not bit:
+            keep = keep | (filt & plane)
+        filt = new_filt
+    return filt
+
+
+def _between_unsigned(filt, planes, lo_bits, hi_bits, depth):
+    """Port of fragment.rangeBetweenUnsigned (fragment.go:1504)."""
+    keep1 = torch.zeros_like(filt)
+    keep2 = torch.zeros_like(filt)
+    for i in range(depth - 1, -1, -1):
+        plane = planes[i]
+        b1 = lo_bits[i] != 0
+        b2 = hi_bits[i] != 0
+        new_filt = filt & ~((filt & ~plane) & ~keep1) if b1 else filt
+        if i > 0 and not b1:
+            keep1 = keep1 | (filt & plane)
+        filt = new_filt
+        new_filt = filt if b2 else filt & ~(plane & ~keep2)
+        if i > 0 and b2:
+            keep2 = keep2 | (filt & ~plane)
+        filt = new_filt
+    return filt
+
+
+def _eq_slab(exists, sign, planes, bits, depth, neg):
+    b = (exists & sign) if neg else (exists & ~sign)
+    for i in range(depth - 1, -1, -1):
+        b = b & planes[i] if bits[i] != 0 else b & ~planes[i]
+    return b
+
+
+def _shift_slab(slab, n: int):
+    """Shift all bits up by n within each shard slab (word axis last,
+    little-endian bit order within the words). Bits crossing the shard
+    boundary drop, as segment-local Row.Shift (core/row.py) does. On int32
+    words ``>>`` is arithmetic, so the carried high bits are masked to
+    act as the logical shift; ``<<`` wraps past the sign bit."""
+    if n == 0:
+        return slab
+    s_words, s_bits = divmod(n, 32)
+    w = slab.shape[-1]
+
+    def word_shifted(k):
+        out = torch.zeros_like(slab)
+        if k < w:
+            out[..., k:] = slab[..., : w - k]
+        return out
+
+    lo = word_shifted(s_words)
+    if s_bits == 0:
+        return lo
+    hi = word_shifted(s_words + 1)
+    return (lo << s_bits) | ((hi >> (32 - s_bits)) & ((1 << s_bits) - 1))
+
+
+def _pred_bits(value: int, depth: int) -> tuple:
+    return tuple((value >> i) & 1 for i in range(depth))
+
+
+def _take_row(block, row, mask):
+    """Row ``row`` of every shard of [S, R, W] as [S, W]; an empty row when
+    ``mask`` is 0 (a row beyond the packed range)."""
+    if not mask:
+        return torch.zeros_like(block[:, 0, :])
+    idx = torch.tensor([row], dtype=torch.int64, device=block.device)
+    return torch.index_select(block, 1, idx).squeeze(1)
+
+
 def _eval_spec(spec, blocks_it, scalars_it) -> torch.Tensor:
-    """Evaluate a spec tree over [S, W] int32 slabs. Both iterators are
-    consumed in the exact order _build emitted them."""
+    """Evaluate a spec tree over [S, W] int32 slabs (the JAX package's
+    _eval_spec, pilosa_tpu/exec/tpu.py:1204). Both iterators are consumed
+    in the exact order _build emitted them."""
     tag = spec[0]
     if tag == "R":
         block = next(blocks_it)  # [S, R, W]
         row = next(scalars_it)
-        mask = next(scalars_it)
-        if not mask:  # row beyond the packed range: an empty row
-            return torch.zeros_like(block[:, 0, :])
-        idx = torch.tensor([row], dtype=torch.int64, device=block.device)
-        return torch.index_select(block, 1, idx).squeeze(1)
+        return _take_row(block, row, next(scalars_it))
+    if tag == "T":
+        # Time-range row: union of per-view row slabs (executor.go:1441).
+        acc = None
+        for _ in range(spec[2]):
+            block = next(blocks_it)
+            row = next(scalars_it)
+            slab = _take_row(block, row, next(scalars_it))
+            acc = slab if acc is None else acc | slab
+        return acc
     if tag == "A":
         return next(blocks_it)[:, 0, :]  # existence stack
     if tag == "N":
         block = next(blocks_it)  # existence stack
         inner = _eval_spec(spec[1], blocks_it, scalars_it)
         return block[:, 0, :] & ~inner
+    if tag == "E":
+        return torch.zeros_like(next(blocks_it)[:, 0, :])  # block: shape only
+    if tag == "NN":
+        return next(blocks_it)[:, BSI_EXISTS_BIT, :]
+    if tag == "C":
+        # BSI comparison: ("C", field, op, neg_pred, allow_eq, depth)
+        _, _fname, op, neg, allow_eq, depth = spec
+        block = next(blocks_it)
+        bits = next(scalars_it)
+        exists, sign, planes = _bsi_slabs(block, depth)
+        if op == "==":
+            return _eq_slab(exists, sign, planes, bits, depth, neg)
+        if op == "!=":
+            return exists & ~_eq_slab(exists, sign, planes, bits, depth, neg)
+        if op == "<":
+            if not neg:
+                pos = _lt_unsigned(exists & ~sign, planes, bits, depth, allow_eq)
+                return (sign & exists) | pos
+            return _gt_unsigned(exists & sign, planes, bits, depth, allow_eq)
+        # op == ">"
+        if not neg:
+            return _gt_unsigned(exists & ~sign, planes, bits, depth, allow_eq)
+        negs = _lt_unsigned(exists & sign, planes, bits, depth, allow_eq)
+        return (exists & ~sign) | negs
+    if tag == "CB":
+        # BSI between: ("CB", field, cls, depth), fragment.rangeBetween :1504
+        _, _fname, cls, depth = spec
+        block = next(blocks_it)
+        lo_bits = next(scalars_it)
+        hi_bits = next(scalars_it)
+        exists, sign, planes = _bsi_slabs(block, depth)
+        if cls == "pos":
+            return _between_unsigned(exists & ~sign, planes, lo_bits, hi_bits, depth)
+        if cls == "neg":
+            # negative range: magnitudes swap (|hi| <= mag <= |lo|)
+            return _between_unsigned(exists & sign, planes, hi_bits, lo_bits, depth)
+        pos = _lt_unsigned(exists & ~sign, planes, hi_bits, depth, True)
+        neg = _lt_unsigned(exists & sign, planes, lo_bits, depth, True)
+        return pos | neg
+    if tag == "S":
+        return _shift_slab(_eval_spec(spec[2], blocks_it, scalars_it), spec[1])
     children = spec[1]
     acc = _eval_spec(children[0], blocks_it, scalars_it)
     for ch in children[1:]:
@@ -324,7 +517,8 @@ def _eval_spec(spec, blocks_it, scalars_it) -> torch.Tensor:
 
 
 class CUDABackend:
-    """Device backend for the Executor: Count and Row calls on the card.
+    """Device backend for the Executor: bitmap calls, Count, TopN, Rows,
+    Sum, Min, Max and GroupBy on the card.
 
     ``device`` defaults to "cuda" and must name a present device; the CPU
     tests pass device="cpu", where every kernel wrapper takes its plain
@@ -362,10 +556,14 @@ class CUDABackend:
         # Pair-plan memo keyed by the (parse-cached, shared) calls' ids.
         self._plan_cache: dict = {}
         self._plan_lock = threading.Lock()
-        # GroupBy tensors, under _pair_lock: (cfp, payload) by (index,
-        # fields, filter), and the N>=3 per-shard tables (_GroupNEntry).
+        # Under _pair_lock: GroupBy tensors, (cfp, payload) by ("groupby",
+        # index, fields, filter), beside the unfiltered Sum/Min/Max results,
+        # (cfp, (value, count)) by (kind, index, field); the N>=3 per-shard
+        # tables (_GroupNEntry); and the TopN rank vectors, (cfp, int64[R]
+        # row counts) by (index, field).
         self._agg_cache: dict = {}
         self._groupn_cache: dict = {}
+        self._topn_cache: dict = {}
 
     # -- routing and counters ----------------------------------------------
 
@@ -413,6 +611,12 @@ class CUDABackend:
             self._push_existence(index, shards, blocks)
             child = self._build(index, c.children[0], shards, blocks, scalars)
             return ("N", child)
+        if c.name == "Shift":
+            n, _ = c.int_arg("n")
+            if n < 0 or len(c.children) != 1:
+                raise _Unsupported("Shift")
+            child = self._build(index, c.children[0], shards, blocks, scalars)
+            return ("S", n, child)
         if not c.children:
             raise _Unsupported("empty verb")  # the CPU path yields the reference's answer
         kids = tuple(
@@ -429,20 +633,130 @@ class CUDABackend:
         blocks.append(block)
 
     def _build_row(self, index, c, shards, blocks, scalars):
-        if any(isinstance(v, Condition) for v in c.args.values()):
-            raise _Unsupported("BSI condition")
+        cond_args = [(k, v) for k, v in c.args.items() if isinstance(v, Condition)]
+        if cond_args:
+            return self._build_bsi(index, c, shards, blocks, scalars, cond_args)
         field_name = c.field_arg()
         f = self._field(index, field_name)
         row_id, ok = c.uint64_arg(field_name)
         if not ok:
             raise QueryError("Row() must specify row")
         if "from" in c.args or "to" in c.args:
-            raise _Unsupported("time range")
+            return self._build_time_row(index, c, f, row_id, shards, blocks, scalars)
         block, rows_p = self._get_block(index, f, shards)
         blocks.append(block)
         scalars.append(min(row_id, rows_p - 1))
         scalars.append(1 if row_id < rows_p else 0)
         return ("R", field_name)
+
+    def _build_time_row(self, index, c, f, row_id, shards, blocks, scalars):
+        """Row(f=r, from=, to=): the union over the quantum views
+        (executor.go:1441)."""
+        import datetime as dt
+
+        if not f.options.time_quantum:
+            # The reference returns empty for a non-time field with a range.
+            self._push_bsi_or_field_block(index, f, shards, blocks)
+            return ("E",)
+        from_t = parse_time(c.args["from"]) if "from" in c.args else dt.datetime(1, 1, 1)
+        to_t = (
+            parse_time(c.args["to"])
+            if "to" in c.args
+            else dt.datetime.utcnow() + dt.timedelta(days=1)
+        )
+        views = [
+            vn
+            for vn in views_by_time_range(VIEW_STANDARD, from_t, to_t, f.options.time_quantum)
+            if f.view(vn) is not None
+        ]
+        if not views:
+            self._push_bsi_or_field_block(index, f, shards, blocks)
+            return ("E",)
+        for vn in views:
+            block, rows_p = self._get_block(index, f, shards, view_name=vn)
+            blocks.append(block)
+            scalars.append(min(row_id, rows_p - 1))
+            scalars.append(1 if row_id < rows_p else 0)
+        return ("T", f.name, len(views))
+
+    def _push_bsi_or_field_block(self, index, f, shards, blocks) -> None:
+        """Push any block purely as a shape carrier for an ("E",) node."""
+        block, _ = self._get_block(index, f, shards)
+        blocks.append(block)
+
+    def _build_bsi(self, index, c, shards, blocks, scalars, cond_args):
+        """BSI condition -> resolved spec. Mirrors executeRowBSIGroupShard
+        (executor.go:1533) and bsiGroup.baseValue (field.go:1584): the
+        out-of-range and encompassing cases resolve here on the host, so
+        the spec carries only (op, sign, depth) and the predicate bits."""
+        if len(c.args) > 1:
+            raise _Unsupported("Row(): too many arguments")
+        field_name, cond = cond_args[0]
+        f = self._field(index, field_name)
+        if f.options.type != FIELD_TYPE_INT:
+            raise _Unsupported("condition on non-int field")
+        opts = f.bsi_group()
+        depth = opts.bit_depth
+        if depth > MAX_BSI_DEPTH:
+            raise _Unsupported("bit depth")
+        vname = bsi_view_name(field_name)
+
+        def push_block():
+            block, _ = self._get_block(
+                index, f, shards, view_name=vname, min_rows=BSI_OFFSET_BIT + depth
+            )
+            blocks.append(block)
+
+        if cond.op == NEQ and cond.value is None:
+            push_block()
+            return ("NN", field_name)
+
+        if cond.op == BETWEEN:
+            predicates = cond.int_slice_value()
+            if len(predicates) != 2:
+                raise QueryError(
+                    "Row(): BETWEEN condition requires exactly two integer values"
+                )
+            lo, hi = predicates
+            base_lo, base_hi, out_of_range = CPUBackend._base_value_between(f, lo, hi)
+            push_block()
+            if out_of_range:
+                return ("E",)
+            if lo <= opts.min and hi >= opts.max:
+                return ("NN", field_name)
+            if base_lo >= 0:
+                cls = "pos"
+            elif base_hi < 0:
+                # The all-negative range: _eval_spec swaps the operands,
+                # so (|lo|, |hi|) go in as they are.
+                cls = "neg"
+            else:
+                cls = "mixed"
+            scalars.append(_pred_bits(abs(base_lo), depth))
+            scalars.append(_pred_bits(abs(base_hi), depth))
+            return ("CB", field_name, cls, depth)
+
+        if not isinstance(cond.value, int) or isinstance(cond.value, bool):
+            raise QueryError("Row(): conditions only support integer values")
+        value = cond.value
+        base_value, out_of_range = CPUBackend._base_value(f, cond.op, value)
+        push_block()
+        if out_of_range and cond.op != NEQ:
+            return ("E",)
+        if (
+            (cond.op == LT and value > opts.max)
+            or (cond.op == LTE and value >= opts.max)
+            or (cond.op == GT and value < opts.min)
+            or (cond.op == GTE and value <= opts.min)
+        ):
+            return ("NN", field_name)
+        if out_of_range and cond.op == NEQ:
+            return ("NN", field_name)
+        op = {EQ: "==", NEQ: "!=", LT: "<", LTE: "<", GT: ">", GTE: ">"}[cond.op]
+        allow_eq = cond.op in (LTE, GTE)
+        neg = base_value < 0
+        scalars.append(_pred_bits(abs(base_value), depth))
+        return ("C", field_name, op, neg, allow_eq, depth)
 
     def _assemble(self, index: str, c: Call, shards: tuple[int, ...]):
         blocks: list = []
@@ -796,6 +1110,262 @@ class CUDABackend:
             out.append(v)
         return out
 
+    # -- TopN and Rows ---------------------------------------------------------
+
+    def topn_field(self, index: str, field_name: str, shards: list[int], n: int,
+                   src_call: Optional[Call] = None) -> Optional[list[Pair]]:
+        """Exact TopN in one launch of K8: the per-row popcounts of the
+        field's stack (ANDed with the src tree's slab when there is one),
+        summed over shards on the card in int64; the counts vector reads
+        back once. None when the call cannot run on the card (a src tree
+        without a lowering, a stack over the byte budget): the executor's
+        host iterator answers it and counts it."""
+        idx = self.holder.index(index)
+        f = idx.field(field_name) if idx else None
+        if f is None:
+            raise NotFoundError(f"field not found: {field_name}")
+        if f.view(VIEW_STANDARD) is None:
+            return []
+        shards_t = tuple(shards)
+        try:
+            if src_call is None:
+                counts = self._topn_counts(index, f, field_name, shards_t)
+            else:
+                src = self._assemble(index, src_call, shards_t)
+                counts = self._topn_dispatch(index, f, shards_t, src, None, None)
+        except _Unsupported:
+            return None
+        return self._topn_pairs(counts, n)
+
+    def _topn_counts(self, index, f, field_name, shards_t) -> np.ndarray:
+        """The unfiltered per-row counts vector, the host rank-vector table
+        (the reference's rank cache, cache.go:136): keyed on the view's
+        generation, so repeats serve without a launch; a write epoch
+        re-dispatches. Single-flight: one refresher per field, waiters
+        re-check. Serves TopN, unfiltered Rows and 1-field GroupBy."""
+        ckey = (index, field_name)
+        ukey = ("topn", index, field_name)
+        while True:
+            cfp = (shards_t, self._generation(f))
+            with self._pair_lock:
+                hit = self._topn_cache.get(ckey)
+                if hit is not None and hit[0] == cfp:
+                    self._topn_cache[ckey] = self._topn_cache.pop(ckey)  # LRU
+                    self.stats.count("topn_cache_hits_total")
+                    return hit[1]
+                latch = self._stats_updating.get(ukey)
+                if latch is None:
+                    self._stats_updating[ukey] = threading.Event()
+                    break
+            latch.wait(timeout=60)
+        try:
+            return self._topn_dispatch(index, f, shards_t, None, ckey, cfp)
+        finally:
+            with self._pair_lock:
+                ev = self._stats_updating.pop(ukey, None)
+            if ev is not None:
+                ev.set()
+
+    def _topn_dispatch(self, index, f, shards_t, src, ckey, cfp) -> np.ndarray:
+        """One K8 launch over the field's stack: int64[R] row counts, cached
+        under ckey when given. The generation in cfp was read before the
+        stack, so a write racing the build costs a re-dispatch, never a
+        stale answer."""
+        prof = current_profile()
+        with prof.phase("stack_fetch"):
+            block, rows_p = self._get_block(index, f, shards_t)
+        with prof.phase("device_dispatch"):
+            masks = () if src is None else (self._filter_slab(src),)
+            self._launched("topn")
+            counts = row_popcounts(block, 0, rows_p, masks)[0].sum(
+                dim=0, dtype=torch.int64).cpu().numpy()
+        if ckey is not None:
+            with self._pair_lock:
+                self._topn_cache.pop(ckey, None)
+                self._topn_cache[ckey] = (cfp, counts)
+                while len(self._topn_cache) > MAX_PAIR_CACHE_ENTRIES:
+                    self._topn_cache.pop(next(iter(self._topn_cache)))
+        return counts
+
+    @staticmethod
+    def _topn_pairs(counts: np.ndarray, n: int) -> list[Pair]:
+        order = np.lexsort((np.arange(counts.size), -counts.astype(np.int64)))
+        pairs = [Pair(id=int(r), count=int(counts[r])) for r in order if counts[r] > 0]
+        return pairs[:n] if n else pairs
+
+    def rows_field(self, index: str, field_name: str, shards: list[int],
+                   start: int = 0) -> Optional[list[int]]:
+        """Unfiltered Rows(field) from the rank vector: a row with any bit
+        has a nonzero count (empty containers are dropped on write), so the
+        cached counts answer it in at most one launch instead of a host
+        walk of every fragment (reference fragment.rows, fragment.go:2618).
+        Row ids ascending, >= start."""
+        pairs = self.topn_field(index, field_name, shards, 0, None)
+        if pairs is None:
+            return None
+        return sorted(p.id for p in pairs if p.id >= start)
+
+    # -- BSI aggregates (fragment.go:1111-1268) ------------------------------
+
+    def _bsi_setup(self, index, field_name, shards, filter_call):
+        """(field options, the filter's assembled (spec, blocks, scalars) or
+        None, BSI stack [S, R, W])."""
+        idx = self.holder.index(index)
+        f = idx.field(field_name) if idx else None
+        if f is None:
+            raise NotFoundError(f"field not found: {field_name}")
+        if f.options.type != FIELD_TYPE_INT:
+            raise _Unsupported("not an int field")
+        opts = f.bsi_group()
+        if opts.bit_depth > MAX_BSI_DEPTH:
+            raise _Unsupported("bit depth")
+        shards_t = tuple(shards)
+        src = None
+        if filter_call is not None:
+            src = self._assemble(index, filter_call, shards_t)
+        bsi_block, _ = self._get_block(
+            index, f, shards_t, view_name=bsi_view_name(field_name),
+            min_rows=BSI_OFFSET_BIT + opts.bit_depth,
+        )
+        return opts, src, bsi_block
+
+    def _filter_slab(self, src) -> Optional[torch.Tensor]:
+        return None if src is None else self._vec_program(*src).contiguous()
+
+    def bsi_sum(self, index, field_name, shards, filter_call=None):
+        """Sum(field): the planes' popcounts over the positive and the
+        negative columns in one K8 launch (two masks), the considered
+        columns' count by K3, weighted exactly on the host. Returns (sum,
+        count), or None when the call cannot run on the card."""
+        # Fingerprint BEFORE the data snapshot: a write racing this query
+        # must produce a never-matching cache entry, never a stale serve.
+        hit = self._agg_lookup("sum", index, field_name, shards, filter_call)
+        if hit is not None and hit[1] is not None:
+            return hit[1]
+        prof = current_profile()
+        try:
+            with prof.phase("stack_fetch"):
+                opts, src, bsi_block = self._bsi_setup(
+                    index, field_name, shards, filter_call)
+        except _Unsupported:
+            return None
+        depth = opts.bit_depth
+        with prof.phase("device_dispatch"):
+            filt = self._filter_slab(src)
+            consider = bsi_block[:, BSI_EXISTS_BIT, :]
+            if filt is not None:
+                consider = consider & filt
+            neg = (bsi_block[:, BSI_SIGN_BIT, :] & consider).contiguous()
+            pos = (consider & ~neg).contiguous()
+            self._launched("bsi_sum")
+            planes = row_popcounts(bsi_block, BSI_OFFSET_BIT, depth, (pos, neg))
+            cnt = popcount_rows(consider.contiguous()).sum(dtype=torch.int64)
+            # One readback: [pos counts | neg counts | considered count].
+            host = torch.cat([planes.sum(dim=1, dtype=torch.int64).reshape(-1),
+                              cnt.reshape(1)]).cpu().numpy()
+            pos_c, neg_c, count = host[:depth], host[depth:-1], int(host[-1])
+        with prof.phase("host_reduce"):
+            total = sum((int(pos_c[i]) - int(neg_c[i])) << i for i in range(depth))
+        result = (total + opts.base * count, count)
+        if hit is not None:
+            self._agg_store("sum", index, field_name, hit[0], result)
+        return result
+
+    def _agg_fingerprint(self, index, field_name, shards):
+        idx = self.holder.index(index)
+        f = idx.field(field_name) if idx else None
+        v = f.view(bsi_view_name(field_name)) if f is not None else None
+        return (tuple(shards), v.generation if v is not None else -1)
+
+    def _agg_lookup(self, kind, index, field_name, shards, filter_call):
+        """(fingerprint, result) cache hit for an UNFILTERED aggregate,
+        (fingerprint, None) for a miss, None for a filtered one (which
+        depends on other fields' epochs). The fingerprint is captured
+        BEFORE any sweep, so a write racing the compute can only produce a
+        never-matching entry: pass it unchanged to _agg_store."""
+        if filter_call is not None:
+            return None
+        cfp = self._agg_fingerprint(index, field_name, shards)
+        key = (kind, index, field_name)
+        with self._pair_lock:
+            hit = self._agg_cache.get(key)
+            if hit is not None and hit[0] == cfp:
+                self._agg_cache[key] = self._agg_cache.pop(key)  # LRU
+        if hit is not None and hit[0] == cfp:
+            self.stats.count("agg_cache_hits_total")
+            return hit
+        return (cfp, None)
+
+    def _agg_store(self, kind, index, field_name, cfp, result) -> None:
+        with self._pair_lock:
+            self._agg_cache[(kind, index, field_name)] = (cfp, result)
+            while len(self._agg_cache) > MAX_PAIR_CACHE_ENTRIES:
+                self._agg_cache.pop(next(iter(self._agg_cache)))
+            self._agg_cache_charge()
+
+    def bsi_min(self, index, field_name, shards, filter_call=None):
+        return self._bsi_minmax("bsi_min", index, field_name, shards, filter_call)
+
+    def bsi_max(self, index, field_name, shards, filter_call=None):
+        return self._bsi_minmax("bsi_max", index, field_name, shards, filter_call)
+
+    def _bsi_minmax(self, kind, index, field_name, shards, filter_call):
+        """Per-shard Min/Max by plane narrowing in one K9 launch (both
+        branches of every shard), then the host's reduce across shards
+        with the executor's tie semantics. Returns (value, count), or None
+        when the call cannot run on the card."""
+        hit = self._agg_lookup(kind, index, field_name, shards, filter_call)
+        if hit is not None and hit[1] is not None:
+            return hit[1]
+        prof = current_profile()
+        try:
+            with prof.phase("stack_fetch"):
+                opts, src, bsi_block = self._bsi_setup(
+                    index, field_name, shards, filter_call)
+        except _Unsupported:
+            return None
+        depth = opts.bit_depth
+        with prof.phase("device_dispatch"):
+            filt = self._filter_slab(src)
+            self._launched(kind)
+            table = bsi_minmax(bsi_block, depth, filt,
+                               "min" if kind == "bsi_min" else "max").cpu()
+        bits_a, cnt_a, bits_b, cnt_b, branch_any, consider_any = (
+            x.numpy() for x in split_minmax(table, depth))
+        with prof.phase("host_reduce"):
+            # Each branch's value from its decision bits, plane i's bit
+            # weighing 2^i (depth <= 63: the magnitude fits in int64).
+            weights = np.left_shift(np.int64(1), np.arange(depth, dtype=np.int64))
+            mag_a = bits_a.astype(np.int64) @ weights
+            mag_b = bits_b.astype(np.int64) @ weights
+            if kind == "bsi_min":
+                # Negatives exist: min = -maxUnsigned(neg); else minUnsigned.
+                vals = np.where(branch_any, -mag_a, mag_b)
+            else:
+                # Positives exist: max = maxUnsigned(pos); else all negative,
+                # max = -minUnsigned(consider).
+                vals = np.where(branch_any, mag_a, -mag_b)
+            cnts = np.where(branch_any, cnt_a, cnt_b).astype(np.int64)
+            cnts[~consider_any] = 0
+            val, cnt = self._minmax_reduce(kind, vals, cnts)
+        result = (val + opts.base, cnt) if cnt else (0, 0)
+        if hit is not None:
+            self._agg_store(kind, index, field_name, hit[0], result)
+        return result
+
+    @staticmethod
+    def _minmax_reduce(kind, vals: np.ndarray, cnts: np.ndarray) -> tuple[int, int]:
+        """Cross-shard reduce of per-shard extrema with the executor's tie
+        semantics: the extreme value over the shards with a count, and the
+        counts of every shard that holds it summed; (0, 0) when none has
+        one."""
+        live = cnts > 0
+        if not live.any():
+            return 0, 0
+        vals, cnts = vals[live], cnts[live]
+        best = vals.min() if kind == "bsi_min" else vals.max()
+        return int(best), int(cnts[vals == best].sum())
+
     # -- GroupBy ---------------------------------------------------------------
 
     def group_by(self, index, c: Call, filter_call, child_rows, shards,
@@ -827,17 +1397,14 @@ class CUDABackend:
             fields.append((fname, self._field(index, fname)))  # reference error
             prev, has_prev = child.uint64_arg("previous")
             starts.append(prev + 1 if has_prev else 0)
-        # Unfiltered 2-field groups ARE the pair-count matrix, which the
-        # pair batch path sweeps and caches. (The JAX package also serves
-        # unfiltered 1-field groups from its TopN rank tables; the port has
-        # no TopN tables yet, so they take the tensor path below, which
-        # gives the same counts.)
-        if filter_call is None and n == 2:
-            pm = self._pair_matrix(index, fields[0][0], fields[1][0], shards_t)
-            if pm is not None:
-                matrix, rf, rg = pm
+        # Unfiltered 1- and 2-field groups ARE the cached tables: the TopN
+        # rank vector and the pair-count matrix.
+        if filter_call is None and n <= 2:
+            served = self._group_from_tables(index, fields, shards_t, n)
+            if served is not None:
+                stats_np, rs = served
                 return self._group_enumerate(
-                    fields, starts, child_rows, [rf, rg], matrix, n, cap
+                    fields, starts, child_rows, rs, stats_np, n, cap
                 )
         # Unfiltered N>=3: the retained per-shard group tensor.
         if filter_call is None and n >= 3:
@@ -963,6 +1530,37 @@ class CUDABackend:
         for _, payload in self._agg_cache.values():
             total += sum(p.nbytes for p in payload if isinstance(p, np.ndarray))
         self.stats.gauge("agg_cache_bytes", total)
+
+    def _group_from_tables(self, index, fields, shards_t, n):
+        """(stats, rs) for an unfiltered 1- or 2-field GroupBy from the TopN
+        rank vector or the pair-count matrix, or None when a table cannot
+        serve (byte budget, size gates) and the tensor path should. Row
+        counts stay under the tensor path's 2^16 bound."""
+        if n == 1:
+            f_obj = fields[0][1]
+            v = f_obj.view(VIEW_STANDARD)
+            if v is not None:
+                # Bound-check BEFORE the rank vector: a tall field's sweep
+                # would be thrown away here.
+                max_row = max(
+                    (fr.max_row_id for fr in (v.fragment(s) for s in shards_t)
+                     if fr is not None),
+                    default=0,
+                )
+                if max_row + 1 > (1 << 16):
+                    return None
+            try:
+                counts = self._topn_counts(index, f_obj, fields[0][0], shards_t)
+            except _Unsupported:
+                return None
+            if counts.size > (1 << 16):
+                return None
+            return counts.astype(np.int64), [counts.size]
+        pm = self._pair_matrix(index, fields[0][0], fields[1][0], shards_t)
+        if pm is None:
+            return None
+        matrix, rf, rg = pm
+        return matrix, [rf, rg]
 
     def _pair_matrix(self, index, fa, fb, shards_t):
         """(int64[rf, rg] pair-count matrix, rf, rg) through the pair

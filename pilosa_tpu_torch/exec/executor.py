@@ -415,11 +415,13 @@ class Executor:
             result = v if result is None else reduce_fn(result, v)
         return result
 
-    def _host_routed(self, c, lowering: str) -> None:
-        """Count a call that a device backend leaves to the host iterator
-        because it has no ``lowering``, in cpu_routed_total{call}, as the
-        backend counts the calls it routes to the CPU oracle itself."""
-        if not isinstance(self.backend, CPUBackend) and not hasattr(self.backend, lowering):
+    def _host_routed(self, c) -> None:
+        """Count a call that the executor's host iterator answers while the
+        backend is a device backend (the backend lacks the lowering, the
+        call's options have none, or the backend refused it), in
+        cpu_routed_total{call}, as the backend counts the calls it routes
+        to the CPU oracle itself."""
+        if not isinstance(self.backend, CPUBackend):
             self.stats.with_tags(f"call:{c.name}").count("cpu_routed_total")
 
     # ------------------------------------------------------------------
@@ -492,11 +494,12 @@ class Executor:
         """Device fast path for Sum/Min/Max when the backend has one.
         None = not lowerable; caller runs the map-reduce path."""
         if not hasattr(self.backend, kind):
-            self._host_routed(c, kind)
+            self._host_routed(c)
             return None
         filter_call = c.children[0] if c.children else None
         r = getattr(self.backend, kind)(index, f.name, shards, filter_call)
         if r is None:
+            self._host_routed(c)
             return None
         val, cnt = r
         return ValCount(val, cnt) if cnt else ValCount()
@@ -606,6 +609,7 @@ class Executor:
         return v.fragment(shard) if v is not None else None
 
     def _execute_min_row(self, index, c, shards, opt) -> PairField:
+        self._host_routed(c)
         filter_of = self._filter_rows(index, c, shards)
 
         def map_fn(shard):
@@ -632,6 +636,7 @@ class Executor:
         )
 
     def _execute_max_row(self, index, c, shards, opt) -> PairField:
+        self._host_routed(c)
         filter_of = self._filter_rows(index, c, shards)
 
         def map_fn(shard):
@@ -678,7 +683,7 @@ class Executor:
             if exact is not None:
                 return PairsField(exact, field_name)
 
-        self._host_routed(c, "topn_field")
+        self._host_routed(c)
         # The source filter is evaluated once and serves both passes.
         filter_of = self._filter_rows(index, c, shards)
         # Pass 1: approximate candidates from rank caches.
@@ -765,7 +770,7 @@ class Executor:
             if ids is not None:
                 return RowIDs(ids[:limit] if has_lim else ids)
 
-        self._host_routed(c, "rows_field")
+        self._host_routed(c)
         map_fn = lambda shard: self._execute_rows_shard(index, field_name, c, shard)
 
         def reduce_fn(a, b):

@@ -30,8 +30,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
 #: Kernel sources by library name: bmma.cu (the pair kernels K1, K2, the
 #: group tiles K4, K5 and the odometer group tensor K6, K7 on the tensor
-#: cores' binary MMA, and the AND-popcount rate probe) and bitcount.cu (K3,
-#: the count path's popcount-reduce, on the CUDA cores).
+#: cores' binary MMA, and the AND-popcount rate probe) and bitcount.cu (on
+#: the CUDA cores: K3, the count path's popcount-reduce; K8, the per-row
+#: popcounts of TopN and Sum; K9, the Min/Max plane walk).
 SOURCES = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
     for name in ("bitcount", "bmma")
@@ -123,8 +124,14 @@ def _bind(name: str, lib) -> None:
     # out, s, rf, rg, w, n_slots, stream
     group = [ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     signatures = {
-        # x, out, n, w, stream
-        "bitcount": {"popcount_rows_launch": [ptr, ptr, i32, i32, ptr]},
+        "bitcount": {
+            # x, out, n, w, stream
+            "popcount_rows_launch": [ptr, ptr, i32, i32, ptr],
+            # stack, mask0, mask1, out, m, s, r, row0, n_rows, w, stream
+            "row_popcounts_launch": [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr],
+            # stack, filt, out, kind, s, r, depth, w, stream
+            "bsi_minmax_launch": [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+        },
         "bmma": {"pair_stats_pershard_launch": pair, "pair_stats_launch": pair,
                  "group_tile_stats_launch": group,
                  "group_tile_stats_pershard_launch": group,

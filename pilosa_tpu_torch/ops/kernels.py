@@ -1,9 +1,9 @@
-"""Popcount kernels of the count and GroupBy paths, each with its plain
-PyTorch version.
+"""Popcount kernels of the count, GroupBy, TopN and BSI paths, each with
+its plain PyTorch version.
 
 Hand-written CUDA kernels, built by ops/build.py: the pair kernels and the
 group-tensor kernels on the tensor cores' binary MMA (ops/csrc/bmma.cu), and
-the popcount-reduce of the count path on the CUDA cores
+the row popcounts and the BSI plane walk on the CUDA cores
 (ops/csrc/bitcount.cu):
 
 - ``pair_stats_pershard`` (K1, bmma.cu): per shard s, over int32[S, Rf, W] and
@@ -20,6 +20,17 @@ the popcount-reduce of the count path on the CUDA cores
   int32[D]. Exact while S <= MAX_PAIR_SHARDS (S * 2^20 < 2^31).
 - ``popcount_rows`` (K3, bitcount.cu): int32[N, W] -> int32[N], the popcount
   of each row.
+- ``row_popcounts`` (K8, bitcount.cu): the popcounts of rows row0 ..
+  row0 + n_rows of every shard of an int32[S, R, W] stack, each row ANDed
+  with each of M in {0, 1, 2} int32[S, W] mask slabs: int32[max(M, 1), S,
+  n_rows]. TopN's per-row counts (M = 0, or 1 with a source filter) and
+  Sum's plane counts (M = 2: the positive and the negative columns), the
+  BSI planes read in place.
+- ``bsi_minmax`` (K9, bitcount.cu): the Min/Max plane walk of a BSI stack
+  (rows exists, sign, planes), per shard, both branches: int32[2, S,
+  depth + 2], branch b's decision bit of plane i at [b, s, i], its final
+  count at [b, s, depth] and whether its start had a bit at [b, s, depth +
+  1] (``split_minmax`` unpacks it into the JAX program's six outputs).
 - the group tensor of an N-field GroupBy (K4-K7): for slots q, with m_q the
   AND of one row of each extra field (and of a filter slab),
 
@@ -71,6 +82,7 @@ _LAUNCHES = {
     "pair_stats_pershard": 0, "pair_stats": 0, "popcount_rows": 0,
     "group_tile_stats": 0, "group_tile_stats_pershard": 0,
     "nary_stats": 0, "nary_stats_pershard": 0,
+    "row_popcounts": 0, "bsi_minmax": 0,
 }
 
 
@@ -123,6 +135,63 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 def popcount_rows_torch(x: torch.Tensor) -> torch.Tensor:
     """int32[N, W] -> int32[N] row popcounts."""
     return popcount32(x).sum(dim=-1, dtype=torch.int64).to(torch.int32)
+
+
+def row_popcounts_torch(stack: torch.Tensor, row0: int, n_rows: int,
+                        masks=()) -> torch.Tensor:
+    """Plain K8: int32[max(M, 1), S, n_rows], one row at a time so the
+    temporary is S * W words."""
+    masks = tuple(masks or ())
+    s = stack.shape[0]
+    out = torch.zeros((max(len(masks), 1), s, n_rows), dtype=torch.int64,
+                      device=stack.device)
+    for i in range(n_rows):
+        row = stack[:, row0 + i, :]
+        for k, m in enumerate(masks or (None,)):
+            x = row if m is None else row & m
+            out[k, :, i] = popcount32(x).sum(dim=-1, dtype=torch.int64)
+    return out.to(torch.int32)
+
+
+#: Stack rows of a BSI view (reference fragment.go bsiExistsBit,
+#: bsiSignBit, bsiOffsetBit).
+BSI_EXISTS_ROW, BSI_SIGN_ROW, BSI_PLANE_ROW = 0, 1, 2
+
+
+def bsi_minmax_torch(stack: torch.Tensor, depth: int, filt=None,
+                     kind: str = "min") -> torch.Tensor:
+    """Plain K9: the walk of the JAX package's bsi_min / bsi_max program
+    body in torch ops, packed as the kernel packs it (int32[2, S, depth +
+    2]; see split_minmax)."""
+    exists = stack[:, BSI_EXISTS_ROW, :]
+    sign = stack[:, BSI_SIGN_ROW, :]
+    consider = exists if filt is None else exists & filt
+
+    def pc(x):  # [S, W] -> int64 [S]
+        return popcount32(x).sum(dim=-1, dtype=torch.int64)
+
+    s = stack.shape[0]
+    out = torch.zeros((2, s, depth + 2), dtype=torch.int64, device=stack.device)
+    starts = ((sign & consider) if kind == "min" else (consider & ~sign), consider)
+    for b, run in enumerate(starts):
+        out[b, :, depth + 1] = (pc(run) > 0).to(torch.int64)
+        for i in range(depth - 1, -1, -1):
+            plane = stack[:, BSI_PLANE_ROW + i, :]
+            row = plane & run if b == 0 else run & ~plane
+            nz = pc(row) > 0
+            run = torch.where(nz[:, None], row, run)
+            out[b, :, i] = (nz if b == 0 else ~nz).to(torch.int64)
+        out[b, :, depth] = pc(run)
+    return out.to(torch.int32)
+
+
+def split_minmax(table: torch.Tensor, depth: int):
+    """A bsi_minmax table -> the JAX program's six outputs: (bits_a
+    bool[S, depth], cnt_a int32[S], bits_b bool[S, depth], cnt_b int32[S],
+    branch_any bool[S], consider_any bool[S]); bit i is plane i's."""
+    return (table[0, :, :depth] != 0, table[0, :, depth],
+            table[1, :, :depth] != 0, table[1, :, depth],
+            table[0, :, depth + 1] != 0, table[1, :, depth + 1] != 0)
 
 
 def pair_stats_torch(f: torch.Tensor, g: torch.Tensor,
@@ -272,6 +341,7 @@ _LIBRARY = {
     "pair_stats_pershard": "bmma", "pair_stats": "bmma", "popcount_rows": "bitcount",
     "group_tile_stats": "bmma", "group_tile_stats_pershard": "bmma",
     "nary_stats": "bmma", "nary_stats_pershard": "bmma",
+    "row_popcounts": "bitcount", "bsi_minmax": "bitcount",
 }
 
 
@@ -486,3 +556,71 @@ def tri_stats(f, g, h, filt=None) -> torch.Tensor:
     """The 3-field group tensor: nary_stats with one extra field ->
     int32[Rh, Rf, Rg]."""
     return nary_stats(f, g, (h,), filt)
+
+
+#: The widest word axis K9 takes: its block of 1024 threads holds a step's
+#: row in registers, 8 uint4 a thread.
+MAX_MINMAX_WORDS = 32768
+
+
+def row_popcounts(stack: torch.Tensor, row0: int, n_rows: int,
+                  masks=()) -> torch.Tensor:
+    """K8: (int32[S, R, W], rows row0 .. row0 + n_rows, M <= 2 int32[S, W]
+    masks) -> int32[max(M, 1), S, n_rows]."""
+    masks = tuple(masks or ())
+    _check_words("row_popcounts", stack, 3)
+    if len(masks) > 2:
+        raise ValueError(f"row_popcounts: at most 2 masks, got {len(masks)}")
+    for m in masks:
+        _check_words("row_popcounts", m, 2)
+        _check_beside("row_popcounts", stack, m)
+    if row0 < 0 or n_rows < 0 or row0 + n_rows > stack.shape[1]:
+        raise ValueError(
+            f"row_popcounts: rows {row0} .. {row0 + n_rows} outside the stack's "
+            f"{stack.shape[1]}"
+        )
+    if _plain("row_popcounts", stack):
+        return row_popcounts_torch(stack, row0, n_rows, masks)
+    from pilosa_tpu_torch.ops.build import library
+
+    s, r, w = stack.shape
+    out = torch.empty((max(len(masks), 1), s, n_rows), dtype=torch.int32,
+                      device=stack.device)
+    if out.numel():
+        ptrs = [m.data_ptr() for m in masks] + [None] * (2 - len(masks))
+        _launch("row_popcounts", stack.device, library("bitcount").row_popcounts_launch,
+                stack.data_ptr(), ptrs[0], ptrs[1], out.data_ptr(), len(masks),
+                s, r, row0, n_rows, w)
+    return out
+
+
+def bsi_minmax(stack: torch.Tensor, depth: int, filt=None,
+               kind: str = "min") -> torch.Tensor:
+    """K9: (int32[S, R, W] BSI stack with R >= 2 + depth, optional int32[S,
+    W] filter, "min" or "max") -> int32[2, S, depth + 2] (split_minmax)."""
+    _check_words("bsi_minmax", stack, 3)
+    if kind not in ("min", "max"):
+        raise ValueError(f"bsi_minmax: kind must be 'min' or 'max', got {kind!r}")
+    if depth < 0 or BSI_PLANE_ROW + depth > stack.shape[1]:
+        raise ValueError(
+            f"bsi_minmax: depth {depth} needs {BSI_PLANE_ROW + depth} rows, the stack "
+            f"has {stack.shape[1]}"
+        )
+    if filt is not None:
+        _check_words("bsi_minmax", filt, 2)
+        _check_beside("bsi_minmax", stack, filt)
+    if _plain("bsi_minmax", stack):
+        return bsi_minmax_torch(stack, depth, filt, kind)
+    if stack.shape[2] > MAX_MINMAX_WORDS:
+        raise ValueError(
+            f"bsi_minmax: {stack.shape[2]} words exceed the kernel's {MAX_MINMAX_WORDS}"
+        )
+    from pilosa_tpu_torch.ops.build import library
+
+    s, r, w = stack.shape
+    out = torch.empty((2, s, depth + 2), dtype=torch.int32, device=stack.device)
+    if s:
+        _launch("bsi_minmax", stack.device, library("bitcount").bsi_minmax_launch,
+                stack.data_ptr(), None if filt is None else filt.data_ptr(),
+                out.data_ptr(), 0 if kind == "min" else 1, s, r, depth, w)
+    return out

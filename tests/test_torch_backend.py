@@ -45,14 +45,25 @@ SLICE_QUERIES = [
     "Intersect(Row(f=3), Row(g=7))",
     "Count(Row(f=99))",
 ]
-# Routed to the host by the port, each counted once in cpu_routed_total
-# under its call's name: a BSI condition (through count_shards), a TopN and
-# Sum/Min/Max (answered on the host, the backend unused but for a filter).
-ROUTED_QUERIES = [
+# On the card since TopN, Rows and the BSI plane were ported: a BSI
+# condition (through count_shards), TopN and Rows (K8), Sum (K8 and K3) and
+# Min/Max (K9), with and without a filter.
+ON_CARD_QUERIES = [
     "Count(Row(v > 100))", "TopN(f, n=2)",
     "Sum(field=v)", "Sum(Row(f=1), field=v)",
     "Min(field=v)", "Min(Row(g=7), field=v)",
     "Max(field=v)", "Max(Intersect(Row(f=2), Row(g=7)), field=v)",
+    "TopN(f)", "TopN(f, Row(g=7), n=3)", "Rows(f)", "Rows(f, previous=1, limit=1)",
+    "GroupBy(Rows(f))", "Count(Shift(Row(f=1), n=3))", "Row(v >< [-50, 50])",
+]
+# Still answered on the host by the port, each counted once in
+# cpu_routed_total under its call's name: TopN's rank-cache options (ids,
+# threshold) and Rows pinned to a column have no device lowering, nor have
+# MinRow and MaxRow.
+ROUTED_QUERIES = [
+    "TopN(f, ids=[1, 2])", "TopN(f, threshold=2)", "TopN(f, Row(g=7), ids=[1, 3])",
+    "TopN(f, n=1, threshold=1)", "Rows(f, column=5)", f"Rows(g, column={SHARD_WIDTH + 3})",
+    "MinRow(field=f)", "MaxRow(Row(g=7), field=f)",
 ]
 
 # One request of 16 Counts over the field pair (f, g): one pair sweep.
@@ -65,12 +76,15 @@ PAIR_REQUEST = " ".join(
 )
 
 # Write-churn epochs: Set/Clear on at most two of the four shards, so the
-# resident stacks are spliced, not rebuilt.
+# resident stacks are spliced, not rebuilt; each epoch moves a value of v
+# past the extremes, so Sum, Min and Max move too.
 EPOCHS = [
     [f"Set({SHARD_WIDTH + 5}, f=1)", f"Set({SHARD_WIDTH + 6}, g=7)",
-     f"Clear({SHARD_WIDTH + 5}, f=2)", f"Set({SHARD_WIDTH + 9}, f=3)"],
+     f"Clear({SHARD_WIDTH + 5}, f=2)", f"Set({SHARD_WIDTH + 9}, f=3)",
+     f"Set({SHARD_WIDTH + 5}, v=-500)"],
     [f"Set({3 * SHARD_WIDTH + 1}, f=2)", f"Set({3 * SHARD_WIDTH + 1}, g=7)",
-     f"Clear({SHARD_WIDTH + 6}, g=7)", f"Set({SHARD_WIDTH + 70000}, f=1)"],
+     f"Clear({SHARD_WIDTH + 6}, g=7)", f"Set({SHARD_WIDTH + 70000}, f=1)",
+     f"Set({3 * SHARD_WIDTH + 1}, v=500)"],
 ]
 
 
@@ -114,12 +128,12 @@ def _answers(pair, q):
 
 def _check_all(pair):
     routed = _counter("cpu_routed_total")
-    for q in SLICE_QUERIES:
+    for q in SLICE_QUERIES + ON_CARD_QUERIES:
         want, jdev, tcpu, got = _answers(pair, q)
         assert jdev == want, q
         assert tcpu == want, q
         assert got == want, q
-    assert _counter("cpu_routed_total") == routed, "a slice query left the device"
+    assert _counter("cpu_routed_total") == routed, "a query of the card left it"
 
     served = _pair_served()
     want, jdev, tcpu, got = _answers(pair, PAIR_REQUEST)
@@ -149,19 +163,61 @@ def test_answers_equal_jax_across_churn_epochs(pair):
         assert _counter("stack_full_rebuilds_total") == rebuilt
 
 
+@pytest.mark.parametrize("q", ON_CARD_QUERIES)
+def test_on_card_queries_equal_jax_and_stay_on_card(pair, q):
+    """With the backend's caches dropped, each query launches on the card
+    and answers what the JAX TPUBackend and both oracles answer."""
+    backend = pair[4]
+    for cache in (backend._topn_cache, backend._agg_cache, backend._pair_cache):
+        cache.clear()
+    routed = _counter("cpu_routed_total")
+    launches = _counter("device_launches_total")
+    want, jdev, tcpu, got = _answers(pair, q)
+    assert jdev == want and tcpu == want and got == want, q
+    assert _counter("cpu_routed_total") == routed, f"{q} left the card"
+    assert _counter("device_launches_total") > launches, q
+
+
 def test_bsi_condition_is_routed_and_counted(pair):
-    before = global_stats.counter_totals("cpu_routed_total")
-    want, _, _, got = _answers(pair, "Count(Row(v > 100))")
-    assert got == want
-    after = global_stats.counter_totals("cpu_routed_total")
+    """A BSI condition stays on the card; only when its BSI stack cannot
+    be resident (a byte budget of 1) is it routed to the host, and then
+    counted once."""
+    q = "Count(Row(v > 100))"
     key = 'cpu_routed_total{call="Row"}'
+    before = global_stats.counter_totals("cpu_routed_total")
+    want, _, _, got = _answers(pair, q)
+    assert got == want
+    assert global_stats.counter_totals("cpu_routed_total") == before
+    th = pair[2].holder
+    small = Executor(th, backend=CUDABackend(th, device="cpu", max_bytes=1))
+    assert [result_to_json(r) for r in small.execute("i", q)] == want
+    after = global_stats.counter_totals("cpu_routed_total")
     assert after[key] == before.get(key, 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("q", ["TopN(f, n=2)", "Rows(f)", "GroupBy(Rows(f))",
+                               "Sum(field=v)", "Min(field=v)", "Max(field=v)"])
+def test_refused_device_calls_are_counted_once(pair, q):
+    """A device method that refuses a call (here: no stack fits a byte
+    budget of 1, so topn_field, rows_field, group_by, bsi_sum, bsi_min and
+    bsi_max return None) leaves it to the host iterator, counted once under
+    the call's name."""
+    th = pair[2].holder
+    small = Executor(th, backend=CUDABackend(th, device="cpu", max_bytes=1))
+    key = f'cpu_routed_total{{call="{q[: q.index("(")]}"}}'
+    before = global_stats.counter_totals("cpu_routed_total")
+    want = [result_to_json(r) for r in pair[2].execute("i", q)]
+    assert [result_to_json(r) for r in small.execute("i", q)] == want
+    after = global_stats.counter_totals("cpu_routed_total")
+    assert after[key] == before.get(key, 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
 
 
 @pytest.mark.parametrize("q", ROUTED_QUERIES)
 def test_routed_queries_are_counted_once(pair, q):
     call = q[: q.index("(")]
-    key = f'cpu_routed_total{{call="{"Row" if call == "Count" else call}"}}'
+    key = f'cpu_routed_total{{call="{call}"}}'
     before = global_stats.counter_totals("cpu_routed_total")
     want, _, _, got = _answers(pair, q)
     assert got == want
@@ -175,8 +231,9 @@ def test_routed_queries_are_counted_once(pair, q):
     "MinRow(Row(g=7), field=f)", "MaxRow(Row(g=7), field=f)", "TopN(f, Row(g=7), n=2)",
 ])
 def test_filter_is_evaluated_once_per_request(pair, q):
-    """A host-answered call's filter runs one whole-query evaluation over
-    the shard set, not one per shard (nor one per TopN pass)."""
+    """A call's filter runs one whole-query evaluation over the shard set,
+    whether the card answers the call or the host iterator does: not one
+    per shard (nor one per TopN pass)."""
     tdev = pair[3]
     key = 'device_launches_total{kind="vec"}'
     before = global_stats.counter_totals("device_launches_total").get(key, 0)

@@ -288,3 +288,114 @@ def test_http_count_round_trip_on_card(card):
     finally:
         srv.close()
         h.close()
+
+
+def _bsi_words(rng, s, depth, w):
+    """A BSI stack [s, 2 + depth padded to 8, w] of uint32 words (exists,
+    sign, planes), bit 31 set in many words; shard 1 is all negative and
+    shard 2 empty when s > 2."""
+    rows = -(-(2 + depth) // 8) * 8
+    st = np.zeros((s, rows, w), dtype=np.uint32)
+    exists = rng.integers(0, 2**32, (s, w), dtype=np.uint32)
+    st[:, 0] = exists
+    st[:, 1] = exists & rng.integers(0, 2**32, (s, w), dtype=np.uint32)
+    for i in range(depth):
+        st[:, 2 + i] = exists & rng.integers(0, 2**32, (s, w), dtype=np.uint32)
+    if s > 2:
+        st[1, 1] = st[1, 0]
+        st[2] = 0
+    return st
+
+
+# (S, R, row0, n_rows, masks, W): M = 0, 1, 2; row0 > 0; one row; a 36-word
+# axis; the BSI planes of a depth-14 stack read in place.
+ROW_POPCOUNT_SHAPES = [(3, 8, 0, 8, 0, W), (2, 16, 0, 16, 1, W), (3, 16, 2, 14, 2, W),
+                       (1, 8, 7, 1, 2, W), (4, 24, 5, 11, 1, 36), (2, 8, 3, 0, 1, W)]
+
+
+@pytest.mark.parametrize("s,r,row0,n_rows,m,w", ROW_POPCOUNT_SHAPES)
+def test_row_popcounts_equals_plain(card, s, r, row0, n_rows, m, w):
+    rng = np.random.default_rng(s * 100 + r + row0 + m + w)
+    st = rng.integers(0, 2**32, (s, r, w), dtype=np.uint32)
+    masks = [rng.integers(0, 2**32, (s, w), dtype=np.uint32) for _ in range(m)]
+    dev = [stack_from_reference(x, card) for x in [st, *masks]]
+    cpu = [stack_from_reference(x, "cpu") for x in [st, *masks]]
+    before = K.launch_counts()["row_popcounts"]
+    got = K.row_popcounts(dev[0], row0, n_rows, tuple(dev[1:]))
+    torch.cuda.synchronize()
+    assert K.launch_counts()["row_popcounts"] == before + int(n_rows > 0)
+    want = K.row_popcounts_torch(cpu[0], row0, n_rows, tuple(cpu[1:]))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["min", "max"])
+@pytest.mark.parametrize("s,depth,filtered,w", [(3, 14, False, W), (4, 14, True, W),
+                                                (2, 1, True, W), (3, 63, False, W),
+                                                (3, 5, True, 36), (1, 0, False, W)])
+def test_bsi_minmax_equals_plain(card, kind, s, depth, filtered, w):
+    rng = np.random.default_rng(s * 1000 + depth + w)
+    st = _bsi_words(rng, s, depth, w)
+    filt = rng.integers(0, 2**32, (s, w), dtype=np.uint32)
+    filt[0] = 0  # the filter empties shard 0
+    dev = stack_from_reference(st, card)
+    cpu = stack_from_reference(st, "cpu")
+    fd = stack_from_reference(filt, card) if filtered else None
+    fc = stack_from_reference(filt, "cpu") if filtered else None
+    before = K.launch_counts()["bsi_minmax"]
+    got = K.bsi_minmax(dev, depth, fd, kind)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bsi_minmax"] == before + 1
+    assert torch.equal(got.cpu(), K.bsi_minmax_torch(cpu, depth, fc, kind))
+
+
+def test_backend_bsi_and_topn_on_card_match_cpu_oracle(card):
+    """TopN, Rows, Sum, Min, Max, a BSI condition, a time range and Shift
+    on the card answer what the CPU oracle does, none routed to the host;
+    an uncached Sum launches K8 and K3 once, Min K9 once."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.field import options_for_int, options_for_time
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    rng = np.random.default_rng(5)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name in ("f", "g"):
+        field = idx.create_field(name)
+        for row in range(8):
+            cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 3000, dtype=np.uint64))
+            field.import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+    cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 900, dtype=np.uint64))
+    idx.create_field("v", options_for_int(-10000, 10000)).import_value(
+        cols, rng.integers(-9000, 9001, cols.size))
+    idx.create_field("t", options_for_time("YMDH"))
+    backend = CUDABackend(h)
+    dev = Executor(h, backend=backend)
+    cpu = Executor(h, backend=CPUBackend(h))
+    for q in ("Set(3, t=9, 2019-08-03T10:00)", "Set(1048579, t=9, 2019-08-05T12:00)"):
+        cpu.execute("i", q)
+    routed = sum(global_stats.counter_totals("cpu_routed_total").values())
+    K.reset_launch_counts()
+    assert dev.execute("i", "Sum(field=v)") == cpu.execute("i", "Sum(field=v)")
+    assert K.launch_counts()["row_popcounts"] == 1 and K.launch_counts()["popcount_rows"] == 1
+    assert dev.execute("i", "Min(field=v)") == cpu.execute("i", "Min(field=v)")
+    assert K.launch_counts()["bsi_minmax"] == 1
+    queries = ["TopN(f, n=3)", "TopN(f, Row(g=2), n=4)", "Rows(g, previous=2, limit=3)",
+               "Max(Row(f=1), field=v)", "Sum(Intersect(Row(f=2), Row(g=3)), field=v)",
+               "Count(Row(v > 100))", "Count(Row(v >< [-50, 50]))", "Count(Row(v < -8990))",
+               "Count(Shift(Row(f=1), n=33))", "GroupBy(Rows(f))",
+               "Row(t=9, from='2019-08-01T00:00', to='2019-08-31T00:00')"]
+    for q in queries:
+        got, want = dev.execute("i", q), cpu.execute("i", q)
+        if q.startswith("Row("):
+            np.testing.assert_array_equal(got[0].columns(), want[0].columns())
+        else:
+            assert got == want, q
+    # Shift's left shift wraps past the sign bit on the card as on the host.
+    got = dev.execute("i", "Shift(Row(f=2), n=40)")[0].columns()
+    np.testing.assert_array_equal(got, cpu.execute("i", "Shift(Row(f=2), n=40)")[0].columns())
+    assert sum(global_stats.counter_totals("cpu_routed_total").values()) == routed
+    h.close()

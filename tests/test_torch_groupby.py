@@ -376,13 +376,19 @@ def test_too_many_extra_fields_are_routed_and_counted(tmp_path):
 
 
 def test_host_answered_topn_and_rows_are_counted(holders):
+    """TopN with pinned ids and Rows pinned to a column have no device
+    lowering: the host iterator answers them, counted; the plain forms
+    stay on the card."""
     dev, _, oracle = _executors(*holders, generic=False)
     topn, rows = _routed("TopN"), _routed("Rows")
-    assert dev.execute("i", "TopN(a, n=2)") == oracle.execute("i", "TopN(a, n=2)")
-    assert dev.execute("i", "Rows(c)") == oracle.execute("i", "Rows(c)")
+    for q in ("TopN(a, ids=[1, 2])", "Rows(c, column=3)"):
+        assert dev.execute("i", q) == oracle.execute("i", q), q
+    assert _routed("TopN") == topn + 1 and _routed("Rows") == rows + 1
+    for q in ("TopN(a, n=2)", "Rows(c)"):
+        assert dev.execute("i", q) == oracle.execute("i", q), q
     assert _routed("TopN") == topn + 1 and _routed("Rows") == rows + 1
     # The oracle itself is the host: nothing is counted for it.
-    oracle.execute("i", "Rows(c)")
+    oracle.execute("i", "Rows(c, column=3)")
     assert _routed("Rows") == rows + 1
 
 

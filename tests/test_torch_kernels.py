@@ -176,6 +176,21 @@ def test_popcount_rows_rejects_bad_inputs():
         K.popcount_rows(torch.zeros((8, 2), dtype=torch.int32).t())
 
 
+def test_row_popcounts_and_bsi_minmax_reject_bad_inputs():
+    x = torch.zeros((2, 8, 64), dtype=torch.int32)
+    m = torch.zeros((2, 64), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 2 masks"):
+        K.row_popcounts(x, 0, 8, (m, m, m))
+    with pytest.raises(ValueError, match="outside"):
+        K.row_popcounts(x, 4, 5)
+    with pytest.raises(ValueError):
+        K.row_popcounts(x, 0, 8, (torch.zeros((3, 64), dtype=torch.int32),))
+    with pytest.raises(ValueError, match="needs 9 rows"):
+        K.bsi_minmax(x, 7)
+    with pytest.raises(ValueError, match="kind"):
+        K.bsi_minmax(x, 2, None, "sum")
+
+
 def test_cpu_calls_launch_nothing():
     K.reset_launch_counts()
     x = torch.zeros((2, 8, 64), dtype=torch.int32)
@@ -186,10 +201,13 @@ def test_cpu_calls_launch_nothing():
     K.group_tile_stats_pershard(x, x, (x,), [[1]], [1])
     K.nary_stats(x, x, (x,), x[:, 0].contiguous())
     K.nary_stats_pershard(x, x, (x,))
+    K.row_popcounts(x, 1, 3, (x[:, 0].contiguous(),))
+    K.bsi_minmax(x, 4, x[:, 1].contiguous(), "max")
     assert K.launch_counts() == {
         "pair_stats_pershard": 0, "pair_stats": 0, "popcount_rows": 0,
         "group_tile_stats": 0, "group_tile_stats_pershard": 0,
         "nary_stats": 0, "nary_stats_pershard": 0,
+        "row_popcounts": 0, "bsi_minmax": 0,
     }
 
 
