@@ -8,12 +8,14 @@ nvcc, then runs the phases below. ``--root DIR`` drives the
 pilosa_tpu_torch package of another checkout DIR instead of this script's
 own (its kernels built under DIR), so that two trees can be compared in
 turns by the same script on one card (a checkout from before the TopN
-and BSI slice has no K8 or K9, so its run stops at phase 3b).
+and BSI slice has no K8 or K9, and one from before the fused BSI condition
+no K10, so its run stops at phase 3b: run that checkout's own
+chip_smoke.py to time it).
 
 1. card: prints the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, and the kernel build seconds with ptxas's report
    (ops/csrc/bmma.cu: K1, K2 and K4 to K7 on the tensor cores' binary MMA,
-   and the probe; ops/csrc/bitcount.cu: K3, K8 and K9);
+   and the probe; ops/csrc/bitcount.cu: K3, K8, K9 and K10);
    then the AND-popcount rate probe (ops/csrc/bmma.cu, ops/probe.py): the
    b1 tensor-core MMA's and the CUDA cores' popcount rates in bit-products
    a second, which set the kernels' operations bounds;
@@ -52,8 +54,11 @@ and BSI slice has no K8 or K9, so its run stops at phase 3b).
    TopN table, Sum, Min and Max of v and five BSI-condition Counts against
    numpy over the imported values; the launches of each request (an
    uncached TopN launches K8 once, Sum K8 and K3 once each, Min and Max
-   K9 once), its median wall time with the TopN and aggregate caches
-   dropped and cached, and the device profiles of TopN(f), Sum and Min;
+   K9 once, a condition Count K10 and K3 once each), its median wall time
+   with the TopN and aggregate caches dropped and cached, uncached Min and
+   Max broken into the backend's profile phases (launch, readback, host
+   reduce), and the device profiles of TopN(f), Sum, Min and
+   Count(Row(v > 100));
    then, after phase 4, Sum/Min/Max with filters, a Count over a BSI
    condition and Shifts over the first 32 shards against the CPU oracle;
 4. the HTTP server (pilosa_tpu_torch.server) over the same index and
@@ -92,9 +97,11 @@ and BSI slice has no K8 or K9, so its run stops at phase 3b).
    the odometer kernels (nary_stats, nary_stats_pershard) against the
    group tensor that GroupBy served (one kernel body on both sides: the
    plain versions are the independent check); K8 at the TopN, filtered
-   TopN and Sum shapes and K9 on v's stack, each also at edge shapes (K8:
-   0, 1 and 2 masks, row0 > 0; K9: depths 1, 14 and 63, an all-negative,
-   an empty and a filtered-out shard);
+   TopN and Sum shapes, K9 on v's stack and K10 on it for Row(v > 100)
+   and v >< [-50, 50], each also at edge shapes (K8: 0, 1 and 2 masks,
+   row0 > 0; K9: depths 1, 14 and 63, an all-negative, an empty and a
+   filtered-out shard; K10: every op, sign and between class at depths 1,
+   14 and 63, predicates 0, all ones and bit depth - 1);
 6. a small holder with an existence field and a YMDH time field: the
    whole Count/Row/Not/All/time-range query list through two write-churn
    epochs, checked against the CPU
@@ -171,6 +178,9 @@ REPLACES = {
     "row_popcounts": "pilosa_tpu/exec/tpu.py:2134",
     # The bsi_min / bsi_max program body.
     "bsi_minmax": "pilosa_tpu/exec/tpu.py:2201",
+    # The C and CB nodes of the count and vec programs' _eval_spec (the
+    # range helpers at :1113-1202), fused by XLA.
+    "bsi_compare": "pilosa_tpu/exec/tpu.py:1243",
 }
 COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "popcount_rows")
 # Each kernel's earlier time at the shape timed here, recorded by this
@@ -178,13 +188,16 @@ COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "popcount_rows")
 # K4 before they moved to the tensor cores, K1 and K5 before they followed
 # (events around a wrapper call); K6 and K7 before they followed, their
 # kernel_ms (events around bare launches); K3, which has not moved, from
-# the same run as K2's and K4's. Printed for comparison on a line of its
-# own, never in the kernels line, whose numbers are all of this run.
+# the same run as K2's and K4's; K9's kernel_ms on v's stack before its
+# redesign (two blocks a shard, one a branch, each reading the planes).
+# Printed for comparison on a line of its own, never in the kernels line,
+# whose numbers are all of this run.
 EARLIER_MS = {
     "pair_stats_pershard": 1.1817, "pair_stats": 141.80, "popcount_rows": 0.06478,
     "group_tile_stats": 4.0985, "group_tile_stats_pershard": 3.8494,
     "nary_stats kernel_ms": 6.4030, "nary_stats_pershard kernel_ms": 6.4061,
     "pair_stats at S=954, 8 x 8": 1.1986,
+    "bsi_minmax kernel_ms": 1.3494,
 }
 # The odometer kernels' second shape: K = 64 over the extras (h, g), from
 # the resident stacks (so g is both G and an extra, and its bound counts g
@@ -347,6 +360,31 @@ def bare_bsi_minmax(stack, depth, filt, kind):
                                    out.data_ptr(), 0 if kind == "min" else 1, s, r, depth, w,
                                    stream)
         check(rc == 0, f"bsi_minmax: CUDA launch failed with cudaError {rc}")
+
+    return launch
+
+
+def bare_bsi_compare(stack, depth, op, bits, neg=False, allow_eq=False, hi_bits=None):
+    import ctypes
+
+    import torch
+
+    from pilosa_tpu_torch.ops import build
+    from pilosa_tpu_torch.ops import kernels as K
+
+    lib = build.library(K._LIBRARY["bsi_compare"])
+    s, r, w = stack.shape
+    mode, start_a, start_b, extra, neq, ops = K.compare_plan(depth, op, bits, neg, allow_eq,
+                                                             hi_bits)
+    table = (ctypes.c_uint8 * (K.MAX_COMPARE_DEPTH + 1))(*ops)
+    out = torch.empty((s, w), dtype=torch.int32, device=stack.device)
+    stream = torch.cuda.current_stream(stack.device).cuda_stream
+
+    def launch():
+        rc = lib.bsi_compare_launch(stack.data_ptr(), out.data_ptr(), ctypes.addressof(table),
+                                    mode, start_a, start_b, extra, int(neq), s, r, depth, w,
+                                    stream)
+        check(rc == 0, f"bsi_compare: CUDA launch failed with cudaError {rc}")
 
     return launch
 
@@ -902,7 +940,10 @@ def phase_bsi(holder, backend):
             "Rows(g, previous=2, limit=3)": {"row_popcounts": 1}, "GroupBy(Rows(f))": {},
             "Sum(field=v)": {"row_popcounts": 1, "popcount_rows": 1},
             "Min(field=v)": {"bsi_minmax": 1}, "Max(field=v)": {"bsi_minmax": 1}}
-    want.update({q: {"popcount_rows": 1} for q in cond_queries})
+    # A condition is one K10 launch, its Count one K3; v != null reads the
+    # exists row as it is.
+    want.update({q: {"bsi_compare": 1, "popcount_rows": 1} for q in cond_queries})
+    want["Count(Row(v != null))"] = {"popcount_rows": 1}
     for q, expect in want.items():
         check(per_request[q] == expect, f"bsi: {q} launched {per_request[q]}, expected {expect}")
 
@@ -949,7 +990,8 @@ def phase_bsi(holder, backend):
         _, med_warm, _ = host_ms(lambda q=q: dev.execute("bench", q))
         latencies[q] = {"p50_caches_dropped_ms": med_cold, "p50_cached_ms": med_warm}
     log("bsi: latencies " + json.dumps(latencies))
-    for q in ("TopN(f)", "Sum(field=v)", "Min(field=v)"):
+    minmax_phases(dev, drop_caches)
+    for q in ("TopN(f)", "Sum(field=v)", "Min(field=v)", "Count(Row(v > 100))"):
         def uncached(q=q):
             drop_caches()
             return dev.execute("bench", q)
@@ -958,7 +1000,7 @@ def phase_bsi(holder, backend):
           "bsi: a request was routed to the CPU oracle")
     log_routed("bsi")
     log(f"bsi: phase seconds {time.perf_counter() - t_phase:.1f}")
-    # The served inputs of K8 and K9, for phase_bsi_kernels.
+    # The served inputs of K8, K9 and K10, for phase_bsi_kernels.
     from pilosa_tpu_torch.core.view import bsi_view_name
 
     depth = holder.index("bench").field("v").bsi_group().bit_depth
@@ -970,6 +1012,30 @@ def phase_bsi(holder, backend):
               "src": bench_stack(backend, holder, "g")[:, 7, :].contiguous(),
               "neg": neg, "pos": (consider & ~neg).contiguous()}
     return launches, stacks
+
+
+def minmax_phases(dev, drop_caches, reps: int = 5) -> None:
+    """Uncached Min and Max broken into the backend's own profile phases
+    (median ms of ``reps`` calls): stack_fetch, device_dispatch (the filter
+    and K9's launch), readback (the table's copy to the host, which waits
+    for K9), host_reduce (the per-shard values and the cross-shard reduce)
+    and the rest of the executor's call (other)."""
+    from pilosa_tpu_torch.utils.qprofile import profile_scope
+
+    for q in ("Min(field=v)", "Max(field=v)"):
+        runs = []
+        for _ in range(reps):
+            drop_caches()
+            with profile_scope("bench", q) as prof:
+                t0 = time.perf_counter()
+                dev.execute("bench", q)
+                wall = time.perf_counter() - t0
+            phases = {k: v * 1e3 for k, v in prof.phases.items()}
+            phases["other"] = wall * 1e3 - sum(phases.values())
+            phases["wall"] = wall * 1e3
+            runs.append(phases)
+        med = {k: statistics.median(r.get(k, 0.0) for r in runs) for k in runs[0]}
+        log(f"bsi: {q} caches dropped, median ms of {reps} by phase " + json.dumps(med))
 
 
 def bsi_oracle_check(holder, backend):
@@ -1677,6 +1743,31 @@ def bsi_minmax_work(s, depth, w, filtered):
             32 * s * w * depth * 2)
 
 
+def bsi_compare_work(s, depth, w, walks):
+    """(bytes, bit-products) of K10: exists, sign and the planes read once,
+    the slab written once; a word's worth of bitwise work (32 bit-products)
+    per plane word a walk."""
+    return ((2 + depth) * s * w * 4 + s * w * 4, 32 * s * w * depth * walks)
+
+
+def compare_conditions(depth):
+    """K10's edge conditions: every op with both signs (and <=, >=), every
+    between class, at predicates 0, all ones and bit depth - 1 alone."""
+    from pilosa_tpu_torch.exec.cuda import _pred_bits
+
+    values = sorted({0, (1 << depth) - 1, 1 << (depth - 1)})
+    out = [(op, _pred_bits(v, depth), neg, eq, None) for v in values
+           for op in ("==", "!=", "<", ">") for neg in (False, True)
+           for eq in ((False, True) if op in "<>" else (False,))]
+    for lo in values:
+        for hi in values:
+            if lo <= hi:
+                out += [("pos", _pred_bits(lo, depth), False, False, _pred_bits(hi, depth)),
+                        ("neg", _pred_bits(hi, depth), False, False, _pred_bits(lo, depth))]
+            out.append(("mixed", _pred_bits(lo, depth), False, False, _pred_bits(hi, depth)))
+    return out
+
+
 def bsi_edge_stack(gen, dev, s, depth, w=32768):
     """A BSI stack [s, 2 + depth padded to 8, w] of random int32 words (bit
     31 set in half of them): shard 1 all negative and shard 2 empty."""
@@ -1700,10 +1791,11 @@ def bsi_edge_stack(gen, dev, s, depth, w=32768):
 
 
 def phase_bsi_kernels(bsi, launches):
-    """K8 and K9 against their plain versions: at the served shapes (TopN
-    over f, TopN over f filtered by Row(g=7), Sum's 14 planes with their
-    two masks; the Min walk of v's 16-row stack), and at edge shapes, all
-    exactly; with times and bounds. Returns the two kernels' lines."""
+    """K8, K9 and K10 against their plain versions: at the served shapes
+    (TopN over f, TopN over f filtered by Row(g=7), Sum's 14 planes with
+    their two masks; the Min walk of v's 16-row stack; Row(v > 100) and
+    v >< [-50, 50] over it), and at edge shapes, all exactly; with times and
+    bounds. Returns the three kernels' lines."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels as K
@@ -1742,6 +1834,21 @@ def phase_bsi_kernels(bsi, launches):
                       f"filtered={fl is not None}")
     log("kernels: bsi_minmax exact at depths 1, 14, 63 with an all-negative, an empty "
         "and a filtered-out shard, min and max, filtered and not")
+    # K10 edges: every op, sign and between class at depths 1, 14 and 63,
+    # predicates 0, all ones and bit depth - 1 alone, an all-negative and an
+    # empty shard; and a 36-word axis.
+    n_cond = 0
+    for s, d, w in [(4, 1, 32768), (5, 14, 32768), (3, 63, 32768), (3, 14, 36)]:
+        st = bsi_edge_stack(gen, dev, s, d, w)
+        for cond in compare_conditions(d):
+            check(max_abs_err(K.bsi_compare(st, d, *cond), K.bsi_compare_torch(st, d, *cond))
+                  == 0, f"bsi_compare differs at S={s} depth={d} W={w}: (op, bits, neg, "
+                  f"allow_eq, hi_bits) = {cond}")
+            n_cond += 1
+    log(f"kernels: bsi_compare exact on {n_cond} conditions: every op with both signs, "
+        f"<= and >=, the between classes pos, neg and mixed, at depths 1, 14, 63 and a "
+        f"36-word axis, predicates 0, all ones and bit depth - 1, with an all-negative and "
+        f"an empty shard")
 
     lines = []
     s, r, w = f.shape
@@ -1788,6 +1895,42 @@ def phase_bsi_kernels(bsi, launches):
                        launches["bsi_minmax"])
     line["shape"] = [sv, vstack.shape[1], depth, vstack.shape[2]]
     lines.append(line)
+
+    # K10 on v's stack: Row(v > 100), the served condition; also the mixed
+    # between v >< [-50, 50], two walks in one pass.
+    from pilosa_tpu_torch.exec.cuda import _pred_bits
+
+    k10 = {}
+    for label, cond in [("gt", (">", _pred_bits(100, depth), False, False, None)),
+                        ("mixed", ("mixed", _pred_bits(50, depth), False, False,
+                                   _pred_bits(50, depth)))]:
+        err = max_abs_err(K.bsi_compare(vstack, depth, *cond),
+                          K.bsi_compare_torch(vstack, depth, *cond))
+        check(err == 0, f"bsi_compare differs on v's stack ({label})")
+        k10[label] = {
+            "ms": time_ms(lambda: K.bsi_compare(vstack, depth, *cond)),
+            "kernel_ms": kernel_ms(bare_bsi_compare(vstack, depth, *cond)),
+            "plain_ms": time_ms(lambda: K.bsi_compare_torch(vstack, depth, *cond), reps=3,
+                                warm=1),
+            "work": bsi_compare_work(sv, depth, vstack.shape[2], 2 if label == "mixed" else 1),
+            "max_abs_err": err,
+        }
+    main = k10["gt"]
+    line = kernel_line("bsi_compare", main["ms"], main["kernel_ms"], main["plain_ms"],
+                       main["work"], main["max_abs_err"], launches["bsi_compare"])
+    line["shape"] = [sv, vstack.shape[1], depth, vstack.shape[2]]
+    b_ms, b_by, _ = kernel_bound(k10["mixed"]["work"])
+    line.update({"mixed_ms": k10["mixed"]["ms"], "mixed_kernel_ms": k10["mixed"]["kernel_ms"],
+                 "mixed_plain_ms": k10["mixed"]["plain_ms"], "mixed_bound_ms": b_ms,
+                 "mixed_bound_by": b_by, "mixed_max_abs_err": k10["mixed"]["max_abs_err"]})
+    lines.append(line)
+    for ln in lines[1:]:
+        log(f"kernels: {ln['name']} on v's stack: {ln['ms']:.4f} ms, kernel "
+            f"{ln['kernel_ms']:.4f} ms, plain {ln['plain_ms']:.4f} ms, bound "
+            f"{ln['bound_ms']:.4f} ms by {ln['bound_by']}, exact")
+    log(f"kernels: bsi_compare mixed between on v's stack: {k10['mixed']['ms']:.4f} ms, "
+        f"kernel {k10['mixed']['kernel_ms']:.4f} ms, plain {k10['mixed']['plain_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by}, exact")
     return lines
 
 
@@ -2115,7 +2258,7 @@ def main(argv=None) -> int:
     cross = cross_check(gstacks, served)
     for name in ("nary_stats", "nary_stats_pershard"):
         launches[name] = cross[name]
-    for name in ("row_popcounts", "bsi_minmax"):
+    for name in ("row_popcounts", "bsi_minmax", "bsi_compare"):
         launches[name] = bsi_launches[name]
     lines = phase_kernels(gstacks, wide_stacks, launches)
     lines += phase_bsi_kernels(bsi_stacks, launches)

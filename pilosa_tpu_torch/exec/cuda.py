@@ -10,10 +10,12 @@ The counterpart of the JAX package's TPUBackend:
 - A bitmap call tree becomes torch bitwise ops over [S, W] slabs:
   ``index_select`` gathers the rows, then ``&``, ``|``, ``^`` and ``~``; a
   time range unions its quantum views' rows, ``Shift`` moves the bits up
-  within each shard, and a BSI condition (``Row(v > 3)``, ``v >< [a, b]``,
-  ``v != null``) walks the field's BSI planes with the predicate's bits
-  resolved on the host. The per-shard popcount is the hand-written kernel
-  K3 (ops/kernels.py popcount_rows).
+  within each shard, and a BSI condition (``Row(v > 3)``, ``v >< [a, b]``)
+  is one launch of the hand-written kernel K10 (ops/kernels.py
+  bsi_compare), which walks the field's BSI planes once with the
+  predicate's bits resolved on the host (``v != null`` is the exists row).
+  The per-shard popcount is the hand-written kernel K3 (ops/kernels.py
+  popcount_rows).
 - A request of several Counts over one field pair is planned onto one sweep
   of K1 (pair_stats_pershard), or of K2 (pair_stats) when the per-shard
   table is too big to keep; the host derives every verb from the pair
@@ -60,10 +62,16 @@ from pilosa_tpu_torch.ops.blocks import (
     unpack_row,
     unpack_slab_columns,
 )
-from pilosa_tpu_torch.ops.kernels import (
+from pilosa_tpu_torch.ops.kernels import (  # noqa: F401 (the range helpers are re-exported)
     MAX_GROUP_EXTRAS,
     MAX_GROUP_TILE_SLOTS,
     MAX_PAIR_SHARDS,
+    _between_unsigned,
+    _bsi_slabs,
+    _eq_slab,
+    _gt_unsigned,
+    _lt_unsigned,
+    bsi_compare,
     bsi_minmax,
     group_tile_stats,
     group_tile_stats_pershard,
@@ -315,90 +323,6 @@ def _prod(xs) -> int:
     return out
 
 
-def _bsi_slabs(block, depth):
-    """exists/sign/plane slabs from a stacked BSI view block [S, R, W]."""
-    exists = block[:, BSI_EXISTS_BIT, :]
-    sign = block[:, BSI_SIGN_BIT, :]
-    planes = [block[:, BSI_OFFSET_BIT + i, :] for i in range(depth)]
-    return exists, sign, planes
-
-
-# The range helpers below keep the JAX package's control flow line for line
-# (pilosa_tpu/exec/tpu.py:1113-1179); its traced predicate bits are host
-# ints here, so each of its selects on a bit is a Python branch.
-
-
-def _lt_unsigned(filt, planes, bits, depth, allow_eq):
-    """Port of fragment.rangeLTUnsigned (fragment.go:1440) with the
-    documented strict-<0 fix (see core/fragment.py:481)."""
-    zeros = torch.zeros_like(filt)
-    keep = zeros
-    lz = True
-    zero_pred = not allow_eq and all(bits[i] == 0 for i in range(depth))
-    for i in range(depth - 1, -1, -1):
-        plane = planes[i]
-        bit = bits[i] != 0
-        skip = lz and not bit
-        if i == 0 and not allow_eq:
-            if zero_pred:
-                return zeros
-            if skip:
-                return filt & ~plane
-            return filt & ~(plane & ~keep) if bit else keep
-        if skip:
-            new_filt = filt & ~plane
-        elif bit:
-            new_filt = filt
-        else:
-            new_filt = filt & ~(plane & ~keep)
-        if i > 0 and not skip and bit:
-            keep = keep | (filt & ~plane)
-        filt = new_filt
-        lz = lz and not bit
-    return zeros if zero_pred else filt
-
-
-def _gt_unsigned(filt, planes, bits, depth, allow_eq):
-    """Port of fragment.rangeGTUnsigned (fragment.go:1471)."""
-    keep = torch.zeros_like(filt)
-    for i in range(depth - 1, -1, -1):
-        plane = planes[i]
-        bit = bits[i] != 0
-        if i == 0 and not allow_eq:
-            return keep if bit else filt & ~((filt & ~plane) & ~keep)
-        new_filt = filt & ~((filt & ~plane) & ~keep) if bit else filt
-        if i > 0 and not bit:
-            keep = keep | (filt & plane)
-        filt = new_filt
-    return filt
-
-
-def _between_unsigned(filt, planes, lo_bits, hi_bits, depth):
-    """Port of fragment.rangeBetweenUnsigned (fragment.go:1504)."""
-    keep1 = torch.zeros_like(filt)
-    keep2 = torch.zeros_like(filt)
-    for i in range(depth - 1, -1, -1):
-        plane = planes[i]
-        b1 = lo_bits[i] != 0
-        b2 = hi_bits[i] != 0
-        new_filt = filt & ~((filt & ~plane) & ~keep1) if b1 else filt
-        if i > 0 and not b1:
-            keep1 = keep1 | (filt & plane)
-        filt = new_filt
-        new_filt = filt if b2 else filt & ~(plane & ~keep2)
-        if i > 0 and b2:
-            keep2 = keep2 | (filt & ~plane)
-        filt = new_filt
-    return filt
-
-
-def _eq_slab(exists, sign, planes, bits, depth, neg):
-    b = (exists & sign) if neg else (exists & ~sign)
-    for i in range(depth - 1, -1, -1):
-        b = b & planes[i] if bits[i] != 0 else b & ~planes[i]
-    return b
-
-
 def _shift_slab(slab, n: int):
     """Shift all bits up by n within each shard slab (word axis last,
     little-endian bit order within the words). Bits crossing the shard
@@ -465,40 +389,18 @@ def _eval_spec(spec, blocks_it, scalars_it) -> torch.Tensor:
     if tag == "NN":
         return next(blocks_it)[:, BSI_EXISTS_BIT, :]
     if tag == "C":
-        # BSI comparison: ("C", field, op, neg_pred, allow_eq, depth)
+        # BSI comparison: ("C", field, op, neg_pred, allow_eq, depth), one K10
         _, _fname, op, neg, allow_eq, depth = spec
         block = next(blocks_it)
         bits = next(scalars_it)
-        exists, sign, planes = _bsi_slabs(block, depth)
-        if op == "==":
-            return _eq_slab(exists, sign, planes, bits, depth, neg)
-        if op == "!=":
-            return exists & ~_eq_slab(exists, sign, planes, bits, depth, neg)
-        if op == "<":
-            if not neg:
-                pos = _lt_unsigned(exists & ~sign, planes, bits, depth, allow_eq)
-                return (sign & exists) | pos
-            return _gt_unsigned(exists & sign, planes, bits, depth, allow_eq)
-        # op == ">"
-        if not neg:
-            return _gt_unsigned(exists & ~sign, planes, bits, depth, allow_eq)
-        negs = _lt_unsigned(exists & sign, planes, bits, depth, allow_eq)
-        return (exists & ~sign) | negs
+        return bsi_compare(block, depth, op, bits, neg=neg, allow_eq=allow_eq)
     if tag == "CB":
         # BSI between: ("CB", field, cls, depth), fragment.rangeBetween :1504
         _, _fname, cls, depth = spec
         block = next(blocks_it)
         lo_bits = next(scalars_it)
         hi_bits = next(scalars_it)
-        exists, sign, planes = _bsi_slabs(block, depth)
-        if cls == "pos":
-            return _between_unsigned(exists & ~sign, planes, lo_bits, hi_bits, depth)
-        if cls == "neg":
-            # negative range: magnitudes swap (|hi| <= mag <= |lo|)
-            return _between_unsigned(exists & sign, planes, hi_bits, lo_bits, depth)
-        pos = _lt_unsigned(exists & ~sign, planes, hi_bits, depth, True)
-        neg = _lt_unsigned(exists & sign, planes, lo_bits, depth, True)
-        return pos | neg
+        return bsi_compare(block, depth, cls, lo_bits, hi_bits=hi_bits)
     if tag == "S":
         return _shift_slab(_eval_spec(spec[2], blocks_it, scalars_it), spec[1])
     children = spec[1]
@@ -1328,8 +1230,9 @@ class CUDABackend:
         with prof.phase("device_dispatch"):
             filt = self._filter_slab(src)
             self._launched(kind)
-            table = bsi_minmax(bsi_block, depth, filt,
-                               "min" if kind == "bsi_min" else "max").cpu()
+            table = bsi_minmax(bsi_block, depth, filt, "min" if kind == "bsi_min" else "max")
+        with prof.phase("readback"):
+            table = table.cpu()  # waits for K9
         bits_a, cnt_a, bits_b, cnt_b, branch_any, consider_any = (
             x.numpy() for x in split_minmax(table, depth))
         with prof.phase("host_reduce"):

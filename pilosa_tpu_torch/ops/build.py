@@ -32,7 +32,8 @@ BUILD_DIR = os.path.join(_HERE, "build")
 #: group tiles K4, K5 and the odometer group tensor K6, K7 on the tensor
 #: cores' binary MMA, and the AND-popcount rate probe) and bitcount.cu (on
 #: the CUDA cores: K3, the count path's popcount-reduce; K8, the per-row
-#: popcounts of TopN and Sum; K9, the Min/Max plane walk).
+#: popcounts of TopN and Sum; K9, the Min/Max plane walk; K10, the walk of
+#: a BSI condition).
 SOURCES = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
     for name in ("bitcount", "bmma")
@@ -131,6 +132,9 @@ def _bind(name: str, lib) -> None:
             "row_popcounts_launch": [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr],
             # stack, filt, out, kind, s, r, depth, w, stream
             "bsi_minmax_launch": [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+            # stack, out, ops, mode, start_a, start_b, extra, neq, s, r, depth,
+            # w, stream
+            "bsi_compare_launch": [ptr, ptr, ptr] + [i32] * 9 + [ptr],
         },
         "bmma": {"pair_stats_pershard_launch": pair, "pair_stats_launch": pair,
                  "group_tile_stats_launch": group,

@@ -31,6 +31,12 @@ the row popcounts and the BSI plane walk on the CUDA cores
   depth + 2], branch b's decision bit of plane i at [b, s, i], its final
   count at [b, s, depth] and whether its start had a bit at [b, s, depth +
   1] (``split_minmax`` unpacks it into the JAX program's six outputs).
+- ``bsi_compare`` (K10, bitcount.cu): one BSI condition (``==``, ``!=``,
+  ``<``, ``<=``, ``>``, ``>=`` or a between) over a BSI stack: the
+  condition's slab int32[S, W]. The plain version composes the range
+  helpers (``_lt_unsigned`` ...) as the count program's spec evaluator
+  does; the kernel runs the same walk from a per-plane action table that
+  the host resolves from the predicate's bits (``compare_plan``).
 - the group tensor of an N-field GroupBy (K4-K7): for slots q, with m_q the
   AND of one row of each extra field (and of a filter slab),
 
@@ -82,7 +88,7 @@ _LAUNCHES = {
     "pair_stats_pershard": 0, "pair_stats": 0, "popcount_rows": 0,
     "group_tile_stats": 0, "group_tile_stats_pershard": 0,
     "nary_stats": 0, "nary_stats_pershard": 0,
-    "row_popcounts": 0, "bsi_minmax": 0,
+    "row_popcounts": 0, "bsi_minmax": 0, "bsi_compare": 0,
 }
 
 
@@ -192,6 +198,229 @@ def split_minmax(table: torch.Tensor, depth: int):
     return (table[0, :, :depth] != 0, table[0, :, depth],
             table[1, :, :depth] != 0, table[1, :, depth],
             table[0, :, depth + 1] != 0, table[1, :, depth + 1] != 0)
+
+
+def _bsi_slabs(block, depth):
+    """exists/sign/plane slabs from a stacked BSI view block [S, R, W]."""
+    exists = block[:, BSI_EXISTS_ROW, :]
+    sign = block[:, BSI_SIGN_ROW, :]
+    planes = [block[:, BSI_PLANE_ROW + i, :] for i in range(depth)]
+    return exists, sign, planes
+
+
+# The range helpers below keep the JAX package's control flow line for line
+# (pilosa_tpu/exec/tpu.py:1113-1179); its traced predicate bits are host
+# ints here, so each of its selects on a bit is a Python branch.
+
+
+def _lt_unsigned(filt, planes, bits, depth, allow_eq):
+    """Port of fragment.rangeLTUnsigned (fragment.go:1440) with the
+    documented strict-<0 fix (see core/fragment.py:481)."""
+    zeros = torch.zeros_like(filt)
+    keep = zeros
+    lz = True
+    zero_pred = not allow_eq and all(bits[i] == 0 for i in range(depth))
+    for i in range(depth - 1, -1, -1):
+        plane = planes[i]
+        bit = bits[i] != 0
+        skip = lz and not bit
+        if i == 0 and not allow_eq:
+            if zero_pred:
+                return zeros
+            if skip:
+                return filt & ~plane
+            return filt & ~(plane & ~keep) if bit else keep
+        if skip:
+            new_filt = filt & ~plane
+        elif bit:
+            new_filt = filt
+        else:
+            new_filt = filt & ~(plane & ~keep)
+        if i > 0 and not skip and bit:
+            keep = keep | (filt & ~plane)
+        filt = new_filt
+        lz = lz and not bit
+    return zeros if zero_pred else filt
+
+
+def _gt_unsigned(filt, planes, bits, depth, allow_eq):
+    """Port of fragment.rangeGTUnsigned (fragment.go:1471)."""
+    keep = torch.zeros_like(filt)
+    for i in range(depth - 1, -1, -1):
+        plane = planes[i]
+        bit = bits[i] != 0
+        if i == 0 and not allow_eq:
+            return keep if bit else filt & ~((filt & ~plane) & ~keep)
+        new_filt = filt & ~((filt & ~plane) & ~keep) if bit else filt
+        if i > 0 and not bit:
+            keep = keep | (filt & plane)
+        filt = new_filt
+    return filt
+
+
+def _between_unsigned(filt, planes, lo_bits, hi_bits, depth):
+    """Port of fragment.rangeBetweenUnsigned (fragment.go:1504)."""
+    keep1 = torch.zeros_like(filt)
+    keep2 = torch.zeros_like(filt)
+    for i in range(depth - 1, -1, -1):
+        plane = planes[i]
+        b1 = lo_bits[i] != 0
+        b2 = hi_bits[i] != 0
+        new_filt = filt & ~((filt & ~plane) & ~keep1) if b1 else filt
+        if i > 0 and not b1:
+            keep1 = keep1 | (filt & plane)
+        filt = new_filt
+        new_filt = filt if b2 else filt & ~(plane & ~keep2)
+        if i > 0 and b2:
+            keep2 = keep2 | (filt & ~plane)
+        filt = new_filt
+    return filt
+
+
+def _eq_slab(exists, sign, planes, bits, depth, neg):
+    b = (exists & sign) if neg else (exists & ~sign)
+    for i in range(depth - 1, -1, -1):
+        b = b & planes[i] if bits[i] != 0 else b & ~planes[i]
+    return b
+
+
+#: The conditions K10 takes: a comparison's operator, or a between's class
+#: (the sign of its bounds: both >= 0, both < 0, or one of each).
+COMPARE_OPS = ("==", "!=", "<", ">")
+BETWEEN_CLASSES = ("pos", "neg", "mixed")
+
+
+def bsi_compare_torch(stack: torch.Tensor, depth: int, op: str, bits, neg: bool = False,
+                      allow_eq: bool = False, hi_bits=None) -> torch.Tensor:
+    """Plain K10: the slab int32[S, W] of one BSI condition, the range
+    helpers composed as the count program's ``C`` and ``CB`` nodes compose
+    them (pilosa_tpu/exec/tpu.py:1243-1277). See bsi_compare."""
+    exists, sign, planes = _bsi_slabs(stack, depth)
+    if op == "==":
+        return _eq_slab(exists, sign, planes, bits, depth, neg)
+    if op == "!=":
+        return exists & ~_eq_slab(exists, sign, planes, bits, depth, neg)
+    if op == "<":
+        if not neg:
+            pos = _lt_unsigned(exists & ~sign, planes, bits, depth, allow_eq)
+            return (sign & exists) | pos
+        return _gt_unsigned(exists & sign, planes, bits, depth, allow_eq)
+    if op == ">":
+        if not neg:
+            return _gt_unsigned(exists & ~sign, planes, bits, depth, allow_eq)
+        negs = _lt_unsigned(exists & sign, planes, bits, depth, allow_eq)
+        return (exists & ~sign) | negs
+    # A between; bits are the low bound's magnitude bits.
+    if op == "pos":
+        return _between_unsigned(exists & ~sign, planes, bits, hi_bits, depth)
+    if op == "neg":
+        # negative range: magnitudes swap (|hi| <= mag <= |lo|)
+        return _between_unsigned(exists & sign, planes, hi_bits, bits, depth)
+    pos = _lt_unsigned(exists & ~sign, planes, hi_bits, depth, True)
+    negs = _lt_unsigned(exists & sign, planes, bits, depth, True)
+    return pos | negs
+
+
+# K10's action table. Each walk carries a filter f and a keep k per word;
+# plane p's action on them is one of these (the kernel's step(), bitcount.cu).
+OP_NOP = 0
+OP_F_ANDNOT_P = 1   # f &= ~p
+OP_F_AND_P = 2      # f &= p
+OP_K_OR_F_P = 3     # k |= f & p
+OP_K_OR_F_NP = 4    # k |= f & ~p
+OP_F_AND_P_K = 5    # f &= p | k
+OP_F_AND_NP_K = 6   # f &= ~p | k
+OP_F_TAKE_K = 7     # f = k
+# The slabs a walk starts from, and the one the result is ORed with.
+SLAB_ZERO, SLAB_POS, SLAB_NEG, SLAB_EXISTS = 0, 1, 2, 3
+# One walk; a between's two steps a plane on one filter with two keeps;
+# two walks on two filters (the mixed between), ORed.
+MODE_ONE, MODE_BETWEEN, MODE_TWO = 0, 1, 2
+
+
+def _lt_ops(bits, depth, allow_eq):
+    """_lt_unsigned as plane actions, or None when the strict-<0 fix makes
+    its result empty."""
+    if not allow_eq and all(bits[i] == 0 for i in range(depth)):
+        return None
+    ops = [OP_NOP] * depth
+    lz = True
+    for i in range(depth - 1, -1, -1):
+        bit = bits[i] != 0
+        skip = lz and not bit
+        if i == 0 and not allow_eq:
+            # The early return: filt & ~plane, filt & ~(plane & ~keep), keep.
+            ops[0] = OP_F_ANDNOT_P if skip else OP_F_AND_NP_K if bit else OP_F_TAKE_K
+            break
+        if skip:
+            ops[i] = OP_F_ANDNOT_P
+        elif bit:
+            ops[i] = OP_K_OR_F_NP if i > 0 else OP_NOP
+        else:
+            ops[i] = OP_F_AND_NP_K
+        lz = lz and not bit
+    return ops
+
+
+def _gt_ops(bits, depth, allow_eq):
+    """_gt_unsigned as plane actions."""
+    ops = [OP_NOP] * depth
+    for i in range(depth - 1, -1, -1):
+        bit = bits[i] != 0
+        if i == 0 and not allow_eq:
+            ops[0] = OP_F_TAKE_K if bit else OP_F_AND_P_K
+        elif bit:
+            ops[i] = OP_F_AND_P_K
+        elif i > 0:
+            ops[i] = OP_K_OR_F_P
+    return ops
+
+
+def _between_ops(lo_bits, hi_bits, depth):
+    """_between_unsigned as plane actions: its lo step on (f, k1) in bits
+    0-2, its hi step on (f, k2) in bits 3-5."""
+    ops = []
+    for i in range(depth):
+        a = OP_F_AND_P_K if lo_bits[i] else OP_K_OR_F_P if i > 0 else OP_NOP
+        b = (OP_K_OR_F_NP if i > 0 else OP_NOP) if hi_bits[i] else OP_F_AND_NP_K
+        ops.append(a | b << 3)
+    return ops
+
+
+def compare_plan(depth: int, op: str, bits, neg: bool = False, allow_eq: bool = False,
+                 hi_bits=None):
+    """The host side of K10: a condition -> (mode, start_a, start_b,
+    extra, neq, ops), ops[i] plane i's actions (walk a's in bits 0-2, walk
+    b's in bits 3-5). The kernel starts walk a from slab start_a and walk b
+    from start_b, applies ops from plane depth - 1 down to 0 and writes
+    exists & ~f_a when neq, else f_a | f_b | extra."""
+    sign_slab = SLAB_NEG if neg else SLAB_POS
+    if op in ("==", "!="):
+        ops = [OP_F_AND_P if bits[i] else OP_F_ANDNOT_P for i in range(depth)]
+        if op == "==":
+            return (MODE_ONE, sign_slab, SLAB_ZERO, SLAB_ZERO, False, ops)
+        return (MODE_ONE, sign_slab, SLAB_ZERO, SLAB_EXISTS, True, ops)
+    if op in ("<", ">"):
+        if (op == "<") == neg:
+            # x < -|v| or x > |v|: the greater-than walk over one sign.
+            return (MODE_ONE, sign_slab, SLAB_ZERO, SLAB_ZERO, False,
+                    _gt_ops(bits, depth, allow_eq))
+        # x < |v| or x > -|v|: the other sign whole, plus a less-than walk
+        # (an empty one, from no slab, under the strict-<0 fix).
+        other = SLAB_POS if neg else SLAB_NEG
+        ops = _lt_ops(bits, depth, allow_eq)
+        if ops is None:
+            return (MODE_ONE, SLAB_ZERO, SLAB_ZERO, other, False, [OP_NOP] * depth)
+        return (MODE_ONE, sign_slab, SLAB_ZERO, other, False, ops)
+    if op == "pos":
+        return (MODE_BETWEEN, SLAB_POS, SLAB_ZERO, SLAB_ZERO, False,
+                _between_ops(bits, hi_bits, depth))
+    if op == "neg":
+        return (MODE_BETWEEN, SLAB_NEG, SLAB_ZERO, SLAB_ZERO, False,
+                _between_ops(hi_bits, bits, depth))
+    pos, negs = _lt_ops(hi_bits, depth, True), _lt_ops(bits, depth, True)
+    return (MODE_TWO, SLAB_POS, SLAB_NEG, SLAB_ZERO, False,
+            [a | b << 3 for a, b in zip(pos, negs)])
 
 
 def pair_stats_torch(f: torch.Tensor, g: torch.Tensor,
@@ -341,7 +570,7 @@ _LIBRARY = {
     "pair_stats_pershard": "bmma", "pair_stats": "bmma", "popcount_rows": "bitcount",
     "group_tile_stats": "bmma", "group_tile_stats_pershard": "bmma",
     "nary_stats": "bmma", "nary_stats_pershard": "bmma",
-    "row_popcounts": "bitcount", "bsi_minmax": "bitcount",
+    "row_popcounts": "bitcount", "bsi_minmax": "bitcount", "bsi_compare": "bitcount",
 }
 
 
@@ -558,9 +787,13 @@ def tri_stats(f, g, h, filt=None) -> torch.Tensor:
     return nary_stats(f, g, (h,), filt)
 
 
-#: The widest word axis K9 takes: its block of 1024 threads holds a step's
-#: row in registers, 8 uint4 a thread.
+#: The widest word axis K9 takes: a shard's cluster of 8 blocks of 256
+#: threads holds both running filters in registers, 4 uint4 a thread.
 MAX_MINMAX_WORDS = 32768
+
+#: The deepest BSI stack K10 takes: its action table travels in the
+#: launch's parameters, one byte a plane.
+MAX_COMPARE_DEPTH = 63
 
 
 def row_popcounts(stack: torch.Tensor, row0: int, n_rows: int,
@@ -623,4 +856,41 @@ def bsi_minmax(stack: torch.Tensor, depth: int, filt=None,
         _launch("bsi_minmax", stack.device, library("bitcount").bsi_minmax_launch,
                 stack.data_ptr(), None if filt is None else filt.data_ptr(),
                 out.data_ptr(), 0 if kind == "min" else 1, s, r, depth, w)
+    return out
+
+
+def bsi_compare(stack: torch.Tensor, depth: int, op: str, bits, neg: bool = False,
+                allow_eq: bool = False, hi_bits=None) -> torch.Tensor:
+    """K10: (int32[S, R, W] BSI stack with R >= 2 + depth, one condition)
+    -> the condition's slab int32[S, W]. ``op`` is a comparison, "==",
+    "!=", "<" or ">" (``bits`` the predicate's magnitude bits, ``neg`` its
+    sign, ``allow_eq`` for <= and >=), or a between's class, "pos", "neg"
+    or "mixed" (``bits`` the low bound's magnitude bits, ``hi_bits`` the
+    high bound's). Bits are host ints, plane i's at [i]."""
+    _check_words("bsi_compare", stack, 3)
+    if op not in COMPARE_OPS + BETWEEN_CLASSES:
+        raise ValueError(f"bsi_compare: unknown condition {op!r}")
+    if depth < 0 or depth > MAX_COMPARE_DEPTH or BSI_PLANE_ROW + depth > stack.shape[1]:
+        raise ValueError(
+            f"bsi_compare: depth {depth} needs {BSI_PLANE_ROW + depth} rows (at most "
+            f"{MAX_COMPARE_DEPTH} planes), the stack has {stack.shape[1]}"
+        )
+    between = op in BETWEEN_CLASSES
+    if len(bits) < depth or (between and (hi_bits is None or len(hi_bits) < depth)):
+        raise ValueError(f"bsi_compare: the predicate needs {depth} bits")
+    if _plain("bsi_compare", stack):
+        return bsi_compare_torch(stack, depth, op, bits, neg, allow_eq, hi_bits)
+    import ctypes
+
+    from pilosa_tpu_torch.ops.build import library
+
+    mode, start_a, start_b, extra, neq, ops = compare_plan(depth, op, bits, neg, allow_eq,
+                                                           hi_bits)
+    table = (ctypes.c_uint8 * (MAX_COMPARE_DEPTH + 1))(*ops)
+    s, r, w = stack.shape
+    out = torch.empty((s, w), dtype=torch.int32, device=stack.device)
+    if out.numel():
+        _launch("bsi_compare", stack.device, library("bitcount").bsi_compare_launch,
+                stack.data_ptr(), out.data_ptr(), ctypes.addressof(table), mode, start_a,
+                start_b, extra, int(neq), s, r, depth, w)
     return out

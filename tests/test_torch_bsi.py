@@ -11,6 +11,10 @@ versions, against the JAX package.
 - The plain forms of K8 (row_popcounts_torch) and K9 (bsi_minmax_torch)
   against the JAX package's topn_plain, topn_src, bsi_sum, bsi_min and
   bsi_max programs on the same stacks.
+- The plain K10 (bsi_compare on CPU tensors) against the JAX count
+  program's C and CB nodes (_eval_spec), every op, sign and between class
+  at depths 1 to 16 and 63; and K10's action table (compare_plan), walked
+  as the CUDA kernel walks it, against the plain form.
 - The TopN rank-vector cache.
 
 All outputs are integers or bitmaps: every comparison is exact.
@@ -282,6 +286,122 @@ def test_bsi_minmax_equals_jax_program(jax_backend, kind, s, depth, filtered):
     got = K.split_minmax(table, depth)
     for i, (a, b) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(a.numpy(), b.astype(a.numpy().dtype), err_msg=str(i))
+
+
+# ---------------------------------------------------------------------------
+# the plain K10 against the JAX program's C and CB nodes
+# ---------------------------------------------------------------------------
+
+COMPARE_DEPTHS = list(range(1, 17)) + [63]
+
+
+def _compare_cases(depth, seed):
+    """(op, neg, allow_eq, bits, hi_bits) of every comparison with both
+    predicate signs, and of the between classes, at predicates 0, 1, all
+    ones, bit depth - 1 alone and random ones (as host ints)."""
+    rng = np.random.default_rng(seed)
+    top = (1 << depth) - 1
+    values = sorted({0, 1, top, 1 << (depth - 1)}
+                    | {int(rng.integers(0, top + 1)) for _ in range(3)})
+    bits = {v: tuple(int(b) for b in jax_tpu._pred_bits(v, depth)) for v in values}
+    cases = []
+    for v in values:
+        for op in ("==", "!=", "<", ">"):
+            for neg in (False, True):
+                for allow_eq in ((False, True) if op in "<>" else (False,)):
+                    cases.append((op, neg, allow_eq, bits[v], None))
+    for lo in values:
+        for hi in values:
+            if lo <= hi:
+                cases.append(("pos", False, False, bits[lo], bits[hi]))
+                cases.append(("neg", False, False, bits[hi], bits[lo]))
+            cases.append(("mixed", False, False, bits[lo], bits[hi]))
+    return cases
+
+
+def _jax_node(st, depth, op, neg, allow_eq, bits, hi_bits):
+    """The JAX program's C or CB node on stack st, evaluated on the CPU."""
+    u32 = lambda b: np.asarray(b, dtype=np.uint32)  # noqa: E731
+    if hi_bits is None:
+        spec, scalars = ("C", "v", op, neg, allow_eq, depth), [u32(bits)]
+    else:
+        spec, scalars = ("CB", "v", op, depth), [u32(bits), u32(hi_bits)]
+    return _j(jax_tpu._eval_spec(spec, iter([st]), iter(scalars)))
+
+
+@pytest.mark.parametrize("depth", COMPARE_DEPTHS)
+@pytest.mark.parametrize("kind", ["compare", "between"])
+def test_bsi_compare_equals_jax_eval_spec(depth, kind):
+    """K10 through its wrapper on CPU tensors (the plain form) equals the
+    JAX count program's C and CB nodes, every op, sign and class."""
+    st = _bsi_stack(depth * 31 + 7, 3, depth, w=8)
+    t = _t(st)
+    for op, neg, allow_eq, bits, hi_bits in _compare_cases(depth, depth):
+        if (hi_bits is None) != (kind == "compare"):
+            continue
+        got = K.bsi_compare(t, depth, op, bits, neg=neg, allow_eq=allow_eq, hi_bits=hi_bits)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (3, 8)
+        want = _jax_node(st, depth, op, neg, allow_eq, bits, hi_bits)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want,
+                                      err_msg=f"{op} neg={neg} eq={allow_eq}")
+
+
+def _run_plan(stack, depth, plan):
+    """The CUDA K10's walk in torch ops (bitcount.cu bsi_compare_kernel):
+    the host's action table (K.compare_plan) run one plane at a time."""
+    mode, start_a, start_b, extra, neq, ops = plan
+    exists, sign, planes = K._bsi_slabs(stack, depth)
+    slabs = [torch.zeros_like(exists), exists & ~sign, exists & sign, exists]
+    w = {"fa": slabs[start_a], "ka": slabs[0], "fb": slabs[start_b], "kb": slabs[0]}
+
+    def step(op, f, k, p):
+        fv, kv = w[f], w[k]
+        if op == K.OP_F_ANDNOT_P:
+            w[f] = fv & ~p
+        elif op == K.OP_F_AND_P:
+            w[f] = fv & p
+        elif op == K.OP_K_OR_F_P:
+            w[k] = kv | (fv & p)
+        elif op == K.OP_K_OR_F_NP:
+            w[k] = kv | (fv & ~p)
+        elif op == K.OP_F_AND_P_K:
+            w[f] = fv & (p | kv)
+        elif op == K.OP_F_AND_NP_K:
+            w[f] = fv & (~p | kv)
+        elif op == K.OP_F_TAKE_K:
+            w[f] = kv
+
+    for p in range(depth - 1, -1, -1):
+        step(ops[p] & 7, "fa", "ka", planes[p])
+        if mode == K.MODE_BETWEEN:
+            step(ops[p] >> 3, "fa", "kb", planes[p])
+        elif mode == K.MODE_TWO:
+            step(ops[p] >> 3, "fb", "kb", planes[p])
+    if neq:
+        return slabs[extra] & ~w["fa"]
+    return w["fa"] | w["fb"] | slabs[extra]
+
+
+@pytest.mark.parametrize("depth", [0] + COMPARE_DEPTHS)
+def test_compare_plan_walk_equals_plain(depth):
+    """The action table the CUDA K10 runs (compare_plan), walked in torch
+    ops as the kernel walks it, equals the plain form: every op, sign and
+    class, the strict-<0 fix and the early returns of the last plane."""
+    t = _t(_bsi_stack(depth * 17 + 3, 3, depth, w=8))
+    cases = _compare_cases(depth, depth + 100) if depth else [
+        (op, neg, eq, (), hi) for op in ("==", "!=", "<", ">", "pos", "neg", "mixed")
+        for neg in (False, True) for eq in (False, True)
+        for hi in ([()] if op in K.BETWEEN_CLASSES else [None])]
+    for op, neg, allow_eq, bits, hi_bits in cases:
+        plan = K.compare_plan(depth, op, bits, neg, allow_eq, hi_bits)
+        assert len(plan[5]) == depth and all(0 <= o < 64 for o in plan[5])
+        want = K.bsi_compare_torch(t, depth, op, bits, neg, allow_eq, hi_bits)
+        assert torch.equal(_run_plan(t, depth, plan), want), (op, neg, allow_eq, bits, hi_bits)
+
+
+def test_port_reexports_the_range_helpers():
+    for name in ("_lt_unsigned", "_gt_unsigned", "_between_unsigned", "_eq_slab", "_bsi_slabs"):
+        assert getattr(port, name) is getattr(K, name)
 
 
 # ---------------------------------------------------------------------------

@@ -328,10 +328,14 @@ def test_row_popcounts_equals_plain(card, s, r, row0, n_rows, m, w):
     assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
 
 
+# (S, depth, filtered, W): the served depth, depths 1 and 63, no planes;
+# word axes the shard's cluster of 8 blocks splits unevenly (36 and 1000
+# words: the last blocks own fewer words, or none) or leaves to one block (4).
 @pytest.mark.parametrize("kind", ["min", "max"])
 @pytest.mark.parametrize("s,depth,filtered,w", [(3, 14, False, W), (4, 14, True, W),
                                                 (2, 1, True, W), (3, 63, False, W),
-                                                (3, 5, True, 36), (1, 0, False, W)])
+                                                (3, 5, True, 36), (1, 0, False, W),
+                                                (3, 14, True, 1000), (3, 14, False, 4)])
 def test_bsi_minmax_equals_plain(card, kind, s, depth, filtered, w):
     rng = np.random.default_rng(s * 1000 + depth + w)
     st = _bsi_words(rng, s, depth, w)
@@ -346,6 +350,75 @@ def test_bsi_minmax_equals_plain(card, kind, s, depth, filtered, w):
     torch.cuda.synchronize()
     assert K.launch_counts()["bsi_minmax"] == before + 1
     assert torch.equal(got.cpu(), K.bsi_minmax_torch(cpu, depth, fc, kind))
+
+
+def _compare_conditions(depth):
+    """(op, neg, allow_eq, value, hi) of every comparison, both signs, and
+    every between class, at predicates 0, all ones and bit depth - 1 alone."""
+    top = (1 << depth) - 1
+    values = sorted({0, top, 1 << (depth - 1)})
+    out = [(op, neg, eq, v, None) for v in values for op in ("==", "!=", "<", ">")
+           for neg in (False, True) for eq in ((False, True) if op in "<>" else (False,))]
+    for lo in values:
+        for hi in values:
+            if lo <= hi:
+                out += [("pos", False, False, lo, hi), ("neg", False, False, hi, lo)]
+            out.append(("mixed", False, False, lo, hi))
+    return out
+
+
+@pytest.mark.parametrize("s,depth,w", [(3, 1, W), (4, 14, W), (3, 63, W), (3, 14, 36),
+                                       (2, 5, 1000)])
+def test_bsi_compare_equals_plain(card, s, depth, w):
+    """K10 at the edge shapes: every op, sign and between class, an
+    all-negative and an empty shard (S >= 3), one launch a condition."""
+    from pilosa_tpu_torch.exec.cuda import _pred_bits
+
+    rng = np.random.default_rng(s * 77 + depth + w)
+    dev = stack_from_reference(_bsi_words(rng, s, depth, w), card)
+    for op, neg, eq, v, hi in _compare_conditions(depth):
+        bits = _pred_bits(v, depth)
+        hb = None if hi is None else _pred_bits(hi, depth)
+        before = K.launch_counts()["bsi_compare"]
+        got = K.bsi_compare(dev, depth, op, bits, neg=neg, allow_eq=eq, hi_bits=hb)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["bsi_compare"] == before + 1
+        # The plain form's torch ops on the same card.
+        want = K.bsi_compare_torch(dev, depth, op, bits, neg, eq, hb)
+        assert got.device.type == "cuda" and torch.equal(got, want), (op, neg, eq, v, hi)
+
+
+def test_backend_condition_counts_on_card_match_cpu_oracle(card):
+    """Each BSI condition node of a Count runs as one K10 launch, and the
+    Count as one K3, answering what the CPU oracle does."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.field import options_for_int
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(9)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 4000, dtype=np.uint64))
+    vals = rng.integers(-9000, 9001, cols.size)
+    idx.create_field("v", options_for_int(-10000, 10000)).import_value(cols, vals)
+    dev = Executor(h, backend=CUDABackend(h))
+    cpu = Executor(h, backend=CPUBackend(h))
+    x = int(vals[7])
+    for q, nodes in [("Count(Row(v > 100))", 1), ("Count(Row(v >= -100))", 1),
+                     ("Count(Row(v < -8990))", 1), ("Count(Row(v <= 0))", 1),
+                     (f"Count(Row(v == {x}))", 1), (f"Count(Row(v != {x}))", 1),
+                     ("Count(Row(v >< [-50, 50]))", 1), ("Count(Row(v >< [10, 5000]))", 1),
+                     ("Count(Row(v >< [-5000, -10]))", 1),
+                     ("Count(Intersect(Row(v > -3000), Row(v < 3000)))", 2),
+                     ("Count(Row(v != null))", 0)]:
+        K.reset_launch_counts()
+        assert dev.execute("i", q) == cpu.execute("i", q), q
+        counts = K.launch_counts()
+        assert counts["bsi_compare"] == nodes and counts["popcount_rows"] == 1, (q, counts)
+    h.close()
 
 
 def test_backend_bsi_and_topn_on_card_match_cpu_oracle(card):

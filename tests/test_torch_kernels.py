@@ -191,6 +191,23 @@ def test_row_popcounts_and_bsi_minmax_reject_bad_inputs():
         K.bsi_minmax(x, 2, None, "sum")
 
 
+def test_bsi_compare_rejects_bad_inputs():
+    x = torch.zeros((2, 8, 64), dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs 9 rows"):
+        K.bsi_compare(x, 7, "==", (0,) * 7)
+    with pytest.raises(ValueError, match="unknown condition"):
+        K.bsi_compare(x, 2, "<=", (0, 1))
+    with pytest.raises(ValueError, match="needs 3 bits"):
+        K.bsi_compare(x, 3, ">", (0, 1))
+    with pytest.raises(ValueError, match="needs 2 bits"):
+        K.bsi_compare(x, 2, "mixed", (0, 1))  # a between without its high bound
+    deep = torch.zeros((1, 2 + 64, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 63 planes"):
+        K.bsi_compare(deep, 64, "==", (0,) * 64)
+    with pytest.raises(TypeError):
+        K.bsi_compare(x.to(torch.int64), 2, "==", (0, 1))
+
+
 def test_cpu_calls_launch_nothing():
     K.reset_launch_counts()
     x = torch.zeros((2, 8, 64), dtype=torch.int32)
@@ -203,11 +220,12 @@ def test_cpu_calls_launch_nothing():
     K.nary_stats_pershard(x, x, (x,))
     K.row_popcounts(x, 1, 3, (x[:, 0].contiguous(),))
     K.bsi_minmax(x, 4, x[:, 1].contiguous(), "max")
+    K.bsi_compare(x, 4, "<", (1, 0, 1, 0), allow_eq=True)
     assert K.launch_counts() == {
         "pair_stats_pershard": 0, "pair_stats": 0, "popcount_rows": 0,
         "group_tile_stats": 0, "group_tile_stats_pershard": 0,
         "nary_stats": 0, "nary_stats_pershard": 0,
-        "row_popcounts": 0, "bsi_minmax": 0,
+        "row_popcounts": 0, "bsi_minmax": 0, "bsi_compare": 0,
     }
 
 
