@@ -15,7 +15,8 @@ chip_smoke.py to time it).
 1. card: prints the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, and the kernel build seconds with ptxas's report
    (ops/csrc/bmma.cu: K1, K2 and K4 to K7 on the tensor cores' binary MMA,
-   and the probe; ops/csrc/bitcount.cu: K3, K8, K9 and K10);
+   and the probe; ops/csrc/bitcount.cu: K3, K8, K9 and K10;
+   ops/csrc/spec.cu: K11);
    then the AND-popcount rate probe (ops/csrc/bmma.cu, ops/probe.py): the
    b1 tensor-core MMA's and the CUDA cores' popcount rates in bit-products
    a second, which set the kernels' operations bounds;
@@ -23,9 +24,12 @@ chip_smoke.py to time it).
    of 2^20 columns, 8 rows, bit density 0.05, the content of bench.py's
    build_index) built through the port's Holder / Field.import_bits and
    queried through Executor(holder, backend=CUDABackend(holder)): single
-   Count(Intersect|Union|Difference|Xor(Row, Row)) calls (popcount kernel),
-   one request of 16 fused Counts (per-shard pair kernel: cold, cached, and
-   with its pair-cache entry dropped, profiled) and Row(f=2);
+   Count(Intersect|Union|Difference|Xor(Row, Row)) calls, a 3-leaf Not and
+   a 3-row Count (each one K11 launch and nothing else), the batched count
+   path over 8 and 64 distinct 3-row Counts (one K11 launch each, equal to
+   the single Counts), one request of 16 fused Counts (per-shard pair
+   kernel: cold, cached, and with its pair-cache entry dropped, profiled)
+   and Row(f=2) (K11 in slab mode);
    then a 256 x 256-row field pair over 128 shards, whose per-shard pair
    table is past the retention gate, so it takes the shard-summed pair
    kernel (the binary GEMM on the tensor cores), cold and then with the
@@ -49,12 +53,12 @@ chip_smoke.py to time it).
 3b. TopN, Rows and the BSI plane on the same index, with bench.py's BSI
    field v (build_bsi_field: up to 50 values a shard in [-9000, 9000],
    bit depth 14): TopN(f, n=5), TopN(f) and Rows(f) against the Count of
-   each row (K3), TopN(f, Row(g=7), n=3) against the Counts of the rows'
+   each row (K11), TopN(f, Row(g=7), n=3) against the Counts of the rows'
    Intersects, Rows(g, previous=2, limit=3), GroupBy(Rows(f)) from the
    TopN table, Sum, Min and Max of v and five BSI-condition Counts against
    numpy over the imported values; the launches of each request (an
    uncached TopN launches K8 once, Sum K8 and K3 once each, Min and Max
-   K9 once, a condition Count K10 and K3 once each), its median wall time
+   K9 once, a condition Count K10 and K11 once each), its median wall time
    with the TopN and aggregate caches dropped and cached, uncached Min and
    Max broken into the backend's profile phases (launch, readback, host
    reduce), and the device profiles of TopN(f), Sum, Min and
@@ -66,17 +70,25 @@ chip_smoke.py to time it).
    GroupBys, TopN(f, n=5) and Sum(field=v) sent as JSON and as protobuf,
    each answer byte-identical to the in-process executor's encoded the
    same way, with the pair, GroupBy, TopN and aggregate caches dropped
-   first so that each request launches what its route should (K3, K1, K2,
-   K5 with K3, K4 with K3, K8, K8 with K3); one HTTP Count profiled
-   (wall and device time); then requests/s and p50/p99 latency under 1, 4
-   and 16 concurrent clients (the Count) and 1 and 4 (the pair request
-   and the 3-field GroupBy), each client a thread with its own keep-alive
-   connection in a process of its own, every answer checked, and the
-   Count without HTTP (threads calling Executor.execute) at 1 and 4; a
-   4-client window in which every request drops the pair, agg and groupn
-   caches first while a writer toggles one bit of f with Set/Clear, each
-   answer equal to the single-threaded answer of one of the two epochs,
-   with its launches per request; the device block of /debug/diagnostics;
+   first so that each request launches what its route should (K11, K1,
+   K2, K5 with K3, K4 with K3, K8, K8 with K3); one HTTP Count profiled
+   (wall and device time); then requests/s and p50/p99 latency, each
+   client a thread with its own keep-alive connection in a process of its
+   own, every answer checked, with the launches, batch legs, device
+   programs and mean batch occupancy of each window: the Count under 1, 4
+   and 16 clients without the batcher; then wired as `cli server` wires
+   it, with the shard-leg batcher (a batched Count launches the pair
+   sweep, a batched 3-row Count K11), the Count at 1, 4 and 16, 3-row
+   Counts at 16, the pair request and the 3-field GroupBy at 1 and 4, and
+   a 4-client window in which every request drops the pair, agg and
+   groupn caches first while a writer toggles one bit of f with
+   Set/Clear, each answer equal to the single-threaded answer of one of
+   the two epochs; then with the result cache on too, the Count at 1 and
+   16 (cache hits) and the same Set/Clear window; then the Count and
+   3-row Counts without HTTP (threads calling Executor.execute) at 1, 4
+   and 16 threads, without and with the batcher; no batch dispatch error
+   and no request routed to the host; the device block of
+   /debug/diagnostics;
    and the CLI's server (`python -m pilosa_tpu_torch.cli server`) booted
    as a process on a 4-shard on-disk index that `cli import` loads, its Count,
    Row and GroupBy over HTTP equal to the in-process executor's over the
@@ -101,7 +113,12 @@ chip_smoke.py to time it).
    and v >< [-50, 50], each also at edge shapes (K8: 0, 1 and 2 masks,
    row0 > 0; K9: depths 1, 14 and 63, an all-negative, an empty and a
    filtered-out shard; K10: every op, sign and between class at depths 1,
-   14 and 63, predicates 0, all ones and bit depth - 1);
+   14 and 63, predicates 0, all ones and bit depth - 1); K11 at the served
+   shapes (the Count's two leaves, the 3-leaf Not, 8 and 64 distinct
+   3-row slots, Row(f=2)'s slab) with its times and bound, and at edge
+   shapes (S = 1, word axes off its chunk, the full leaf table and stack,
+   zero leaves, per-slot rows past the launch's parameters) in both
+   modes;
 6. a small holder with an existence field and a YMDH time field: the
    whole Count/Row/Not/All/time-range query list through two write-churn
    epochs, checked against the CPU
@@ -181,8 +198,10 @@ REPLACES = {
     # The C and CB nodes of the count and vec programs' _eval_spec (the
     # range helpers at :1113-1202), fused by XLA.
     "bsi_compare": "pilosa_tpu/exec/tpu.py:1243",
+    # The fused count, count_batch and vec_batch programs (and vec, :2084).
+    "spec_eval": "pilosa_tpu/exec/tpu.py:2070, :2091, :2116",
 }
-COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "popcount_rows")
+COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "spec_eval")
 # Each kernel's earlier time at the shape timed here, recorded by this
 # script on an NVIDIA H100 80GB HBM3 at 700.00 W on the CUDA cores: K2 and
 # K4 before they moved to the tensor cores, K1 and K5 before they followed
@@ -389,6 +408,45 @@ def bare_bsi_compare(stack, depth, op, bits, neg=False, allow_eq=False, hi_bits=
     return launch
 
 
+def bare_spec_eval(ops, leaves, rows, mode):
+    """K11's bare launch: its leaf table, per-slot rows and output staged
+    once (count mode's launch zeroes its output on the stream, as the
+    wrapper's does)."""
+    import ctypes
+
+    import torch
+
+    from pilosa_tpu_torch.ops import build
+    from pilosa_tpu_torch.ops import kernels as K
+
+    lib = build.library(K._LIBRARY["spec_eval"])
+    n, q = len(leaves), len(rows)
+    s, w = leaves[0].shape[0], leaves[0].shape[-1]
+    bases = (ctypes.c_void_p * n)(*[t.data_ptr() for t in leaves])
+    strides = (ctypes.c_longlong * n)(*[(t.shape[1] if t.dim() == 3 else 1) * (w // 4)
+                                        for t in leaves])
+    prog = (ctypes.c_uint8 * len(ops))(*ops)
+    flat = [r for slot in rows for r in slot]
+    rows_host = (ctypes.c_int * len(flat))(*flat)
+    dev = leaves[0].device
+    rows_dev = (torch.tensor(flat, dtype=torch.int32, device=dev)
+                if len(flat) > K.SPEC_INLINE_ROWS else None)
+    out = torch.empty((q, s) if mode == "count" else (q, s, w), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        rc = lib.spec_eval_launch(
+            ctypes.addressof(bases), ctypes.addressof(strides), ctypes.addressof(prog),
+            len(ops), n, ctypes.addressof(rows_host),
+            None if rows_dev is None else rows_dev.data_ptr(),
+            out.data_ptr() if mode == "count" else None,
+            out.data_ptr() if mode == "slab" else None,
+            0 if mode == "count" else 1, q, s, w, stream)
+        check(rc == 0, f"spec_eval: CUDA launch failed with cudaError {rc}")
+
+    return launch
+
+
 def device_share(fn, label: str, n: int = 10, warm: int = 3) -> None:
     """Profile n calls of fn with torch.profiler: wall ms per call, device
     kernel ms per call and the device's busy share, and the kernels that
@@ -591,6 +649,11 @@ def phase_main(results: dict):
         f"Row(b={(101 * k + 5) % WIDE_ROWS})))"
         for k in range(16)
     )
+    # K11 beyond the pair Count: the existence row ANDNOT a pair (the bench
+    # index tracks existence but imports none, as bench.py's does) and a
+    # 3-row Count, which no pair plan serves.
+    not3 = "Count(Not(Intersect(Row(f=1), Row(g=2))))"
+    three_row = "Count(Intersect(Row(f=1), Row(g=2), Row(h=3)))"
 
     K.reset_launch_counts()
     latencies = {}
@@ -601,7 +664,7 @@ def phase_main(results: dict):
     log(f"main: first query (stack build + upload) seconds "
         f"{time.perf_counter() - t0:.2f}; resident stack bytes "
         f"{backend.blocks.resident_bytes()}")
-    for q in singles + ["Row(f=2)"]:
+    for q in singles + ["Row(f=2)", not3, three_row]:
         first, med, out = host_ms(lambda q=q: dev.execute("bench", q))
         latencies[q] = {"first_ms": first, "median_ms": med}
         answers[q] = out
@@ -620,6 +683,23 @@ def phase_main(results: dict):
 
     launches_of("single Count", lambda: dev.execute("bench", singles[0]))
     launches_of("Row(f=2)", lambda: dev.execute("bench", "Row(f=2)"))
+    launches_of("3-leaf Not Count", lambda: dev.execute("bench", not3))
+    launches_of("3-row Count", lambda: dev.execute("bench", three_row))
+    # The batched count path over Q distinct 3-row Counts: one K11 launch.
+    from pilosa_tpu_torch.pql import parse_string
+
+    combos = [(a, b, c) for a in range(ROWS) for b in range(ROWS) for c in range(H_ROWS)]
+    for q_slots in (8, 64):
+        picks = combos[:: len(combos) // q_slots][:q_slots]
+        calls = [parse_string(f"Intersect(Row(f={a}), Row(g={b}), Row(h={c}))").calls[0]
+                 for a, b, c in picks]
+        _, got = launches_of(f"count batch of {q_slots} 3-row Counts",
+                             lambda: backend.count_batch("bench", calls, list(range(SHARDS))))
+        want_counts = [dev.execute("bench", f"Count({c})")[0] for c in
+                       (f"Intersect(Row(f={a}), Row(g={b}), Row(h={c}))" for a, b, c in picks)]
+        check(got == want_counts, f"main: the {q_slots}-slot count batch disagrees with "
+              "its single Counts")
+        answers[f"batch{q_slots}"] = got
     sweeps0 = global_stats.counter_totals("pair_stats_sweeps_total")
     first, answers[pair_request] = launches_of(
         "16-Count request, uncached", lambda: dev.execute("bench", pair_request))
@@ -656,8 +736,12 @@ def phase_main(results: dict):
     launches = K.launch_counts()
     log("main: launches per request " + json.dumps(per_request))
     want = {
-        "single Count": {"popcount_rows": 1},
-        "Row(f=2)": {},
+        "single Count": {"spec_eval": 1},
+        "Row(f=2)": {"spec_eval": 1},
+        "3-leaf Not Count": {"spec_eval": 1},
+        "3-row Count": {"spec_eval": 1},
+        "count batch of 8 3-row Counts": {"spec_eval": 1},
+        "count batch of 64 3-row Counts": {"spec_eval": 1},
         "16-Count request, uncached": {"pair_stats_pershard": 1},
         "16-Count request, cached": {},
         "16-Count request, cache entry dropped": {"pair_stats_pershard": 1},
@@ -673,7 +757,7 @@ def phase_main(results: dict):
     for name in COUNT_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
 
-    for q in singles + ["Row(f=2)", pair_request]:
+    for q in singles + ["Row(f=2)", pair_request, not3, three_row]:
         t0 = time.perf_counter()
         want = oracle.execute("bench", q)
         check(same_answers(answers[q], want), f"main: {q[:60]} disagrees with the oracle")
@@ -687,10 +771,13 @@ def phase_main(results: dict):
           "main: a query was routed to the CPU oracle")
     log("main: answers " + json.dumps(
         {q[:40]: [r if isinstance(r, int) else int(r.count()) for r in answers[q]]
-         for q in singles + ["Row(f=2)"]}))
+         for q in singles + ["Row(f=2)", not3, three_row, "batch8"]}))
     log_routed("main")
 
     results["launches"] = launches
+    # The 3-leaf Not's existence stack, for K11's served shapes.
+    results["exists"], _ = backend.blocks.get(
+        "bench", holder.index("bench").existence_field(), tuple(range(SHARDS)))
     a_stack, _ = backend.blocks.get("wide", holder.index("wide").field("a"),
                                     tuple(range(WIDE_SHARDS)))
     b_stack, _ = backend.blocks.get("wide", holder.index("wide").field("b"),
@@ -778,10 +865,11 @@ def phase_groupby(holder, backend):
     log("groupby: launches " + json.dumps(launches))
     want = {
         "GroupBy(Rows(f))": {"row_popcounts": 1},  # the TopN rank vector
-        "GroupBy(Rows(f), Rows(g), filter=Row(f=2))": {"pair_stats": 1},
+        # A filter is one K11 launch in slab mode.
+        "GroupBy(Rows(f), Rows(g), filter=Row(f=2))": {"pair_stats": 1, "spec_eval": 1},
         "3-field, cold": {"popcount_rows": 1, "group_tile_stats_pershard": 1},
         "3-field, warm": {},
-        "3-field filtered": {"popcount_rows": 1, "group_tile_stats": 1},
+        "3-field filtered": {"popcount_rows": 1, "group_tile_stats": 1, "spec_eval": 1},
         "3-field limit/offset": {},
     }
     for label, expect in want.items():
@@ -936,18 +1024,18 @@ def phase_bsi(holder, backend):
     log(f"bsi: first pass {time.perf_counter() - t0:.1f} s (the BSI stack build included)")
     log("bsi: launches per request " + json.dumps(per_request))
     want = {"TopN(f, n=5)": {"row_popcounts": 1}, "TopN(f)": {}, "Rows(f)": {},
-            "TopN(f, Row(g=7), n=3)": {"row_popcounts": 1},
+            "TopN(f, Row(g=7), n=3)": {"row_popcounts": 1, "spec_eval": 1},
             "Rows(g, previous=2, limit=3)": {"row_popcounts": 1}, "GroupBy(Rows(f))": {},
             "Sum(field=v)": {"row_popcounts": 1, "popcount_rows": 1},
             "Min(field=v)": {"bsi_minmax": 1}, "Max(field=v)": {"bsi_minmax": 1}}
-    # A condition is one K10 launch, its Count one K3; v != null reads the
+    # A condition is one K10 launch, its Count one K11; v != null reads the
     # exists row as it is.
-    want.update({q: {"bsi_compare": 1, "popcount_rows": 1} for q in cond_queries})
-    want["Count(Row(v != null))"] = {"popcount_rows": 1}
+    want.update({q: {"bsi_compare": 1, "spec_eval": 1} for q in cond_queries})
+    want["Count(Row(v != null))"] = {"spec_eval": 1}
     for q, expect in want.items():
         check(per_request[q] == expect, f"bsi: {q} launched {per_request[q]}, expected {expect}")
 
-    # TopN, Rows and GroupBy against the Count path (K3, one Count a row).
+    # TopN, Rows and GroupBy against the Count path (K11, one Count a row).
     f_counts = [dev.execute("bench", f"Count(Row(f={r}))")[0] for r in range(ROWS)]
     fg_counts = [dev.execute("bench", f"Count(Intersect(Row(f={r}), Row(g=7)))")[0]
                  for r in range(ROWS)]
@@ -1133,13 +1221,16 @@ def phase_groupby_tiles():
 # client counts of the Count and of the pair and GroupBy requests; then
 # the Count's in-process windows (threads calling Executor.execute, no
 # HTTP), which part the HTTP layer's cost from the executor's.
-HTTP_SECONDS = 3.0
+HTTP_SECONDS = 2.0
 HTTP_COUNT_CLIENTS = (1, 4, 16)
 HTTP_OTHER_CLIENTS = (1, 4)
 # Clients of the window whose every request misses the backend's caches.
 MISS_CLIENTS = 4
-INPROC_SECONDS = 1.5
-INPROC_THREADS = (1, 4)
+# Clients of the windows served from the result cache, and its budget.
+CACHED_CLIENTS = (1, 16)
+RESCACHE_BYTES = 64 << 20
+INPROC_SECONDS = 1.0
+INPROC_THREADS = (1, 4, 16)
 # The CLI's on-disk index: CLI_SHARDS shards, fields f and g of CLI_ROWS
 # rows, CLI_BITS bits a row, imported through `cli import`.
 CLI_SHARDS = 4
@@ -1227,7 +1318,7 @@ def http_load(spec: dict) -> dict:
 
 
 def inproc_load(dev, queries, expected, threads: int, seconds: float) -> dict:
-    """The Count without HTTP: `threads` threads of this process call
+    """Requests without HTTP: `threads` threads of this process call
     dev.execute on `queries` round robin for `seconds`, every answer
     checked against `expected`."""
     def worker(i):
@@ -1239,9 +1330,31 @@ def inproc_load(dev, queries, expected, threads: int, seconds: float) -> dict:
 
         return request
 
-    r = load_window(threads, seconds, worker)
-    r["request"] = "Count, in-process"
-    return r
+    return load_window(threads, seconds, worker)
+
+
+def batch_counters() -> tuple:
+    """(batch legs, device programs, kernel launches, occupancy sum,
+    occupancy count) so far: the batcher's and the backend's counters."""
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    occ = [v for k, v in global_stats.histogram_snapshot().items()
+           if k.startswith("batch_occupancy")]
+    return (sum(global_stats.counter_totals("batch_legs_total").values()),
+            sum(global_stats.counter_totals("device_launches_total").values()),
+            sum(K.launch_counts().values()),
+            sum(v["sum"] for v in occ), sum(v["count"] for v in occ))
+
+
+def batch_delta(before: tuple) -> dict:
+    """What a window added to batch_counters(): legs the batcher took,
+    programs the backend ran (device_launches_total), kernels launched,
+    and the mean legs a coalesced group (batch_occupancy)."""
+    legs, programs, kernels, occ_sum, occ_n = (
+        a - b for a, b in zip(batch_counters(), before))
+    return {"batch_legs": legs, "device_launches": programs, "kernel_launches": kernels,
+            "mean_batch_occupancy": occ_sum / occ_n if occ_n else None}
 
 
 def run_http_load(spec: dict) -> dict:
@@ -1390,13 +1503,17 @@ def wait_for_port(port: int, proc, seconds: float = 90.0) -> None:
 def phase_http(holder, backend, root):
     """The port's HTTP server over the main path's index and backend: the
     slice's requests in JSON and protobuf against the in-process executor,
-    their kernel launches, throughput under concurrent clients, and the
-    CLI's server booted as a process on a small on-disk index."""
+    their kernel launches, throughput under concurrent clients without the
+    batcher, with it and with the result cache too, in-process windows with
+    and without the batcher, and the CLI's server booted as a process on a
+    small on-disk index."""
     import http.client
 
     import torch
 
     from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.batcher import ShardLegBatcher
+    from pilosa_tpu_torch.exec.rescache import ResultCache
     from pilosa_tpu_torch.ops import kernels as K
     from pilosa_tpu_torch.server import API, Server
     from pilosa_tpu_torch.server.wire import QueryRequest, encode_query_response
@@ -1451,11 +1568,12 @@ def phase_http(holder, backend, root):
         log("http: launches per request (JSON, caches dropped) " + json.dumps(per_request))
         log("http: launches " + json.dumps(launches))
         want = {
-            "Count": {"popcount_rows": 1},
+            "Count": {"spec_eval": 1},
             "16-Count pair request": {"pair_stats_pershard": 1},
-            "2-field filtered GroupBy": {"pair_stats": 1},
+            "2-field filtered GroupBy": {"pair_stats": 1, "spec_eval": 1},
             "3-field GroupBy": {"popcount_rows": 1, "group_tile_stats_pershard": 1},
-            "3-field filtered GroupBy": {"popcount_rows": 1, "group_tile_stats": 1},
+            "3-field filtered GroupBy": {"popcount_rows": 1, "group_tile_stats": 1,
+                                         "spec_eval": 1},
             "TopN": {"row_popcounts": 1},
             "Sum": {"row_popcounts": 1, "popcount_rows": 1},
         }
@@ -1473,42 +1591,101 @@ def phase_http(holder, backend, root):
               f"http: /debug/diagnostics device block {inv}")
         log("http: /debug/diagnostics device block " + json.dumps(inv))
 
-        # Throughput: client threads in a process of their own.
+        # Throughput: client threads in a process of their own. First the
+        # server without the batcher (the earlier slices' wiring), then as
+        # `cli server` wires it: the batcher beside the device backend, and
+        # then the result cache too.
         counts = [f"Count(Intersect(Row(f={a}), Row(g={b})))"
                   for a in range(ROWS) for b in range(ROWS)]
+        threes = [f"Count(Intersect(Row(f={a}), Row(g={b}), Row(h={c})))"
+                  for a in range(ROWS) for b in range(ROWS) for c in range(H_ROWS)][::4]
         expected = {q: json_body(dev.execute("bench", q)).decode("latin-1")
-                    for q in counts + [pair_request, three]}
-        windows = ([("Count", counts, n) for n in HTTP_COUNT_CLIENTS]
-                   + [("16-Count pair request", [pair_request], n) for n in HTTP_OTHER_CLIENTS]
-                   + [("3-field GroupBy", [three], n) for n in HTTP_OTHER_CLIENTS])
+                    for q in counts + threes + [pair_request, three]}
         throughput = []
-        for label, qs, n in windows:
-            before = K.launch_counts()
+
+        def window(label, qs, n, wiring):
+            before, bc = K.launch_counts(), batch_counters()
             r = run_http_load({"host": "127.0.0.1", "port": server.port, "path": path,
                                "clients": n, "seconds": HTTP_SECONDS,
                                "queries": [[q, expected[q]] for q in qs]})
             after = K.launch_counts()
             r["request"] = label
+            r["wiring"] = wiring
             r["launches_per_request"] = {k: (after[k] - before[k]) / max(1, r["requests"])
                                          for k in after if after[k] != before[k]}
+            r.update(batch_delta(bc))
             check(r["mismatches"] == 0,
-                  f"http: {r['mismatches']} answers of {label} x{n} disagree")
+                  f"http: {r['mismatches']} answers of {label} x{n} ({wiring}) disagree")
             throughput.append(r)
             log("http: throughput " + json.dumps(r))
-        r = miss_window(server.port, path, backend, dev,
-                        [pair_request, two_filtered, three, three_filtered],
+
+        for n in HTTP_COUNT_CLIENTS:
+            window("Count", counts, n, "no batcher")
+        dev.batcher = ShardLegBatcher(backend)
+        # With the batcher a Count run of one is a count window: the pair
+        # plan serves the pair Count (one K1 sweep with its cache dropped),
+        # K11 the 3-row Count.
+        per_request = {}
+        for label, q in (("Count", north), ("3-row Count", threes[1])):
+            backend._pair_cache.clear()
+            before = K.launch_counts()
+            status, body = http_post(conn, path, q.encode())
+            check(status == 200 and body.decode("latin-1") == expected[q],
+                  f"http: batched {label} disagrees with the in-process executor")
+            per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()
+                                  if v != before[k]}
+        log("http: launches per request with the batcher (caches dropped) "
+            + json.dumps(per_request))
+        want = {"Count": {"pair_stats_pershard": 1}, "3-row Count": {"spec_eval": 1}}
+        check(per_request == want, f"http: batched launches {per_request}, expected {want}")
+        for n in HTTP_COUNT_CLIENTS:
+            window("Count", counts, n, "batcher")
+        window("3-row Count", threes, HTTP_COUNT_CLIENTS[-1], "batcher")
+        for n in HTTP_OTHER_CLIENTS:
+            window("16-Count pair request", [pair_request], n, "batcher")
+        for n in HTTP_OTHER_CLIENTS:
+            window("3-field GroupBy", [three], n, "batcher")
+        miss_queries = [pair_request, two_filtered, three, three_filtered]
+        r = miss_window(server.port, path, backend, dev, miss_queries,
                         toggle_column(holder), MISS_CLIENTS, HTTP_SECONDS)
+        r["wiring"] = "batcher"
         throughput.append(r)
         log("http: throughput " + json.dumps(r))
+        dev.rescache = ResultCache(holder, max_bytes=RESCACHE_BYTES)
+        for n in CACHED_CLIENTS:
+            hits = dev.rescache.hits
+            window("Count, cached", counts, n, "batcher + result cache")
+            check(dev.rescache.hits > hits, "http: the result cache served no hit")
+        r = miss_window(server.port, path, backend, dev, miss_queries,
+                        toggle_column(holder), MISS_CLIENTS, HTTP_SECONDS)
+        r["wiring"] = "batcher + result cache"
+        throughput.append(r)
+        log("http: throughput " + json.dumps(r))
+        log("http: result cache " + json.dumps(
+            {k: v for k, v in dev.rescache.debug_dump().items() if k != "entries"}))
         conn.close()
     finally:
         server.close()
-    answers = {q: dev.execute("bench", q) for q in counts}
-    for n in INPROC_THREADS:
-        r = inproc_load(dev, counts, answers, n, INPROC_SECONDS)
-        check(r["mismatches"] == 0, f"http: {r['mismatches']} in-process Counts x{n} disagree")
-        throughput.append(r)
-        log("http: throughput " + json.dumps(r))
+    errors = sum(global_stats.counter_totals("batch_dispatch_errors_total").values())
+    check(errors == 0, f"http: {errors} batch dispatch errors")
+    dev.batcher = dev.rescache = None
+    answers = {q: dev.execute("bench", q) for q in counts + threes}
+    for batched in (False, True):
+        dev.batcher = ShardLegBatcher(backend) if batched else None
+        for label, qs in (("Count, in-process", counts), ("3-row Count, in-process", threes)):
+            for n in INPROC_THREADS:
+                bc = batch_counters()
+                r = inproc_load(dev, qs, answers, n, INPROC_SECONDS)
+                r["request"] = label
+                r["wiring"] = "batcher" if batched else "no batcher"
+                r.update(batch_delta(bc))
+                check(r["mismatches"] == 0,
+                      f"http: {r['mismatches']} {label} x{n} ({r['wiring']}) disagree")
+                throughput.append(r)
+                log("http: throughput " + json.dumps(r))
+    dev.batcher = None
+    errors = sum(global_stats.counter_totals("batch_dispatch_errors_total").values())
+    check(errors == 0, f"http: {errors} batch dispatch errors")
     check(sum(global_stats.counter_totals("cpu_routed_total").values()) == routed0,
           "http: a request was routed to the CPU oracle")
     log_routed("http")
@@ -1934,6 +2111,100 @@ def phase_bsi_kernels(bsi, launches):
     return lines
 
 
+def spec_work(leaves, rows, mode, n_ops):
+    """(bytes, bit operations) of one K11 call: each distinct leaf row the
+    slots read, once, and the output written once; one bit operation a
+    bit of every binary op and of the popcount."""
+    s, w = leaves[0].shape[0], leaves[0].shape[-1]
+    distinct = {(i if leaves[i].dim() == 3 else ("slab", i), r)
+                for slot in rows for i, r in enumerate(slot) if r >= 0}
+    out = len(rows) * s * (1 if mode == "count" else w) * 4
+    binary = sum(1 for op in n_ops if op >= 0x80)
+    return len(distinct) * s * w * 4 + out, len(rows) * (binary + 1) * s * w * 32
+
+
+def phase_spec_kernels(gstacks, exists, launches):
+    """K11 against its plain form on the card, exactly: at the served
+    shapes (the single Count's two leaves, the 3-leaf Not over the
+    existence stack, 3-row Counts over 8 and 64 distinct slots, and
+    Row(f=2)'s slab) with its times and bound, and at edge shapes (S = 1,
+    word axes off the block's chunk, the full leaf table and stack, zero
+    leaves, per-slot rows past the launch's parameters)."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+
+    f, g, h = gstacks["f"], gstacks["g"], gstacks["h"]
+    combos = [(a, b, c) for a in range(ROWS) for b in range(ROWS) for c in range(H_ROWS)]
+    three = K.spec_program(("I", (("R", "f"), ("R", "g"), ("R", "h")))).ops
+    served = {
+        "count": (K.spec_program(("I", (("R", "f"), ("R", "g")))).ops, (f, g), [[1, 2]],
+                  "count"),
+        "not3": (K.spec_program(("N", ("I", (("R", "f"), ("R", "g"))))).ops, (exists, f, g),
+                 [[0, 1, 2]], "count"),
+        "q8": (three, (f, g, h), [list(c) for c in combos[::32]], "count"),
+        "q64": (three, (f, g, h), [list(c) for c in combos[::4]], "count"),
+        "slab": ((0,), (f,), [[2]], "slab"),
+    }
+    out = {}
+    for label, (ops, leaves, rows, mode) in served.items():
+        got = K.spec_eval(ops, leaves, rows, mode)
+        err = max_abs_err(got, K.spec_eval_torch(ops, leaves, rows, mode))
+        check(err == 0, f"spec_eval differs at the served shape {label}")
+        del got
+        ms = time_ms(lambda: K.spec_eval(ops, leaves, rows, mode))
+        k_ms = kernel_ms(bare_spec_eval(ops, leaves, rows, mode))
+        plain_ms = time_ms(lambda: K.spec_eval_torch(ops, leaves, rows, mode), reps=1, warm=0)
+        bound, by, route = kernel_bound(spec_work(leaves, rows, mode, ops))
+        out[label] = {"slots": len(rows), "leaves": len(leaves), "mode": mode, "ms": ms,
+                      "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "max_abs_err": err}
+        log(f"kernels: spec_eval {label} ({len(rows)} slots, {len(leaves)} leaves, {mode}): "
+            f"{ms:.4f} ms, kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms by {by}, exact")
+    dev = f.device
+    rng = np.random.default_rng(11)
+
+    def words(*shape):
+        x = rng.integers(0, 2**32, shape, dtype=np.uint32)
+        return torch.from_numpy(x.view(np.int32)).to(dev)
+
+    ops_cycle = (K.SPEC_AND, K.SPEC_OR, K.SPEC_ANDNOT, K.SPEC_XOR)
+    n_edge = 0
+    for s, w, n_leaves, q in [(1, 32768, 2, 1), (3, 36, 3, 5), (2, 100, K.MAX_SPEC_DEPTH, 3),
+                              (2, 32768, K.MAX_SPEC_LEAVES, 20), (1, 32768, 1, 300),
+                              (4, 1028, 5, 64)]:
+        leaves = [words(s, w) if i % 3 == 2 else words(s, 8 if i % 3 == 0 else 16, w)
+                  for i in range(n_leaves)]
+        ops, depth = [], 0
+        for i in range(n_leaves):  # the deepest stack first, then every op
+            ops.append(i)
+            depth += 1
+            if depth == K.MAX_SPEC_DEPTH or (i >= K.MAX_SPEC_DEPTH and depth > 1):
+                ops.append(ops_cycle[len(ops) % 4])
+                depth -= 1
+        while depth > 1:
+            ops.append(ops_cycle[len(ops) % 4])
+            depth -= 1
+        rows = [[-1 if rng.random() < 0.2 else
+                 int(rng.integers(0, t.shape[1] if t.dim() == 3 else 1)) for t in leaves]
+                for _ in range(q)]
+        for mode in ("count", "slab"):
+            err = max_abs_err(K.spec_eval(ops, leaves, rows, mode),
+                              K.spec_eval_torch(ops, leaves, rows, mode))
+            check(err == 0, f"spec_eval differs at S={s} W={w} leaves={n_leaves} Q={q} {mode}")
+            n_edge += 1
+    torch.cuda.synchronize()
+    log(f"kernels: spec_eval exact at {n_edge} edge shapes and modes")
+    main = out.pop("count")
+    line = kernel_line("spec_eval", main["ms"], main["kernel_ms"], main["plain_ms"],
+                       spec_work((f, g), [[1, 2]], "count", served["count"][0]),
+                       main["max_abs_err"], launches["spec_eval"])
+    line["served_shapes"] = out
+    return [line]
+
+
 def phase_kernels(gstacks, wide_stacks, launches):
     import torch
 
@@ -2037,7 +2308,8 @@ def phase_kernels(gstacks, wide_stacks, launches):
                              probe.pair_work(s, rf, rg, w, True), err,
                              launches["pair_stats_pershard"]))
 
-    # The count program's slab: Intersect(Row(f=1), Row(g=2)) over all shards.
+    # A [954, 32768] slab, the shape of Sum's considered columns (and of the
+    # count program's slab, which K11 now popcounts itself).
     slab = (f[:, 1, :] & g[:, 2, :]).contiguous()
     err = max_abs_err(K.popcount_rows(slab), K.popcount_rows_torch(slab))
     check(err == 0, "popcount_rows differs on the main path's slab")
@@ -2260,8 +2532,11 @@ def main(argv=None) -> int:
         launches[name] = cross[name]
     for name in ("row_popcounts", "bsi_minmax", "bsi_compare"):
         launches[name] = bsi_launches[name]
+    # K3 left the Count path for K11; GroupBy's live-row counts launch it.
+    launches["popcount_rows"] = group_launches["popcount_rows"]
     lines = phase_kernels(gstacks, wide_stacks, launches)
     lines += phase_bsi_kernels(bsi_stacks, launches)
+    lines += phase_spec_kernels(gstacks, results.pop("exists"), launches)
     del gstacks, wide_stacks, bsi_stacks
     phase_small()
     log_routed("small")

@@ -20,8 +20,6 @@ _ROADMAP = "ROADMAP.md, queue 1"
 #: so any value but the default is refused at startup, never ignored.
 #: heat-half-life alone is accepted and inert (ROADMAP.md).
 _UNREAD_SETTINGS = {
-    "batch-window": ("batch_window", "the Count batcher"),
-    "max-staleness": ("max_staleness", "the result cache"),
     # Over-budget fields would be answered by the CPU oracle until row
     # paging is ported; the server never moves a field off the card.
     "max-hbm-bytes": ("max_hbm_bytes", "row paging of fields over the device budget"),
@@ -62,8 +60,6 @@ def _unported_knobs(cfg, args) -> list[str]:
     ]
     if cfg.executor not in ("cuda", "cpu"):
         out.append(f"executor={cfg.executor!r}: choose cuda or cpu")
-    if cfg.cache_enabled and cfg.max_result_cache_bytes > 0:
-        out.append("max-result-cache-bytes: the result cache is not ported yet")
     if cfg.preheat:
         out.append("preheat: stack preheating is not ported yet")
     if cfg.refresh_window_ms > 0:
@@ -150,6 +146,27 @@ def cmd_server(args) -> int:
     executor = Executor(
         holder, backend=backend if backend is not None else CPUBackend(holder)
     )
+    if backend is not None:
+        # Cross-request batching of device legs (exec/batcher.py); the CPU
+        # oracle gets none, as in the reference.
+        from pilosa_tpu_torch.exec.batcher import ShardLegBatcher
+
+        executor.batcher = ShardLegBatcher(backend, window=cfg.batch_window)
+    # Epoch-tagged result cache (exec/rescache.py): serve hot terminal
+    # answers from memory while their epoch vector matches. 0 bytes =
+    # disabled; cache-enabled=false keeps it out even with a budget set.
+    if cfg.cache_enabled and cfg.max_result_cache_bytes > 0:
+        from pilosa_tpu_torch.exec.rescache import ResultCache
+
+        executor.rescache = ResultCache(
+            holder,
+            max_bytes=cfg.max_result_cache_bytes,
+            max_staleness=cfg.max_staleness,
+        )
+        log.printf(
+            "result cache: %.1f MiB budget, max-staleness=%d",
+            cfg.max_result_cache_bytes / (1 << 20), cfg.max_staleness,
+        )
     executor.logger = log
     if cfg.long_query_time > 0:
         executor.long_query_time = cfg.long_query_time

@@ -7,15 +7,16 @@ The counterpart of the JAX package's TPUBackend:
   the view's generation moves. A write epoch that dirtied few shards
   re-packs only those shards and splices them into the resident stack in
   place (``index_copy_``).
-- A bitmap call tree becomes torch bitwise ops over [S, W] slabs:
-  ``index_select`` gathers the rows, then ``&``, ``|``, ``^`` and ``~``; a
-  time range unions its quantum views' rows, ``Shift`` moves the bits up
-  within each shard, and a BSI condition (``Row(v > 3)``, ``v >< [a, b]``)
-  is one launch of the hand-written kernel K10 (ops/kernels.py
-  bsi_compare), which walks the field's BSI planes once with the
-  predicate's bits resolved on the host (``v != null`` is the exists row).
-  The per-shard popcount is the hand-written kernel K3 (ops/kernels.py
-  popcount_rows).
+- A bitmap call tree is compiled into a postfix program over leaf rows
+  (ops/kernels.py spec_program) and evaluated by the hand-written kernel
+  K11 (spec_eval): the Count's per-shard popcounts, or the call's [S, W]
+  slab for ``Row`` and filters, in one launch, for one query slot or for a
+  window of them (count_batch_async, row_batch_async). A time range ORs its
+  quantum views' rows; a BSI condition (``Row(v > 3)``, ``v >< [a, b]``) is
+  first one launch of K10 (ops/kernels.py bsi_compare), which walks the
+  field's BSI planes once with the predicate's bits resolved on the host,
+  and ``Shift`` moves its child's bits up within each shard: both become
+  slab leaves of K11 (``v != null`` is the exists row).
 - A request of several Counts over one field pair is planned onto one sweep
   of K1 (pair_stats_pershard), or of K2 (pair_stats) when the per-shard
   table is too big to keep; the host derives every verb from the pair
@@ -79,6 +80,9 @@ from pilosa_tpu_torch.ops.kernels import (  # noqa: F401 (the range helpers are 
     pair_stats_pershard,
     popcount_rows,
     row_popcounts,
+    spec_eval,
+    spec_leaf_rows,
+    spec_program,
     split_minmax,
 )
 from pilosa_tpu_torch.pql.ast import (
@@ -96,6 +100,11 @@ _DEVICE_LOWERED = ("Row", "Range", "Union", "Intersect", "Difference", "Xor", "N
 # Pair-stats host cache bound: entries may hold in-flight device tables, so
 # the LRU cap keeps many-field indexes from pinning device memory.
 MAX_PAIR_CACHE_ENTRIES = 16
+
+# Device-memory cap for one batched row launch's [Q, S, W] output: a row
+# group whose distinct slots would exceed it splits into several launches
+# (the JAX package's MAX_ROW_BATCH_BYTES).
+MAX_ROW_BATCH_BYTES = 256 << 20
 
 # Host-side cap on one GroupBy result tensor's cells (live_K * Rf * Rg).
 # Bounds the aggregate-cache charge and the enumeration working set;
@@ -361,9 +370,11 @@ def _take_row(block, row, mask):
 
 
 def _eval_spec(spec, blocks_it, scalars_it) -> torch.Tensor:
-    """Evaluate a spec tree over [S, W] int32 slabs (the JAX package's
-    _eval_spec, pilosa_tpu/exec/tpu.py:1204). Both iterators are consumed
-    in the exact order _build emitted them."""
+    """Evaluate a spec tree over [S, W] int32 slabs with torch ops, node by
+    node (the JAX package's _eval_spec, pilosa_tpu/exec/tpu.py:1204). Both
+    iterators are consumed in the exact order _build emitted them. The
+    backend's programs run the tree as one K11 program instead (_spec_run);
+    this walk is the independent reference they are tested against."""
     tag = spec[0]
     if tag == "R":
         block = next(blocks_it)  # [S, R, W]
@@ -669,16 +680,57 @@ class CUDABackend:
     # -- programs ------------------------------------------------------------
 
     def _count_program(self, spec, blocks, scalars) -> torch.Tensor:
-        """Popcount of the evaluated slab: per-shard counts int32[S] (K3),
-        summed on the device in int64, exact for any shard count."""
-        slab = _eval_spec(spec, iter(blocks), iter(scalars)).contiguous()
-        self._launched("count")
-        return popcount_rows(slab).sum(dtype=torch.int64)
+        """Popcount of the evaluated tree: per-shard counts int32[S] (one
+        K11 launch), summed on the device in int64, exact for any shard
+        count."""
+        counts = self._spec_run(spec_program(spec), blocks, [scalars], "count", "count")
+        return counts.sum(dtype=torch.int64)
 
     def _vec_program(self, spec, blocks, scalars) -> torch.Tensor:
-        """The evaluated bitmap slab int32[S, W]."""
-        self._launched("vec")
-        return _eval_spec(spec, iter(blocks), iter(scalars))
+        """The evaluated bitmap slab int32[S, W] (one K11 launch)."""
+        return self._spec_run(spec_program(spec), blocks, [scalars], "slab", "vec")[0]
+
+    def _spec_run(self, prog, blocks, slots, mode: str, kind: str) -> torch.Tensor:
+        """K11 over one call group's blocks for each slot's scalars:
+        int32[Q, S] per-shard counts ("count") or the slabs int32[Q, S, W]
+        ("slab"). A program with slab leaves (a BSI condition, a Shift, a
+        tree split past K11's limits) runs one slot a launch, since those
+        leaves depend on the slot's scalars: its slab leaves are evaluated
+        first for that slot (K10, _shift_slab, K11 in slab mode)."""
+        if prog.per_slot:
+            outs = []
+            for scalars in slots:
+                self._launched(kind)
+                outs.append(self._spec_launch(prog, blocks, [scalars], mode))
+            return outs[0] if len(outs) == 1 else torch.cat(outs)
+        self._launched(kind)
+        return self._spec_launch(prog, blocks, slots, mode)
+
+    def _spec_launch(self, prog, blocks, slots, mode: str) -> torch.Tensor:
+        leaves = [self._spec_leaf(leaf, blocks, slots[0]) for leaf in prog.leaves]
+        rows = [spec_leaf_rows(prog, scalars) for scalars in slots]
+        return spec_eval(prog.ops, leaves, rows, mode)
+
+    def _spec_leaf(self, leaf, blocks, scalars) -> torch.Tensor:
+        """A program leaf's tensor: a stack of the call's blocks, or a slab
+        leaf evaluated for one slot's scalars."""
+        kind = leaf[0]
+        if kind in ("row", "fixed", "zero"):
+            return blocks[leaf[1]]
+        if kind == "cmp":
+            _, b, s, node = leaf
+            if node[0] == "C":
+                # ("C", field, op, neg_pred, allow_eq, depth): one K10 launch
+                _, _fname, op, neg, allow_eq, depth = node
+                return bsi_compare(blocks[b], depth, op, scalars[s], neg=neg,
+                                   allow_eq=allow_eq)
+            # ("CB", field, cls, depth), fragment.rangeBetween :1504
+            _, _fname, cls, depth = node
+            return bsi_compare(blocks[b], depth, cls, scalars[s], hi_bits=scalars[s + 1])
+        if kind == "shift":
+            return _shift_slab(self._spec_launch(leaf[2], blocks, [scalars], "slab")[0],
+                               leaf[1]).contiguous()
+        return self._spec_launch(leaf[1], blocks, [scalars], "slab")[0]  # "sub"
 
     # -- backend interface -------------------------------------------------
 
@@ -777,11 +829,15 @@ class CUDABackend:
     def count_batch_async(
         self, index: str, calls: list[Call], shards: list[int]
     ) -> Callable[[], list[int]]:
-        """Dispatch a batch of count queries and return a resolver.
+        """Dispatch a batch of count queries and return a resolver: the
+        device work is enqueued now, the resolver reads it back.
 
         When every call is a one- or two-row combination over one field
         pair, ONE pair-stats sweep serves the whole batch. Any other batch
-        runs count_shards once per call."""
+        groups its calls by (spec, leaf blocks) and runs one K11 launch a
+        group over the group's distinct slots (_generic_batch_dispatch).
+        Only a size gate's refusal of the sweep (_Unsupported) sends a pair
+        batch there: a kernel failure raises."""
         if not calls:
             return lambda: []
         shards_t = tuple(shards)
@@ -790,9 +846,140 @@ class CUDABackend:
             try:
                 return self._pair_batch_dispatch(index, plan, shards_t)
             except _Unsupported:
-                pass  # a size gate refused the sweep; per-call counts serve it
-        counts = [self.count_shards(index, c, list(shards_t)) for c in calls]
-        return lambda: counts
+                pass  # a size gate refused the sweep; the K11 groups serve it
+        return self._generic_batch_dispatch(index, calls, shards_t)
+
+    def _group_calls(self, index, calls, shards_t):
+        """Assemble each call and group the calls by (spec, leaf blocks):
+        ({key: [call index]}, {call index: (blocks, scalars)}, [indices
+        without a device lowering]). Blocks are cache-owned tensors, so
+        their identity keys a group; the assembled tuples hold them, so no
+        stack a group names is freed before its launch."""
+        groups: dict = {}
+        assembled: dict[int, tuple] = {}
+        fallbacks: list[int] = []
+        with current_profile().phase("plan"):
+            for i, c in enumerate(calls):
+                try:
+                    spec, blocks, scalars = self._assemble(index, c, shards_t)
+                except _Unsupported:
+                    fallbacks.append(i)
+                    continue
+                key = (spec, tuple(id(b) for b in blocks))
+                groups.setdefault(key, []).append(i)
+                assembled[i] = (blocks, scalars)
+        return groups, assembled, fallbacks
+
+    @staticmethod
+    def _distinct_slots(idxs, assembled):
+        """(the distinct slots' scalars, call index -> slot): calls with the
+        same scalars share one slot. A window of hot queries repeats the
+        same trees, and K11's cost is per slot."""
+        slot_index: dict = {}
+        unique: list = []
+        slot_of: dict[int, int] = {}
+        for i in idxs:
+            k = assembled[i][1]
+            if k not in slot_index:
+                slot_index[k] = len(unique)
+                unique.append(k)
+            slot_of[i] = slot_index[k]
+        return unique, slot_of
+
+    def _generic_batch_dispatch(self, index, calls, shards_t):
+        """The counterpart of the JAX package's fused count_batch scans
+        (pilosa_tpu/exec/tpu.py:4202): one K11 launch a (spec, blocks)
+        group over exactly its distinct slots (a CUDA launch takes Q at run
+        time, so there is no slot bucket and no lane mask), int64 sums on
+        the card, one readback a group in the resolver."""
+        prof = current_profile()
+        groups, assembled, fallbacks = self._group_calls(index, calls, shards_t)
+        pending = []  # (call indices, totals on the device, slot_of, blocks)
+        for (spec, _bk), idxs in groups.items():
+            blocks = assembled[idxs[0]][0]
+            unique, slot_of = self._distinct_slots(idxs, assembled)
+            with prof.phase("device_dispatch"):
+                counts = self._spec_run(spec_program(spec), blocks, unique, "count",
+                                        "count_batch")
+                totals = counts.sum(dim=1, dtype=torch.int64)
+            pending.append((idxs, totals, slot_of, blocks))
+
+        def resolve() -> list[int]:
+            results: list = [None] * len(calls)
+            with current_profile().phase("device_dispatch"):
+                hosts = [totals.cpu().numpy() for _, totals, _, _ in pending]
+            for (idxs, _, slot_of, _), host in zip(pending, hosts):
+                for i in idxs:
+                    results[i] = int(host[slot_of[i]])
+            for i in fallbacks:
+                results[i] = self.count_shards(index, calls[i], list(shards_t))
+            return results
+
+        return resolve
+
+    def row_batch_async(
+        self, index: str, calls: list[Call], shards: list[int]
+    ) -> Callable[[], list[Row]]:
+        """Batched bitmap materialization, the batcher's row legs (the JAX
+        package's row_batch_async, pilosa_tpu/exec/tpu.py:4299): calls group
+        by (spec, leaf blocks) over the resident stacks, identical slots
+        dedupe, and each group's distinct slots run in K11's slab mode,
+        chunked so that a launch's [Q, S, W] output stays under
+        MAX_ROW_BATCH_BYTES. The resolver reads each launch back once
+        (gathering a subset of the shards on the card first) and builds
+        every call its own Row. Calls without a device lowering take
+        bitmap_call in the resolver."""
+        idx = self.holder.index(index)
+        avail = idx.available_shards().to_array().tolist() if idx else []
+        pos_of = {s: i for i, s in enumerate(avail)}
+        if avail and all(s in pos_of for s in shards):
+            shards_t = tuple(avail)
+            positions = [pos_of[s] for s in shards]
+        else:
+            shards_t = tuple(shards)
+            positions = list(range(len(shards)))
+        prof = current_profile()
+        groups, assembled, fallbacks = self._group_calls(index, calls, shards_t)
+        pending = []  # (call indices, slot_of, launch outputs, slots a launch, blocks)
+        for (spec, _bk), idxs in groups.items():
+            blocks = assembled[idxs[0]][0]
+            unique, slot_of = self._distinct_slots(idxs, assembled)
+            slab_bytes = len(shards_t) * WORDS_PER_SHARD * 4
+            # Rounded down to a power of two, as the JAX package's chunks.
+            per_chunk = max(1, MAX_ROW_BATCH_BYTES // slab_bytes)
+            per_chunk = 1 << (per_chunk.bit_length() - 1)
+            prog = spec_program(spec)
+            outs = []
+            with prof.phase("device_dispatch"):
+                for base in range(0, len(unique), per_chunk):
+                    outs.append(self._spec_run(prog, blocks, unique[base : base + per_chunk],
+                                               "slab", "vec_batch"))
+            pending.append((idxs, slot_of, outs, per_chunk, blocks))
+        whole = positions == list(range(len(shards_t)))
+        pos_dev = None
+        if pending and not whole:
+            pos_dev = torch.tensor(positions, dtype=torch.int64, device=self.device)
+
+        def resolve() -> list[Row]:
+            results: list = [None] * len(calls)
+            with current_profile().phase("device_dispatch"):
+                hosts = [
+                    [self._to_host_words(out if pos_dev is None
+                                         else torch.index_select(out, 1, pos_dev))
+                     for out in outs]
+                    for _, _, outs, _, _ in pending
+                ]
+            with current_profile().phase("host_reduce"):
+                for (idxs, slot_of, _, per_chunk, _), host in zip(pending, hosts):
+                    for i in idxs:
+                        slot = slot_of[i]
+                        results[i] = self._slab_row(host[slot // per_chunk][slot % per_chunk],
+                                                    shards)
+            for i in fallbacks:
+                results[i] = self.bitmap_call(index, calls[i], list(shards))
+            return results
+
+        return resolve
 
     # -- pair-stats batch path ---------------------------------------------
 

@@ -5,9 +5,10 @@ translate keys to ids, execute each top-level call (serially — later calls
 may read earlier writes), translate result ids back to keys. Per-call
 evaluation is delegated to a backend: the CUDA device backend's
 whole-query programs by default, or the CPU oracle, whose per-shard calls
-fold through map_reduce() (reference mapperLocal :2578). Single node: the
-cluster mapper/router, the result cache and the cross-request batcher
-come with the slices that port their owners.
+fold through map_reduce() (reference mapperLocal :2578). Two planes sit in
+front of the backend when wired: the result cache (exec/rescache.py) and
+the cross-request batcher (exec/batcher.py). Single node: the cluster
+mapper and router come with the slice that ports multi-node serving.
 """
 
 from __future__ import annotations
@@ -53,13 +54,15 @@ class ExecOptions:
     exclude_columns: bool = False
     column_attrs: bool = False
     shards: Optional[list[int]] = None
-    # Per-query result-cache bypass (HTTP `X-Pilosa-Cache: bypass`). The
-    # port has no result cache yet, so there is nothing to bypass.
+    # Per-query result-cache bypass (HTTP `X-Pilosa-Cache: bypass`):
+    # skips lookup AND population — the always-fresh escape hatch the
+    # staleness contract documents (counted rescache_bypass_total).
     cache_bypass: bool = False
     # Wire-bytes plumbing: when the caller provides a list, the executor
-    # appends ONE item per result — the result-cache token, or None, as
-    # always here with no result cache — so the serialization layer
-    # encodes every result itself.
+    # appends ONE item per result — the result-cache token (hit or
+    # committed miss) or None — so the serialization layer can serve and
+    # attach pre-encoded response bytes on the entry (exec/rescache.py
+    # wire_for/attach_wire).
     wire_sink: Optional[list] = None
 
 
@@ -75,6 +78,23 @@ class Executor:
 
             backend = CUDABackend(holder)
         self.backend = backend
+        # Cluster seam: the cluster layer's shard mapper (reference mapper
+        # executor.go:2522). The port serves one node, so it stays None;
+        # the result cache's clustered-coordinator rule reads it.
+        self.mapper = None
+        # Cross-request shard-leg batcher (exec/batcher.py): when set,
+        # eligible device legs (Count runs, a single Count included, bitmap
+        # Row/Intersect/Union resolves, BSI Sum/Min/Max and TopN per-row
+        # counts) are submitted through it, so concurrent requests
+        # coalesce into shared device launches. Wired by the CLI with the
+        # device backend.
+        self.batcher = None
+        # Epoch-tagged result cache (exec/rescache.py): when set, terminal
+        # answers are consulted and populated around planning and
+        # batching, keyed on (index, canonical PQL, shard set) and
+        # revalidated against the views' epochs. Wired by the CLI from the
+        # cache-enabled and max-result-cache-bytes knobs.
+        self.rescache = None
         # Observability (reference spans in Execute executor.go:114, stats
         # tags per index, and the long-query log api.go:1157).
         self.stats = global_stats
@@ -138,6 +158,23 @@ class Executor:
                 shape_key(c) for c in query.calls[:3]
             )[:200]
 
+        # Result-cache plane (exec/rescache.py): consulted where an
+        # epoch vector can witness every relevant write. Locally that is
+        # the single-node coordinator and remote per-node legs; a
+        # CLUSTERED coordinator consults only once the cluster layer has
+        # installed the peer-epoch provider — entries then carry the merged (local + peer) vector and peer
+        # writes invalidate via the piggybacked epoch map. Without the
+        # provider, peer-held shards' writes are unwitnessable and the
+        # coordinator must not cache.
+        cache = self.rescache
+        if (
+            cache is not None
+            and self.mapper is not None
+            and not opt.remote
+            and cache.peer_epochs_provider is None
+        ):
+            cache = None
+
         with self.tracer.start_span("executor.Execute") as span:
             span.set_tag("index", index)
             calls = query.calls
@@ -149,14 +186,16 @@ class Executor:
                 # (reference runs calls serially, executor.go:231; counts
                 # are reads, so batching preserves write ordering).
                 run = 0
-                if hasattr(self.backend, "count_batch"):
+                if (self.mapper is None or opt.remote) and hasattr(
+                    self.backend, "count_batch"
+                ):
                     while (
                         i + run < len(calls)
                         and calls[i + run].name == "Count"
                         and len(calls[i + run].children) == 1
                     ):
                         run += 1
-                if run > 1:
+                if run > 1 or (run == 1 and self.batcher is not None):
                     check_deadline("plan")
                     batch = calls[i : i + run]
                     stats.count("query_Count_total", run)
@@ -168,34 +207,147 @@ class Executor:
                                 for b in batch
                             ]
                     with self.tracer.start_span("executor.executeCountBatch"):
-                        counts = self.backend.count_batch(
-                            index,
-                            [b.children[0] for b in batch],
-                            self._shards(index, shards),
-                        )
-                    results.extend(int(v) for v in counts)
+                        inner = [b.children[0] for b in batch]
+                        sh = self._shards(index, shards)
+                        ex = getattr(prof, "explain", None)
+                        node = None
+                        if ex is not None:
+                            node = ex.begin_call("Count")
+                            node["fused"] = run
+                            node["shards"] = len(sh)
+                            node["devices"] = self._explain_devices()
+                            node["cache"] = cache_verdicts = [None] * run
+                        # Cache consult BEFORE legs go to the batcher:
+                        # hits never launch; the remaining misses still
+                        # coalesce into one device dispatch.
+                        out: list = [None] * run
+                        tokens: list = [None] * run
+                        if cache is not None:
+                            if opt.cache_bypass:
+                                cache.count_bypass(index, run)
+                                prof.incr("cache_bypass", run)
+                            else:
+                                for k, b in enumerate(batch):
+                                    t = cache.begin(
+                                        index, b, sh, remote=opt.remote
+                                    )
+                                    if t is None:
+                                        prof.incr("cache_uncached")
+                                        continue
+                                    tokens[k] = t
+                                    prof.incr("cache_lookups")
+                                    if t.hit:
+                                        prof.incr("cache_hits")
+                                        out[k] = int(t.value)
+                                        if node is not None:
+                                            cache_verdicts[k] = {
+                                                "verdict": "hit",
+                                                "staleBy": getattr(
+                                                    t, "stale_by", 0
+                                                ),
+                                            }
+                        miss = [k for k in range(run) if out[k] is None]
+                        if node is not None:
+                            for k in miss:
+                                if cache_verdicts[k] is None:
+                                    cache_verdicts[k] = {"verdict": "miss"}
+                            node["route"] = (
+                                "rescache" if not miss else (
+                                    "batcher" if self.batcher is not None
+                                    else "count_batch"
+                                )
+                            )
+                        if miss:
+                            miss_inner = [inner[k] for k in miss]
+                            if self.batcher is not None:
+                                counts = self.batcher.count(
+                                    index, miss_inner, sh
+                                )
+                            else:
+                                counts = self.backend.count_batch(
+                                    index, miss_inner, sh
+                                )
+                            for k, v in zip(miss, counts):
+                                out[k] = int(v)
+                                if tokens[k] is not None:
+                                    cache.commit(tokens[k], int(v))
+                    results.extend(out)
+                    if opt.wire_sink is not None:
+                        opt.wire_sink.extend(tokens)
                     i += run
                     continue
                 call = calls[i]
                 check_deadline("plan")
                 stats.count(f"query_{call.name}_total")
+                ex = getattr(prof, "explain", None)
+                node = ex.begin_call(call.name) if ex is not None else None
                 # Remote (peer-issued) requests arrive pre-translated and
                 # are returned raw; translation happens only at the
                 # coordinator (reference executor.go:121-127).
                 if not opt.remote and (translate or call.has_str_args):
                     with prof.phase("key_translate"):
                         call = self._translate_call(idx, call)
+                # Cache consult AFTER key translation (keys share the
+                # translated-ids spelling; id->key maps are append-only
+                # so cached key-translated results stay valid) and
+                # BEFORE planning/dispatch. The miss's answer commits
+                # fully translated, so a hit skips the whole pipeline.
+                token = None
+                if cache is not None and not opt.cache_bypass:
+                    token = cache.begin(
+                        index, call, self._shards(index, shards),
+                        exclude_row_attrs=opt.exclude_row_attrs,
+                        remote=opt.remote,
+                    )
+                    if token is not None:
+                        prof.incr("cache_lookups")
+                        if token.hit:
+                            prof.incr("cache_hits")
+                            if node is not None:
+                                node["route"] = "rescache"
+                                node["cache"] = {
+                                    "verdict": "hit",
+                                    "staleBy": getattr(
+                                        token, "stale_by", 0
+                                    ),
+                                }
+                            results.append(token.value)
+                            if opt.wire_sink is not None:
+                                opt.wire_sink.append(token)
+                            i += 1
+                            continue
+                        if node is not None:
+                            node["cache"] = {"verdict": "miss"}
+                    else:
+                        # Fresh-computed answer the cache never held
+                        # (uncacheable call/coverage): the response
+                        # marker must not claim a pure cache serve.
+                        prof.incr("cache_uncached")
+                        if node is not None:
+                            node["cache"] = {"verdict": "uncacheable"}
+                elif cache is not None and call.name in cache.CACHEABLE:
+                    cache.count_bypass(index)
+                    prof.incr("cache_bypass")
+                    if node is not None:
+                        node["cache"] = {"verdict": "bypass"}
                 check_deadline("device_dispatch")
                 with self.tracer.start_span(f"executor.execute{call.name}"):
                     result = self.execute_call(index, call, shards, opt)
+                if node is not None:
+                    node["route"] = "execute"
+                    node["devices"] = self._explain_devices()
+                    if prof.shards is not None:
+                        node["shards"] = prof.shards
                 if not opt.remote:
                     check_deadline("key_translate")
                     with prof.phase("key_translate"):
                         result = self._translate_result(idx, call, result)
+                if token is not None:
+                    cache.commit(token, result)
                 results.append(result)
+                if opt.wire_sink is not None:
+                    opt.wire_sink.append(token)
                 i += 1
-            if opt.wire_sink is not None:
-                opt.wire_sink.extend(None for _ in results)
             # Phase breakdown on the executor span.
             span.set_tag("qid", prof.qid)
             span.set_tag("phasesMs", prof.phases_ms())
@@ -210,6 +362,11 @@ class Executor:
                 self._p99_context(index),
             )
         return results
+
+    def _explain_devices(self) -> dict:
+        """Device placement for an EXPLAIN call node: one device (the port
+        has no mesh) and the backend's class."""
+        return {"n": 1, "mesh": False, "backend": type(self.backend).__name__}
 
     def _p99_context(self, index: str) -> str:
         """' p99=12.3ms' for the slow-query log: the index's interpolated
@@ -431,9 +588,14 @@ class Executor:
     def _execute_bitmap_call(self, index, c, shards, opt) -> Row:
         # Device fast path: ONE program execution + readback for the whole
         # shard set (a per-shard loop is O(S^2) when each map_fn evaluates
-        # the full resident stack).
+        # the full resident stack). With a batcher, the leg coalesces with
+        # concurrent requests' row resolves into shared K11 launches
+        # (exec/batcher.py row legs).
         if hasattr(self.backend, "bitmap_call"):
-            row = self.backend.bitmap_call(index, c, shards)
+            if self.batcher is not None and hasattr(self.backend, "row_batch_async"):
+                row = self.batcher.row(index, c, shards)
+            else:
+                row = self.backend.bitmap_call(index, c, shards)
             return self._attach_row_attrs(index, c, row, opt)
         map_fn = lambda shard: self.backend.bitmap_call_shard(index, c, shard)
 
@@ -492,12 +654,17 @@ class Executor:
 
     def _bsi_fast(self, kind, index, f, c, shards) -> Optional[ValCount]:
         """Device fast path for Sum/Min/Max when the backend has one.
-        None = not lowerable; caller runs the map-reduce path."""
+        None = not lowerable; caller runs the map-reduce path. With a
+        batcher, concurrent identical aggregates dedupe to one backend call
+        (exec/batcher.py bsi legs)."""
         if not hasattr(self.backend, kind):
             self._host_routed(c)
             return None
         filter_call = c.children[0] if c.children else None
-        r = getattr(self.backend, kind)(index, f.name, shards, filter_call)
+        if self.batcher is not None:
+            r = self.batcher.bsi(kind, index, f.name, shards, filter_call)
+        else:
+            r = getattr(self.backend, kind)(index, f.name, shards, filter_call)
         if r is None:
             self._host_routed(c)
             return None
@@ -679,7 +846,12 @@ class Executor:
         )
         if plain and hasattr(self.backend, "topn_field"):
             src_call = c.children[0] if c.children else None
-            exact = self.backend.topn_field(index, field_name, shards, n, src_call)
+            if self.batcher is not None:
+                # Concurrent TopN legs on the same (field, src) share one
+                # ranked-vector computation; n trims per leg at scatter.
+                exact = self.batcher.topn(index, field_name, shards, n, src_call)
+            else:
+                exact = self.backend.topn_field(index, field_name, shards, n, src_call)
             if exact is not None:
                 return PairsField(exact, field_name)
 
@@ -1066,6 +1238,11 @@ class Executor:
             raise QueryError("SetRowAttrs() row argument required")
         attrs = {k: v for k, v in c.args.items() if not is_reserved_arg(k)}
         f.row_attr_store.set_attrs(row_id, attrs)
+        # The attr plane is not versioned by view generations, so no
+        # epoch vector can witness this write: salt-bump the index's
+        # cached answers unaddressable instead (exec/rescache.py).
+        if self.rescache is not None:
+            self.rescache.invalidate_index(index)
         return None
 
     def _execute_set_column_attrs(self, index, c, opt) -> None:
@@ -1075,6 +1252,9 @@ class Executor:
             raise QueryError("SetColumnAttrs() column argument required")
         attrs = {k: v for k, v in c.args.items() if not is_reserved_arg(k)}
         idx.column_attr_store.set_attrs(col_id, attrs)
+        # Same unversioned-plane contract as SetRowAttrs above.
+        if self.rescache is not None:
+            self.rescache.invalidate_index(index)
         return None
 
     # ------------------------------------------------------------------

@@ -31,12 +31,13 @@ BUILD_DIR = os.path.join(_HERE, "build")
 #: Kernel sources by library name: bmma.cu (the pair kernels K1, K2, the
 #: group tiles K4, K5 and the odometer group tensor K6, K7 on the tensor
 #: cores' binary MMA, and the AND-popcount rate probe) and bitcount.cu (on
-#: the CUDA cores: K3, the count path's popcount-reduce; K8, the per-row
+#: the CUDA cores: K3, the per-row popcount-reduce; K8, the per-row
 #: popcounts of TopN and Sum; K9, the Min/Max plane walk; K10, the walk of
-#: a BSI condition).
+#: a BSI condition) and spec.cu (K11, the evaluation of a bitmap call tree
+#: for a window of query slots).
 SOURCES = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
-    for name in ("bitcount", "bmma")
+    for name in ("bitcount", "bmma", "spec")
 }
 
 NVCC_FLAGS = (
@@ -142,6 +143,10 @@ def _bind(name: str, lib) -> None:
                  "nary_stats_launch": group, "nary_stats_pershard_launch": group,
                  # mode, iters, out, blocks, stream
                  "and_popc_probe_launch": [i32, i32, ptr, i32, ptr]},
+        # bases, strides, ops, n_ops, n_leaves, rows_host, rows_dev, counts,
+        # slab, mode, q, s, w, stream
+        "spec": {"spec_eval_launch": [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr,
+                                      i32, i32, i32, i32, ptr]},
     }
     for fn_name, argtypes in signatures[name].items():
         fn = getattr(lib, fn_name)
@@ -150,7 +155,7 @@ def _bind(name: str, lib) -> None:
 
 
 def library(name: str):
-    """The loaded kernel library ``name`` ("bitcount" or "bmma"). The
+    """The loaded kernel library ``name`` ("bitcount", "bmma" or "spec"). The
     first call builds every library whose source changed."""
     global build_seconds, build_log
     lib = _libs.get(name)

@@ -37,6 +37,12 @@ the row popcounts and the BSI plane walk on the CUDA cores
   helpers (``_lt_unsigned`` ...) as the count program's spec evaluator
   does; the kernel runs the same walk from a per-plane action table that
   the host resolves from the predicate's bits (``compare_plan``).
+- ``spec_eval`` (K11, spec.cu): a bitmap call tree compiled on the host into
+  a postfix program (``spec_program``) over leaf rows, evaluated for Q query
+  slots in one launch: per slot, the popcount of the result in every shard
+  (count mode, int32[Q, S]) or the result itself (slab mode, int32[Q, S,
+  W]). The single Count, ``Row`` and the batcher's count and row windows
+  run on it.
 - the group tensor of an N-field GroupBy (K4-K7): for slots q, with m_q the
   AND of one row of each extra field (and of a filter slab),
 
@@ -64,7 +70,9 @@ to its unsigned value in int64.
 
 from __future__ import annotations
 
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -88,7 +96,7 @@ _LAUNCHES = {
     "pair_stats_pershard": 0, "pair_stats": 0, "popcount_rows": 0,
     "group_tile_stats": 0, "group_tile_stats_pershard": 0,
     "nary_stats": 0, "nary_stats_pershard": 0,
-    "row_popcounts": 0, "bsi_minmax": 0, "bsi_compare": 0,
+    "row_popcounts": 0, "bsi_minmax": 0, "bsi_compare": 0, "spec_eval": 0,
 }
 
 
@@ -571,6 +579,7 @@ _LIBRARY = {
     "group_tile_stats": "bmma", "group_tile_stats_pershard": "bmma",
     "nary_stats": "bmma", "nary_stats_pershard": "bmma",
     "row_popcounts": "bitcount", "bsi_minmax": "bitcount", "bsi_compare": "bitcount",
+    "spec_eval": "spec",
 }
 
 
@@ -893,4 +902,266 @@ def bsi_compare(stack: torch.Tensor, depth: int, op: str, bits, neg: bool = Fals
         _launch("bsi_compare", stack.device, library("bitcount").bsi_compare_launch,
                 stack.data_ptr(), out.data_ptr(), ctypes.addressof(table), mode, start_a,
                 start_b, extra, int(neq), s, r, depth, w)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K11: the spec-tree evaluator
+# ---------------------------------------------------------------------------
+
+#: K11's limits: a program's leaf table travels in the launch's parameters,
+#: and its stack lives in registers, one uint4 a level. A tree past either
+#: is split by spec_program into sub-programs evaluated first (slab leaves).
+MAX_SPEC_LEAVES = 16
+MAX_SPEC_DEPTH = 8
+#: Per-slot rows that travel in the launch's parameters (Q * leaves); more
+#: go to the card as a table of their own.
+SPEC_INLINE_ROWS = 256
+#: A program's ops: i < MAX_SPEC_LEAVES pushes leaf i; these pop b, then a,
+#: and push a op b.
+SPEC_AND, SPEC_OR, SPEC_ANDNOT, SPEC_XOR = 0x80, 0x81, 0x82, 0x83
+_SPEC_VERBS = {"I": SPEC_AND, "U": SPEC_OR, "D": SPEC_ANDNOT, "X": SPEC_XOR}
+
+
+class SpecProgram(NamedTuple):
+    """A spec tree compiled for K11: ``ops`` the postfix program, ``leaves``
+    one descriptor a leaf in push order, ``depth`` the stack it needs.
+
+    A leaf descriptor names where the leaf comes from among the call's
+    blocks b and scalars s, in the order the backend's _build emits them:
+
+    - ("row", b, s): row scalars[s] of stack blocks[b], or the zero leaf
+      when the mask scalars[s + 1] is 0 (``R``, and each view of ``T``);
+    - ("fixed", b, r): row r of blocks[b] in every slot (``A``: the
+      existence row; ``NN``: the BSI exists row);
+    - ("zero", b): the zero leaf (``E``; blocks[b] carries only a shape);
+    - ("cmp", b, s, node): the slab of BSI condition ``node`` (``C`` or
+      ``CB``) over stack blocks[b] with its bits at scalars[s:], by K10;
+    - ("shift", n, prog): the slab of sub-program ``prog``, shifted by n
+      (``S``);
+    - ("sub", prog): the slab of sub-program ``prog``, a part of a tree past
+      MAX_SPEC_LEAVES or MAX_SPEC_DEPTH.
+
+    The last three are slab leaves, which depend on a slot's scalars: a
+    program that holds one runs one slot a launch (``per_slot``)."""
+
+    ops: tuple
+    leaves: tuple
+    depth: int
+
+    @property
+    def per_slot(self) -> bool:
+        return any(leaf[0] in ("cmp", "shift", "sub") for leaf in self.leaves)
+
+
+def _spec_leaf(desc) -> SpecProgram:
+    return SpecProgram((0,), (desc,), 1)
+
+
+def _spec_combine(a: SpecProgram, b: SpecProgram, op: int) -> SpecProgram:
+    n = len(a.leaves)
+    ops = a.ops + tuple(o + n if o < MAX_SPEC_LEAVES else o for o in b.ops) + (op,)
+    return SpecProgram(ops, a.leaves + b.leaves, max(a.depth, b.depth + 1))
+
+
+def _spec_fits(p: SpecProgram) -> bool:
+    return len(p.leaves) <= MAX_SPEC_LEAVES and p.depth <= MAX_SPEC_DEPTH
+
+
+def _spec_fold(progs, op: int) -> SpecProgram:
+    """The left fold ((p0 op p1) op p2) ... that _eval_spec evaluates,
+    splitting what does not fit: a child too big to sit beside anything
+    becomes a sub-program leaf, and when the fold so far and the next child
+    do not fit together, the fold so far does."""
+    acc = progs[0]
+    for p in progs[1:]:
+        cand = _spec_combine(acc, p, op)
+        if not _spec_fits(cand):
+            if len(p.leaves) > MAX_SPEC_LEAVES - 1 or p.depth > MAX_SPEC_DEPTH - 1:
+                p = _spec_leaf(("sub", p))
+            cand = _spec_combine(acc, p, op)
+            if not _spec_fits(cand):
+                cand = _spec_combine(_spec_leaf(("sub", acc)), p, op)
+        acc = cand
+    return acc
+
+
+def _spec_compile(node, b: int, s: int):
+    """(program, next block index, next scalar index) of one spec node,
+    walking blocks and scalars as the backend's _build emitted them."""
+    tag = node[0]
+    if tag == "R":
+        return _spec_leaf(("row", b, s)), b + 1, s + 2
+    if tag == "T":  # a time range: the OR of its views' rows
+        views = [_spec_leaf(("row", b + k, s + 2 * k)) for k in range(node[2])]
+        return _spec_fold(views, SPEC_OR), b + node[2], s + 2 * node[2]
+    if tag == "A":
+        return _spec_leaf(("fixed", b, 0)), b + 1, s
+    if tag == "NN":
+        return _spec_leaf(("fixed", b, BSI_EXISTS_ROW)), b + 1, s
+    if tag == "E":
+        return _spec_leaf(("zero", b)), b + 1, s
+    if tag == "N":  # the existence row ANDNOT the child
+        child, b2, s2 = _spec_compile(node[1], b + 1, s)
+        return _spec_fold([_spec_leaf(("fixed", b, 0)), child], SPEC_ANDNOT), b2, s2
+    if tag == "C":
+        return _spec_leaf(("cmp", b, s, node)), b + 1, s + 1
+    if tag == "CB":
+        return _spec_leaf(("cmp", b, s, node)), b + 1, s + 2
+    if tag == "S":
+        child, b2, s2 = _spec_compile(node[2], b, s)
+        return _spec_leaf(("shift", node[1], child)), b2, s2
+    progs = []
+    for ch in node[1]:
+        p, b, s = _spec_compile(ch, b, s)
+        progs.append(p)
+    return _spec_fold(progs, _SPEC_VERBS[tag]), b, s
+
+
+@functools.lru_cache(maxsize=1024)
+def spec_program(spec) -> SpecProgram:
+    """The K11 program of a spec tree of the device backend's _build
+    (``R``, ``T``, ``A``, ``N``, ``E``, ``NN``, ``C``, ``CB``, ``S`` and the
+    verbs ``U``, ``I``, ``D``, ``X``): its leaves in push order, every
+    program and sub-program within MAX_SPEC_LEAVES and MAX_SPEC_DEPTH."""
+    return _spec_compile(spec, 0, 0)[0]
+
+
+def spec_leaf_rows(prog: SpecProgram, scalars) -> list:
+    """One slot's row of each leaf of ``prog`` (-1: the zero leaf; 0 for a
+    slab leaf) from the call's scalars."""
+    rows = []
+    for leaf in prog.leaves:
+        kind = leaf[0]
+        if kind == "row":
+            s = leaf[2]
+            rows.append(int(scalars[s]) if scalars[s + 1] else -1)
+        elif kind == "fixed":
+            rows.append(leaf[2])
+        elif kind == "zero":
+            rows.append(-1)
+        else:
+            rows.append(0)
+    return rows
+
+
+def _spec_check(ops, leaves, rows):
+    """Validate a K11 call; returns (rows as lists, S, W)."""
+    name = "spec_eval"
+    if not 1 <= len(leaves) <= MAX_SPEC_LEAVES:
+        raise ValueError(f"{name}: {len(leaves)} leaves; K11 takes 1 to {MAX_SPEC_LEAVES}")
+    for t in leaves:
+        if t.dim() not in (2, 3):
+            raise ValueError(f"{name}: a leaf must be [S, R, W] or [S, W], got "
+                             f"{tuple(t.shape)}")
+        _check_words(name, t, t.dim())
+        if t.device != leaves[0].device:
+            raise ValueError(f"{name}: leaves on {leaves[0].device} and {t.device}")
+        if t.shape[0] != leaves[0].shape[0] or t.shape[-1] != leaves[0].shape[-1]:
+            raise ValueError(f"{name}: leaves disagree: {tuple(leaves[0].shape)} vs "
+                             f"{tuple(t.shape)}")
+    depth, pushed = 0, 0
+    for op in ops:
+        if op < MAX_SPEC_LEAVES:
+            if op != pushed:
+                raise ValueError(f"{name}: leaf {op} pushed out of order (expected {pushed})")
+            pushed += 1
+            depth += 1
+            if depth > MAX_SPEC_DEPTH:
+                raise ValueError(f"{name}: the program needs a stack past {MAX_SPEC_DEPTH}")
+        elif op in (SPEC_AND, SPEC_OR, SPEC_ANDNOT, SPEC_XOR):
+            if depth < 2:
+                raise ValueError(f"{name}: op {op:#x} on a stack of {depth}")
+            depth -= 1
+        else:
+            raise ValueError(f"{name}: unknown op {op!r}")
+    if depth != 1 or pushed != len(leaves):
+        raise ValueError(f"{name}: the program leaves {depth} values and pushes "
+                         f"{pushed} of {len(leaves)} leaves")
+    rows = [[int(r) for r in slot] for slot in rows]
+    for slot in rows:
+        if len(slot) != len(leaves):
+            raise ValueError(f"{name}: a slot names {len(slot)} rows for {len(leaves)} leaves")
+        for r, t in zip(slot, leaves):
+            height = t.shape[1] if t.dim() == 3 else 1
+            if not -1 <= r < height:
+                raise ValueError(f"{name}: row {r} outside a leaf of {height} rows")
+    return rows, leaves[0].shape[0], leaves[0].shape[-1]
+
+
+def spec_eval_torch(ops, leaves, rows, mode: str = "count") -> torch.Tensor:
+    """Plain K11: the program run with torch ops, one slot at a time:
+    int32[Q, S] per-shard counts ("count") or the slabs int32[Q, S, W]
+    ("slab")."""
+    s, w = leaves[0].shape[0], leaves[0].shape[-1]
+    out = []
+    for slot in rows:
+        stack = []
+        for op in ops:
+            if op < MAX_SPEC_LEAVES:
+                t, r = leaves[op], slot[op]
+                if r < 0:
+                    v = torch.zeros((s, w), dtype=torch.int32, device=t.device)
+                else:
+                    v = t[:, r, :] if t.dim() == 3 else t
+                stack.append(v)
+                continue
+            b = stack.pop()
+            a = stack.pop()
+            if op == SPEC_AND:
+                stack.append(a & b)
+            elif op == SPEC_OR:
+                stack.append(a | b)
+            elif op == SPEC_ANDNOT:
+                stack.append(a & ~b)
+            else:
+                stack.append(a ^ b)
+        res = stack.pop()
+        out.append(popcount32(res).sum(dim=-1, dtype=torch.int64).to(torch.int32)
+                   if mode == "count" else res.contiguous())
+    if not out:
+        shape = (0, s) if mode == "count" else (0, s, w)
+        return torch.zeros(shape, dtype=torch.int32, device=leaves[0].device)
+    return torch.stack(out)
+
+
+def spec_eval(ops, leaves, rows, mode: str = "count") -> torch.Tensor:
+    """K11: (postfix ``ops``, ``leaves`` int32[S, R, W] stacks or [S, W]
+    slabs, per-slot ``rows`` [Q][leaf] with -1 for the zero leaf) ->
+    int32[Q, S] per-shard popcounts of each slot's result ("count"), or the
+    results int32[Q, S, W] ("slab"). Leaves are pushed in order, each once
+    (spec_program's programs are)."""
+    if mode not in ("count", "slab"):
+        raise ValueError(f"spec_eval: mode must be 'count' or 'slab', got {mode!r}")
+    leaves = tuple(leaves)
+    rows, s, w = _spec_check(tuple(ops), leaves, rows)
+    if _plain("spec_eval", leaves[0]):
+        return spec_eval_torch(ops, leaves, rows, mode)
+    import ctypes
+
+    from pilosa_tpu_torch.ops.build import library
+
+    dev = leaves[0].device
+    q, n = len(rows), len(leaves)
+    shape = (q, s) if mode == "count" else (q, s, w)
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    if not out.numel():
+        return out
+    w4 = w // 4
+    bases = (ctypes.c_void_p * n)(*[t.data_ptr() for t in leaves])
+    strides = (ctypes.c_longlong * n)(*[(t.shape[1] if t.dim() == 3 else 1) * w4
+                                        for t in leaves])
+    prog = (ctypes.c_uint8 * len(ops))(*ops)
+    flat = [r for slot in rows for r in slot]
+    rows_host = (ctypes.c_int * len(flat))(*flat)
+    rows_dev = None
+    if len(flat) > SPEC_INLINE_ROWS:
+        rows_dev = torch.tensor(flat, dtype=torch.int32).to(dev)
+    _launch("spec_eval", dev, library(_LIBRARY["spec_eval"]).spec_eval_launch,
+            ctypes.addressof(bases), ctypes.addressof(strides), ctypes.addressof(prog),
+            len(ops), n, ctypes.addressof(rows_host),
+            None if rows_dev is None else rows_dev.data_ptr(),
+            out.data_ptr() if mode == "count" else None,
+            out.data_ptr() if mode == "slab" else None,
+            0 if mode == "count" else 1, q, s, w)
     return out

@@ -81,13 +81,12 @@ class Config:
     anti_entropy_interval: float = 600.0  # seconds (reference: 10m)
     metric_service: str = "memory"  # memory | none
     long_query_time: float = 0.0
-    # Optional fixed Count-coalescing sleep in seconds (exec/batcher.py).
+    # Optional fixed leg-coalescing sleep in seconds (exec/batcher.py).
     # 0 (default) = backpressure batching: an uncontended single Count
     # dispatches immediately with no added latency, and requests arriving
     # during the in-flight device round trip coalesce into the next batch
     # (the fixed window taxed every lone query ~2 ms for no
     # batching benefit). Set >0 only to force deterministic batch windows.
-    # Not ported yet: the server refuses a nonzero window (ROADMAP.md).
     batch_window: float = 0.0
     # Pack + upload every field's device stack in the background at
     # startup so first queries skip the cold upload (off by default: it
@@ -182,13 +181,11 @@ class Config:
     # Byte budget for the epoch-tagged result cache (exec/rescache.py):
     # terminal answers (Count/Row/TopN/Sum/Min/Max/GroupBy) served from
     # memory while their journal-derived epoch vector still matches.
-    # 0 = disabled (matching the max-inflight convention). Not ported
-    # yet: the server refuses a budget while cache_enabled (ROADMAP.md).
+    # 0 = disabled (matching the max-inflight convention).
     max_result_cache_bytes: int = 0
     # Bounded-staleness contract: serve a generation-mismatched cached
     # answer when every covered view is at most this many (process-
     # global) write generations behind. 0 = exact-epoch only (default).
-    # Not ported yet: the server refuses a nonzero value (ROADMAP.md).
     max_staleness: int = 0
     # Master switch: false keeps the cache out even when a byte budget
     # is set (the bench's enabled-vs-disabled same-run comparison).

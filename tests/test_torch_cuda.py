@@ -247,7 +247,10 @@ def test_backend_on_card_matches_cpu_oracle(card):
     got = dev.execute("i", "Row(f=4)")[0].columns()
     np.testing.assert_array_equal(got, cpu.execute("i", "Row(f=4)")[0].columns())
     counts = K.launch_counts()
-    assert counts["popcount_rows"] == 2 and counts["pair_stats_pershard"] == 1
+    # K11 for each single Count and for Row(f=4), the pair kernel for the
+    # 8-Count request; no K3.
+    assert counts["spec_eval"] == 3 and counts["pair_stats_pershard"] == 1
+    assert counts["popcount_rows"] == 0
 
 
 def test_http_count_round_trip_on_card(card):
@@ -279,7 +282,7 @@ def test_http_count_round_trip_on_card(card):
         r = conn.getresponse()
         assert r.status == 200
         assert json.loads(r.read()) == {"results": want}
-        assert K.launch_counts()["popcount_rows"] == 1
+        assert K.launch_counts()["spec_eval"] == 1
         conn.request("GET", "/debug/diagnostics")
         inv = json.loads(conn.getresponse().read())["jax"]
         conn.close()
@@ -390,7 +393,7 @@ def test_bsi_compare_equals_plain(card, s, depth, w):
 
 def test_backend_condition_counts_on_card_match_cpu_oracle(card):
     """Each BSI condition node of a Count runs as one K10 launch, and the
-    Count as one K3, answering what the CPU oracle does."""
+    Count as one K11, answering what the CPU oracle does."""
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.core.field import options_for_int
     from pilosa_tpu_torch.exec import Executor
@@ -417,7 +420,8 @@ def test_backend_condition_counts_on_card_match_cpu_oracle(card):
         K.reset_launch_counts()
         assert dev.execute("i", q) == cpu.execute("i", q), q
         counts = K.launch_counts()
-        assert counts["bsi_compare"] == nodes and counts["popcount_rows"] == 1, (q, counts)
+        assert counts["bsi_compare"] == nodes and counts["spec_eval"] == 1, (q, counts)
+        assert counts["popcount_rows"] == 0, (q, counts)
     h.close()
 
 
@@ -471,4 +475,154 @@ def test_backend_bsi_and_topn_on_card_match_cpu_oracle(card):
     got = dev.execute("i", "Shift(Row(f=2), n=40)")[0].columns()
     np.testing.assert_array_equal(got, cpu.execute("i", "Shift(Row(f=2), n=40)")[0].columns())
     assert sum(global_stats.counter_totals("cpu_routed_total").values()) == routed
+    h.close()
+
+
+def _spec_case(rng, s, w, n_leaves):
+    """K11's inputs: n_leaves leaves (stacks of 8 or 16 rows and [S, W]
+    slabs, in turn) and a program that pushes them in order, folding with
+    every op and reaching a stack of min(n_leaves, MAX_SPEC_DEPTH)."""
+    leaves = []
+    for i in range(n_leaves):
+        shape = (s, w) if i % 3 == 2 else (s, 8 if i % 3 == 0 else 16, w)
+        leaves.append(_words(rng, *shape))
+    ops_cycle = (K.SPEC_AND, K.SPEC_OR, K.SPEC_ANDNOT, K.SPEC_XOR)
+    ops, depth, k = [], 0, 0
+    for i in range(n_leaves):
+        ops.append(i)
+        depth += 1
+        # Pile up to the depth limit first, then fold after each push.
+        if depth == K.MAX_SPEC_DEPTH or (i >= K.MAX_SPEC_DEPTH and depth > 1):
+            ops.append(ops_cycle[k % 4])
+            k += 1
+            depth -= 1
+    while depth > 1:
+        ops.append(ops_cycle[k % 4])
+        k += 1
+        depth -= 1
+    return leaves, ops
+
+
+def _spec_rows(rng, leaves, q):
+    """q slots' rows: random rows, and -1 (the zero leaf, as a row past the
+    stack's height with mask 0) in about one of five."""
+    rows = []
+    for _ in range(q):
+        slot = []
+        for x in leaves:
+            height = x.shape[1] if x.ndim == 3 else 1
+            slot.append(-1 if rng.random() < 0.2 else int(rng.integers(0, height)))
+        rows.append(slot)
+    return rows
+
+
+@pytest.mark.parametrize("q", [1, 64])
+@pytest.mark.parametrize("s,w,n_leaves", [(1, W, 2), (3, W, 3), (2, W, K.MAX_SPEC_LEAVES),
+                                          (2, 36, 5), (1, 100, K.MAX_SPEC_DEPTH)])
+def test_spec_eval_equals_plain(card, s, w, n_leaves, q):
+    """K11 in both modes equals its plain form: S = 1, word axes off the
+    block's chunk, every op, the full leaf table and stack, zero leaves,
+    Q = 1 and 64 (the per-slot rows in the launch's parameters or, past
+    SPEC_INLINE_ROWS, in a table on the card)."""
+    rng = np.random.default_rng(s * 1000 + n_leaves + q)
+    leaves, ops = _spec_case(rng, s, w, n_leaves)
+    rows = _spec_rows(rng, leaves, q)
+    dev = [stack_from_reference(x, card) for x in leaves]
+    cpu = [stack_from_reference(x, "cpu") for x in leaves]
+    for mode in ("count", "slab"):
+        before = K.launch_counts()["spec_eval"]
+        got = K.spec_eval(ops, dev, rows, mode)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["spec_eval"] == before + 1
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), K.spec_eval_torch(ops, cpu, rows, mode)), mode
+
+
+def test_backend_spec_programs_on_card_equal_plain(card):
+    """Every spec tag through the backend's K11 run on the card (slab
+    leaves by K10, _shift_slab and sub-programs) equals the same run on
+    the CPU, for 1 and 64 slots."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+
+    rng = np.random.default_rng(21)
+    s = 3
+    stacks = {n: _words(rng, s, 8, W) for n in ("f", "g", "e", "t0", "t1")}
+    v = _words(rng, s, 16, W)
+    stacks["v"] = v
+    h = Holder(None).open()
+    dev_be, cpu_be = CUDABackend(h), CUDABackend(h, device="cpu")
+
+    def row():
+        return (int(rng.integers(0, 8)), 1) if rng.random() < 0.8 else (7, 0)
+
+    def bits():
+        return tuple(int(b) for b in rng.integers(0, 2, 12))
+
+    cases = [
+        (("I", (("R", "f"), ("R", "g"))), ["f", "g"], lambda: row() + row()),
+        (("N", ("X", (("R", "f"), ("R", "g")))), ["e", "f", "g"], lambda: row() + row()),
+        (("U", (("A",), ("E",))), ["e", "f"], lambda: ()),
+        (("T", "t", 2), ["t0", "t1"], lambda: row() + row()),
+        (("D", (("NN", "v"), ("R", "f"))), ["v", "f"], row),
+        (("I", (("C", "v", ">", False, True, 12), ("R", "f"))), ["v", "f"],
+         lambda: (bits(),) + row()),
+        (("U", (("CB", "v", "mixed", 12), ("R", "g"))), ["v", "g"],
+         lambda: (bits(), bits()) + row()),
+        (("S", 33, ("I", (("R", "f"), ("R", "g")))), ["f", "g"], lambda: row() + row()),
+        (("U", tuple(("R", "fg"[k % 2]) for k in range(20))), ["f", "g"] * 10,
+         lambda: sum((row() for _ in range(20)), ())),
+    ]
+    for spec, names, gen in cases:
+        prog = K.spec_program(spec)
+        dev_blocks = [stack_from_reference(stacks[n], card) for n in names]
+        cpu_blocks = [stack_from_reference(stacks[n], "cpu") for n in names]
+        for q in ((1, 4) if prog.per_slot else (1, 64)):
+            slots = [gen() for _ in range(q)]
+            for mode in ("count", "slab"):
+                got = dev_be._spec_run(prog, dev_blocks, slots, mode, "count")
+                want = cpu_be._spec_run(prog, cpu_blocks, slots, mode, "count")
+                assert torch.equal(got.cpu(), want), (spec, q, mode)
+    h.close()
+
+
+def test_backend_batches_on_card_match_cpu_oracle(card):
+    """count_batch_async and row_batch_async on the card answer what the
+    CPU oracle does: a 3-row window is one K11 launch over its distinct
+    slots, a row window one K11 launch in slab mode, and the single Count
+    one K11 launch with nothing else."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.pql import parse_string
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(8)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name in ("f", "g", "h"):
+        field = idx.create_field(name)
+        for row in range(4):
+            cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 3000, dtype=np.uint64))
+            field.import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+    be = CUDABackend(h)
+    cpu = Executor(h, backend=CPUBackend(h))
+    qs = [f"Intersect(Row(f={a}), Row(g={b}), Row(h=1))" for a in range(4) for b in range(4)]
+    calls = [parse_string(q).calls[0] for q in qs + qs[:3]]
+    K.reset_launch_counts()
+    got = be.count_batch("i", calls, [0, 1, 2])
+    assert K.launch_counts()["spec_eval"] == 1
+    assert got == [cpu.execute("i", f"Count({q})")[0] for q in qs + qs[:3]]
+    K.reset_launch_counts()
+    rows = be.row_batch_async("i", calls[:5], [2, 0])()
+    assert K.launch_counts()["spec_eval"] == 1
+    for q, r in zip(qs[:5], rows):
+        want = cpu.execute("i", q, shards=[2, 0])[0]
+        np.testing.assert_array_equal(r.columns(), want.columns())
+    K.reset_launch_counts()
+    dev = Executor(h, backend=be)
+    assert dev.execute("i", "Count(Intersect(Row(f=1), Row(g=2)))") == cpu.execute(
+        "i", "Count(Intersect(Row(f=1), Row(g=2)))")
+    assert K.launch_counts() == {**{k: 0 for k in K.launch_counts()}, "spec_eval": 1}
     h.close()

@@ -48,14 +48,12 @@ def test_no_jax_or_jax_package_import(path):
 
 #: Port modules that code of the port imports (lazily, on paths this
 #: slice does not reach) but that are still queued in ROADMAP.md: the
-#: multi-node modules (queue 1 item 6) and the batcher and result cache
-#: (queue 1 item 3). The list shrinks as later slices land.
+#: multi-node modules (queue 1 item 6). The list shrinks as later slices
+#: land.
 QUEUED_MODULES = {
     "pilosa_tpu_torch.cluster.sync": "cluster/sync.py",
     "pilosa_tpu_torch.cluster.resize": "cluster/resize.py",
     "pilosa_tpu_torch.cluster.consistency": "cluster/consistency.py",
-    "pilosa_tpu_torch.exec.batcher": "exec/batcher.py",
-    "pilosa_tpu_torch.exec.rescache": "exec/rescache.py",
 }
 
 

@@ -221,11 +221,12 @@ def test_cpu_calls_launch_nothing():
     K.row_popcounts(x, 1, 3, (x[:, 0].contiguous(),))
     K.bsi_minmax(x, 4, x[:, 1].contiguous(), "max")
     K.bsi_compare(x, 4, "<", (1, 0, 1, 0), allow_eq=True)
+    K.spec_eval((0, 1, K.SPEC_AND), (x, x[:, 0].contiguous()), [[1, 0], [-1, 0]])
     assert K.launch_counts() == {
         "pair_stats_pershard": 0, "pair_stats": 0, "popcount_rows": 0,
         "group_tile_stats": 0, "group_tile_stats_pershard": 0,
         "nary_stats": 0, "nary_stats_pershard": 0,
-        "row_popcounts": 0, "bsi_minmax": 0, "bsi_compare": 0,
+        "row_popcounts": 0, "bsi_minmax": 0, "bsi_compare": 0, "spec_eval": 0,
     }
 
 
@@ -284,7 +285,7 @@ def test_every_kernel_source_is_built():
     assert set(K._LIBRARY.values()) == set(build.SOURCES)
 
 
-@pytest.mark.parametrize("lib_name", ["bitcount", "bmma"])
+@pytest.mark.parametrize("lib_name", ["bitcount", "bmma", "spec"])
 def test_bind_covers_exactly_the_entry_points_of_each_source(lib_name):
     """_bind binds every entry point a source defines and nothing else (a
     stale name would fail the real library's load), each with argtypes

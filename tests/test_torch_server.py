@@ -95,7 +95,7 @@ class _Pair:
     """The JAX server and the port's server, each over its own copy of
     one data directory."""
 
-    def __init__(self, src, root):
+    def __init__(self, src, root, cache_bytes=0):
         jdir, tdir = os.path.join(root, "jax"), os.path.join(root, "port")
         shutil.copytree(src, jdir)
         shutil.copytree(src, tdir)
@@ -104,6 +104,22 @@ class _Pair:
         self.backend = CUDABackend(self.th, device="cpu")
         japi = JaxAPI(self.jh, JaxExecutor(self.jh))
         tapi = API(self.th, Executor(self.th, backend=self.backend))
+        if cache_bytes:
+            # Wired as `cli server` wires each package with a device
+            # backend: its batcher beside the backend and a result cache
+            # of cache_bytes.
+            from pilosa_tpu.exec.batcher import ShardLegBatcher as JaxBatcher
+            from pilosa_tpu.exec.rescache import ResultCache as JaxResultCache
+            from pilosa_tpu.exec.tpu import TPUBackend
+            from pilosa_tpu_torch.exec.batcher import ShardLegBatcher
+            from pilosa_tpu_torch.exec.rescache import ResultCache
+
+            jbe = TPUBackend(self.jh)
+            japi = JaxAPI(self.jh, JaxExecutor(self.jh, backend=jbe))
+            japi.executor.batcher = JaxBatcher(jbe)
+            japi.executor.rescache = JaxResultCache(self.jh, max_bytes=cache_bytes)
+            tapi.executor.batcher = ShardLegBatcher(self.backend)
+            tapi.executor.rescache = ResultCache(self.th, max_bytes=cache_bytes)
         for api in (japi, tapi):
             api.max_writes_per_request = WRITE_CAP
         self.jax = JaxServer(japi, host="127.0.0.1", port=0).open()
@@ -131,7 +147,9 @@ class _Pair:
         return got
 
 
-def _send(srv, method, path, body=b"", headers=None):
+def _send(srv, method, path, body=b"", headers=None, marker=False):
+    """(status, content type, body), and the X-Pilosa-Cache header last
+    when ``marker``."""
     if isinstance(body, (dict, list)):
         body = json.dumps(body).encode()
     elif isinstance(body, str):
@@ -140,7 +158,8 @@ def _send(srv, method, path, body=b"", headers=None):
     try:
         conn.request(method, path, body=body, headers=headers or {})
         r = conn.getresponse()
-        return r.status, r.getheader("Content-Type"), r.read()
+        out = (r.status, r.getheader("Content-Type"), r.read())
+        return out + (r.getheader("X-Pilosa-Cache"),) if marker else out
     finally:
         conn.close()
 
@@ -162,6 +181,57 @@ def fresh(written, tmp_path):
 
 
 PB = "application/x-protobuf"
+
+
+@pytest.fixture
+def cached(written, tmp_path):
+    """A pair whose executors each carry a result cache (the port's also
+    its batcher), as `cli server` wires them with max-result-cache-bytes."""
+    pair = _Pair(written, str(tmp_path), cache_bytes=1 << 20)
+    yield pair
+    pair.close()
+
+
+CACHED_QUERIES = (SLICE_QUERIES + [PAIR_REQUEST] + AGG_QUERIES + GROUPBY_QUERIES[:3]
+                  + ["Sum(field=v)", "Rows(f)"])
+
+
+def test_cached_server_bytes_identical(cached):
+    """Every response of a cache-enabled server, its X-Pilosa-Cache marker
+    included, equals the JAX server's: cold (misses), warm (hits), bypassed,
+    and around a Set and a SetRowAttrs; /debug/rescache agrees but for the
+    entries' ages."""
+    path = "/index/i/query"
+
+    def same(q, headers=None):
+        want = _send(cached.jax, "POST", path, q, headers, marker=True)
+        got = _send(cached.port, "POST", path, q, headers, marker=True)
+        assert got == want, q
+        return got[3]
+
+    def markers(headers=None):
+        return [same(q, headers) for q in CACHED_QUERIES]
+
+    cold = markers()
+    warm = markers()
+    assert "miss" in cold and "hit" in warm
+    assert set(markers({"X-Pilosa-Cache": "bypass"})) <= {"bypass", None}
+    same(f"Set({SHARD_WIDTH + 17}, f=1)")
+    after_set = markers()
+    assert after_set != warm
+    same('SetRowAttrs(f, 1, color="red")')
+    assert markers() == cold
+    for encoding in ("json", "protobuf"):
+        for q in CACHED_QUERIES[:4]:
+            _query(cached, q, encoding)
+
+    def dump(srv):
+        d = json.loads(_send(srv, "GET", "/debug/rescache")[2])
+        for e in d["entries"]:
+            e.pop("ageSeconds")
+        return d
+
+    assert dump(cached.port) == dump(cached.jax)
 
 
 def _query(pair, q, encoding, index="i", params="", status=200):
@@ -392,8 +462,6 @@ def _write_topology(data_dir, n_nodes):
 
 #: A non-default value of every setting the port's server does not read.
 UNREAD_SETTING_TOML = {
-    "batch-window": "batch-window = 0.002\n",
-    "max-staleness": "max-staleness = 2\n",
     "max-hbm-bytes": "max-hbm-bytes = 1073741824\n",
     "anti-entropy.interval": "[anti-entropy]\ninterval = 60.0\n",
     "client-timeout": "client-timeout = 5.0\n",
@@ -418,7 +486,6 @@ def test_every_unread_setting_is_tested():
 
 @pytest.mark.parametrize("knob,toml,argv", [
     *((k, t, []) for k, t in UNREAD_SETTING_TOML.items()),
-    ("max-result-cache-bytes", "max-result-cache-bytes = 1048576\n", []),
     ("preheat", "preheat = true\n", []),
     ("refresh-window-ms", "refresh-window-ms = 5\n", []),
     ("mesh-devices", "mesh-devices = 2\n", []),
@@ -445,12 +512,63 @@ def test_cli_refuses_unported_knob(tmp_path, monkeypatch, capsys, knob, toml, ar
 
 def test_cli_refuses_unread_setting_from_env(tmp_path, monkeypatch, capsys):
     _no_serving(monkeypatch)
-    monkeypatch.setenv("PILOSA_TPU_BATCH_WINDOW", "0.002")
+    monkeypatch.setenv("PILOSA_TPU_MAX_HBM_BYTES", "1073741824")
     rc = cli.main(["server", "-d", str(tmp_path / "d"), "--bind", "127.0.0.1:0",
                    "--executor", "cpu"])
     err = capsys.readouterr().err
     assert rc != 0
-    assert "batch-window" in err and "ROADMAP.md" in err
+    assert "max-hbm-bytes" in err and "ROADMAP.md" in err
+
+
+class _Booted(Exception):
+    """Raised where the CLI builds its API: the wiring is done."""
+
+
+@pytest.mark.parametrize("toml,executor,window,cache", [
+    ("batch-window = 0.002\n", "cuda", 0.002, None),
+    ("max-result-cache-bytes = 1048576\nmax-staleness = 2\n", "cuda", 0.0, (1048576, 2)),
+    ("max-result-cache-bytes = 1048576\n", "cpu", None, (1048576, 0)),
+    ("max-result-cache-bytes = 1048576\ncache-enabled = false\n", "cuda", 0.0, None),
+], ids=["batch-window", "cache-and-staleness", "cpu-oracle-cache", "cache-disabled"])
+def test_cli_wires_batcher_and_cache(tmp_path, monkeypatch, toml, executor, window, cache):
+    """`cli server` wires a ShardLegBatcher (with batch-window) beside the
+    card's backend, none beside the CPU oracle, and a ResultCache (with
+    max-staleness) when cache-enabled and max-result-cache-bytes ask for
+    one. The card is stood in for by the plain versions on the CPU."""
+    from pilosa_tpu_torch.exec import cuda as cuda_mod
+    from pilosa_tpu_torch.exec.batcher import ShardLegBatcher
+    from pilosa_tpu_torch.exec.rescache import ResultCache
+    from pilosa_tpu_torch.server import api as api_mod
+
+    built = {}
+
+    def capture(self, holder, executor, *a, **k):
+        built["executor"] = executor
+        raise _Booted
+
+    real = cuda_mod.CUDABackend
+    monkeypatch.setattr(cuda_mod, "CUDABackend", lambda holder: real(holder, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "stand-in")
+    monkeypatch.setattr(api_mod.API, "__init__", capture)
+    conf = tmp_path / "c.toml"
+    conf.write_text(toml)
+    with pytest.raises(_Booted):
+        cli.main(["server", "-d", str(tmp_path / "d"), "--bind", "127.0.0.1:0",
+                  "-c", str(conf), "--executor", executor])
+    ex = built["executor"]
+    try:
+        if window is None:
+            assert ex.batcher is None
+        else:
+            assert isinstance(ex.batcher, ShardLegBatcher) and ex.batcher.window == window
+            assert ex.batcher.backend is ex.backend
+        if cache is None:
+            assert ex.rescache is None
+        else:
+            assert isinstance(ex.rescache, ResultCache)
+            assert (ex.rescache.max_bytes, ex.rescache.max_staleness) == cache
+    finally:
+        ex.holder.close()
 
 
 def cli_config(data_dir):
