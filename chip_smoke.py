@@ -115,10 +115,12 @@ chip_smoke.py to time it).
    filtered-out shard; K10: every op, sign and between class at depths 1,
    14 and 63, predicates 0, all ones and bit depth - 1); K11 at the served
    shapes (the Count's two leaves, the 3-leaf Not, 8 and 64 distinct
-   3-row slots, Row(f=2)'s slab) with its times and bound, and at edge
-   shapes (S = 1, word axes off its chunk, the full leaf table and stack,
-   zero leaves, per-slot rows past the launch's parameters) in both
-   modes;
+   3-row slots, Row(f=2)'s slab) and at the window shapes of
+   phase_spec_kernels with its times and bound, the window body against
+   its two timed variants, from 8 threads at once, and at edge shapes
+   (S = 1, word axes off its chunk, the full leaf table and stack, zero
+   leaves, per-slot rows past the launch's parameters) in both modes on
+   every body;
 6. a small holder with an existence field and a YMDH time field: the
    whole Count/Row/Not/All/time-range query list through two write-churn
    epochs, checked against the CPU
@@ -408,42 +410,32 @@ def bare_bsi_compare(stack, depth, op, bits, neg=False, allow_eq=False, hi_bits=
     return launch
 
 
-def bare_spec_eval(ops, leaves, rows, mode):
-    """K11's bare launch: its leaf table, per-slot rows and output staged
-    once (count mode's launch zeroes its output on the stream, as the
-    wrapper's does)."""
-    import ctypes
-
+def bare_spec_eval(ops, leaves, rows, mode, body=None):
+    """K11's bare launches: one a run of slots of the window's split, their
+    window tables and output staged once (count mode's launch zeroes its
+    output on the stream, as the wrapper's does); ``body`` forces a body
+    (default: the wrapper's choice for each run)."""
     import torch
 
     from pilosa_tpu_torch.ops import build
     from pilosa_tpu_torch.ops import kernels as K
 
     lib = build.library(K._LIBRARY["spec_eval"])
-    n, q = len(leaves), len(rows)
+    q = len(rows)
     s, w = leaves[0].shape[0], leaves[0].shape[-1]
-    bases = (ctypes.c_void_p * n)(*[t.data_ptr() for t in leaves])
-    strides = (ctypes.c_longlong * n)(*[(t.shape[1] if t.dim() == 3 else 1) * (w // 4)
-                                        for t in leaves])
-    prog = (ctypes.c_uint8 * len(ops))(*ops)
-    flat = [r for slot in rows for r in slot]
-    rows_host = (ctypes.c_int * len(flat))(*flat)
     dev = leaves[0].device
-    rows_dev = (torch.tensor(flat, dtype=torch.int32, device=dev)
-                if len(flat) > K.SPEC_INLINE_ROWS else None)
     out = torch.empty((q, s) if mode == "count" else (q, s, w), dtype=torch.int32, device=dev)
+    staged = [K.spec_launch_args(ops, leaves, rows[q0:q1], out[q0:q1], mode,
+                                 K.spec_body(ops, q1 - q0, mode) if body is None else body)
+              for q0, q1 in K.spec_split(leaves, rows)]
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
-        rc = lib.spec_eval_launch(
-            ctypes.addressof(bases), ctypes.addressof(strides), ctypes.addressof(prog),
-            len(ops), n, ctypes.addressof(rows_host),
-            None if rows_dev is None else rows_dev.data_ptr(),
-            out.data_ptr() if mode == "count" else None,
-            out.data_ptr() if mode == "slab" else None,
-            0 if mode == "count" else 1, q, s, w, stream)
-        check(rc == 0, f"spec_eval: CUDA launch failed with cudaError {rc}")
+        for args, _keep in staged:
+            rc = lib.spec_eval_launch(*args, stream)
+            check(rc == 0, f"spec_eval: CUDA launch failed with cudaError {rc}")
 
+    launch.out = out
     return launch
 
 
@@ -2113,43 +2105,132 @@ def phase_bsi_kernels(bsi, launches):
 
 def spec_work(leaves, rows, mode, n_ops):
     """(bytes, bit operations) of one K11 call: each distinct leaf row the
-    slots read, once, and the output written once; one bit operation a
-    bit of every binary op and of the popcount."""
+    slots read, once (two leaves that are one stack share its rows), and
+    the output written once; one bit operation a bit of every binary op
+    and of the popcount."""
     s, w = leaves[0].shape[0], leaves[0].shape[-1]
-    distinct = {(i if leaves[i].dim() == 3 else ("slab", i), r)
-                for slot in rows for i, r in enumerate(slot) if r >= 0}
+    distinct = {(id(leaves[i]), r) for slot in rows for i, r in enumerate(slot) if r >= 0}
     out = len(rows) * s * (1 if mode == "count" else w) * 4
     binary = sum(1 for op in n_ops if op >= 0x80)
     return len(distinct) * s * w * 4 + out, len(rows) * (binary + 1) * s * w * 32
 
 
+def spec_ptxas_report() -> None:
+    """K11's registers, spills and shared memory as ptxas reported them."""
+    from pilosa_tpu_torch.ops import build
+
+    section = build.build_log.split("== spec.cu", 1)
+    if len(section) < 2:
+        log("kernels: spec_eval ptxas report: not built in this process")
+        return
+    for line in section[1].split("\n== ", 1)[0].splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log("kernels: spec_eval ptxas:", line.strip())
+
+
+def spec_forced(ops, leaves, rows, mode, body):
+    """K11's output with every run of the split on ``body``."""
+    import torch
+
+    launch = bare_spec_eval(ops, leaves, rows, mode, body)
+    launch()
+    torch.cuda.synchronize()
+    return launch.out
+
+
+def spec_concurrent(shapes, threads: int = 8, rounds: int = 12) -> int:
+    """K11 from several threads at once, each alternating the windows of
+    ``shapes`` (ops, leaves, rows, mode, want): windows of different
+    entry counts share a kernel, and every call must return exactly its
+    plain answer. Returns the calls made."""
+    import threading
+
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+
+    errors = []
+
+    def worker(k):
+        try:
+            for j in range(rounds):
+                ops, leaves, rows, mode, want = shapes[(k + j) % len(shapes)]
+                got = K.spec_eval(ops, leaves, rows, mode)
+                torch.cuda.current_stream().synchronize()
+                if max_abs_err(got, want) != 0:
+                    errors.append(f"thread {k} round {j}: differs")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"thread {k}: {e!r}")
+
+    pool = [threading.Thread(target=worker, args=(k,)) for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    check(not errors, f"spec_eval from {threads} threads: {errors[:3]}")
+    return threads * rounds
+
+
 def phase_spec_kernels(gstacks, exists, launches):
     """K11 against its plain form on the card, exactly: at the served
     shapes (the single Count's two leaves, the 3-leaf Not over the
-    existence stack, 3-row Counts over 8 and 64 distinct slots, and
-    Row(f=2)'s slab) with its times and bound, and at edge shapes (S = 1,
-    word axes off the block's chunk, the full leaf table and stack, zero
-    leaves, per-slot rows past the launch's parameters)."""
+    existence stack, 3-row Counts over 8 and 64 distinct slots,
+    Row(f=2)'s slab and a condition Count's one slab leaf), at window
+    shapes (64 slots naming the same three rows, a window past
+    MAX_SPEC_ENTRIES that spec_split cuts into launches, 8 slabs of a
+    3-row Intersect, and the batcher's windows of trees that are not a
+    3-row fold: 64 Nots over pairs, 8 rows each with a 3-view time range,
+    64 5-row Unions), with their times and bounds, the one-slot shapes
+    timed on both bodies, the multi-slot folds on the window body and its
+    two variants (the program walk, the fold over a run-time leaf count),
+    windows of 2 and 17 entries from 8 threads at once, and at edge shapes
+    (S = 1, word axes off the block's tile, the full leaf table and stack,
+    zero leaves, per-slot entries past the launch's parameters)."""
     import numpy as np
     import torch
 
     from pilosa_tpu_torch.ops import kernels as K
 
+    spec_ptxas_report()
     f, g, h = gstacks["f"], gstacks["g"], gstacks["h"]
+    # A 16-row stack beside f and g: 8 + 8 + 16 rows pass the entry cap.
+    wide = torch.empty((f.shape[0], 16, f.shape[-1]), dtype=torch.int32,
+                       device=f.device).random_()
     combos = [(a, b, c) for a in range(ROWS) for b in range(ROWS) for c in range(H_ROWS)]
     three = K.spec_program(("I", (("R", "f"), ("R", "g"), ("R", "h")))).ops
+    q8 = [list(c) for c in combos[::32]]
     served = {
         "count": (K.spec_program(("I", (("R", "f"), ("R", "g")))).ops, (f, g), [[1, 2]],
                   "count"),
         "not3": (K.spec_program(("N", ("I", (("R", "f"), ("R", "g"))))).ops, (exists, f, g),
                  [[0, 1, 2]], "count"),
-        "q8": (three, (f, g, h), [list(c) for c in combos[::32]], "count"),
+        "q8": (three, (f, g, h), q8, "count"),
         "q64": (three, (f, g, h), [list(c) for c in combos[::4]], "count"),
         "slab": ((0,), (f,), [[2]], "slab"),
+        # A condition Count's K11: one slab leaf (K10's), count mode.
+        "cond": ((0,), (f[:, 2].contiguous(),), [[0]], "count"),
+        "q64same": (three, (f, g, h), [[1, 2, 0]] * 64, "count"),
+        "split": (three, (f, g, wide), [[k % ROWS, (k // ROWS) % ROWS, k % 16]
+                                        for k in range(64)], "count"),
+        "slab8": (three, (f, g, h), q8, "slab"),
+        "q64not": (K.spec_program(("N", ("I", (("R", "f"), ("R", "g"))))).ops, (exists, f, g),
+                   [[0, a, b] for a in range(ROWS) for b in range(ROWS)], "count"),
+        "q8time": (K.spec_program(("I", (("R", "f"), ("T", "t", 3)))).ops, (f, g, h, exists),
+                   [[a, 1, 2, 0] for a in range(ROWS)], "count"),
+        "q64u5": (K.spec_program(("U", tuple(("R", "f") for _ in range(5)))).ops,
+                  (f, g, h, exists, f),
+                  [[a, b, 0, 0, (a + b) % ROWS] for a in range(ROWS) for b in range(ROWS)],
+                  "count"),
     }
     out = {}
     for label, (ops, leaves, rows, mode) in served.items():
+        spans = K.spec_split(leaves, rows)
+        before = K.launch_counts()["spec_eval"]
         got = K.spec_eval(ops, leaves, rows, mode)
+        calls = K.launch_counts()["spec_eval"] - before
+        check(calls == len(spans), f"spec_eval {label}: {calls} launches, the split "
+              f"reports {len(spans)}")
+        check(label == "split" or calls == 1, f"spec_eval {label}: {calls} launches")
         err = max_abs_err(got, K.spec_eval_torch(ops, leaves, rows, mode))
         check(err == 0, f"spec_eval differs at the served shape {label}")
         del got
@@ -2157,12 +2238,46 @@ def phase_spec_kernels(gstacks, exists, launches):
         k_ms = kernel_ms(bare_spec_eval(ops, leaves, rows, mode))
         plain_ms = time_ms(lambda: K.spec_eval_torch(ops, leaves, rows, mode), reps=1, warm=0)
         bound, by, route = kernel_bound(spec_work(leaves, rows, mode, ops))
-        out[label] = {"slots": len(rows), "leaves": len(leaves), "mode": mode, "ms": ms,
-                      "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": by, "max_abs_err": err}
-        log(f"kernels: spec_eval {label} ({len(rows)} slots, {len(leaves)} leaves, {mode}): "
-            f"{ms:.4f} ms, kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound:.4f} ms by {by}, exact")
+        entries = len(K.spec_window(leaves, rows)[0])
+        out[label] = {"slots": len(rows), "leaves": len(leaves), "entries": entries,
+                      "launches": calls, "mode": mode, "ms": ms, "kernel_ms": k_ms,
+                      "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                      "max_abs_err": err}
+        extra = ""
+        if len(rows) == 1:  # both bodies, in turns
+            for body, name in ((K.SPEC_BODY_SLOT, "slot"), (K.SPEC_BODY_WINDOW, "window"),
+                               (K.SPEC_BODY_WINDOW, "window"), (K.SPEC_BODY_SLOT, "slot")):
+                t = kernel_ms(bare_spec_eval(ops, leaves, rows, mode, body))
+                out[label].setdefault(f"kernel_ms_{name}_body", []).append(t)
+            extra = (f", per-slot body {out[label]['kernel_ms_slot_body']}, window body "
+                     f"{out[label]['kernel_ms_window_body']}")
+            check(max_abs_err(spec_forced(ops, leaves, rows, mode, K.SPEC_BODY_WINDOW),
+                              K.spec_eval_torch(ops, leaves, rows, mode)) == 0,
+                  f"spec_eval's window body differs at {label}")
+        elif K.spec_is_fold(tuple(ops)):  # the window body and its variants, in turns
+            variants = ((K.SPEC_BODY_WINDOW, "window"), (K.SPEC_BODY_FOLD_N, "fold_n"),
+                        (K.SPEC_BODY_WALK, "walk"))
+            for body, name in variants + variants[::-1]:
+                t = kernel_ms(bare_spec_eval(ops, leaves, rows, mode, body))
+                out[label].setdefault(f"kernel_ms_{name}_body", []).append(t)
+            want = K.spec_eval_torch(ops, leaves, rows, mode)
+            for body, name in variants[1:]:
+                check(max_abs_err(spec_forced(ops, leaves, rows, mode, body), want) == 0,
+                      f"spec_eval's {name} body differs at {label}")
+            del want
+            extra = "".join(f", {name} body {out[label][f'kernel_ms_{name}_body']}"
+                            for _, name in variants)
+        log(f"kernels: spec_eval {label} ({len(rows)} slots, {len(leaves)} leaves, "
+            f"{entries} entries, {calls} launches, {mode}): {ms:.4f} ms, kernel "
+            f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by {by}, "
+            f"exact{extra}")
+    del wide
+    mixed = [(ops, leaves, rows, mode, K.spec_eval_torch(ops, leaves, rows, mode))
+             for ops, leaves, rows, mode in (served["count"], served["q64"])]
+    calls = spec_concurrent(mixed)
+    del mixed
+    log(f"kernels: spec_eval exact over {calls} calls from 8 threads, windows of 2 and 17 "
+        f"entries interleaved")
     dev = f.device
     rng = np.random.default_rng(11)
 
@@ -2173,7 +2288,7 @@ def phase_spec_kernels(gstacks, exists, launches):
     ops_cycle = (K.SPEC_AND, K.SPEC_OR, K.SPEC_ANDNOT, K.SPEC_XOR)
     n_edge = 0
     for s, w, n_leaves, q in [(1, 32768, 2, 1), (3, 36, 3, 5), (2, 100, K.MAX_SPEC_DEPTH, 3),
-                              (2, 32768, K.MAX_SPEC_LEAVES, 20), (1, 32768, 1, 300),
+                              (2, 32768, K.MAX_SPEC_LEAVES, 20), (1, 32768, 1, 600),
                               (4, 1028, 5, 64)]:
         leaves = [words(s, w) if i % 3 == 2 else words(s, 8 if i % 3 == 0 else 16, w)
                   for i in range(n_leaves)]
@@ -2191,12 +2306,16 @@ def phase_spec_kernels(gstacks, exists, launches):
                  int(rng.integers(0, t.shape[1] if t.dim() == 3 else 1)) for t in leaves]
                 for _ in range(q)]
         for mode in ("count", "slab"):
-            err = max_abs_err(K.spec_eval(ops, leaves, rows, mode),
-                              K.spec_eval_torch(ops, leaves, rows, mode))
+            want = K.spec_eval_torch(ops, leaves, rows, mode)
+            err = max([max_abs_err(K.spec_eval(ops, leaves, rows, mode), want)]
+                      + [max_abs_err(spec_forced(ops, leaves, rows, mode, body), want)
+                         for body in (K.SPEC_BODY_SLOT, K.SPEC_BODY_WINDOW, K.SPEC_BODY_WALK,
+                                      K.SPEC_BODY_FOLD_N)])
             check(err == 0, f"spec_eval differs at S={s} W={w} leaves={n_leaves} Q={q} {mode}")
             n_edge += 1
     torch.cuda.synchronize()
-    log(f"kernels: spec_eval exact at {n_edge} edge shapes and modes")
+    log(f"kernels: spec_eval exact at {n_edge} edge shapes and modes, on both bodies and the "
+        f"window body's two variants")
     main = out.pop("count")
     line = kernel_line("spec_eval", main["ms"], main["kernel_ms"], main["plain_ms"],
                        spec_work((f, g), [[1, 2]], "count", served["count"][0]),

@@ -143,10 +143,10 @@ def _bind(name: str, lib) -> None:
                  "nary_stats_launch": group, "nary_stats_pershard_launch": group,
                  # mode, iters, out, blocks, stream
                  "and_popc_probe_launch": [i32, i32, ptr, i32, ptr]},
-        # bases, strides, ops, n_ops, n_leaves, rows_host, rows_dev, counts,
-        # slab, mode, q, s, w, stream
-        "spec": {"spec_eval_launch": [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr,
-                                      i32, i32, i32, i32, ptr]},
+        # bases, strides, n_entries, ops, n_ops, n_leaves, slots_host,
+        # slots_dev, counts, slab, mode, body, q, s, w, stream
+        "spec": {"spec_eval_launch": [ptr, ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr,
+                                      i32, i32, i32, i32, i32, ptr]},
     }
     for fn_name, argtypes in signatures[name].items():
         fn = getattr(lib, fn_name)

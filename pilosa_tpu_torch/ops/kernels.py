@@ -41,8 +41,11 @@ the row popcounts and the BSI plane walk on the CUDA cores
   a postfix program (``spec_program``) over leaf rows, evaluated for Q query
   slots in one launch: per slot, the popcount of the result in every shard
   (count mode, int32[Q, S]) or the result itself (slab mode, int32[Q, S,
-  W]). The single Count, ``Row`` and the batcher's count and row windows
-  run on it.
+  W]). The host's window table (``spec_window``) names each distinct leaf
+  row once, so the kernel reads it once for every slot that names it; a
+  window past the kernel's caps is cut into launches of whole slots
+  (``spec_split``). The single Count, ``Row`` and the batcher's count and
+  row windows run on it.
 - the group tensor of an N-field GroupBy (K4-K7): for slots q, with m_q the
   AND of one row of each extra field (and of a filter slab),
 
@@ -914,9 +917,23 @@ def bsi_compare(stack: torch.Tensor, depth: int, op: str, bits, neg: bool = Fals
 #: is split by spec_program into sub-programs evaluated first (slab leaves).
 MAX_SPEC_LEAVES = 16
 MAX_SPEC_DEPTH = 8
-#: Per-slot rows that travel in the launch's parameters (Q * leaves); more
-#: go to the card as a table of their own.
+#: Per-slot entries that travel in the launch's parameters (Q * leaves);
+#: more go to the card as a table of their own.
 SPEC_INLINE_ROWS = 256
+#: The distinct leaf rows (entries) and the slots one launch of K11's
+#: window body takes: each entry's 4 KiB tile sits in shared memory, in a
+#: ring of up to two buffers that each also hold a zero tile, beside a
+#: 20-byte row a slot (2 x 25 x 4 KiB + 512 x 20 B of a block's 227 KiB).
+#: spec_split cuts a window past either into launches of whole slots.
+MAX_SPEC_ENTRIES = 24
+MAX_SPEC_SLOTS = 512
+#: K11's bodies (spec.cu): one block a (slot, chunk), each slot loading its
+#: own leaves, or one block a tile of every slot, each entry staged once
+#: (spec_body chooses). Two variants of the window body, which chip_smoke.py
+#: times against it and no served launch takes: every program walked leaf by
+#: leaf (no fold kernels), and a fold's kernel over its run-time leaf count
+#: (no exact unrolling).
+SPEC_BODY_SLOT, SPEC_BODY_WINDOW, SPEC_BODY_WALK, SPEC_BODY_FOLD_N = 0, 1, 2, 3
 #: A program's ops: i < MAX_SPEC_LEAVES pushes leaf i; these pop b, then a,
 #: and push a op b.
 SPEC_AND, SPEC_OR, SPEC_ANDNOT, SPEC_XOR = 0x80, 0x81, 0x82, 0x83
@@ -1089,6 +1106,56 @@ def _spec_check(ops, leaves, rows):
     return rows, leaves[0].shape[0], leaves[0].shape[-1]
 
 
+def _entry_key(leaves, i: int, r: int):
+    """Leaves that are one object share their rows' entries."""
+    return id(leaves[i]), r
+
+
+def spec_window(leaves, rows):
+    """K11's window table of slots ``rows`` [Q][leaf] (-1: the zero leaf)
+    over ``leaves``: (the distinct entries, as (leaf i, row r) in order of
+    first use, r >= 0; per slot and leaf the index of its entry, -1 for the
+    zero leaf). Leaves that are the same object share entries, so each
+    distinct row is staged once for every slot that names it."""
+    first: dict = {}
+    entries: list = []
+    index: list = []
+    for slot in rows:
+        idx = []
+        for i, r in enumerate(slot):
+            if r < 0:
+                idx.append(-1)
+                continue
+            key = _entry_key(leaves, i, r)
+            e = first.get(key)
+            if e is None:
+                e = first[key] = len(entries)
+                entries.append((i, r))
+            idx.append(e)
+        index.append(idx)
+    return entries, index
+
+
+def spec_split(leaves, rows, max_entries: int = MAX_SPEC_ENTRIES,
+               max_slots: int = MAX_SPEC_SLOTS):
+    """The launches of a window, as [(q0, q1)]: runs of whole slots, in
+    order, each naming at most ``max_entries`` distinct entries and holding
+    at most ``max_slots`` slots (a slot alone names at most MAX_SPEC_LEAVES
+    <= max_entries)."""
+    spans: list = []
+    seen: set = set()
+    q0 = 0
+    for q, slot in enumerate(rows):
+        keys = {_entry_key(leaves, i, r) for i, r in enumerate(slot) if r >= 0}
+        if q > q0 and (q - q0 == max_slots or len(seen | keys) > max_entries):
+            spans.append((q0, q))
+            seen, q0 = set(), q
+        seen |= keys
+    if len(rows) > q0:
+        spans.append((q0, len(rows)))
+    return spans
+
+
 def spec_eval_torch(ops, leaves, rows, mode: str = "count") -> torch.Tensor:
     """Plain K11: the program run with torch ops, one slot at a time:
     int32[Q, S] per-shard counts ("count") or the slabs int32[Q, S, W]
@@ -1125,43 +1192,83 @@ def spec_eval_torch(ops, leaves, rows, mode: str = "count") -> torch.Tensor:
     return torch.stack(out)
 
 
+@functools.lru_cache(maxsize=1024)
+def spec_is_fold(ops: tuple) -> bool:
+    """Whether a program folds its leaves left to right with one op (leaf
+    0, then each further leaf followed by that op): Intersect, Union,
+    Difference or Xor of rows, a time range, a lone row. The window body
+    runs these as kernels of their own (spec.cu window_shape)."""
+    n = (len(ops) + 1) // 2
+    return (len(ops) == 2 * n - 1 and all(ops[2 * i - 1] == i for i in range(1, n))
+            and len({ops[2 * i] for i in range(1, n)}) <= 1)
+
+
+def spec_body(ops, q: int, mode: str) -> int:
+    """The body a launch of q slots of program ``ops`` runs in ``mode``:
+    the window body, but for one slot of a program other than a fold, or
+    of one leaf counted (a condition Count), which the per-slot body runs
+    faster on an H100 (chip_smoke.py times both)."""
+    if q == 1 and (not spec_is_fold(tuple(ops)) or (len(ops) == 1 and mode == "count")):
+        return SPEC_BODY_SLOT
+    return SPEC_BODY_WINDOW
+
+
+def spec_launch_args(ops, leaves, rows, out: torch.Tensor, mode: str, body: int):
+    """(the ctypes arguments of one spec_eval_launch, bar the stream, over
+    slots ``rows`` (within spec_split's caps) into ``out``; the objects
+    they point into, which the caller keeps alive until the launch is
+    enqueued)."""
+    import ctypes
+
+    entries, index = spec_window(leaves, rows)
+    q, n, ne = len(rows), len(leaves), len(entries)
+    s, w = leaves[0].shape[0], leaves[0].shape[-1]
+    w4 = w // 4
+    bases = (ctypes.c_void_p * max(ne, 1))(
+        *[leaves[i].data_ptr() + r * w4 * 16 for i, r in entries])
+    strides = (ctypes.c_longlong * max(ne, 1))(
+        *[(leaves[i].shape[1] if leaves[i].dim() == 3 else 1) * w4 for i, _ in entries])
+    prog = (ctypes.c_uint8 * len(ops))(*ops)
+    flat = [e for slot in index for e in slot]
+    slots_host = (ctypes.c_int * len(flat))(*flat)
+    slots_dev = None
+    if len(flat) > SPEC_INLINE_ROWS:
+        slots_dev = torch.tensor(flat, dtype=torch.int32).to(out.device)
+    args = (ctypes.addressof(bases), ctypes.addressof(strides), ne, ctypes.addressof(prog),
+            len(ops), n, ctypes.addressof(slots_host),
+            None if slots_dev is None else slots_dev.data_ptr(),
+            out.data_ptr() if mode == "count" else None,
+            out.data_ptr() if mode == "slab" else None,
+            0 if mode == "count" else 1, body, q, s, w)
+    return args, (bases, strides, prog, slots_host, slots_dev)
+
+
 def spec_eval(ops, leaves, rows, mode: str = "count") -> torch.Tensor:
     """K11: (postfix ``ops``, ``leaves`` int32[S, R, W] stacks or [S, W]
     slabs, per-slot ``rows`` [Q][leaf] with -1 for the zero leaf) ->
     int32[Q, S] per-shard popcounts of each slot's result ("count"), or the
     results int32[Q, S, W] ("slab"). Leaves are pushed in order, each once
-    (spec_program's programs are)."""
+    (spec_program's programs are). On the card, one launch for each run of
+    slots spec_split cuts the window into."""
     if mode not in ("count", "slab"):
         raise ValueError(f"spec_eval: mode must be 'count' or 'slab', got {mode!r}")
     leaves = tuple(leaves)
     rows, s, w = _spec_check(tuple(ops), leaves, rows)
     if _plain("spec_eval", leaves[0]):
         return spec_eval_torch(ops, leaves, rows, mode)
-    import ctypes
-
     from pilosa_tpu_torch.ops.build import library
 
     dev = leaves[0].device
-    q, n = len(rows), len(leaves)
-    shape = (q, s) if mode == "count" else (q, s, w)
-    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    q = len(rows)
+    out = torch.empty((q, s) if mode == "count" else (q, s, w), dtype=torch.int32, device=dev)
     if not out.numel():
         return out
-    w4 = w // 4
-    bases = (ctypes.c_void_p * n)(*[t.data_ptr() for t in leaves])
-    strides = (ctypes.c_longlong * n)(*[(t.shape[1] if t.dim() == 3 else 1) * w4
-                                        for t in leaves])
-    prog = (ctypes.c_uint8 * len(ops))(*ops)
-    flat = [r for slot in rows for r in slot]
-    rows_host = (ctypes.c_int * len(flat))(*flat)
-    rows_dev = None
-    if len(flat) > SPEC_INLINE_ROWS:
-        rows_dev = torch.tensor(flat, dtype=torch.int32).to(dev)
-    _launch("spec_eval", dev, library(_LIBRARY["spec_eval"]).spec_eval_launch,
-            ctypes.addressof(bases), ctypes.addressof(strides), ctypes.addressof(prog),
-            len(ops), n, ctypes.addressof(rows_host),
-            None if rows_dev is None else rows_dev.data_ptr(),
-            out.data_ptr() if mode == "count" else None,
-            out.data_ptr() if mode == "slab" else None,
-            0 if mode == "count" else 1, q, s, w)
+    fn = library(_LIBRARY["spec_eval"]).spec_eval_launch
+    ops = tuple(ops)
+    for q0, q1 in spec_split(leaves, rows):
+        part = out if q1 - q0 == q else out[q0:q1]
+        args, keep = spec_launch_args(ops, leaves, rows[q0:q1], part, mode,
+                                      spec_body(ops, q1 - q0, mode))
+        _launch("spec_eval", dev, fn, *args)
+        del keep
     return out

@@ -522,18 +522,20 @@ def _spec_rows(rng, leaves, q):
 def test_spec_eval_equals_plain(card, s, w, n_leaves, q):
     """K11 in both modes equals its plain form: S = 1, word axes off the
     block's chunk, every op, the full leaf table and stack, zero leaves,
-    Q = 1 and 64 (the per-slot rows in the launch's parameters or, past
-    SPEC_INLINE_ROWS, in a table on the card)."""
+    Q = 1 and 64 (the per-slot entries in the launch's parameters or, past
+    SPEC_INLINE_ROWS, in a table on the card), one launch a run of the
+    window's split (random rows of 64 slots pass MAX_SPEC_ENTRIES)."""
     rng = np.random.default_rng(s * 1000 + n_leaves + q)
     leaves, ops = _spec_case(rng, s, w, n_leaves)
     rows = _spec_rows(rng, leaves, q)
     dev = [stack_from_reference(x, card) for x in leaves]
     cpu = [stack_from_reference(x, "cpu") for x in leaves]
+    launches = len(K.spec_split(dev, rows))
     for mode in ("count", "slab"):
         before = K.launch_counts()["spec_eval"]
         got = K.spec_eval(ops, dev, rows, mode)
         torch.cuda.synchronize()
-        assert K.launch_counts()["spec_eval"] == before + 1
+        assert K.launch_counts()["spec_eval"] == before + launches
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), K.spec_eval_torch(ops, cpu, rows, mode)), mode
 
@@ -625,4 +627,201 @@ def test_backend_batches_on_card_match_cpu_oracle(card):
     assert dev.execute("i", "Count(Intersect(Row(f=1), Row(g=2)))") == cpu.execute(
         "i", "Count(Intersect(Row(f=1), Row(g=2)))")
     assert K.launch_counts() == {**{k: 0 for k in K.launch_counts()}, "spec_eval": 1}
+    h.close()
+
+
+def _shared_window(rng, s, w):
+    """Stacks f, g (8 rows), h (4 rows), the existence row e, and 64 slots
+    of 3-row windows that share their rows as the batcher's do: every
+    (a, b) with h row 0, some with the zero leaf."""
+    f, g, h = (_words(rng, s, r, w) for r in (8, 8, 4))
+    e = _words(rng, s, 1, w)
+    rows = [[a, -1 if (a + b) % 9 == 0 else b, 0] for a in range(8) for b in range(8)]
+    return (f, g, h, e), rows
+
+
+@pytest.mark.parametrize("spec,names", [
+    (("I", (("R", "f"), ("R", "g"), ("R", "h"))), "fgh"),
+    (("U", (("R", "f"), ("R", "g"), ("R", "h"))), "fgh"),
+    (("D", (("R", "f"), ("R", "g"), ("R", "h"))), "fgh"),
+    (("X", (("R", "f"), ("R", "g"), ("R", "h"))), "fgh"),
+    (("N", ("I", (("R", "f"), ("R", "g")))), "efg"),
+    (("I", (("R", "f"), ("T", "t", 2))), "fgh"),
+])
+@pytest.mark.parametrize("q", [1, 8, 64])
+def test_spec_window_shared_rows_equal_plain(card, spec, names, q):
+    """K11 over windows whose slots share rows (the window body stages each
+    distinct row once) equals its plain form in both modes: folds of every
+    op, a Not over a pair, a row with a time range; 1, 8 and 64 slots."""
+    rng = np.random.default_rng(q + len(spec))
+    stacks, rows = _shared_window(rng, 3, W)
+    by = dict(zip("fghe", stacks))
+    leaves = [by[n] for n in names]
+    if names == "efg":  # the existence row, then f and g
+        rows = [[0, r[0], r[1]] for r in rows]
+    rows = rows[:q]
+    ops = K.spec_program(spec).ops
+    dev = [stack_from_reference(x, card) for x in leaves]
+    cpu = [stack_from_reference(x, "cpu") for x in leaves]
+    assert K.spec_split(dev, rows) == [(0, q)]
+    for mode in ("count", "slab"):
+        before = K.launch_counts()["spec_eval"]
+        got = K.spec_eval(ops, dev, rows, mode)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["spec_eval"] == before + 1
+        assert torch.equal(got.cpu(), K.spec_eval_torch(ops, cpu, rows, mode)), mode
+
+
+def test_spec_window_past_the_cap_launches_its_split(card):
+    """A window past MAX_SPEC_ENTRIES (8 + 8 + 16 rows) and one past
+    MAX_SPEC_SLOTS: one launch a run of spec_split, exactly, equal to the
+    plain form."""
+    rng = np.random.default_rng(31)
+    f, g, wide = (_words(rng, 2, r, 1028) for r in (8, 8, 16))
+    cases = [((f, g, wide), [[k % 8, (k // 8) % 8, k % 16] for k in range(64)],
+              K.spec_program(("I", (("R", "f"), ("R", "g"), ("R", "w")))).ops),
+             ((f,), [[k % 8] for k in range(600)], (0,))]
+    for leaves, rows, ops in cases:
+        dev = [stack_from_reference(x, card) for x in leaves]
+        cpu = [stack_from_reference(x, "cpu") for x in leaves]
+        spans = K.spec_split(dev, rows)
+        assert len(spans) > 1
+        for mode in ("count", "slab"):
+            before = K.launch_counts()["spec_eval"]
+            got = K.spec_eval(ops, dev, rows, mode)
+            torch.cuda.synchronize()
+            assert K.launch_counts()["spec_eval"] == before + len(spans)
+            assert torch.equal(got.cpu(), K.spec_eval_torch(ops, cpu, rows, mode)), mode
+
+
+@pytest.mark.parametrize("spec,names", [
+    (("I", (("R", "f"), ("R", "g"))), "fg"), (("R", "f"), "f"),
+    (("N", ("I", (("R", "f"), ("R", "g")))), "efg")])
+def test_spec_one_slot_both_bodies_equal_plain(card, spec, names):
+    """One slot in both modes on both bodies (the wrapper's choice and the
+    other, forced through the bare entry point) equals the plain form."""
+    from pilosa_tpu_torch.ops.build import library
+
+    rng = np.random.default_rng(len(names))
+    stacks, _ = _shared_window(rng, 2, W)
+    by = dict(zip("fghe", stacks))
+    ops = K.spec_program(spec).ops
+    rows = [{"f": [3], "fg": [3, 5], "efg": [0, 3, 5]}[names]]
+    dev = [stack_from_reference(by[n], card) for n in names]
+    cpu = [stack_from_reference(by[n], "cpu") for n in names]
+    lib = library(K._LIBRARY["spec_eval"])
+    for mode in ("count", "slab"):
+        want = K.spec_eval_torch(ops, cpu, rows, mode)
+        assert torch.equal(K.spec_eval(ops, dev, rows, mode).cpu(), want)
+        for body in (K.SPEC_BODY_SLOT, K.SPEC_BODY_WINDOW):
+            out = torch.empty(tuple(want.shape), dtype=torch.int32, device=card)
+            args, keep = K.spec_launch_args(ops, dev, rows, out, mode, body)
+            assert lib.spec_eval_launch(*args, torch.cuda.current_stream().cuda_stream) == 0
+            torch.cuda.synchronize()
+            del keep
+            assert torch.equal(out.cpu(), want), (mode, body)
+
+
+@pytest.mark.parametrize("spec,names", [
+    (("I", (("R", "f"), ("R", "g"), ("R", "h"))), "fgh"),
+    (("X", (("R", "f"), ("R", "g"))), "fg"),
+    (("U", tuple(("R", "f") for _ in range(5))), "fffff"),
+    (("N", ("I", (("R", "f"), ("R", "g")))), "efg"),
+])
+@pytest.mark.parametrize("q", [8, 64])
+def test_spec_window_body_variants_equal_plain(card, spec, names, q):
+    """The window body's two timed variants, the program walk and the fold
+    over a run-time leaf count, forced through the bare entry point, equal
+    the plain form in both modes, as the window body does."""
+    from pilosa_tpu_torch.ops.build import library
+
+    rng = np.random.default_rng(q + len(names))
+    stacks, rows = _shared_window(rng, 2, W)
+    by = dict(zip("fghe", stacks))
+    rows = [{"fgh": r, "fg": r[:2], "efg": [0, r[0], r[1]],
+             "fffff": [r[0], r[1], (r[0] + 3) % 8, -1, (r[0] * 5) % 8]}[names]
+            for r in rows[:q]]
+    dev = [stack_from_reference(by[n], card) for n in names]
+    cpu = [stack_from_reference(by[n], "cpu") for n in names]
+    if names == "fffff":  # one stack: its rows are entries of every leaf
+        dev, cpu = [dev[0]] * 5, [cpu[0]] * 5
+    ops = K.spec_program(spec).ops
+    lib = library(K._LIBRARY["spec_eval"])
+    for mode in ("count", "slab"):
+        want = K.spec_eval_torch(ops, cpu, rows, mode)
+        for body in (K.SPEC_BODY_WINDOW, K.SPEC_BODY_WALK, K.SPEC_BODY_FOLD_N):
+            out = torch.empty(tuple(want.shape), dtype=torch.int32, device=card)
+            args, keep = K.spec_launch_args(ops, dev, rows, out, mode, body)
+            assert lib.spec_eval_launch(*args, torch.cuda.current_stream().cuda_stream) == 0
+            torch.cuda.synchronize()
+            del keep
+            assert torch.equal(out.cpu(), want), (mode, body)
+
+
+def test_spec_windows_of_2_and_17_entries_from_threads(card):
+    """K11 launched from 8 threads at once, each alternating a single Count
+    (2 entries) and a window of 64 3-row Counts (17 entries): both run the
+    same fold kernel with different shared memory, and every call returns
+    its plain answer."""
+    import threading
+
+    rng = np.random.default_rng(217)
+    (f, g, h, _), _ = _shared_window(rng, 3, W)
+    dev = [stack_from_reference(x, card) for x in (f, g, h)]
+    cpu = [stack_from_reference(x, "cpu") for x in (f, g, h)]
+    pair = K.spec_program(("I", (("R", "f"), ("R", "g")))).ops
+    three = K.spec_program(("I", (("R", "f"), ("R", "g"), ("R", "h")))).ops
+    window = [[a, b, 0] for a in range(8) for b in range(8)]
+    shapes = [(pair, dev[:2], [[1, 2]], K.spec_eval_torch(pair, cpu[:2], [[1, 2]])),
+              (three, dev, window, K.spec_eval_torch(three, cpu, window))]
+    assert [len(K.spec_window(leaves, rows)[0]) for _, leaves, rows, _ in shapes] == [2, 17]
+    errors = []
+
+    def worker(k):
+        try:
+            for j in range(25):
+                ops, leaves, rows, want = shapes[(k + j) % 2]
+                got = K.spec_eval(ops, leaves, rows)
+                torch.cuda.current_stream().synchronize()
+                if not torch.equal(got.cpu(), want):
+                    errors.append((k, j))
+        except Exception as e:  # noqa: BLE001 - reported by the assert
+            errors.append((k, repr(e)))
+
+    before = K.launch_counts()["spec_eval"]
+    pool = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    assert errors == []
+    assert K.launch_counts()["spec_eval"] == before + 8 * 25
+
+
+def test_generic_batch_window_of_64_three_row_counts_is_one_launch(card):
+    """_generic_batch_dispatch over 64 distinct 3-row Counts is one K11
+    launch, and its answers are the CPU oracle's."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.pql import parse_string
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(64)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name, n_rows in (("f", 8), ("g", 8), ("h", 4)):
+        field = idx.create_field(name)
+        for row in range(n_rows):
+            cols = np.unique(rng.integers(0, 2 * SHARD_WIDTH, 4000, dtype=np.uint64))
+            field.import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+    be = CUDABackend(h)
+    cpu = Executor(h, backend=CPUBackend(h))
+    qs = [f"Intersect(Row(f={a}), Row(g={b}), Row(h=0))" for a in range(8) for b in range(8)]
+    calls = [parse_string(q).calls[0] for q in qs]
+    K.reset_launch_counts()
+    got = be.count_batch("i", calls, [0, 1])
+    assert K.launch_counts()["spec_eval"] == 1
+    assert got == [cpu.execute("i", f"Count({q})")[0] for q in qs]
     h.close()

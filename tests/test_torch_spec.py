@@ -12,6 +12,17 @@ CUDABackend, run on the CPU, against the JAX package.
   numpy-seeded stacks, for Q = 1, 3 and 8 slots with duplicate slots; the
   JAX side pads to its slot bucket, and its padded lanes
   (masked_lane_counts, mask_lane_slab) are exactly 0.
+- K11's window table (spec_window: the distinct leaf rows a launch stages
+  once, and each slot's index into them) gives back every slot's rows,
+  over random windows (hypothesis: 1 to 300 slots, duplicate slots, zero
+  leaves, fixed rows, stacks, slabs and one stack named by two leaves);
+  spec_split cuts a window into runs of whole slots, in order, each within
+  its entry and slot caps; the launch arguments (spec_launch_args) address
+  each entry's row in every shard as the kernel reads them; and the
+  program run over the table's gathered entries, launch by launch, equals
+  spec_eval_torch and the JAX "count_batch" and "vec_batch" programs at
+  Q = 1, 3, 8 and 64. Each limit, body and op the wrapper hands the
+  kernel has the value spec.cu gives it.
 - CUDABackend(device="cpu").count_batch_async and row_batch_async equal
   the JAX TPUBackend's over tests/test_tpu.py's query lists, BSI
   conditions and Shift included, on one JAX-written data directory.
@@ -19,12 +30,15 @@ CUDABackend, run on the CPU, against the JAX package.
 Every output is an integer or a bitmap: every comparison is exact.
 """
 
+import ctypes
 import shutil
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import tests.test_tpu as jax_tpu_tests
 from pilosa_tpu.core import Holder as JaxHolder
@@ -244,6 +258,223 @@ def test_spec_eval_torch_zero_leaf_and_slab_leaf():
     counts = K.spec_eval((0, 1, K.SPEC_XOR), (st, slab), [[1, 0]])
     want = K.popcount32(st[:, 1, :] ^ slab).sum(dim=-1)
     assert counts.tolist() == [want.tolist()]
+
+
+# ---------------------------------------------------------------------------
+# K11's window table and its split
+# ---------------------------------------------------------------------------
+
+
+@st.composite
+def _windows(draw):
+    """(leaves, rows, max_entries, max_slots): 1 to 6 leaves (stacks of 1
+    to 8 rows and [S, W] slabs, one stack possibly named by two leaves), 1
+    to 300 slots drawn from a pool (duplicates), rows -1 (the zero leaf),
+    fixed rows (one row in every slot) or any, and caps no smaller than a
+    slot's leaves."""
+    n = draw(st.integers(1, 6))
+    leaves = []
+    for _ in range(n):
+        if leaves and draw(st.integers(0, 4)) == 0:
+            leaves.append(leaves[draw(st.integers(0, len(leaves) - 1))])
+        elif draw(st.booleans()):
+            leaves.append(torch.zeros((2, draw(st.integers(1, 8)), 4), dtype=torch.int32))
+        else:
+            leaves.append(torch.zeros((2, 4), dtype=torch.int32))
+    heights = [t.shape[1] if t.dim() == 3 else 1 for t in leaves]
+    fixed = [draw(st.integers(-1, h - 1)) if draw(st.integers(0, 3)) == 0 else None
+             for h in heights]
+    slot = st.tuples(*[st.just(f) if f is not None else st.integers(-1, h - 1)
+                       for f, h in zip(fixed, heights)])
+    pool = draw(st.lists(slot, min_size=1, max_size=40))
+    q = draw(st.integers(1, 300))
+    rows = [list(pool[draw(st.integers(0, len(pool) - 1))]) for _ in range(q)]
+    return leaves, rows, draw(st.integers(n, 3 * n + 4)), draw(st.integers(1, 64))
+
+
+@settings(max_examples=150, deadline=None)
+@given(_windows())
+def test_spec_window_gives_back_every_slot_and_split_covers_the_window(window):
+    leaves, rows, max_entries, max_slots = window
+    entries, index = K.spec_window(leaves, rows)
+    keys = [(id(leaves[i]), r) for i, r in entries]
+    assert len(set(keys)) == len(keys) and all(r >= 0 for _, r in entries)
+    assert len(index) == len(rows)
+    for slot, idx in zip(rows, index):
+        assert len(idx) == len(slot)
+        for i, (r, e) in enumerate(zip(slot, idx)):
+            if r < 0:
+                assert e == -1
+            else:
+                j, er = entries[e]
+                assert leaves[j] is leaves[i] and er == r
+    named = {(id(leaves[i]), r) for slot in rows for i, r in enumerate(slot) if r >= 0}
+    assert set(keys) == named
+    spans = K.spec_split(leaves, rows, max_entries, max_slots)
+    assert spans[0][0] == 0 and spans[-1][1] == len(rows)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    for q0, q1 in spans:
+        assert 0 < q1 - q0 <= max_slots
+        assert len(K.spec_window(leaves, rows[q0:q1])[0]) <= max_entries
+    for (q0, q1), _ in zip(spans, spans[1:]):  # each launch takes every slot it can
+        assert (q1 - q0 == max_slots
+                or len(K.spec_window(leaves, rows[q0:q1 + 1])[0]) > max_entries)
+
+
+def test_spec_split_caps_entries_and_slots():
+    """At the launch's caps: 8 + 8 + 16 distinct rows of three stacks cut
+    into runs of at most MAX_SPEC_ENTRIES entries; 600 slots of one row
+    into runs of MAX_SPEC_SLOTS; a window within both is one launch."""
+    f, g = torch.zeros((1, 8, 4), dtype=torch.int32), torch.zeros((1, 8, 4), dtype=torch.int32)
+    wide = torch.zeros((1, 16, 4), dtype=torch.int32)
+    rows = [[k % 8, (k // 8) % 8, k % 16] for k in range(64)]
+    spans = K.spec_split((f, g, wide), rows)
+    assert len(spans) > 1
+    assert [len(K.spec_window((f, g, wide), rows[a:b])[0]) <= K.MAX_SPEC_ENTRIES
+            for a, b in spans] == [True] * len(spans)
+    assert K.spec_split((f,), [[k % 8] for k in range(600)]) == [
+        (0, K.MAX_SPEC_SLOTS), (K.MAX_SPEC_SLOTS, 600)]
+    combos = [[a, b, c] for a in range(8) for b in range(8) for c in range(4)]
+    h = torch.zeros((1, 4, 4), dtype=torch.int32)
+    for step in (4, 32):  # the 64- and 8-slot windows of 3-row Counts
+        window = combos[::step]
+        assert K.spec_split((f, g, h), window) == [(0, len(window))]
+        assert len(K.spec_window((f, g, h), window)[0]) == (17 if step == 4 else 10)
+    assert K.spec_split((f, g, h), [[1, 2, 0]] * 64) == [(0, 64)]
+    assert len(K.spec_window((f, g, h), [[1, 2, 0]] * 64)[0]) == 3
+
+
+@pytest.mark.parametrize("spec,fold", [
+    (("R", "f"), True), (("I", (("R", "f"), ("R", "g"))), True),
+    (("D", (("R", "f"), ("R", "g"), ("R", "h"))), True), (("T", "t", 3), True),
+    (("N", ("R", "f")), True), (("N", ("I", (("R", "f"), ("R", "g")))), False),
+    (("I", (("R", "f"), ("T", "t", 2))), False),
+    (("D", (("U", (("R", "f"), ("R", "g"))), ("R", "h"))), False),
+])
+def test_spec_body_takes_the_window_body_but_for_one_slot(spec, fold):
+    """A fold (one op, left to right) is what spec.cu's window_shape runs
+    as a fold kernel; one slot of any other program, or of a lone leaf
+    counted, takes the per-slot body; every other launch the window body."""
+    ops = K.spec_program(spec).ops
+    assert K.spec_is_fold(ops) == fold
+    lone = len(ops) == 1
+    for mode in ("count", "slab"):
+        want_one = (K.SPEC_BODY_SLOT if not fold or (lone and mode == "count")
+                    else K.SPEC_BODY_WINDOW)
+        assert K.spec_body(ops, 1, mode) == want_one
+        assert K.spec_body(ops, 2, mode) == K.SPEC_BODY_WINDOW
+
+
+@pytest.mark.parametrize("source,name", [
+    ("kMaxLeaves", "MAX_SPEC_LEAVES"), ("kMaxDepth", "MAX_SPEC_DEPTH"),
+    ("kMaxInlineRows", "SPEC_INLINE_ROWS"), ("kMaxEntries", "MAX_SPEC_ENTRIES"),
+    ("kMaxWindowSlots", "MAX_SPEC_SLOTS"), ("kBodySlot", "SPEC_BODY_SLOT"),
+    ("kBodyWindow", "SPEC_BODY_WINDOW"), ("kBodyWalk", "SPEC_BODY_WALK"),
+    ("kBodyFoldN", "SPEC_BODY_FOLD_N"), ("kOpAnd", "SPEC_AND"), ("kOpOr", "SPEC_OR"),
+    ("kOpAndNot", "SPEC_ANDNOT"), ("kOpXor", "SPEC_XOR"),
+])
+def test_spec_limits_and_bodies_match_the_kernel_source(source, name):
+    """Each limit, body and op the wrapper hands K11 has the value spec.cu
+    gives it."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(K.__file__), "csrc", "spec.cu")
+    with open(path) as fh:
+        text = fh.read()
+    found = re.findall(rf"\b{source} = (0x[0-9a-fA-F]+|\d+)\b", text)
+    assert len(found) == 1, found
+    assert int(found[0], 0) == getattr(K, name)
+
+
+def _kernel_view(ops, leaves, rows, mode):
+    """spec_eval as the card computes it, in torch ops: per run of
+    spec_split, the ctypes arguments of spec_launch_args read back from
+    raw memory (each entry's row in each shard at base + s * stride, each
+    slot's entries), the entries gathered once, and every slot's program
+    run over them."""
+    s, w = leaves[0].shape[0], leaves[0].shape[-1]
+    w4 = w // 4
+    outs = []
+    for q0, q1 in K.spec_split(leaves, rows):
+        out = torch.empty((q1 - q0, s) if mode == "count" else (q1 - q0, s, w),
+                          dtype=torch.int32)
+        args, keep = K.spec_launch_args(ops, leaves, rows[q0:q1], out, mode, K.SPEC_BODY_WINDOW)
+        bases_p, strides_p, ne, ops_p, n_ops, n_leaves, slots_p = args[:7]
+        assert args[7] is None or len(rows[q0:q1]) * n_leaves > K.SPEC_INLINE_ROWS
+        assert args[10:] == (0 if mode == "count" else 1, K.SPEC_BODY_WINDOW, q1 - q0, s, w)
+        assert list((ctypes.c_uint8 * n_ops).from_address(ops_p)) == list(ops)
+        bases = (ctypes.c_void_p * max(ne, 1)).from_address(bases_p)
+        strides = (ctypes.c_longlong * max(ne, 1)).from_address(strides_p)
+        slots = list((ctypes.c_int * ((q1 - q0) * n_leaves)).from_address(slots_p))
+        entries = torch.stack([
+            torch.stack([torch.frombuffer(bytearray(ctypes.string_at(
+                bases[e] + sh * strides[e] * 16, w4 * 16)), dtype=torch.int32)
+                for sh in range(s)]) for e in range(ne)]) if ne else None
+        del keep
+        for q in range(q1 - q0):
+            stack = []
+            for op in ops:
+                if op < K.MAX_SPEC_LEAVES:
+                    e = slots[q * n_leaves + op]
+                    stack.append(torch.zeros((s, w), dtype=torch.int32) if e < 0 else entries[e])
+                    continue
+                b, a = stack.pop(), stack.pop()
+                stack.append({K.SPEC_AND: a & b, K.SPEC_OR: a | b, K.SPEC_ANDNOT: a & ~b,
+                              K.SPEC_XOR: a ^ b}[op])
+            res = stack.pop()
+            outs.append(K.popcount32(res).sum(dim=-1).to(torch.int32) if mode == "count"
+                        else res)
+    return torch.stack(outs)
+
+
+_BATCHED = [c for c in CASES if not K.spec_program(c[1]).per_slot]
+
+
+@pytest.mark.parametrize("q", [1, 3, 8, 64])
+@pytest.mark.parametrize("name,spec,names,gen", _BATCHED, ids=[c[0] for c in _BATCHED])
+def test_window_table_run_equals_plain_and_jax_batch_programs(backends, name, spec, names,
+                                                              gen, q):
+    """The program run over each launch's window table (the entries
+    gathered once from the addresses the kernel is given) equals
+    spec_eval_torch and the JAX count_batch / vec_batch programs."""
+    jb, tb = backends
+    stacks = _stacks(len(name) + 7)
+    tblocks = tuple(stack_from_reference(stacks[n], "cpu") for n in names)
+    slots = _slots(gen, q, q + 1)
+    prog = K.spec_program(spec)
+    leaves = [tb._spec_leaf(leaf, tblocks, slots[0]) for leaf in prog.leaves]
+    rows = [K.spec_leaf_rows(prog, sc) for sc in slots]
+    got_c = _kernel_view(prog.ops, leaves, rows, "count")
+    got_v = _kernel_view(prog.ops, leaves, rows, "slab")
+    assert torch.equal(got_c, K.spec_eval_torch(prog.ops, leaves, rows, "count"))
+    assert torch.equal(got_v, K.spec_eval_torch(prog.ops, leaves, rows, "slab"))
+    jblocks = tuple(jnp.asarray(stacks[n]) for n in names)
+    if not slots[0]:  # no per-slot scalars: the JAX package runs "count" once
+        want_c = np.asarray(jb._program("count", spec, False)(jblocks, ()))
+        np.testing.assert_array_equal(got_c.numpy(), np.tile(want_c, (q, 1)))
+        return
+    qb = jax_tpu._slot_bucket(q)
+    scal = jb._padded_slot_scalars([_jax_scalars(sc) for sc in slots], qb)
+    want_cb = np.asarray(jb._program("count_batch", spec, False)(jblocks, scal))
+    want_vb = np.asarray(jb._program("vec_batch", spec, False)(jblocks, scal))
+    np.testing.assert_array_equal(got_c.numpy(), want_cb[:q].astype(np.int64))
+    np.testing.assert_array_equal(got_v.numpy().view(np.uint32), want_vb[:q])
+
+
+def test_window_table_run_past_the_caps_equals_plain():
+    """A window past MAX_SPEC_ENTRIES and MAX_SPEC_SLOTS, launch by launch
+    through the table, equals spec_eval_torch: 520 slots over 8 + 8 + 16
+    rows, the zero leaf among them."""
+    rng = np.random.default_rng(5)
+    f, g, wide = (stack_from_reference(rng.integers(0, 2**32, (2, r, 8), dtype=np.uint32),
+                                       "cpu") for r in (8, 8, 16))
+    rows = [[k % 8, -1 if k % 7 == 0 else (k // 8) % 8, k % 16] for k in range(520)]
+    ops = K.spec_program(("D", (("R", "f"), ("R", "g"), ("R", "w")))).ops
+    assert len(K.spec_split((f, g, wide), rows)) > 2
+    for mode in ("count", "slab"):
+        assert torch.equal(_kernel_view(ops, (f, g, wide), rows, mode),
+                           K.spec_eval_torch(ops, (f, g, wide), rows, mode))
 
 
 # ---------------------------------------------------------------------------
