@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--root DIR]
+    python3 chip_smoke.py [--root DIR] [--churn | --miss]
 
 Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
@@ -83,7 +83,13 @@ chip_smoke.py to time it).
    a 4-client window in which every request drops the pair, agg and
    groupn caches first while a writer toggles one bit of f with
    Set/Clear, each answer equal to the single-threaded answer of one of
-   the two epochs; then with the result cache on too, the Count at 1 and
+   the two epochs; then the churn window: 4 clients send the 16-Count pair
+   request and TopN(f) in a seeded random order while a writer toggles one
+   bit of f every 50 ms, without dropping any cache, so each write epoch
+   meets the pair and TopN tables: after one warm-up request of each kind
+   no pair sweep (K1, K2) and no K8 may launch, the tables' incremental
+   counters must grow, at least 20 writes must land, and every answer must
+   be one of the two epochs'; then with the result cache on too, the Count at 1 and
    16 (cache hits) and the same Set/Clear window; then the Count and
    3-row Counts without HTTP (threads calling Executor.execute) at 1, 4
    and 16 threads, without and with the batcher; no batch dispatch error
@@ -121,6 +127,10 @@ chip_smoke.py to time it).
    (S = 1, word axes off its chunk, the full leaf table and stack, zero
    leaves, per-slot rows past the launch's parameters) in both modes on
    every body;
+5b. the host rows of the pair and TopN tables (exec/cuda.py
+   _host_slab_pair_flat, _host_slab_row_counts), which a write epoch
+   derives on the host, against K1's and K8's rows of two random slab sets
+   at the stack height of bench.py's index, exactly;
 6. a small holder with an existence field and a YMDH time field: the
    whole Count/Row/Not/All/time-range query list through two write-churn
    epochs, checked against the CPU
@@ -128,6 +138,12 @@ chip_smoke.py to time it).
    and no query may be routed to the CPU oracle.
 
 cpu_routed_total is printed after each phase.
+
+``--churn`` runs only the churn window, and ``--miss`` only the
+cache-missing window, on bench.py's index served by the --root checkout's
+package, and prints its line: run it for the parent and the change in
+turns to compare the two (the churn window's zero-launch checks apply to
+a package with the tables' host tiers).
 
 Prints a JSON line of every kernel, then, last, one JSON object whose
 "ok" is true. Any failed check raises; the exit code is then not 0.
@@ -169,6 +185,11 @@ ROUTES = {}
 # oracle (the host iterator over 954 shards would take minutes).
 H_ROWS = 4
 ORACLE_SHARDS = 32
+# One request of 16 fused Counts over the field pair (f, g).
+PAIR_REQUEST = " ".join(
+    f"Count({('Intersect', 'Union', 'Difference', 'Xor')[k % 4]}(Row(f={k % ROWS}), "
+    f"Row(g={(3 * k + 1) % ROWS})))"
+    for k in range(16))
 GROUP_QUERIES = [
     "GroupBy(Rows(f))",
     "GroupBy(Rows(f), Rows(g))",
@@ -632,10 +653,7 @@ def phase_main(results: dict):
         "Count(Xor(Row(f=7), Row(g=4)))",
     ]
     verbs = ("Intersect", "Union", "Difference", "Xor")
-    pair_request = " ".join(
-        f"Count({verbs[k % 4]}(Row(f={k % ROWS}), Row(g={(3 * k + 1) % ROWS})))"
-        for k in range(16)
-    )
+    pair_request = PAIR_REQUEST
     wide_request = " ".join(
         f"Count({verbs[k % 4]}(Row(a={(37 * k) % WIDE_ROWS}), "
         f"Row(b={(101 * k + 5) % WIDE_ROWS})))"
@@ -1216,8 +1234,14 @@ def phase_groupby_tiles():
 HTTP_SECONDS = 2.0
 HTTP_COUNT_CLIENTS = (1, 4, 16)
 HTTP_OTHER_CLIENTS = (1, 4)
-# Clients of the window whose every request misses the backend's caches.
+# Clients of the window whose every request misses the backend's caches,
+# and its requests: the pair request and three GroupBys.
 MISS_CLIENTS = 4
+MISS_QUERIES = [PAIR_REQUEST, GROUP_QUERIES[2], GROUP_QUERIES[3], GROUP_QUERIES[4]]
+# The churn window: clients sending the pair request and TopN(f) while a
+# writer toggles one bit every CHURN_WRITE_SECONDS.
+CHURN_CLIENTS = 4
+CHURN_WRITE_SECONDS = 0.05
 # Clients of the windows served from the result cache, and its budget.
 CACHED_CLIENTS = (1, 16)
 RESCACHE_BYTES = 64 << 20
@@ -1470,6 +1494,171 @@ def miss_window(port: int, path: str, backend, dev, queries, col: int,
     return r
 
 
+# The table tiers' counters a churn window reads (pilosa_tpu_torch/exec/cuda.py).
+TIER_COUNTERS = ("pair_stats_sweeps_total", "pair_stats_incremental_updates_total",
+                 "pair_stats_incremental_shards_total", "pair_stats_delta_ops_total",
+                 "topn_incremental_updates_total", "topn_incremental_shards_total",
+                 "version_walk_total", "version_walk_shards_total")
+SWEEP_KERNELS = ("pair_stats_pershard", "pair_stats", "row_popcounts")
+
+
+def churn_column(holder) -> int:
+    """A column of shard 0 in neither f=1 nor g=4: toggling f=1 there moves
+    the pair request's Union(Row(f=1), Row(g=4)) Counts and TopN(f)."""
+    def row(name, r):
+        return holder.index("bench").field(name).view("standard").fragment(0).row(r)
+
+    f1, g4 = row("f", 1), row("g", 4)
+    return next(c for c in range(1 << 20)
+                if not f1.includes_column(c) and not g4.includes_column(c))
+
+
+def churn_window(port: int, path: str, backend, dev, pair_request: str, col: int,
+                 clients: int, seconds: float, expect_absorbed: bool) -> dict:
+    """miss_window without the cache drops: `clients` threads of this
+    process, each with its own keep-alive connection, send the 16-Count pair
+    request and TopN(f) in a seeded random order, while a writer toggles
+    bit (f=1, col) with Set and Clear over HTTP every CHURN_WRITE_SECONDS,
+    so every write epoch meets the backend's pair and TopN tables. After
+    one warm-up request of each kind, counts the launches of the sweep
+    kernels (K1, K2, K8) and the tiers' counters over the window. Every
+    answer must equal the single-threaded answer of one of the two epochs,
+    both epochs must be served and at least 20 writes made; with
+    expect_absorbed (a package with the host tiers), no sweep kernel may
+    launch and the incremental counters must grow."""
+    import http.client
+    import random
+    import threading
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.utils import fastjson
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    def body(results):
+        return fastjson.response_body([fastjson.encode_result(r) for r in results])
+
+    def tiers():
+        return {name: sum(global_stats.counter_totals(name).values()) for name in TIER_COUNTERS}
+
+    queries = [pair_request, "TopN(f)"]
+    to_b, to_a = f"Set({col}, f=1)", f"Clear({col}, f=1)"
+    check(dev.execute("bench", to_b) == [True], f"churn: {to_b} changed nothing")
+    epoch_b = {q: body(dev.execute("bench", q)) for q in queries}
+    check(dev.execute("bench", to_a) == [True], f"churn: {to_a} changed nothing")
+    epoch_a = {q: body(dev.execute("bench", q)) for q in queries}
+    check(all(epoch_a[q] != epoch_b[q] for q in queries),
+          "churn: the toggled bit does not move every answer of the window")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    for q in queries:  # the warm-up request of each kind
+        check(http_post(conn, path, q.encode()) == (200, epoch_a[q]),
+              "churn: a warm-up answer disagrees with the in-process executor")
+    conn.close()
+    seen = {"a": 0, "b": 0}
+    seen_lock = threading.Lock()
+
+    def reader(i):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        pick = random.Random(i).choice
+
+        def request():
+            q = pick(queries)
+            status, got = http_post(c, path, q.encode())
+            if got in (epoch_a[q], epoch_b[q]):
+                with seen_lock:
+                    seen["a" if got == epoch_a[q] else "b"] += 1
+            return status == 200 and got in (epoch_a[q], epoch_b[q])
+
+        return request
+
+    done = threading.Event()
+    writes = {"n": 0, "bad": 0}
+
+    def writer():
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        in_b = False
+        while not done.is_set() or in_b:
+            status, got = http_post(c, path, (to_a if in_b else to_b).encode())
+            writes["n"] += 1
+            writes["bad"] += status != 200 or got != body([True])
+            in_b = not in_b
+            if not done.is_set():
+                time.sleep(CHURN_WRITE_SECONDS)
+        c.close()
+
+    before, t0 = K.launch_counts(), tiers()
+    w = threading.Thread(target=writer)
+    w.start()
+    try:
+        r = load_window(clients, seconds, reader)
+    finally:
+        done.set()
+        w.join()
+    after, t1 = K.launch_counts(), tiers()
+    n = max(1, r["requests"])
+    r["request"] = "16-Count pair request and TopN(f) under Set/Clear epochs"
+    r["launches_per_request"] = {k: (after[k] - before[k]) / n for k in SWEEP_KERNELS}
+    r["tiers"] = {k: t1[k] - t0[k] for k in TIER_COUNTERS}
+    r["writes"] = writes["n"]
+    r["answers_per_epoch"] = seen
+    check(writes["bad"] == 0, f"churn: {writes['bad']} of {writes['n']} writes failed")
+    check(writes["n"] >= 20, f"churn: only {writes['n']} writes in the window")
+    check(r["mismatches"] == 0, f"churn: {r['mismatches']} answers match neither epoch")
+    check(seen["a"] > 0 and seen["b"] > 0, f"churn: one epoch was never served {seen}")
+    if expect_absorbed:
+        for name in SWEEP_KERNELS:
+            check(after[name] == before[name],
+                  f"churn: {name} launched {after[name] - before[name]} times in the window")
+        for name in ("pair_stats_incremental_updates_total", "topn_incremental_updates_total"):
+            check(r["tiers"][name] > 0, f"churn: {name} did not grow")
+    check(all(body(dev.execute("bench", q)) == epoch_a[q] for q in queries),
+          "churn: the index did not end in its first epoch")
+    return r
+
+
+def phase_window(root, which: str) -> int:
+    """`chip_smoke.py --churn|--miss [--root DIR]`: the churn window or the
+    cache-missing window (miss_window) alone, on bench.py's index (f, g and
+    h at 954 shards) served by DIR's package as `cli server` wires it (the
+    batcher beside the device backend), so that two trees can be compared
+    in turns in one call. Prints the card and one JSON line of the window;
+    the churn window's zero-launch checks apply when the package has the
+    host tiers."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.batcher import ShardLegBatcher
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.server import API, Server
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    log(smi.stdout.strip().splitlines()[0])
+    holder = Holder(None).open()
+    t0 = time.perf_counter()
+    build_bench_index(holder)
+    log(f"{which}: index build seconds {time.perf_counter() - t0:.1f}")
+    backend = CUDABackend(holder)
+    dev = Executor(holder, backend=backend)
+    dev.batcher = ShardLegBatcher(backend)
+    server = Server(API(holder, dev), host="127.0.0.1", port=0).open()
+    path = "/index/bench/query"
+    try:
+        if which == "churn":
+            r = churn_window(server.port, path, backend, dev, PAIR_REQUEST,
+                             churn_column(holder), CHURN_CLIENTS, HTTP_SECONDS,
+                             hasattr(backend, "_pair_try_incremental"))
+        else:
+            r = miss_window(server.port, path, backend, dev, MISS_QUERIES,
+                            toggle_column(holder), MISS_CLIENTS, HTTP_SECONDS)
+    finally:
+        server.close()
+        holder.close()
+    r["package"] = root
+    log(f"{which}: throughput " + json.dumps(r))
+    return 0
+
+
 def free_port() -> int:
     import socket
 
@@ -1515,10 +1704,7 @@ def phase_http(holder, backend, root):
     t_phase = time.perf_counter()
     dev = Executor(holder, backend=backend)
     routed0 = sum(global_stats.counter_totals("cpu_routed_total").values())
-    verbs = ("Intersect", "Union", "Difference", "Xor")
-    pair_request = " ".join(
-        f"Count({verbs[k % 4]}(Row(f={k % ROWS}), Row(g={(3 * k + 1) % ROWS})))"
-        for k in range(16))
+    pair_request = PAIR_REQUEST
     north = "Count(Intersect(Row(f=1), Row(g=2)))"
     three, three_filtered, two_filtered = GROUP_QUERIES[3], GROUP_QUERIES[4], GROUP_QUERIES[2]
     requests = [("Count", north), ("16-Count pair request", pair_request),
@@ -1637,9 +1823,13 @@ def phase_http(holder, backend, root):
             window("16-Count pair request", [pair_request], n, "batcher")
         for n in HTTP_OTHER_CLIENTS:
             window("3-field GroupBy", [three], n, "batcher")
-        miss_queries = [pair_request, two_filtered, three, three_filtered]
-        r = miss_window(server.port, path, backend, dev, miss_queries,
+        r = miss_window(server.port, path, backend, dev, MISS_QUERIES,
                         toggle_column(holder), MISS_CLIENTS, HTTP_SECONDS)
+        r["wiring"] = "batcher"
+        throughput.append(r)
+        log("http: throughput " + json.dumps(r))
+        r = churn_window(server.port, path, backend, dev, pair_request, churn_column(holder),
+                         CHURN_CLIENTS, HTTP_SECONDS, expect_absorbed=True)
         r["wiring"] = "batcher"
         throughput.append(r)
         log("http: throughput " + json.dumps(r))
@@ -1648,7 +1838,7 @@ def phase_http(holder, backend, root):
             hits = dev.rescache.hits
             window("Count, cached", counts, n, "batcher + result cache")
             check(dev.rescache.hits > hits, "http: the result cache served no hit")
-        r = miss_window(server.port, path, backend, dev, miss_queries,
+        r = miss_window(server.port, path, backend, dev, MISS_QUERIES,
                         toggle_column(holder), MISS_CLIENTS, HTTP_SECONDS)
         r["wiring"] = "batcher + result cache"
         throughput.append(r)
@@ -2514,6 +2704,52 @@ def phase_kernels(gstacks, wide_stacks, launches):
 # ---------------------------------------------------------------------------
 
 
+# The host rows' phase: shards of each random slab set.
+HOST_ROW_SHARDS = 32
+
+
+def phase_host_rows():
+    """The host rows of the pair and TopN tables (pilosa_tpu_torch/exec/
+    cuda.py) against the card's: two random slab sets at the bench index's
+    stack height (8 rows), HOST_ROW_SHARDS shards each, bit densities 1/16
+    (four random words ANDed) and 1/2. Every shard's
+    _host_slab_pair_flat must equal its row of K1 (pair_stats_pershard)
+    and _host_slab_row_counts its row of K8 (row_popcounts), exactly: a row
+    the host derives for a write epoch sits next to rows the card swept."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.exec import cuda as C
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.ops.blocks import WORDS_PER_SHARD
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shape = (HOST_ROW_SHARDS, 8, WORDS_PER_SHARD)
+
+    def words(n_and):
+        out = None
+        for _ in range(n_and):
+            w = torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                              device="cuda", generator=gen)
+            out = w if out is None else out & w
+        return out
+
+    for label, n_and in (("1/16", 4), ("1/2", 1)):
+        f, g = words(n_and), words(n_and)
+        card_pair = K.pair_stats_pershard(f, g).cpu().numpy()
+        card_rows = K.row_popcounts(f, 0, 8)[0].cpu().numpy().astype(np.int64)
+        fh = f.cpu().numpy().view(np.uint32)
+        gh = g.cpu().numpy().view(np.uint32)
+        host_pair = np.stack([C._host_slab_pair_flat(fh[i], gh[i]) for i in range(shape[0])])
+        host_rows = np.stack([C._host_slab_row_counts(fh[i]) for i in range(shape[0])])
+        check(np.array_equal(host_pair, card_pair),
+              f"host rows: _host_slab_pair_flat disagrees with K1 at density {label}")
+        check(np.array_equal(host_rows, card_rows),
+              f"host rows: _host_slab_row_counts disagrees with K8 at density {label}")
+        log(f"host rows: density {label}, {shape[0]} shards x 8 rows: K1's "
+            f"{card_pair.shape} and K8's {card_rows.shape} rows equal the host's")
+
+
 SMALL_QUERIES = [
     "Count(Intersect(Row(f=1), Row(g=7)))",
     "Count(Union(Row(f=1), Row(f=2), Row(f=3)))",
@@ -2605,6 +2841,12 @@ def main(argv=None) -> int:
                     help="the checkout whose pilosa_tpu_torch to drive (default: this "
                          "script's own)")
     ap.add_argument("--http-load", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--churn", action="store_true",
+                    help="run only the churn window (the pair request and TopN(f) under "
+                         "Set/Clear epochs) on the --root checkout's package")
+    ap.add_argument("--miss", action="store_true",
+                    help="run only the cache-missing window (miss_window) on the --root "
+                         "checkout's package")
     args = ap.parse_args(argv)
     if args.http_load:  # a throughput window's clients (phase_http)
         with open(args.http_load) as f:
@@ -2629,6 +2871,8 @@ def main(argv=None) -> int:
     import pilosa_tpu_torch
 
     log(f"package: {os.path.dirname(pilosa_tpu_torch.__file__)}")
+    if args.churn or args.miss:
+        return phase_window(root, "churn" if args.churn else "miss")
 
     card_line = phase_card()
     phase_probe(card_line)
@@ -2657,6 +2901,7 @@ def main(argv=None) -> int:
     lines += phase_bsi_kernels(bsi_stacks, launches)
     lines += phase_spec_kernels(gstacks, results.pop("exists"), launches)
     del gstacks, wide_stacks, bsi_stacks
+    phase_host_rows()
     phase_small()
     log_routed("small")
     log(f"total seconds {time.perf_counter() - t_start:.1f}")

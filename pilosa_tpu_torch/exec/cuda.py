@@ -22,7 +22,12 @@ The counterpart of the JAX package's TPUBackend:
   table is too big to keep; the host derives every verb from the pair
   matrix and the row counts.
 - TopN, Rows and unfiltered 1-field GroupBy read a field's per-row counts
-  (K8, row_popcounts), cached on the view's generation. Sum counts the BSI
+  (K8, row_popcounts), cached on the view's generation.
+- The pair and TopN tables keep their per-shard rows on the host and
+  absorb a write epoch there, with no launch: point writes replay from
+  the fragments' bit-op rings as +-1 deltas, other dirty shards re-derive
+  from host-packed slabs (the JAX package's incremental tiers, over its
+  freshness plane of per-shard (uid, version) walks). Sum counts the BSI
   planes over the positive and the negative columns (K8 with two masks) and
   the considered columns (K3); Min and Max walk the planes per shard (K9,
   bsi_minmax). The host weights and reduces exactly.
@@ -121,6 +126,60 @@ class _Unsupported(Exception):
     """Raised by the spec builder when a call can't be device-lowered."""
 
 
+#: Recorded-version sentinel: equal to no live (uid, version), so the next
+#: epoch's diff marks the shard dirty and the delta tier's uid check hands
+#: it to the slab tier. Recorded wherever captured content could not be
+#: confirmed against a version (a write raced the capture): recording a
+#: version OLDER than the content would make the delta replay, which is
+#: not idempotent, apply ops twice.
+_VERS_STALE = ("stale", -1)
+
+
+def _locked_version(fr):
+    """A fragment's (uid, version) read under fr.lock, None for a missing
+    one. Writers mutate storage before they bump the version, inside their
+    critical section, so an unlocked read can pair the pre-write version
+    with post-write content."""
+    if fr is None:
+        return None
+    with fr.lock:
+        return (fr.uid, fr.version)
+
+
+def _pack_confirmed(fr, n_rows: int):
+    """(uint32[n_rows, W] slab, (uid, version)) with the version read under
+    fr.lock before and after the pack: a write in between re-packs, so the
+    version describes exactly the slab's content."""
+    while True:
+        v = _locked_version(fr)
+        slab = pack_fragment(fr, n_rows=n_rows)
+        if _locked_version(fr) == v:
+            return slab, v
+
+
+def _host_slab_pair_flat(fslab: np.ndarray, gslab: np.ndarray) -> np.ndarray:
+    """One shard's pair-table row int32[rf*rg + rf + rg] from host-packed
+    slabs, K1's row for the same slabs bit for bit: a row the host derives
+    sits next to rows K1 swept. The AND is chunked over the word axis so
+    the temporary stays near 64 MiB at any rf * rg."""
+    rf, w = fslab.shape
+    rg = gslab.shape[0]
+    chunk = max(1, (64 << 20) // max(1, rf * rg * 4))
+    pair = np.zeros((rf, rg), dtype=np.int64)
+    for c0 in range(0, w, chunk):
+        blk = fslab[:, None, c0 : c0 + chunk] & gslab[None, :, c0 : c0 + chunk]
+        pair += np.bitwise_count(blk).sum(axis=-1, dtype=np.int64)
+    cf = np.bitwise_count(fslab).sum(axis=-1, dtype=np.int64)
+    cg = np.bitwise_count(gslab).sum(axis=-1, dtype=np.int64)
+    return np.concatenate([pair.ravel(), cf, cg]).astype(np.int32)
+
+
+def _host_slab_row_counts(slab: np.ndarray) -> np.ndarray:
+    """One shard's per-row popcounts int64[R] from a host-packed slab: its
+    row of K8's [S, R] table."""
+    return np.bitwise_count(slab).sum(axis=-1, dtype=np.int64)
+
+
 class _StackedBlocks:
     """Device cache: (index, field, view) -> int32[S, R_pad, W] + freshness.
 
@@ -162,10 +221,9 @@ class _StackedBlocks:
 
         def build(stale):
             frags = {s: (v.fragment(s) if v is not None else None) for s in shards}
-            vers = tuple(
-                (fr.uid, fr.version) if fr is not None else None
-                for fr in (frags[s] for s in shards)
-            )
+            # Read before the pack, so a stack is never recorded as newer
+            # than its content (the tables' delta replay trusts it).
+            vers = tuple(_locked_version(frags[s]) for s in shards)
             n_rows = max(
                 [fr.max_row_id + 1 for fr in frags.values() if fr is not None]
                 + [min_rows]
@@ -296,18 +354,26 @@ class _StackedBlocks:
 class _PairEntry:
     """One field pair's cached sufficient statistics: the in-flight flat
     table right after a sweep (per-shard int32[S, D] or summed int32[D]),
-    replaced by the int64 host totals on first resolve. gen_*: the views'
-    generations the sweep was keyed on."""
+    replaced by the int64 host totals on first resolve. pershard: the
+    per-shard int32[S, D] host table the totals sum (None for a summed
+    sweep, and until the first resolve), which absorbs write epochs
+    (_pair_try_incremental). gen_*: the views' generations it was keyed on,
+    the O(1) freshness gate. vers_*: the per-shard (uid, version) it
+    describes, diffed only when a generation moved."""
 
-    __slots__ = ("shards", "rf", "rg", "stats", "gen_f", "gen_g")
+    __slots__ = ("shards", "rf", "rg", "stats", "pershard",
+                 "gen_f", "gen_g", "vers_f", "vers_g")
 
-    def __init__(self, shards, rf, rg, stats, gen_f, gen_g):
+    def __init__(self, shards, rf, rg, stats, pershard, gen_f, gen_g, vers_f, vers_g):
         self.shards = shards
         self.rf = rf
         self.rg = rg
         self.stats = stats
+        self.pershard = pershard
         self.gen_f = gen_f
         self.gen_g = gen_g
+        self.vers_f = vers_f
+        self.vers_g = vers_g
 
 
 class _GroupNEntry:
@@ -443,6 +509,11 @@ class CUDABackend:
     #: device-summed totals instead of the per-shard table.
     MAX_PAIR_PERSHARD_BYTES = 32 << 20
 
+    #: Host-update cutoff of the pair and TopN tables: up to this many
+    #: shards an epoch re-derives from host-packed slabs; past it one
+    #: sweep on the card does.
+    MAX_PAIR_HOST_UPDATE_SHARDS = 64
+
     def __init__(self, holder, device="cuda", max_bytes: Optional[int] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -473,7 +544,8 @@ class CUDABackend:
         # index, fields, filter), beside the unfiltered Sum/Min/Max results,
         # (cfp, (value, count)) by (kind, index, field); the N>=3 per-shard
         # tables (_GroupNEntry); and the TopN rank vectors, (cfp, int64[R]
-        # row counts) by (index, field).
+        # row counts, int64[S, R] per-shard table or None, per-shard
+        # versions) by (index, field).
         self._agg_cache: dict = {}
         self._groupn_cache: dict = {}
         self._topn_cache: dict = {}
@@ -497,12 +569,124 @@ class CUDABackend:
             raise _Unsupported("stack exceeds the device budget")
         return block, rows_p
 
+    def _get_block_with_versions(self, index, field_obj, shards,
+                                 view_name=VIEW_STANDARD, min_rows=1):
+        """_get_block plus the per-shard (uid, version) the stack was packed
+        from (None when its entry was replaced meanwhile)."""
+        block, rows_p, vers = self.blocks.get_with_versions(
+            index, field_obj, shards, view_name, min_rows)
+        if block is None:
+            raise _Unsupported("stack exceeds the device budget")
+        return block, rows_p, vers
+
     def _field(self, index: str, name: str):
         idx = self.holder.index(index)
         f = idx.field(name) if idx else None
         if f is None:
             raise NotFoundError(f"field not found: {name}")
         return f
+
+    # -- freshness: per-shard versions of the host tables -------------------
+
+    def _count_version_walk(self, kind: str, tier: str, n_shards: int) -> None:
+        """Count one freshness walk (kind: "full" or "journal") for a table
+        tier, and the locked fragment reads it took: version_walk_total and
+        version_walk_shards_total{kind, tier}, and the query's profile. A
+        journal walk reads only the dirty shards."""
+        st = self.stats.with_tags(f"kind:{kind}", f"tier:{tier}")
+        st.count("version_walk_total")
+        st.count("version_walk_shards_total", n_shards)
+        prof = current_profile()
+        prof.incr(f"version_walk_{kind}")
+        prof.incr(f"version_walk_{kind}_shards", n_shards)
+        ex = getattr(prof, "explain", None)
+        if ex is not None:
+            ex._node().setdefault("freshness", []).append(
+                {"walk": kind, "tier": tier, "shards": n_shards})
+
+    def _live_versions(self, field_obj, shards_t, view_name=VIEW_STANDARD,
+                       tier="other"):
+        """Per-shard (uid, version) of the live fragments, each read under
+        its fr.lock (the full walk, one locked read a present fragment).
+        Locked reads serialize with a writer, which makes _confirm_vers a
+        true barrier after a capture."""
+        v = field_obj.view(view_name)
+        if v is None:
+            self._count_version_walk("full", tier, 0)
+            return tuple(None for _ in shards_t)
+        out = []
+        n_read = 0
+        for s in shards_t:
+            fr = v.fragment(s)
+            n_read += fr is not None
+            out.append(_locked_version(fr))
+        self._count_version_walk("full", tier, n_read)
+        return tuple(out)
+
+    def _confirm_vers(self, field_obj, shards_t, recorded,
+                      view_name=VIEW_STANDARD, tier="other"):
+        """After a capture (a stack build and sweep that read content after
+        reading versions): every shard whose live version moved past the
+        recorded one is recorded as _VERS_STALE, so the next epoch
+        re-derives it from its slab instead of replaying ops onto content
+        that may already hold them."""
+        live = self._live_versions(field_obj, shards_t, view_name, tier=tier)
+        if live == recorded:
+            return recorded
+        return tuple(r if r == l else _VERS_STALE for r, l in zip(recorded, live))
+
+    def _confirm_vers_journal(self, field_obj, shards_t, recorded, gen_recorded,
+                              view_name=VIEW_STANDARD, tier="other"):
+        """_confirm_vers in O(dirty) locked reads: a writer journals its
+        shard before it bumps the fragment's version, in one critical
+        section, so every write that could have staled a recorded version
+        after generation gen_recorded is in the view's dirty_shards_since;
+        the other shards' recorded versions are live. Falls back to the
+        full walk when the journal cannot explain the window."""
+        v = field_obj.view(view_name)
+        if v is None:
+            self._count_version_walk("journal", tier, 0)
+            return tuple(None for _ in shards_t)
+        dirty = v.dirty_shards_since(gen_recorded)
+        if dirty is None:
+            return self._confirm_vers(field_obj, shards_t, recorded, view_name, tier=tier)
+        out = list(recorded)
+        n_read = 0
+        for i, s in enumerate(shards_t):
+            if s not in dirty:
+                continue
+            fr = v.fragment(s)
+            n_read += fr is not None
+            if out[i] != _locked_version(fr):
+                out[i] = _VERS_STALE
+        self._count_version_walk("journal", tier, n_read)
+        return tuple(out)
+
+    def _epoch_versions(self, field_obj, shards_t, view_name, vers_old, gen_recorded,
+                        tier="other"):
+        """Per-shard live versions for an epoch update: when the view's
+        journal explains (gen_recorded, now], only its dirty shards take a
+        locked read and every other shard carries its recorded version
+        forward (exact: an unjournaled shard was not mutated). Otherwise
+        (no recorded versions, the journal evicted past gen_recorded, a
+        fragment created or deleted) the full walk. A _VERS_STALE recorded
+        by a racing capture heals here: the write that staled it bumped the
+        generation after gen_recorded, so the journal names its shard."""
+        v = field_obj.view(view_name)
+        if v is None or vers_old is None:
+            return self._live_versions(field_obj, shards_t, view_name, tier=tier)
+        dirty = v.dirty_shards_since(gen_recorded)
+        if dirty is None or len(vers_old) != len(shards_t):
+            return self._live_versions(field_obj, shards_t, view_name, tier=tier)
+        out = list(vers_old)
+        n_read = 0
+        for i, s in enumerate(shards_t):
+            if s in dirty:
+                fr = v.fragment(s)
+                n_read += fr is not None
+                out[i] = _locked_version(fr)
+        self._count_version_walk("journal", tier, n_read)
+        return tuple(out)
 
     def _build(self, index: str, c: Call, shards: tuple[int, ...],
                blocks: list, scalars: list):
@@ -1081,8 +1265,9 @@ class CUDABackend:
                                  self._pair_entry(index, fa, fb, shards_t))
 
     def _pair_entry(self, index, fa, fb, shards_t) -> _PairEntry:
-        """The fresh pair entry of (fa, fb) over shards_t: a cache hit, or
-        one sweep. Raises _Unsupported when a gate refuses the sweep."""
+        """The fresh pair entry of (fa, fb) over shards_t: a cache hit, an
+        epoch absorbed on the host, or one sweep. Raises _Unsupported when
+        a gate refuses the sweep."""
         f_obj = self._field(index, fa)
         g_obj = self._field(index, fb)
         ckey = (index, fa, fb)
@@ -1109,7 +1294,7 @@ class CUDABackend:
                 latch.wait(timeout=60)
         try:
             return self._pair_refresh(
-                index, fa, fb, f_obj, g_obj, shards_t, ckey, gen_f, gen_g
+                index, fa, fb, f_obj, g_obj, shards_t, ckey, hit, gen_f, gen_g
             )
         finally:
             with self._pair_lock:
@@ -1117,29 +1302,61 @@ class CUDABackend:
             if ev is not None:
                 ev.set()
 
-    def _pair_refresh(self, index, fa, fb, f_obj, g_obj,
-                      shards_t, ckey, gen_f, gen_g) -> _PairEntry:
-        """The single-flight body: fetch (build or splice) the stacks, then
-        one sweep. The generations were read before the stacks, so an entry
-        is never fresher than its key says (a write racing the build costs
-        one more sweep, never a stale answer)."""
-        prof = current_profile()
-        with prof.phase("stack_fetch"):
-            fblock, _ = self._get_block(index, f_obj, shards_t)
-            gblock = fblock if fb == fa else self._get_block(index, g_obj, shards_t)[0]
-        rf, rg = fblock.shape[1], gblock.shape[1]
-        reason, pershard_ok = self._pair_gates(fblock.shape[0], rf, rg)
-        if reason is not None:
-            raise _Unsupported(reason)
-        self.stats.count("pair_stats_sweeps_total")
-        with prof.phase("device_dispatch"):
-            flat = self._pair_program(fblock, gblock, pershard_ok)
-        ent = _PairEntry(shards_t, rf, rg, flat, gen_f, gen_g)
+    def _pair_store(self, ckey, ent: _PairEntry) -> None:
         with self._pair_lock:
             self._pair_cache.pop(ckey, None)
             self._pair_cache[ckey] = ent
             while len(self._pair_cache) > MAX_PAIR_CACHE_ENTRIES:
                 self._pair_cache.pop(next(iter(self._pair_cache)))
+
+    def _pair_refresh(self, index, fa, fb, f_obj, g_obj,
+                      shards_t, ckey, hit, gen_f, gen_g) -> _PairEntry:
+        """The single-flight body, run without _pair_lock (the packing is
+        the slow part; the latch makes this thread the only updater): the
+        epoch's per-shard versions, then the host update when it can serve,
+        else the stacks (built or spliced) and one sweep. The generations
+        were read before the versions and the stacks, so an entry is never
+        fresher than its key says (a racing write costs one more refresh,
+        never a stale answer)."""
+        prof = current_profile()
+        hit_ok = hit is not None and hit.shards == shards_t
+        with prof.phase("freshness"):
+            vers_f = self._epoch_versions(
+                f_obj, shards_t, VIEW_STANDARD, hit.vers_f if hit_ok else None,
+                hit.gen_f if hit_ok else -1, tier="pair")
+            vers_g = vers_f if fb == fa else self._epoch_versions(
+                g_obj, shards_t, VIEW_STANDARD, hit.vers_g if hit_ok else None,
+                hit.gen_g if hit_ok else -1, tier="pair")
+            ent = self._pair_try_incremental(
+                hit, f_obj, g_obj, shards_t, gen_f, gen_g, vers_f, vers_g)
+        if ent is not None:
+            self._pair_store(ckey, ent)
+            return ent
+        with prof.phase("stack_fetch"):
+            fblock, _, bvers_f = self._get_block_with_versions(index, f_obj, shards_t)
+            if fb == fa:
+                gblock, bvers_g = fblock, bvers_f
+            else:
+                gblock, _, bvers_g = self._get_block_with_versions(index, g_obj, shards_t)
+        rf, rg = fblock.shape[1], gblock.shape[1]
+        reason, pershard_ok = self._pair_gates(fblock.shape[0], rf, rg)
+        if reason is not None:
+            raise _Unsupported(reason)
+        # The stacks' versions describe what the sweep reads; the epoch's
+        # live versions, read earlier, stand in when an entry was replaced.
+        vers_f = bvers_f if bvers_f is not None else vers_f
+        vers_g = bvers_g if bvers_g is not None else vers_g
+        self.stats.count("pair_stats_sweeps_total")
+        with prof.phase("device_dispatch"):
+            flat = self._pair_program(fblock, gblock, pershard_ok)
+        # A shard that moved during the build or the sweep is recorded
+        # _VERS_STALE: its swept content matches no version we could record.
+        with prof.phase("freshness"):
+            vers_f = self._confirm_vers(f_obj, shards_t, vers_f, tier="pair")
+            vers_g = vers_f if fb == fa else self._confirm_vers(
+                g_obj, shards_t, vers_g, tier="pair")
+        ent = _PairEntry(shards_t, rf, rg, flat, None, gen_f, gen_g, vers_f, vers_g)
+        self._pair_store(ckey, ent)
         return ent
 
     def _pair_gates(self, s_pad, rf, rg):
@@ -1155,6 +1372,150 @@ class CUDABackend:
             return "pair sweep exceeds int32 shard bound", False
         return None, pershard_ok
 
+    def _pair_try_incremental(self, hit, f_obj, g_obj, shards_t,
+                              gen_f, gen_g, vers_f, vers_g) -> Optional[_PairEntry]:
+        """Absorb a write epoch on the host, with no launch: each dirty
+        shard's row of the previous entry's per-shard table is updated from
+        its fragments' bit-op rings (_pair_shard_delta) or re-derived from
+        host-packed slabs, and the totals re-summed. Returns the new entry,
+        resolved already, or None when a sweep is needed: no per-shard
+        table or versions, another shard set, more than
+        MAX_PAIR_HOST_UPDATE_SHARDS slab shards, or a row past the table's
+        height. hit.pershard is copied, never changed: an older entry may
+        still be resolving on another thread. Recorded versions describe
+        exactly the content captured: slab packs are confirmed
+        (_pack_confirmed), delta shards keep the versions their op windows
+        end at."""
+        if (
+            hit is None
+            or hit.shards != shards_t
+            or hit.pershard is None
+            or hit.vers_f is None
+            or hit.vers_g is None
+        ):
+            return None
+        dirty = [i for i in range(len(shards_t))
+                 if hit.vers_f[i] != vers_f[i] or hit.vers_g[i] != vers_g[i]]
+        if not dirty:
+            # The generation moved but no queried shard changed (a write
+            # outside the shard set): re-key the same stats.
+            return _PairEntry(shards_t, hit.rf, hit.rg, hit.stats, hit.pershard,
+                              gen_f, gen_g, vers_f, vers_g)
+        rf, rg = hit.rf, hit.rg
+        fv = f_obj.view(VIEW_STANDARD)
+        gv = g_obj.view(VIEW_STANDARD)
+        pershard = hit.pershard.copy()
+        vers_f_rec = list(vers_f)
+        vers_g_rec = list(vers_g)
+        slab_dirty: list[int] = []
+        n_delta_ops = 0
+        for i in dirty:
+            ops = self._pair_shard_delta(hit, i, shards_t[i], fv, gv, f_obj is g_obj,
+                                         pershard, vers_f, vers_g)
+            if ops is None:
+                slab_dirty.append(i)
+            else:
+                n_delta_ops += ops
+        if len(slab_dirty) > self.MAX_PAIR_HOST_UPDATE_SHARDS:
+            return None
+        for i in slab_dirty:
+            s = shards_t[i]
+            fr = fv.fragment(s) if fv is not None else None
+            if fr is None:
+                fslab = np.zeros((rf, WORDS_PER_SHARD), dtype=np.uint32)
+                vers_f_rec[i] = None
+            else:
+                fslab, vers_f_rec[i] = _pack_confirmed(fr, rf)
+                if fr.max_row_id >= rf:
+                    return None  # a row grew past the table's height: sweep
+            if g_obj is f_obj:
+                gslab, vers_g_rec[i] = fslab, vers_f_rec[i]
+            else:
+                gr = gv.fragment(s) if gv is not None else None
+                if gr is None:
+                    gslab = np.zeros((rg, WORDS_PER_SHARD), dtype=np.uint32)
+                    vers_g_rec[i] = None
+                else:
+                    gslab, vers_g_rec[i] = _pack_confirmed(gr, rg)
+                    if gr.max_row_id >= rg:
+                        return None
+            pershard[i] = _host_slab_pair_flat(fslab, gslab)
+        totals = pershard.sum(axis=0, dtype=np.int64)
+        self.stats.count("pair_stats_incremental_updates_total")
+        self.stats.count("pair_stats_incremental_shards_total", len(dirty))
+        if n_delta_ops:
+            self.stats.count("pair_stats_delta_ops_total", n_delta_ops)
+        return _PairEntry(shards_t, rf, rg, totals, pershard,
+                          gen_f, gen_g, tuple(vers_f_rec), tuple(vers_g_rec))
+
+    def _pair_shard_delta(self, hit, i, shard, fv, gv, self_pair,
+                          pershard, vers_f, vers_g) -> Optional[int]:
+        """Apply one dirty shard's epoch to pershard[i] (the flat row [pair
+        | cf | cg]) as exact point-write deltas: each op of the changed
+        side's bit-op ring is its row count +-1, plus membership probes
+        against the unchanged side. Returns the number of ops applied, or
+        None to hand the shard to the slab tier: a self pair, both sides
+        changed, a recreated fragment (another uid), a fragment missing on
+        either side since the walk, a ring that does not cover the window,
+        or a row at or past the table's height (the row is reverted)."""
+        if self_pair:
+            return None
+        rf, rg = hit.rf, hit.rg
+        ov_f, nv_f = hit.vers_f[i], vers_f[i]
+        ov_g, nv_g = hit.vers_g[i], vers_g[i]
+        f_changed = ov_f != nv_f
+        if f_changed and ov_g != nv_g:
+            return None
+        if f_changed:
+            ov, nv = ov_f, nv_f
+            frag = fv.fragment(shard) if fv is not None else None
+            other = gv.fragment(shard) if gv is not None else None
+            n_rows, other_vers = rf, nv_g
+        else:
+            ov, nv = ov_g, nv_g
+            frag = gv.fragment(shard) if gv is not None else None
+            other = fv.fragment(shard) if fv is not None else None
+            n_rows, other_vers = rg, nv_f
+        if frag is None or ov is None or nv is None or ov[0] != nv[0]:
+            return None  # created or recreated fragment: no op history
+        ops = frag.bit_ops_between(ov[1], nv[1])
+        if ops is None:
+            return None
+        # The probes read the other side's live storage, which the entry
+        # records at its walk version: confirm it under its lock before and
+        # after the probes. A write racing them would bake its bit into a
+        # pair cell that the other side's own delta replays next epoch.
+        if other is None:
+            if other_vers is not None:
+                return None  # fragment vanished since the walk
+        elif other_vers is None or _locked_version(other) != other_vers:
+            return None
+        row_flat = pershard[i]
+        sw = SHARD_WIDTH
+        for _, r, c, sign in ops:
+            if r >= n_rows:
+                row_flat[:] = hit.pershard[i]
+                return None  # the table's height is exceeded in the window
+            if f_changed:
+                row_flat[rf * rg + r] += sign  # cf[r]
+                if other is not None:
+                    base = r * rg
+                    st = other.storage
+                    for b in range(rg):
+                        if st.contains(b * sw + c):
+                            row_flat[base + b] += sign
+            else:
+                row_flat[rf * rg + rf + r] += sign  # cg[r]
+                if other is not None:
+                    st = other.storage
+                    for a in range(rf):
+                        if st.contains(a * sw + c):
+                            row_flat[a * rg + r] += sign
+        if other is not None and _locked_version(other) != other_vers:
+            row_flat[:] = hit.pershard[i]
+            return None
+        return len(ops)
+
     def _pair_fetch(self, entries, ent) -> list[int]:
         """Derive the batch's counts from the entry's stats."""
         with current_profile().phase("host_reduce"):
@@ -1162,16 +1523,20 @@ class CUDABackend:
 
     def _pair_totals(self, ent) -> np.ndarray:
         """The entry's int64 host totals [D]: the device table is read back
-        on first touch and replaced by its totals."""
+        on first touch and replaced by its totals; a per-shard table is kept
+        beside them as ent.pershard."""
         stats = ent.stats
         if isinstance(stats, np.ndarray):
             return stats
         raw = stats.cpu().numpy()  # ONE readback for all stats
-        totals = (raw.sum(axis=0, dtype=np.int64) if raw.ndim == 2
-                  else raw.astype(np.int64))
+        if raw.ndim == 2:
+            pershard, totals = raw, raw.sum(axis=0, dtype=np.int64)
+        else:
+            pershard, totals = None, raw.astype(np.int64)
         with self._pair_lock:
             if ent.stats is stats:  # idempotent: racers read back too
                 ent.stats = totals
+                ent.pershard = pershard
         return totals
 
     @staticmethod
@@ -1229,9 +1594,12 @@ class CUDABackend:
     def _topn_counts(self, index, f, field_name, shards_t) -> np.ndarray:
         """The unfiltered per-row counts vector, the host rank-vector table
         (the reference's rank cache, cache.go:136): keyed on the view's
-        generation, so repeats serve without a launch; a write epoch
-        re-dispatches. Single-flight: one refresher per field, waiters
-        re-check. Serves TopN, unfiltered Rows and 1-field GroupBy."""
+        generation, so repeats serve without a launch; a write epoch that
+        dirtied few shards updates the per-shard table on the host
+        (_topn_try_incremental), any other re-dispatches. Single-flight:
+        one refresher per field, waiters re-check. Serves TopN, unfiltered
+        Rows and 1-field GroupBy. Entries: (cfp, counts, int64[S, R]
+        per-shard table or None, per-shard versions)."""
         ckey = (index, field_name)
         ukey = ("topn", index, field_name)
         while True:
@@ -1248,33 +1616,116 @@ class CUDABackend:
                     break
             latch.wait(timeout=60)
         try:
-            return self._topn_dispatch(index, f, shards_t, None, ckey, cfp)
+            hit_ok = hit is not None and hit[3] is not None and hit[0][0] == shards_t
+            with current_profile().phase("freshness"):
+                live_vers = self._epoch_versions(
+                    f, shards_t, VIEW_STANDARD, hit[3] if hit_ok else None,
+                    hit[0][1] if hit_ok else -1, tier="topn")
+                upd = self._topn_try_incremental(f, hit, shards_t, live_vers)
+            if upd is not None:
+                pershard, vers_rec = upd
+                counts = pershard.sum(axis=0)
+                self._topn_store(ckey, (cfp, counts, pershard, vers_rec))
+                return counts
+            return self._topn_dispatch(index, f, shards_t, None, ckey, cfp, live_vers)
         finally:
             with self._pair_lock:
                 ev = self._stats_updating.pop(ukey, None)
             if ev is not None:
                 ev.set()
 
-    def _topn_dispatch(self, index, f, shards_t, src, ckey, cfp) -> np.ndarray:
+    def _topn_store(self, ckey, entry) -> None:
+        with self._pair_lock:
+            self._topn_cache.pop(ckey, None)
+            self._topn_cache[ckey] = entry
+            while len(self._topn_cache) > MAX_PAIR_CACHE_ENTRIES:
+                self._topn_cache.pop(next(iter(self._topn_cache)))
+
+    def _topn_dispatch(self, index, f, shards_t, src, ckey, cfp,
+                       live_vers=None) -> np.ndarray:
         """One K8 launch over the field's stack: int64[R] row counts, cached
-        under ckey when given. The generation in cfp was read before the
-        stack, so a write racing the build costs a re-dispatch, never a
-        stale answer."""
+        under ckey when given. Unfiltered, K8's [S, R] table is read back
+        and kept when it passes the retention gate (_topn_pershard_ok), so
+        later epochs update it on the host; otherwise it is summed on the
+        card in int64. The generation in cfp was read before the stack, so
+        a write racing the build costs a re-dispatch, never a stale
+        answer."""
         prof = current_profile()
         with prof.phase("stack_fetch"):
-            block, rows_p = self._get_block(index, f, shards_t)
+            block, rows_p, vers = self._get_block_with_versions(index, f, shards_t)
+        if vers is None:
+            vers = live_vers  # the stack's entry was replaced: the earlier walk
+        pershard = None
         with prof.phase("device_dispatch"):
             masks = () if src is None else (self._filter_slab(src),)
             self._launched("topn")
-            counts = row_popcounts(block, 0, rows_p, masks)[0].sum(
-                dim=0, dtype=torch.int64).cpu().numpy()
+            table = row_popcounts(block, 0, rows_p, masks)[0]
+            if src is None and self._topn_pershard_ok(block.shape[0], rows_p):
+                pershard = table.cpu().numpy().astype(np.int64)
+                counts = pershard.sum(axis=0)
+            else:
+                counts = table.sum(dim=0, dtype=torch.int64).cpu().numpy()
         if ckey is not None:
-            with self._pair_lock:
-                self._topn_cache.pop(ckey, None)
-                self._topn_cache[ckey] = (cfp, counts)
-                while len(self._topn_cache) > MAX_PAIR_CACHE_ENTRIES:
-                    self._topn_cache.pop(next(iter(self._topn_cache)))
+            # The launch read the stack after its versions: a shard that
+            # moved meanwhile is recorded stale (_confirm_vers).
+            vers = self._confirm_vers(f, shards_t, vers, tier="topn")
+            self._topn_store(ckey, (cfp, counts, pershard, vers))
         return counts
+
+    def _topn_pershard_ok(self, s_pad: int, rows_p: int) -> bool:
+        """The TopN table's retention gate (the JAX package's _topn_gates
+        pershard_ok half): the int64 [S, R] host copy within
+        MAX_PAIR_PERSHARD_BYTES."""
+        return s_pad * rows_p * 8 <= self.MAX_PAIR_PERSHARD_BYTES
+
+    def _topn_try_incremental(self, f, hit, shards_t, vers):
+        """Absorb a write epoch into the TopN per-shard table on the host,
+        with no launch: ops of a ring that covers the window are a row's
+        count +-1, other dirty shards re-derive from version-confirmed
+        slabs (_pack_confirmed). Returns (int64[S, R] table, recorded
+        versions), or None when a dispatch is needed: no table or versions,
+        another shard set, more than MAX_PAIR_HOST_UPDATE_SHARDS slab
+        shards, or a row past the table's height. hit's table is copied,
+        never changed."""
+        if hit is None or hit[2] is None or hit[3] is None or hit[0][0] != shards_t:
+            return None
+        old_vers = hit[3]
+        rp = hit[2].shape[1]
+        dirty = [i for i in range(len(shards_t)) if old_vers[i] != vers[i]]
+        if not dirty:
+            # The generation moved by writes outside the queried shards:
+            # the counts stand; re-key them.
+            return hit[2], vers
+        v = f.view(VIEW_STANDARD)
+        pershard = hit[2].copy()
+        vers_rec = list(vers)
+        slab_dirty: list[int] = []
+        for i in dirty:
+            ov, nv = old_vers[i], vers[i]
+            fr = v.fragment(shards_t[i]) if v is not None else None
+            ops = None
+            if fr is not None and ov is not None and nv is not None and ov[0] == nv[0]:
+                ops = fr.bit_ops_between(ov[1], nv[1])
+            if ops is None or any(r >= rp for _, r, _, _ in ops):
+                slab_dirty.append(i)
+                continue
+            for _, r, _, sign in ops:
+                pershard[i][r] += sign
+        if len(slab_dirty) > self.MAX_PAIR_HOST_UPDATE_SHARDS:
+            return None
+        for i in slab_dirty:
+            fr = v.fragment(shards_t[i]) if v is not None else None
+            if fr is None:
+                slab = np.zeros((rp, WORDS_PER_SHARD), dtype=np.uint32)
+                vers_rec[i] = None
+            else:
+                slab, vers_rec[i] = _pack_confirmed(fr, rp)
+                if fr.max_row_id >= rp:
+                    return None  # a row grew past the table: re-dispatch
+            pershard[i] = _host_slab_row_counts(slab)
+        self.stats.count("topn_incremental_updates_total")
+        self.stats.count("topn_incremental_shards_total", len(dirty))
+        return pershard, tuple(vers_rec)
 
     @staticmethod
     def _topn_pairs(counts: np.ndarray, n: int) -> list[Pair]:

@@ -93,8 +93,10 @@ def _counter(prefix: str) -> float:
 
 
 def _pair_served() -> float:
-    """Pair-path requests: one sweep or one fresh-cache hit each."""
-    return _counter("pair_stats_sweeps_total") + _counter("pair_stats_cache_hits_total")
+    """Pair-path requests: one sweep, one fresh-cache hit or one write epoch
+    absorbed on the host each."""
+    return (_counter("pair_stats_sweeps_total") + _counter("pair_stats_cache_hits_total")
+            + _counter("pair_stats_incremental_updates_total"))
 
 
 @pytest.fixture(scope="module")
@@ -157,10 +159,15 @@ def test_answers_equal_jax_across_churn_epochs(pair):
     for epoch in range(len(EPOCHS)):
         spliced = _counter("stack_incremental_updates_total")
         rebuilt = _counter("stack_full_rebuilds_total")
+        sweeps = _counter("pair_stats_sweeps_total")
+        absorbed = _counter("pair_stats_incremental_updates_total")
         _write(pair, epoch)
         _check_all(pair)
         assert _counter("stack_incremental_updates_total") > spliced
         assert _counter("stack_full_rebuilds_total") == rebuilt
+        # The pair table absorbed the epoch on the host: no new sweep.
+        assert _counter("pair_stats_sweeps_total") == sweeps
+        assert _counter("pair_stats_incremental_updates_total") == absorbed + 1
 
 
 @pytest.mark.parametrize("q", ON_CARD_QUERIES)

@@ -825,3 +825,68 @@ def test_generic_batch_window_of_64_three_row_counts_is_one_launch(card):
     assert K.launch_counts()["spec_eval"] == 1
     assert got == [cpu.execute("i", f"Count({q})")[0] for q in qs]
     h.close()
+
+
+@pytest.mark.parametrize("rf,rg,density_ands", [(8, 8, 4), (8, 8, 1), (16, 8, 2)])
+def test_host_table_rows_equal_the_card_rows(card, rf, rg, density_ands):
+    """The host rows a write epoch derives (exec/cuda.py
+    _host_slab_pair_flat, _host_slab_row_counts) equal K1's and K8's rows
+    of the same slabs on the card, exactly."""
+    from pilosa_tpu_torch.exec import cuda as C
+
+    rng = np.random.default_rng(rf * 10 + density_ands)
+    s = 4
+    f = np.bitwise_and.reduce(rng.integers(0, 2**32, (density_ands, s, rf, W),
+                                           dtype=np.uint32), axis=0)
+    g = np.bitwise_and.reduce(rng.integers(0, 2**32, (density_ands, s, rg, W),
+                                           dtype=np.uint32), axis=0)
+    fd, gd = stack_from_reference(f, card), stack_from_reference(g, card)
+    pair = K.pair_stats_pershard(fd, gd).cpu().numpy()
+    rows = K.row_popcounts(fd, 0, rf)[0].cpu().numpy().astype(np.int64)
+    for i in range(s):
+        assert np.array_equal(C._host_slab_pair_flat(f[i], g[i]), pair[i])
+        assert np.array_equal(C._host_slab_row_counts(f[i]), rows[i])
+
+
+def test_write_epochs_absorbed_without_a_launch(card):
+    """After one warm-up request of each kind, write epochs (Set and Clear of
+    one bit) answered by the pair request and TopN launch neither K1, K2 nor
+    K8: the tables absorb them on the host. Every answer equals the CPU
+    oracle's."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    rng = np.random.default_rng(8)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name in ("f", "g"):
+        field = idx.create_field(name)
+        for row in range(8):
+            cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 4000, dtype=np.uint64))
+            field.import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+    dev = Executor(h, backend=CUDABackend(h))
+    cpu = Executor(h, backend=CPUBackend(h))
+    pair = " ".join(f"Count(Intersect(Row(f={a}), Row(g={b})))"
+                    for a in range(4) for b in range(4))
+    queries = [pair, "TopN(f)", "TopN(g, n=3)"]
+    for q in queries:
+        assert dev.execute("i", q) == cpu.execute("i", q), q
+    absorbed = sum(global_stats.counter_totals("pair_stats_incremental_updates_total",
+                                               "topn_incremental_updates_total").values())
+    before = K.launch_counts()
+    for k in range(12):
+        col = int(rng.integers(0, 3 * SHARD_WIDTH))
+        write = f"{'Set' if k % 3 else 'Clear'}({col}, {'fg'[k % 2]}={k % 8})"
+        cpu.execute("i", write)
+        for q in queries:
+            assert dev.execute("i", q) == cpu.execute("i", q), (write, q)
+    after = K.launch_counts()
+    for name in ("pair_stats_pershard", "pair_stats", "row_popcounts"):
+        assert after[name] == before[name], name
+    assert sum(global_stats.counter_totals("pair_stats_incremental_updates_total",
+                                           "topn_incremental_updates_total").values()) > absorbed
+    h.close()
