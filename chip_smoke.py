@@ -83,13 +83,18 @@ chip_smoke.py to time it).
    a 4-client window in which every request drops the pair, agg and
    groupn caches first while a writer toggles one bit of f with
    Set/Clear, each answer equal to the single-threaded answer of one of
-   the two epochs; then the churn window: 4 clients send the 16-Count pair
-   request and TopN(f) in a seeded random order while a writer toggles one
-   bit of f every 50 ms, without dropping any cache, so each write epoch
-   meets the pair and TopN tables: after one warm-up request of each kind
-   no pair sweep (K1, K2) and no K8 may launch, the tables' incremental
-   counters must grow, at least 20 writes must land, and every answer must
-   be one of the two epochs'; then with the result cache on too, the Count at 1 and
+   the two epochs, and the window's time split by phase and call with
+   the version walks it took; then the churn window: 4 clients send the
+   16-Count pair request, TopN(f) and the 3-field GroupBy in a seeded
+   random order while a writer toggles one bit of f every 50 ms, without
+   dropping any cache, so each write epoch meets the pair, TopN and GroupN
+   tables: after one warm-up request of each kind no pair sweep (K1, K2),
+   no K8 and no K5 or K3 may launch, the tables' incremental counters must
+   grow, at least 20 writes must land, and every answer must be one of the
+   two epochs'; then the aggregate churn window, the same with Sum, Min
+   and Max of v while the writer swaps the column of v's largest value
+   with -9500: no K8, K3 or K9, the Sum and Min/Max counters grow and a
+   shard is re-derived; then with the result cache on too, the Count at 1 and
    16 (cache hits) and the same Set/Clear window; then the Count and
    3-row Counts without HTTP (threads calling Executor.execute) at 1, 4
    and 16 threads, without and with the batcher; no batch dispatch error
@@ -127,10 +132,12 @@ chip_smoke.py to time it).
    (S = 1, word axes off its chunk, the full leaf table and stack, zero
    leaves, per-slot rows past the launch's parameters) in both modes on
    every body;
-5b. the host rows of the pair and TopN tables (exec/cuda.py
-   _host_slab_pair_flat, _host_slab_row_counts), which a write epoch
-   derives on the host, against K1's and K8's rows of two random slab sets
-   at the stack height of bench.py's index, exactly;
+5b. the host rows of the tables (exec/cuda.py _host_slab_pair_flat,
+   _host_slab_row_counts, _host_slab_groupn), which a write epoch derives
+   on the host, against K1's, K8's, K7's and K5's rows of two random slab
+   sets at the stack height of bench.py's index, and the Min/Max re-derive
+   (Fragment.min/max) against K9's per-shard rows at two value densities,
+   exactly;
 6. a small holder with an existence field and a YMDH time field: the
    whole Count/Row/Not/All/time-range query list through two write-churn
    epochs, checked against the CPU
@@ -139,11 +146,11 @@ chip_smoke.py to time it).
 
 cpu_routed_total is printed after each phase.
 
-``--churn`` runs only the churn window, and ``--miss`` only the
-cache-missing window, on bench.py's index served by the --root checkout's
-package, and prints its line: run it for the parent and the change in
-turns to compare the two (the churn window's zero-launch checks apply to
-a package with the tables' host tiers).
+``--churn`` runs only the two churn windows (with bench.py's BSI field v
+built), and ``--miss`` only the cache-missing window, on bench.py's index
+served by the --root checkout's package, and prints their lines: run it
+for the parent and the change in turns to compare the two (each table's
+zero-launch checks apply to a package with its host tier).
 
 Prints a JSON line of every kernel, then, last, one JSON object whose
 "ok" is true. Any failed check raises; the exit code is then not 0.
@@ -1114,10 +1121,12 @@ def phase_bsi(holder, backend):
 
 def minmax_phases(dev, drop_caches, reps: int = 5) -> None:
     """Uncached Min and Max broken into the backend's own profile phases
-    (median ms of ``reps`` calls): stack_fetch, device_dispatch (the filter
-    and K9's launch), readback (the table's copy to the host, which waits
-    for K9), host_reduce (the per-shard values and the cross-shard reduce)
-    and the rest of the executor's call (other)."""
+    (median ms of ``reps`` calls): freshness (the locked version walks
+    before and after the sweep that the host tier's table records),
+    stack_fetch, device_dispatch (the filter and K9's launch), readback
+    (the table's copy to the host, which waits for K9), host_reduce (the
+    per-shard values and the cross-shard reduce) and the rest of the
+    executor's call (other)."""
     from pilosa_tpu_torch.utils.qprofile import profile_scope
 
     for q in ("Min(field=v)", "Max(field=v)"):
@@ -1404,6 +1413,60 @@ def toggle_column(holder) -> int:
     raise AssertionError("http: no column to toggle in shard 0")
 
 
+# The phases the cache-missing window's time is split into; every other
+# phase a request records is summed under "rest".
+SPLIT_PHASES = ("freshness", "stack_fetch", "device_dispatch", "host_reduce",
+                "batch_wait", "other")
+
+
+def phase_split_totals() -> tuple:
+    """(query_phase_seconds sums by (call, phase), version_walk_total and
+    version_walk_shards_total by (kind, tier)) so far."""
+    import re
+
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    def tags(name):
+        return dict(re.findall(r'(\w+)="([^"]*)"', name))
+
+    phases = {}
+    for name, (total, _) in global_stats.timing_totals("query_phase_seconds").items():
+        t = tags(name)
+        phases[(t.get("call", "?"), t.get("phase", "?"))] = total
+    walks = {}
+    for counter in ("version_walk_total", "version_walk_shards_total"):
+        for name, v in global_stats.counter_totals(counter).items():
+            t = tags(name)
+            walks[(counter, t.get("kind", "?"), t.get("tier", "?"))] = v
+    return phases, walks
+
+
+def phase_split(before: tuple) -> dict:
+    """What a window added to phase_split_totals(): the requests' summed
+    query_phase_seconds by phase and by call and phase (SPLIT_PHASES, the
+    rest summed), and the version walks and the locked reads they took by
+    kind and tier."""
+    phases0, walks0 = before
+    phases1, walks1 = phase_split_totals()
+    by_phase = {p: 0.0 for p in SPLIT_PHASES + ("rest",)}
+    by_call = {}
+    for (call, phase), total in phases1.items():
+        d = total - phases0.get((call, phase), 0.0)
+        if d <= 0:
+            continue
+        key = phase if phase in SPLIT_PHASES else "rest"
+        by_phase[key] += d
+        calls = by_call.setdefault(call, {})
+        calls[key] = calls.get(key, 0.0) + d
+    walks = {}
+    for (counter, kind, tier), v in walks1.items():
+        d = v - walks0.get((counter, kind, tier), 0)
+        if d:
+            walks[f"{counter}{{kind={kind},tier={tier}}}"] = d
+    return {"phase_seconds": by_phase, "phase_seconds_by_call": by_call,
+            "version_walks": walks}
+
+
 def miss_window(port: int, path: str, backend, dev, queries, col: int,
                 clients: int, seconds: float) -> dict:
     """`clients` threads of this process, each with its own keep-alive
@@ -1414,7 +1477,8 @@ def miss_window(port: int, path: str, backend, dev, queries, col: int,
     build latches. Meanwhile a writer thread toggles bit (f=1, col) with
     Set and Clear over HTTP, so the stacks are spliced under the readers.
     Every answer must equal the single-threaded answer of one of the two
-    epochs, and both epochs must be served."""
+    epochs, and both epochs must be served. The window's time is split by
+    phase and call (phase_split)."""
     import http.client
     import random
     import threading
@@ -1468,7 +1532,7 @@ def miss_window(port: int, path: str, backend, dev, queries, col: int,
                 time.sleep(0.05)
         conn.close()
 
-    before = K.launch_counts()
+    before, split0 = K.launch_counts(), phase_split_totals()
     w = threading.Thread(target=writer)
     w.start()
     try:
@@ -1477,6 +1541,7 @@ def miss_window(port: int, path: str, backend, dev, queries, col: int,
         done.set()
         w.join()
     after = K.launch_counts()
+    r.update(phase_split(split0))
     r["request"] = "cache-missing mix under Set/Clear epochs"
     r["launches_per_request"] = {k: (after[k] - before[k]) / max(1, r["requests"])
                                  for k in after if after[k] != before[k]}
@@ -1494,64 +1559,83 @@ def miss_window(port: int, path: str, backend, dev, queries, col: int,
     return r
 
 
-# The table tiers' counters a churn window reads (pilosa_tpu_torch/exec/cuda.py).
+# The table tiers' counters the churn windows read (pilosa_tpu_torch/exec/cuda.py).
 TIER_COUNTERS = ("pair_stats_sweeps_total", "pair_stats_incremental_updates_total",
                  "pair_stats_incremental_shards_total", "pair_stats_delta_ops_total",
                  "topn_incremental_updates_total", "topn_incremental_shards_total",
+                 "groupn_incremental_updates_total", "groupn_incremental_shards_total",
+                 "groupn_delta_ops_total", "sum_incremental_updates_total",
+                 "minmax_incremental_updates_total", "minmax_shard_rederives_total",
                  "version_walk_total", "version_walk_shards_total")
-SWEEP_KERNELS = ("pair_stats_pershard", "pair_stats", "row_popcounts")
+# The sweeps a table's host tier takes the place of: K1 and K2 (pair), K8
+# (TopN; Sum's planes), K5 and K3 (the 3-field GroupBy; K3 also Sum's
+# considered count) and K9 (Min, Max).
+SWEEP_KERNELS = ("pair_stats_pershard", "pair_stats", "row_popcounts",
+                 "group_tile_stats_pershard", "popcount_rows", "bsi_minmax")
+# The aggregate churn window's requests, and the value its writer swaps
+# with v's largest one: below every value of v, inside its range.
+AGG_QUERIES = ["Sum(field=v)", "Min(field=v)", "Max(field=v)"]
+AGG_CHURN_VALUE = -9500
 
 
 def churn_column(holder) -> int:
-    """A column of shard 0 in neither f=1 nor g=4: toggling f=1 there moves
-    the pair request's Union(Row(f=1), Row(g=4)) Counts and TopN(f)."""
-    def row(name, r):
-        return holder.index("bench").field(name).view("standard").fragment(0).row(r)
+    """A column of shard 0 in some row of g and of h but in neither f=1
+    nor g=4: toggling f=1 there moves the pair request's Union(Row(f=1),
+    Row(g=4)) Counts, TopN(f) and the 3-field GroupBy."""
+    def frag(name):
+        return holder.index("bench").field(name).view("standard").fragment(0)
 
-    f1, g4 = row("f", 1), row("g", 4)
-    return next(c for c in range(1 << 20)
-                if not f1.includes_column(c) and not g4.includes_column(c))
+    f1, g, h = frag("f").row(1), frag("g"), frag("h")
+    g_rows = [g.row(r) for r in range(ROWS)]
+    h_rows = [h.row(r) for r in range(H_ROWS)]
+    for col in g_rows[0].columns():
+        col = int(col)
+        if (not f1.includes_column(col) and not g_rows[4].includes_column(col)
+                and any(r.includes_column(col) for r in h_rows)):
+            return col
+    raise AssertionError("churn: no column to toggle in shard 0")
 
 
-def churn_window(port: int, path: str, backend, dev, pair_request: str, col: int,
-                 clients: int, seconds: float, expect_absorbed: bool) -> dict:
-    """miss_window without the cache drops: `clients` threads of this
-    process, each with its own keep-alive connection, send the 16-Count pair
-    request and TopN(f) in a seeded random order, while a writer toggles
-    bit (f=1, col) with Set and Clear over HTTP every CHURN_WRITE_SECONDS,
-    so every write epoch meets the backend's pair and TopN tables. After
-    one warm-up request of each kind, counts the launches of the sweep
-    kernels (K1, K2, K8) and the tiers' counters over the window. Every
-    answer must equal the single-threaded answer of one of the two epochs,
-    both epochs must be served and at least 20 writes made; with
-    expect_absorbed (a package with the host tiers), no sweep kernel may
-    launch and the incremental counters must grow."""
+def tier_totals() -> dict:
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    return {name: sum(global_stats.counter_totals(name).values()) for name in TIER_COUNTERS}
+
+
+def epoch_window(label: str, port: int, path: str, dev, queries, to_b: str, to_a: str,
+                 clients: int, seconds: float, kernels, counters, rederive: bool) -> dict:
+    """The churn windows' common body: `clients` threads of this process,
+    each with its own keep-alive connection, send `queries` in a seeded
+    random order, without dropping any cache, while a writer swaps the
+    index between two epochs with the writes to_b and to_a over HTTP every
+    CHURN_WRITE_SECONDS, so every write epoch meets the backend's tables.
+    After one warm-up request of each kind, counts the launches of the
+    sweep kernels and the tiers' counters over the window. Every answer
+    must equal the single-threaded answer of one of the two epochs, both
+    epochs must be served, every answer must move between them and at
+    least 20 writes must land. `kernels` may not launch in the window and
+    `counters` must grow (empty for a package without the tiers); with
+    `rederive`, minmax_shard_rederives_total must grow too."""
     import http.client
     import random
     import threading
 
     from pilosa_tpu_torch.ops import kernels as K
     from pilosa_tpu_torch.utils import fastjson
-    from pilosa_tpu_torch.utils.stats import global_stats
 
     def body(results):
         return fastjson.response_body([fastjson.encode_result(r) for r in results])
 
-    def tiers():
-        return {name: sum(global_stats.counter_totals(name).values()) for name in TIER_COUNTERS}
-
-    queries = [pair_request, "TopN(f)"]
-    to_b, to_a = f"Set({col}, f=1)", f"Clear({col}, f=1)"
-    check(dev.execute("bench", to_b) == [True], f"churn: {to_b} changed nothing")
+    check(dev.execute("bench", to_b) == [True], f"{label}: {to_b} changed nothing")
     epoch_b = {q: body(dev.execute("bench", q)) for q in queries}
-    check(dev.execute("bench", to_a) == [True], f"churn: {to_a} changed nothing")
+    check(dev.execute("bench", to_a) == [True], f"{label}: {to_a} changed nothing")
     epoch_a = {q: body(dev.execute("bench", q)) for q in queries}
     check(all(epoch_a[q] != epoch_b[q] for q in queries),
-          "churn: the toggled bit does not move every answer of the window")
+          f"{label}: the write does not move every answer of the window")
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     for q in queries:  # the warm-up request of each kind
         check(http_post(conn, path, q.encode()) == (200, epoch_a[q]),
-              "churn: a warm-up answer disagrees with the in-process executor")
+              f"{label}: a warm-up answer disagrees with the in-process executor")
     conn.close()
     seen = {"a": 0, "b": 0}
     seen_lock = threading.Lock()
@@ -1585,7 +1669,7 @@ def churn_window(port: int, path: str, backend, dev, pair_request: str, col: int
                 time.sleep(CHURN_WRITE_SECONDS)
         c.close()
 
-    before, t0 = K.launch_counts(), tiers()
+    before, t0 = K.launch_counts(), tier_totals()
     w = threading.Thread(target=writer)
     w.start()
     try:
@@ -1593,36 +1677,99 @@ def churn_window(port: int, path: str, backend, dev, pair_request: str, col: int
     finally:
         done.set()
         w.join()
-    after, t1 = K.launch_counts(), tiers()
+    after, t1 = K.launch_counts(), tier_totals()
     n = max(1, r["requests"])
-    r["request"] = "16-Count pair request and TopN(f) under Set/Clear epochs"
     r["launches_per_request"] = {k: (after[k] - before[k]) / n for k in SWEEP_KERNELS}
+    r["launches"] = {k: after[k] - before[k] for k in SWEEP_KERNELS}
     r["tiers"] = {k: t1[k] - t0[k] for k in TIER_COUNTERS}
     r["writes"] = writes["n"]
     r["answers_per_epoch"] = seen
-    check(writes["bad"] == 0, f"churn: {writes['bad']} of {writes['n']} writes failed")
-    check(writes["n"] >= 20, f"churn: only {writes['n']} writes in the window")
-    check(r["mismatches"] == 0, f"churn: {r['mismatches']} answers match neither epoch")
-    check(seen["a"] > 0 and seen["b"] > 0, f"churn: one epoch was never served {seen}")
-    if expect_absorbed:
-        for name in SWEEP_KERNELS:
-            check(after[name] == before[name],
-                  f"churn: {name} launched {after[name] - before[name]} times in the window")
-        for name in ("pair_stats_incremental_updates_total", "topn_incremental_updates_total"):
-            check(r["tiers"][name] > 0, f"churn: {name} did not grow")
+    check(writes["bad"] == 0, f"{label}: {writes['bad']} of {writes['n']} writes failed")
+    check(writes["n"] >= 20, f"{label}: only {writes['n']} writes in the window")
+    check(r["mismatches"] == 0, f"{label}: {r['mismatches']} answers match neither epoch")
+    check(seen["a"] > 0 and seen["b"] > 0, f"{label}: one epoch was never served {seen}")
+    for name in kernels:
+        check(after[name] == before[name],
+              f"{label}: {name} launched {after[name] - before[name]} times in the window")
+    for name in counters:
+        check(r["tiers"][name] > 0, f"{label}: {name} did not grow")
+    if rederive:
+        check(r["tiers"]["minmax_shard_rederives_total"] > 0,
+              f"{label}: no Min/Max shard was re-derived")
     check(all(body(dev.execute("bench", q)) == epoch_a[q] for q in queries),
-          "churn: the index did not end in its first epoch")
+          f"{label}: the index did not end in its first epoch")
+    return r
+
+
+def churn_window(port: int, path: str, backend, dev, pair_request: str, col: int,
+                 clients: int, seconds: float) -> dict:
+    """The churn window: the 16-Count pair request, TopN(f) and the
+    3-field GroupBy while a writer toggles bit (f=1, col) with Set and
+    Clear (epoch_window). Where the package has the pair and TopN tiers, no
+    K1, K2 or K8 may launch after the warm-up and their incremental
+    counters must grow; where it has the GroupN tier, no K5 or K3 either,
+    and groupn_incremental_updates_total must grow."""
+    kernels, counters = [], []
+    if hasattr(backend, "_pair_try_incremental"):
+        kernels += ["pair_stats_pershard", "pair_stats", "row_popcounts"]
+        counters += ["pair_stats_incremental_updates_total", "topn_incremental_updates_total"]
+    if hasattr(backend, "_groupn_try_incremental"):
+        kernels += ["group_tile_stats_pershard", "popcount_rows"]
+        counters += ["groupn_incremental_updates_total"]
+    r = epoch_window("churn", port, path, dev, [pair_request, "TopN(f)", GROUP_QUERIES[3]],
+                     f"Set({col}, f=1)", f"Clear({col}, f=1)", clients, seconds,
+                     kernels, counters, rederive=False)
+    r["request"] = "16-Count pair request, TopN(f) and 3-field GroupBy under Set/Clear epochs"
+    return r
+
+
+def value_column(holder, fname: str, value: int) -> int:
+    """The first column whose value of int field `fname` is `value`, found
+    on the host (the shard from each fragment's own maximum walk)."""
+    from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT
+
+    fld = holder.index("bench").field(fname)
+    for shard in range(SHARDS):
+        val, cnt = fld.max(None, shard)
+        if cnt and val == value:
+            frag = fld._bsi_fragment(shard)
+            for c in frag.row(BSI_EXISTS_BIT).columns():
+                if fld.value(int(c)) == (value, True):
+                    return int(c)
+    raise AssertionError(f"no column of {fname} holds {value}")
+
+
+def agg_churn_window(port: int, path: str, backend, dev, clients: int,
+                     seconds: float) -> dict:
+    """The aggregate churn window: Sum, Min and Max of v while a writer
+    swaps the column of v's largest value between that value and
+    AGG_CHURN_VALUE (epoch_window). One way Min moves in O(1) and Max
+    re-derives the column's shard; the other way the reverse. Where the
+    package has the Sum and Min/Max tiers, no K8, K3 or K9 may launch after
+    the warm-up, both tiers' counters must grow and a shard must be
+    re-derived."""
+    vmax = dev.execute("bench", "Max(field=v)")[0].val
+    col = value_column(dev.holder, "v", vmax)
+    kernels, counters = [], []
+    absorbed = hasattr(backend, "_sum_try_incremental")
+    if absorbed:
+        kernels = ["row_popcounts", "popcount_rows", "bsi_minmax"]
+        counters = ["sum_incremental_updates_total", "minmax_incremental_updates_total"]
+    r = epoch_window("agg churn", port, path, dev, AGG_QUERIES,
+                     f"Set({col}, v={AGG_CHURN_VALUE})", f"Set({col}, v={vmax})",
+                     clients, seconds, kernels, counters, rederive=absorbed)
+    r["request"] = f"Sum, Min and Max of v while column {col} swaps {vmax} and {AGG_CHURN_VALUE}"
     return r
 
 
 def phase_window(root, which: str) -> int:
-    """`chip_smoke.py --churn|--miss [--root DIR]`: the churn window or the
-    cache-missing window (miss_window) alone, on bench.py's index (f, g and
-    h at 954 shards) served by DIR's package as `cli server` wires it (the
-    batcher beside the device backend), so that two trees can be compared
-    in turns in one call. Prints the card and one JSON line of the window;
-    the churn window's zero-launch checks apply when the package has the
-    host tiers."""
+    """`chip_smoke.py --churn|--miss [--root DIR]`: the two churn windows
+    or the cache-missing window (miss_window) alone, on bench.py's index (f,
+    g and h at 954 shards; the churn windows with its BSI field v too)
+    served by DIR's package as `cli server` wires it (the batcher beside the
+    device backend), so that two trees can be compared in turns in one
+    call. Prints the card and one JSON line a window; each table's
+    zero-launch checks apply when the package has its host tier."""
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.exec import Executor
     from pilosa_tpu_torch.exec.batcher import ShardLegBatcher
@@ -1645,17 +1792,22 @@ def phase_window(root, which: str) -> int:
     path = "/index/bench/query"
     try:
         if which == "churn":
-            r = churn_window(server.port, path, backend, dev, PAIR_REQUEST,
-                             churn_column(holder), CHURN_CLIENTS, HTTP_SECONDS,
-                             hasattr(backend, "_pair_try_incremental"))
+            t0 = time.perf_counter()
+            build_bsi_field(holder)
+            log(f"churn: field v built in {time.perf_counter() - t0:.1f} s")
+            rs = [churn_window(server.port, path, backend, dev, PAIR_REQUEST,
+                               churn_column(holder), CHURN_CLIENTS, HTTP_SECONDS),
+                  agg_churn_window(server.port, path, backend, dev, CHURN_CLIENTS,
+                                   HTTP_SECONDS)]
         else:
-            r = miss_window(server.port, path, backend, dev, MISS_QUERIES,
-                            toggle_column(holder), MISS_CLIENTS, HTTP_SECONDS)
+            rs = [miss_window(server.port, path, backend, dev, MISS_QUERIES,
+                              toggle_column(holder), MISS_CLIENTS, HTTP_SECONDS)]
     finally:
         server.close()
         holder.close()
-    r["package"] = root
-    log(f"{which}: throughput " + json.dumps(r))
+    for r in rs:
+        r["package"] = root
+        log(f"{which}: throughput " + json.dumps(r))
     return 0
 
 
@@ -1828,11 +1980,13 @@ def phase_http(holder, backend, root):
         r["wiring"] = "batcher"
         throughput.append(r)
         log("http: throughput " + json.dumps(r))
-        r = churn_window(server.port, path, backend, dev, pair_request, churn_column(holder),
-                         CHURN_CLIENTS, HTTP_SECONDS, expect_absorbed=True)
-        r["wiring"] = "batcher"
-        throughput.append(r)
-        log("http: throughput " + json.dumps(r))
+        for r in (churn_window(server.port, path, backend, dev, pair_request,
+                               churn_column(holder), CHURN_CLIENTS, HTTP_SECONDS),
+                  agg_churn_window(server.port, path, backend, dev, CHURN_CLIENTS,
+                                   HTTP_SECONDS)):
+            r["wiring"] = "batcher"
+            throughput.append(r)
+            log("http: throughput " + json.dumps(r))
         dev.rescache = ResultCache(holder, max_bytes=RESCACHE_BYTES)
         for n in CACHED_CLIENTS:
             hits = dev.rescache.hits
@@ -2709,13 +2863,19 @@ HOST_ROW_SHARDS = 32
 
 
 def phase_host_rows():
-    """The host rows of the pair and TopN tables (pilosa_tpu_torch/exec/
-    cuda.py) against the card's: two random slab sets at the bench index's
-    stack height (8 rows), HOST_ROW_SHARDS shards each, bit densities 1/16
-    (four random words ANDed) and 1/2. Every shard's
-    _host_slab_pair_flat must equal its row of K1 (pair_stats_pershard)
-    and _host_slab_row_counts its row of K8 (row_popcounts), exactly: a row
-    the host derives for a write epoch sits next to rows the card swept."""
+    """The host rows of the tables (pilosa_tpu_torch/exec/cuda.py) against
+    the card's, exactly: a row the host derives for a write epoch sits next
+    to rows the card swept. Two random slab sets at the bench index's stack
+    height (8 rows), HOST_ROW_SHARDS shards each, bit densities 1/16 (four
+    random words ANDed) and 1/2: every shard's _host_slab_pair_flat against
+    its row of K1 (pair_stats_pershard), _host_slab_row_counts against K8
+    (row_popcounts) and _host_slab_groupn over (f, g, h) against K7
+    (nary_stats_pershard) and K5 (group_tile_stats_pershard over every
+    combination). Then the Min/Max table's host re-derive
+    (Fragment.min/max) against K9's per-shard rows (bsi_minmax, through
+    the backend's cold Min and Max) on HOST_ROW_SHARDS shards of a BSI
+    field, at bench.py's BSI_COLS values a shard and at 1/16 of the
+    columns, with an all-negative and an empty shard."""
     import numpy as np
     import torch
 
@@ -2735,19 +2895,72 @@ def phase_host_rows():
         return out
 
     for label, n_and in (("1/16", 4), ("1/2", 1)):
-        f, g = words(n_and), words(n_and)
+        f, g, h = words(n_and), words(n_and), words(n_and)
         card_pair = K.pair_stats_pershard(f, g).cpu().numpy()
         card_rows = K.row_popcounts(f, 0, 8)[0].cpu().numpy().astype(np.int64)
-        fh = f.cpu().numpy().view(np.uint32)
-        gh = g.cpu().numpy().view(np.uint32)
+        # [K, S, rf, rg] -> the table's rows [S, K * rf * rg].
+        k7 = K.nary_stats_pershard(f, g, (h,)).cpu().numpy()
+        combos = np.arange(8, dtype=np.int32)[:, None]
+        k5 = K.group_tile_stats_pershard(f, g, (h,), combos, np.ones(8, np.int32))
+        k5 = k5.cpu().numpy()
+        fh, gh, hh = (x.cpu().numpy().view(np.uint32) for x in (f, g, h))
         host_pair = np.stack([C._host_slab_pair_flat(fh[i], gh[i]) for i in range(shape[0])])
         host_rows = np.stack([C._host_slab_row_counts(fh[i]) for i in range(shape[0])])
+        host_groupn = np.stack([C._host_slab_groupn([fh[i], gh[i], hh[i]], [8, 8, 8])
+                                for i in range(shape[0])])
         check(np.array_equal(host_pair, card_pair),
               f"host rows: _host_slab_pair_flat disagrees with K1 at density {label}")
         check(np.array_equal(host_rows, card_rows),
               f"host rows: _host_slab_row_counts disagrees with K8 at density {label}")
+        for name, card in (("K7", k7), ("K5", k5)):
+            check(np.array_equal(host_groupn, card.transpose(1, 0, 2, 3).reshape(shape[0], -1)),
+                  f"host rows: _host_slab_groupn disagrees with {name} at density {label}")
         log(f"host rows: density {label}, {shape[0]} shards x 8 rows: K1's "
-            f"{card_pair.shape} and K8's {card_rows.shape} rows equal the host's")
+            f"{card_pair.shape}, K8's {card_rows.shape}, K7's and K5's {k7.shape} rows "
+            "equal the host's")
+    host_rows_minmax()
+
+
+def host_rows_minmax():
+    """Fragment.min/max, the Min/Max table's host re-derive, against K9's
+    per-shard rows as the backend keeps them after a cold Min and Max
+    ((value + base, count), (0, 0) for a shard with no value), on
+    HOST_ROW_SHARDS shards of a BSI field of bench.py's value range: the
+    last shard empty, the one before it all negative."""
+    import numpy as np
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.field import options_for_int
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    for label, per_shard in (("BSI_COLS", BSI_COLS), ("1/16", SHARD_WIDTH // 16)):
+        holder = Holder(None).open()
+        fld = holder.create_index("bench").create_field(
+            "v", options_for_int(-BSI_RANGE, BSI_RANGE))
+        rng = np.random.default_rng(44)
+        for shard in range(HOST_ROW_SHARDS - 1):
+            cols = (np.unique(rng.integers(0, SHARD_WIDTH, per_shard, dtype=np.uint64))
+                    + np.uint64(shard * SHARD_WIDTH))
+            hi = -1 if shard == HOST_ROW_SHARDS - 2 else BSI_ABS
+            fld.import_value(cols, rng.integers(-BSI_ABS, hi + 1, cols.size))
+        backend = CUDABackend(holder)
+        shards = list(range(HOST_ROW_SHARDS))
+        base, depth = fld.bsi_group().base, fld.bsi_group().bit_depth
+        for kind in ("bsi_min", "bsi_max"):
+            getattr(backend, kind)("bench", "v", shards)
+            card = backend._agg_cache[(kind, "bench", "v")][2][0]
+            host = []
+            for shard in shards:
+                frag = fld._bsi_fragment(shard)
+                raw = (0, 0) if frag is None else (
+                    frag.min(None, depth) if kind == "bsi_min" else frag.max(None, depth))
+                host.append((raw[0] + base, raw[1]) if raw[1] else (0, 0))
+            check(list(card) == host,
+                  f"host rows: Fragment.{kind[4:]} disagrees with K9 at {label} values a shard")
+        log(f"host rows: {label} values a shard, {HOST_ROW_SHARDS} shards: Fragment.min/max "
+            "equal K9's per-shard rows")
+        holder.close()
 
 
 SMALL_QUERIES = [
@@ -2842,8 +3055,9 @@ def main(argv=None) -> int:
                          "script's own)")
     ap.add_argument("--http-load", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--churn", action="store_true",
-                    help="run only the churn window (the pair request and TopN(f) under "
-                         "Set/Clear epochs) on the --root checkout's package")
+                    help="run only the churn windows (the pair request, TopN(f) and the "
+                         "3-field GroupBy; Sum, Min and Max of v; under write epochs) on "
+                         "the --root checkout's package")
     ap.add_argument("--miss", action="store_true",
                     help="run only the cache-missing window (miss_window) on the --root "
                          "checkout's package")

@@ -23,14 +23,17 @@ The counterpart of the JAX package's TPUBackend:
   matrix and the row counts.
 - TopN, Rows and unfiltered 1-field GroupBy read a field's per-row counts
   (K8, row_popcounts), cached on the view's generation.
-- The pair and TopN tables keep their per-shard rows on the host and
-  absorb a write epoch there, with no launch: point writes replay from
-  the fragments' bit-op rings as +-1 deltas, other dirty shards re-derive
-  from host-packed slabs (the JAX package's incremental tiers, over its
-  freshness plane of per-shard (uid, version) walks). Sum counts the BSI
-  planes over the positive and the negative columns (K8 with two masks) and
-  the considered columns (K3); Min and Max walk the planes per shard (K9,
-  bsi_minmax). The host weights and reduces exactly.
+- The pair, TopN and N-field GroupBy tables keep their per-shard rows on
+  the host and absorb a write epoch there, with no launch: point writes
+  replay from the fragments' bit-op rings as +-1 deltas, other dirty shards
+  re-derive from host-packed slabs (the JAX package's incremental tiers,
+  over its freshness plane of per-shard (uid, version) walks). Sum counts
+  the BSI planes over the positive and the negative columns (K8 with two
+  masks) and the considered columns (K3); Min and Max walk the planes per
+  shard (K9, bsi_minmax). The host weights and reduces exactly. Unfiltered,
+  Sum absorbs a write epoch from the fragments' value-op rings, and Min and
+  Max update their per-shard (value, count) table in O(1), re-deriving a
+  shard whose extremum was cleared by the fragment's own host walk.
 - GroupBy computes its group-count tensor on the card and enumerates the
   nonzero groups on the host: one field from the TopN rank vector (or K3
   when filtered), two through the pair kernels, three or more through the
@@ -178,6 +181,36 @@ def _host_slab_row_counts(slab: np.ndarray) -> np.ndarray:
     """One shard's per-row popcounts int64[R] from a host-packed slab: its
     row of K8's [S, R] table."""
     return np.bitwise_count(slab).sum(axis=-1, dtype=np.int64)
+
+
+def _host_slab_groupn(slabs: list, rs: list) -> np.ndarray:
+    """One shard's row int32[K*rf*rg] of the N-field group table from
+    host-packed slabs (uint32[rs[t], W] a field), K7's row for the same
+    slabs bit for bit, and K5's once its tiles are scattered: a row the
+    host derives sits next to rows the card swept. Slot k is the odometer
+    over the extra fields' rows, the last field fastest, as in the kernels.
+    The AND is chunked over the word axis as in _host_slab_pair_flat."""
+    rf, rg = rs[0], rs[1]
+    extra_rs = rs[2:]
+    k_total = _prod(extra_rs)
+    fslab, gslab = slabs[0], slabs[1]
+    w = fslab.shape[1]
+    out = np.empty((k_total, rf, rg), dtype=np.int64)
+    chunk = max(1, (64 << 20) // max(1, rf * rg * 4))
+    for k in range(k_total):
+        m = None
+        rem = k
+        for t in range(len(extra_rs) - 1, -1, -1):
+            row = slabs[2 + t][rem % extra_rs[t]]
+            rem //= extra_rs[t]
+            m = row if m is None else (m & row)
+        fm = fslab & m[None, :]
+        pair = np.zeros((rf, rg), dtype=np.int64)
+        for c0 in range(0, w, chunk):
+            blk = fm[:, None, c0 : c0 + chunk] & gslab[None, :, c0 : c0 + chunk]
+            pair += np.bitwise_count(blk).sum(axis=-1, dtype=np.int64)
+        out[k] = pair
+    return out.reshape(-1).astype(np.int32)
 
 
 class _StackedBlocks:
@@ -379,16 +412,19 @@ class _PairEntry:
 class _GroupNEntry:
     """One N>=3 field tuple's cached group tensor: totals int64[K, rf, rg]
     served to queries, the per-shard int32[S, K*rf*rg] table they were
-    summed from, and the row counts (padded stack heights) fixing the
-    tensor geometry. cfp: the (shards, view generations) it was swept at."""
+    summed from, which absorbs write epochs (_groupn_try_incremental), the
+    row counts (padded stack heights) fixing the tensor geometry, and per
+    field the per-shard (uid, version) the table describes. cfp: the
+    (shards, view generations) it is keyed on."""
 
-    __slots__ = ("cfp", "stats", "pershard", "rs")
+    __slots__ = ("cfp", "stats", "pershard", "rs", "vers")
 
-    def __init__(self, cfp, stats, pershard, rs):
+    def __init__(self, cfp, stats, pershard, rs, vers):
         self.cfp = cfp
         self.stats = stats
         self.pershard = pershard
         self.rs = rs
+        self.vers = vers
 
 
 def _prod(xs) -> int:
@@ -514,6 +550,10 @@ class CUDABackend:
     #: sweep on the card does.
     MAX_PAIR_HOST_UPDATE_SHARDS = 64
 
+    #: Slab-tier budget of the N-field group table: words ANDed an epoch
+    #: (K * rf * rg * W a slab shard). Past it one sweep on the card does.
+    MAX_GROUPN_HOST_SLAB_WORDS = 1 << 29
+
     def __init__(self, holder, device="cuda", max_bytes: Optional[int] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -542,8 +582,9 @@ class CUDABackend:
         self._plan_lock = threading.Lock()
         # Under _pair_lock: GroupBy tensors, (cfp, payload) by ("groupby",
         # index, fields, filter), beside the unfiltered Sum/Min/Max results,
-        # (cfp, (value, count)) by (kind, index, field); the N>=3 per-shard
-        # tables (_GroupNEntry); and the TopN rank vectors, (cfp, int64[R]
+        # (cfp, (value, count), extra) by (kind, index, field) (extra: the
+        # state their host tiers update, see _agg_store); the N>=3
+        # per-shard tables (_GroupNEntry); and the TopN rank vectors, (cfp, int64[R]
         # row counts, int64[S, R] per-shard table or None, per-shard
         # versions) by (index, field).
         self._agg_cache: dict = {}
@@ -1457,7 +1498,11 @@ class CUDABackend:
         None to hand the shard to the slab tier: a self pair, both sides
         changed, a recreated fragment (another uid), a fragment missing on
         either side since the walk, a ring that does not cover the window,
-        or a row at or past the table's height (the row is reverted)."""
+        or a row at or past the table's height (the row is reverted).
+
+        _groupn_shard_delta applies the same probe, confirm and revert
+        discipline to N fields: a fix to the version capture or the probe
+        locking here must be made there too."""
         if self_pair:
             return None
         rf, rg = hit.rf, hit.rg
@@ -1776,13 +1821,25 @@ class CUDABackend:
         """Sum(field): the planes' popcounts over the positive and the
         negative columns in one K8 launch (two masks), the considered
         columns' count by K3, weighted exactly on the host. Returns (sum,
-        count), or None when the call cannot run on the card."""
+        count), or None when the call cannot run on the card.
+
+        Unfiltered, a write epoch is absorbed on the host when the BSI
+        fragments' value-op rings explain it (_sum_try_incremental): the
+        cached raw total and count move by the ops' exact deltas, with no
+        launch. Filtered Sums are not cached."""
         # Fingerprint BEFORE the data snapshot: a write racing this query
         # must produce a never-matching cache entry, never a stale serve.
         hit = self._agg_lookup("sum", index, field_name, shards, filter_call)
         if hit is not None and hit[1] is not None:
             return hit[1]
         prof = current_profile()
+        pre = None
+        if hit is not None:
+            with prof.phase("freshness"):
+                upd = self._sum_try_incremental(index, field_name, shards, hit[0])
+                if upd is not None:
+                    return upd
+                pre = self._agg_pre_versions(index, field_name, shards, "sum")
         try:
             with prof.phase("stack_fetch"):
                 opts, src, bsi_block = self._bsi_setup(
@@ -1808,7 +1865,74 @@ class CUDABackend:
             total = sum((int(pos_c[i]) - int(neg_c[i])) << i for i in range(depth))
         result = (total + opts.base * count, count)
         if hit is not None:
-            self._agg_store("sum", index, field_name, hit[0], result)
+            extra = None
+            if pre is not None:
+                extra = (total, count, self._agg_confirm(pre, field_name, shards, "sum"))
+            self._agg_store("sum", index, field_name, hit[0], result, extra)
+        return result
+
+    def _agg_pre_versions(self, index, field_name, shards, tier):
+        """Before an aggregate's sweep: (field, the BSI view's per-shard
+        versions by the full locked walk), None for a missing field. Read
+        before the stack, so they are never newer than the content swept."""
+        idx = self.holder.index(index)
+        f = idx.field(field_name) if idx else None
+        if f is None:
+            return None
+        return f, self._live_versions(f, tuple(shards), bsi_view_name(field_name), tier=tier)
+
+    def _agg_confirm(self, pre, field_name, shards, tier):
+        """After an aggregate's sweep: the pre-sweep versions with every
+        shard that moved since recorded _VERS_STALE (_confirm_vers), so a
+        later epoch never replays ops onto content that already holds them."""
+        f, vers = pre
+        with current_profile().phase("freshness"):
+            return self._confirm_vers(f, tuple(shards), vers, bsi_view_name(field_name),
+                                      tier=tier)
+
+    def _sum_try_incremental(self, index, field_name, shards, cfp_now):
+        """Absorb a value-write epoch into the cached unfiltered Sum as
+        exact deltas from the BSI fragments' value-op rings. Returns the
+        fresh (sum, count), stored already, or None when the epoch is not
+        explained by the rings (a bulk import_value, a ring overrun, a
+        created or recreated fragment), the shard set changed, or the
+        entry has no versions."""
+        shards_t = tuple(shards)
+        with self._pair_lock:
+            ent = self._agg_cache.get(("sum", index, field_name))
+        if ent is None or ent[2] is None:
+            return None
+        raw_total, count, vers_old = ent[2]
+        if ent[0][0] != shards_t:
+            return None
+        idx = self.holder.index(index)
+        f = idx.field(field_name) if idx else None
+        if f is None:
+            return None
+        vn = bsi_view_name(field_name)
+        v = f.view(vn)
+        vers_new = self._epoch_versions(f, shards_t, vn, vers_old, ent[0][1], tier="sum")
+        d_sum = 0
+        d_cnt = 0
+        for i, s in enumerate(shards_t):
+            ov, nv = vers_old[i], vers_new[i]
+            if ov == nv:
+                continue
+            fr = v.fragment(s) if v is not None else None
+            if fr is None or ov is None or nv is None or ov[0] != nv[0]:
+                return None
+            ops = fr.value_ops_between(ov[1], nv[1])
+            if ops is None:
+                return None
+            for _, ook, ovv, nok, nvv in ops:
+                d_sum += (nvv if nok else 0) - (ovv if ook else 0)
+                d_cnt += (1 if nok else 0) - (1 if ook else 0)
+        raw_total += d_sum
+        count += d_cnt
+        result = (raw_total + f.bsi_group().base * count, count)
+        self._agg_store("sum", index, field_name, cfp_now, result,
+                        (raw_total, count, vers_new))
+        self.stats.count("sum_incremental_updates_total")
         return result
 
     def _agg_fingerprint(self, index, field_name, shards):
@@ -1836,9 +1960,13 @@ class CUDABackend:
             return hit
         return (cfp, None)
 
-    def _agg_store(self, kind, index, field_name, cfp, result) -> None:
+    def _agg_store(self, kind, index, field_name, cfp, result, extra=None) -> None:
+        """Cache an unfiltered aggregate as (cfp, result, extra). extra is
+        the state its host tier updates: Sum's (raw total, count,
+        per-shard versions), Min's and Max's (per-shard (value, count)
+        table, per-shard versions); None when there is none."""
         with self._pair_lock:
-            self._agg_cache[(kind, index, field_name)] = (cfp, result)
+            self._agg_cache[(kind, index, field_name)] = (cfp, result, extra)
             while len(self._agg_cache) > MAX_PAIR_CACHE_ENTRIES:
                 self._agg_cache.pop(next(iter(self._agg_cache)))
             self._agg_cache_charge()
@@ -1853,11 +1981,25 @@ class CUDABackend:
         """Per-shard Min/Max by plane narrowing in one K9 launch (both
         branches of every shard), then the host's reduce across shards
         with the executor's tie semantics. Returns (value, count), or None
-        when the call cannot run on the card."""
+        when the call cannot run on the card.
+
+        Unfiltered, the per-shard (value, count) table is kept and absorbs
+        a write epoch on the host (_minmax_try_incremental): a write that
+        neither beats nor clears a shard's extremum changes nothing, a
+        better value replaces it, and only a shard whose extremum was
+        cleared is re-derived, by the fragment's own host walk
+        (Fragment.min/max), with no launch."""
         hit = self._agg_lookup(kind, index, field_name, shards, filter_call)
         if hit is not None and hit[1] is not None:
             return hit[1]
         prof = current_profile()
+        pre = None
+        if hit is not None:
+            with prof.phase("freshness"):
+                upd = self._minmax_try_incremental(kind, index, field_name, shards, hit[0])
+                if upd is not None:
+                    return upd
+                pre = self._agg_pre_versions(index, field_name, shards, "minmax")
         try:
             with prof.phase("stack_fetch"):
                 opts, src, bsi_block = self._bsi_setup(
@@ -1888,24 +2030,125 @@ class CUDABackend:
                 vals = np.where(branch_any, mag_a, -mag_b)
             cnts = np.where(branch_any, cnt_a, cnt_b).astype(np.int64)
             cnts[~consider_any] = 0
-            val, cnt = self._minmax_reduce(kind, vals, cnts)
-        result = (val + opts.base, cnt) if cnt else (0, 0)
+            # The per-shard table in Python ints: (value + base, count),
+            # (0, 0) for a shard with no value.
+            base = opts.base
+            pershard = tuple((v + base, c) if c else (0, 0)
+                             for v, c in zip(vals.tolist(), cnts.tolist()))
+            result = self._minmax_reduce(kind, pershard)
         if hit is not None:
-            self._agg_store(kind, index, field_name, hit[0], result)
+            extra = None
+            if pre is not None:
+                extra = (pershard, self._agg_confirm(pre, field_name, shards, "minmax"))
+            self._agg_store(kind, index, field_name, hit[0], result, extra)
         return result
 
     @staticmethod
-    def _minmax_reduce(kind, vals: np.ndarray, cnts: np.ndarray) -> tuple[int, int]:
-        """Cross-shard reduce of per-shard extrema with the executor's tie
-        semantics: the extreme value over the shards with a count, and the
-        counts of every shard that holds it summed; (0, 0) when none has
-        one."""
-        live = cnts > 0
-        if not live.any():
-            return 0, 0
-        vals, cnts = vals[live], cnts[live]
-        best = vals.min() if kind == "bsi_min" else vals.max()
-        return int(best), int(cnts[vals == best].sum())
+    def _minmax_reduce(kind, pershard) -> tuple[int, int]:
+        """Cross-shard reduce of the per-shard (value, count) table with
+        the executor's tie semantics: the extreme value over the shards
+        with a count, the counts of every shard holding it summed; (0, 0)
+        when none has one. Shared by the sweep and the host tier, so the
+        two cannot drift apart."""
+        best_val, best_cnt = 0, 0
+        for val, cnt in pershard:
+            if cnt == 0:
+                continue
+            if best_cnt == 0:
+                best_val, best_cnt = val, cnt
+            elif (kind == "bsi_min" and val < best_val) or (
+                kind == "bsi_max" and val > best_val
+            ):
+                best_val, best_cnt = val, cnt
+            elif val == best_val:
+                best_cnt += cnt
+        return best_val, best_cnt
+
+    def _minmax_try_incremental(self, kind, index, field_name, shards, cfp_now):
+        """Absorb a value-write epoch into the cached per-shard extremum
+        table: O(1) updates for writes that cannot lower the extremum's
+        standing; a shard whose extremum was cleared, whose table row is
+        inconsistent with its ops, or whose ring does not cover the window
+        is re-derived by the fragment's host plane walk under its lock,
+        with no device work; a deleted fragment becomes (0, 0). Returns the
+        fresh (value, count), stored already, or None when the entry must
+        be swept again."""
+        shards_t = tuple(shards)
+        with self._pair_lock:
+            ent = self._agg_cache.get((kind, index, field_name))
+        if ent is None or ent[2] is None:
+            return None
+        pershard_old, vers_old = ent[2]
+        if ent[0][0] != shards_t:
+            return None
+        idx = self.holder.index(index)
+        f = idx.field(field_name) if idx else None
+        if f is None or f.options.type != FIELD_TYPE_INT:
+            return None
+        bg = f.bsi_group()
+        base, depth = bg.base, bg.bit_depth
+        vn = bsi_view_name(field_name)
+        v = f.view(vn)
+        vers_new = self._epoch_versions(f, shards_t, vn, vers_old, ent[0][1], tier="minmax")
+        better = (lambda a, b: a < b) if kind == "bsi_min" else (lambda a, b: a > b)
+        pershard = list(pershard_old)
+        vers_rec = list(vers_new)
+        n_rederived = 0
+        for i, s in enumerate(shards_t):
+            ov, nv = vers_old[i], vers_new[i]
+            if ov == nv:
+                vers_rec[i] = ov
+                continue
+            fr = v.fragment(s) if v is not None else None
+            if fr is None:
+                pershard[i] = (0, 0)
+                vers_rec[i] = None
+                continue
+            ops = None
+            if ov is not None and nv is not None and ov[0] == nv[0]:
+                ops = fr.value_ops_between(ov[1], nv[1])
+            rederive = ops is None
+            if not rederive:
+                val, cnt = pershard[i]
+                for _, ook, ovv, nok, nvv in ops:
+                    if ook:
+                        o = ovv + base
+                        if cnt <= 0 or better(o, val):
+                            rederive = True  # the table is inconsistent: rescan
+                            break
+                        if o == val:
+                            cnt -= 1
+                            if cnt == 0:
+                                # The extremum was cleared: the next one is
+                                # unknowable from the ops.
+                                rederive = True
+                                break
+                    if nok:
+                        nn = nvv + base
+                        if cnt <= 0:
+                            val, cnt = nn, 1
+                        elif nn == val:
+                            cnt += 1
+                        elif better(nn, val):
+                            val, cnt = nn, 1
+                if not rederive:
+                    pershard[i] = (val, cnt)
+            if rederive:
+                # The version is read under the lock the scan takes (an
+                # RLock), so it describes exactly the scanned content.
+                with fr.lock:
+                    vv = (fr.uid, fr.version)
+                    raw = fr.min(None, depth) if kind == "bsi_min" else fr.max(None, depth)
+                pershard[i] = (raw[0] + base, raw[1]) if raw[1] else (0, 0)
+                vers_rec[i] = vv
+                n_rederived += 1
+        result = self._minmax_reduce(kind, pershard)
+        self._agg_store(kind, index, field_name, cfp_now, result,
+                        (tuple(pershard), tuple(vers_rec)))
+        self.stats.count("minmax_incremental_updates_total")
+        if n_rederived:
+            self.stats.count("minmax_shard_rederives_total", n_rederived)
+        return result
 
     # -- GroupBy ---------------------------------------------------------------
 
@@ -2065,11 +2308,17 @@ class CUDABackend:
         return tuple(out)
 
     def _agg_cache_charge(self) -> None:
-        """Gauge of the host bytes the cached group tensors pin; called
-        under _pair_lock after every store, so it tracks the LRU exactly."""
+        """Gauge of the host bytes the cached group tensors and aggregate
+        payloads pin; called under _pair_lock after every store, so it
+        tracks the LRU exactly. Entries are (cfp, payload) and (cfp,
+        result, extra)."""
         total = 0
-        for _, payload in self._agg_cache.values():
-            total += sum(p.nbytes for p in payload if isinstance(p, np.ndarray))
+        for ent in self._agg_cache.values():
+            for payload in ent[1:]:
+                if isinstance(payload, tuple):
+                    total += sum(p.nbytes for p in payload if isinstance(p, np.ndarray))
+                elif isinstance(payload, np.ndarray):
+                    total += payload.nbytes
         self.stats.gauge("agg_cache_bytes", total)
 
     def _group_from_tables(self, index, fields, shards_t, n):
@@ -2221,12 +2470,21 @@ class CUDABackend:
         """(totals int64[K, rf, rg], rs) for an unfiltered N>=3 GroupBy from
         the retained per-shard table, or None when this path cannot serve
         (repeated field, size gates) and the generic tiled path should. A
-        write epoch re-dispatches the sweep (the JAX package's host-side
-        incremental tier is not ported yet)."""
+        write epoch is absorbed on the host where it can be
+        (_groupn_try_incremental: point writes as deltas against probes of
+        the other fields, other dirty shards re-derived from host-packed
+        slabs), with no launch; otherwise one K5 sweep derives the table
+        again. Per field the epoch's versions come from the view's journal
+        when the entry recorded them, else from the full locked walk.
+
+        The JAX package also starts an ahead-of-time compile of the sweep
+        here (its prewarm thread); the port's kernels are built once, not
+        per shape, so there is nothing to start."""
         fobjs = [fo for _, fo in fields]
         if len({id(f) for f in fobjs}) != len(fobjs):
-            return None  # repeated field
+            return None  # repeated field: the delta's probe order is ambiguous
         ckey = ("groupn", index, tuple(fn for fn, _ in fields))
+        views = [f.view(VIEW_STANDARD) for f in fobjs]
         while True:
             cfp = (shards_t, tuple(self._generation(f) for f in fobjs))
             with self._pair_lock:
@@ -2246,18 +2504,49 @@ class CUDABackend:
                 # A table of this geometry could never be retained: refuse
                 # before packing anything; the generic tiled path serves.
                 return None
-            return self._groupn_dispatch(index, fobjs, shards_t, ckey, cfp)
+            hit_ok = hit is not None and hit.cfp[0] == shards_t and hit.vers is not None
+            with current_profile().phase("freshness"):
+                live = [
+                    self._epoch_versions(
+                        f, shards_t, VIEW_STANDARD, hit.vers[t] if hit_ok else None,
+                        hit.cfp[1][t] if hit_ok else -1, tier="groupn")
+                    for t, f in enumerate(fobjs)
+                ]
+                upd = self._groupn_try_incremental(hit, fobjs, views, shards_t, live)
+            if upd is not None:
+                pershard, vers_rec, rs, totals = upd
+                if totals is None:
+                    totals = pershard.sum(axis=0, dtype=np.int64).reshape(-1, rs[0], rs[1])
+                self._groupn_store(ckey, _GroupNEntry(cfp, totals, pershard, rs, vers_rec))
+                return totals, rs
+            return self._groupn_dispatch(index, fobjs, shards_t, ckey, cfp, live)
         finally:
             with self._pair_lock:
                 ev = self._stats_updating.pop(ckey, None)
             if ev is not None:
                 ev.set()
 
-    def _groupn_dispatch(self, index, fobjs, shards_t, ckey, cfp):
+    def _groupn_store(self, ckey, ent: _GroupNEntry) -> None:
+        with self._pair_lock:
+            self._groupn_cache.pop(ckey, None)
+            self._groupn_cache[ckey] = ent
+            while len(self._groupn_cache) > MAX_PAIR_CACHE_ENTRIES:
+                self._groupn_cache.pop(next(iter(self._groupn_cache)))
+
+    def _groupn_dispatch(self, index, fobjs, shards_t, ckey, cfp, live):
+        """One K5 sweep of the live combinations, scattered into the dense
+        per-shard table and stored with the versions it describes: the
+        stacks' own (the epoch's walk where an entry was replaced),
+        confirmed after the sweep through the views' journals
+        (_confirm_vers_journal), a shard that moved recorded _VERS_STALE."""
         prof = current_profile()
+        stacks, verss = [], []
         try:
             with prof.phase("stack_fetch"):
-                stacks = [self._get_block(index, f, shards_t)[0] for f in fobjs]
+                for t, f in enumerate(fobjs):
+                    block, _, vers = self._get_block_with_versions(index, f, shards_t)
+                    stacks.append(block)
+                    verss.append(vers if vers is not None else live[t])
         except _Unsupported:
             return None  # over the device budget: the generic path decides
         rs = [int(st.shape[1]) for st in stacks]
@@ -2284,13 +2573,146 @@ class CUDABackend:
                 table = pershard.reshape(s, k_total, face)
                 table[:, flat, :] = tiles.transpose(1, 0, 2, 3).reshape(s, len(combos), face)
             totals = pershard.sum(axis=0, dtype=np.int64).reshape(k_total, rs[0], rs[1])
-        ent = _GroupNEntry(cfp, totals, pershard, rs)
-        with self._pair_lock:
-            self._groupn_cache.pop(ckey, None)
-            self._groupn_cache[ckey] = ent
-            while len(self._groupn_cache) > MAX_PAIR_CACHE_ENTRIES:
-                self._groupn_cache.pop(next(iter(self._groupn_cache)))
+        with prof.phase("freshness"):
+            vers_rec = tuple(
+                self._confirm_vers_journal(f, shards_t, verss[t], cfp[1][t], tier="groupn")
+                for t, f in enumerate(fobjs)
+            )
+        self._groupn_store(ckey, _GroupNEntry(cfp, totals, pershard, rs, vers_rec))
         return totals, rs
+
+    def _groupn_try_incremental(self, hit, fobjs, views, shards_t, live):
+        """Absorb a write epoch into the N-field group table on the host,
+        with no launch. Returns (int32[S, K*rf*rg] table, per-field
+        recorded versions, rs, totals or None), totals being the cached ones
+        when no queried shard changed (a write outside the shard set
+        re-keys them), or None when a sweep is needed: no table or
+        versions, another shard set, more than MAX_PAIR_HOST_UPDATE_SHARDS
+        slab shards, a slab tier past MAX_GROUPN_HOST_SLAB_WORDS, or a row
+        past the table's height. Delta shards record the versions their op
+        windows end at; slab shards are packed with confirmed versions
+        (_pack_confirmed), a deleted fragment as a zero slab with version
+        None. hit.pershard is copied, never changed."""
+        n = len(fobjs)
+        if hit is None or hit.pershard is None or hit.cfp[0] != shards_t:
+            return None
+        rs = hit.rs
+        rf, rg = rs[0], rs[1]
+        k_total = _prod(rs[2:])
+        dirty = [i for i in range(len(shards_t))
+                 if any(hit.vers[t][i] != live[t][i] for t in range(n))]
+        if not dirty:
+            # A write outside the queried shards moved a generation: the
+            # counts stand; re-key the cached totals.
+            return hit.pershard, tuple(live), rs, hit.stats
+        pershard = hit.pershard.copy()
+        vers_rec = [list(lv) for lv in live]
+        slab_dirty: list[int] = []
+        n_delta_ops = 0
+        for i in dirty:
+            ops_applied = self._groupn_shard_delta(
+                hit, i, shards_t[i], views, live, pershard, rs)
+            if ops_applied is None:
+                slab_dirty.append(i)
+            else:
+                n_delta_ops += ops_applied
+        if len(slab_dirty) > self.MAX_PAIR_HOST_UPDATE_SHARDS:
+            return None
+        if len(slab_dirty) * k_total * rf * rg * WORDS_PER_SHARD > self.MAX_GROUPN_HOST_SLAB_WORDS:
+            return None
+        for i in slab_dirty:
+            slabs = []
+            for t in range(n):
+                fr = views[t].fragment(shards_t[i]) if views[t] is not None else None
+                if fr is None:
+                    slabs.append(np.zeros((rs[t], WORDS_PER_SHARD), dtype=np.uint32))
+                    vers_rec[t][i] = None
+                else:
+                    slab, vers_rec[t][i] = _pack_confirmed(fr, rs[t])
+                    if fr.max_row_id >= rs[t]:
+                        return None  # a row grew past the table: sweep
+                    slabs.append(slab[: rs[t]])
+            pershard[i] = _host_slab_groupn(slabs, rs)
+        self.stats.count("groupn_incremental_updates_total")
+        self.stats.count("groupn_incremental_shards_total", len(dirty))
+        if n_delta_ops:
+            self.stats.count("groupn_delta_ops_total", n_delta_ops)
+        return pershard, tuple(tuple(v) for v in vers_rec), rs, None
+
+    def _groupn_shard_delta(self, hit, i, shard, views, live, pershard, rs) -> Optional[int]:
+        """Apply one dirty shard's epoch to pershard[i] as exact point-write
+        deltas: each op of the changed field's bit-op ring is +-1 in every
+        cell whose other fields' rows hold the op's column, found by probing
+        their storage. Returns the number of ops applied, or None to hand
+        the shard to the slab tier: more than one field changed (probes of
+        a changing peer are ambiguous), a recreated fragment, a ring that
+        does not cover the window, a probed fragment that moved, or a row
+        at or past the table's height (the row is reverted).
+
+        The same discipline as _pair_shard_delta's probe, confirm and
+        revert, for N fields: a fix to the version capture or the probe
+        locking in either method must be made in the other too. They stay
+        apart as in the JAX package, where the pair tier carries the
+        batcher's and the device stack's coupling that this tier avoids."""
+        n = len(views)
+        changed = [t for t in range(n) if hit.vers[t][i] != live[t][i]]
+        if len(changed) != 1:
+            return None
+        t = changed[0]
+        ov, nv = hit.vers[t][i], live[t][i]
+        frag = views[t].fragment(shard) if views[t] is not None else None
+        if frag is None or ov is None or nv is None or ov[0] != nv[0]:
+            return None
+        ops = frag.bit_ops_between(ov[1], nv[1])
+        if ops is None:
+            return None
+        # The probes read the other fields' live storage, which the entry
+        # records at their walk versions: confirm each under its lock before
+        # and after the probes. A write racing them would bake its bit into
+        # a cell that the field's own delta replays next epoch.
+        others = []
+        for u in range(n):
+            if u == t:
+                continue
+            fru = views[u].fragment(shard) if views[u] is not None else None
+            if fru is None:
+                if live[u][i] is not None:
+                    return None  # the fragment vanished since the walk
+            elif live[u][i] is None or _locked_version(fru) != live[u][i]:
+                return None
+            others.append((u, fru))
+        sw = SHARD_WIDTH
+        row_flat = pershard[i]
+        extra_rs = rs[2:]
+        for _, r, c, sign in ops:
+            if r >= rs[t]:
+                row_flat[:] = hit.pershard[i]
+                return None  # the table's height is exceeded in the window
+            row_sets = [None] * n
+            row_sets[t] = (r,)
+            empty = False
+            for u, fru in others:
+                if fru is None:
+                    empty = True
+                    break
+                st = fru.storage
+                rows_u = tuple(b for b in range(rs[u]) if st.contains(b * sw + c))
+                if not rows_u:
+                    empty = True
+                    break
+                row_sets[u] = rows_u
+            if empty:
+                continue  # some field has no bit at c: no cell changes
+            for combo in itertools.product(*row_sets):
+                k = 0
+                for tt in range(2, n):
+                    k = k * extra_rs[tt - 2] + combo[tt]
+                row_flat[(k * rs[0] + combo[0]) * rs[1] + combo[1]] += sign
+        for u, fru in others:
+            if fru is not None and _locked_version(fru) != live[u][i]:
+                row_flat[:] = hit.pershard[i]
+                return None
+        return len(ops)
 
     @staticmethod
     def _group_candidates(starts, child_rows, rs, n) -> list:

@@ -890,3 +890,75 @@ def test_write_epochs_absorbed_without_a_launch(card):
     assert sum(global_stats.counter_totals("pair_stats_incremental_updates_total",
                                            "topn_incremental_updates_total").values()) > absorbed
     h.close()
+
+
+@pytest.mark.parametrize("rs,density_ands", [([8, 8, 8], 4), ([8, 8, 8], 1),
+                                             ([8, 16, 8, 8], 2)])
+def test_host_groupn_rows_equal_the_card_rows(card, rs, density_ands):
+    """The N-field group table's host rows (exec/cuda.py _host_slab_groupn)
+    equal K7's rows and K5's over every combination of the same slabs on
+    the card, exactly."""
+    from pilosa_tpu_torch.exec import cuda as C
+
+    rng = np.random.default_rng(sum(rs) + density_ands)
+    s = 3
+    host = [np.bitwise_and.reduce(rng.integers(0, 2**32, (density_ands, s, r, W),
+                                               dtype=np.uint32), axis=0) for r in rs]
+    dev = [stack_from_reference(x, card) for x in host]
+    k7 = K.nary_stats_pershard(dev[0], dev[1], tuple(dev[2:])).cpu().numpy()
+    grids = np.meshgrid(*[np.arange(r) for r in rs[2:]], indexing="ij")
+    combos = np.stack([g.ravel() for g in grids], axis=1).astype(np.int32)
+    k5 = K.group_tile_stats_pershard(dev[0], dev[1], tuple(dev[2:]), combos,
+                                     np.ones(len(combos), np.int32)).cpu().numpy()
+    for i in range(s):
+        row = C._host_slab_groupn([x[i] for x in host], rs)
+        assert np.array_equal(row, k7[:, i].reshape(-1))
+        assert np.array_equal(row, k5[:, i].reshape(-1))
+
+
+def test_groupn_and_aggregate_epochs_absorbed_without_a_launch(card):
+    """After one warm-up request of each kind, write epochs answered by the
+    3-field GroupBy, Sum, Min and Max launch neither K5, K3, K8 nor K9: the
+    tables absorb them on the host. Every answer equals the CPU oracle's."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.field import options_for_int
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    rng = np.random.default_rng(9)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name, rows in (("f", 8), ("g", 8), ("h", 4)):
+        field = idx.create_field(name)
+        for row in range(rows):
+            cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 40000, dtype=np.uint64))
+            field.import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+    cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 900, dtype=np.uint64))
+    idx.create_field("v", options_for_int(-10000, 10000)).import_value(
+        cols, rng.integers(-9000, 9001, cols.size))
+    dev = Executor(h, backend=CUDABackend(h))
+    cpu = Executor(h, backend=CPUBackend(h))
+    queries = ["GroupBy(Rows(f), Rows(g), Rows(h))", "Sum(field=v)", "Min(field=v)",
+               "Max(field=v)"]
+    for q in queries:
+        assert dev.execute("i", q) == cpu.execute("i", q), q
+    tiers = ("groupn_incremental_updates_total", "sum_incremental_updates_total",
+             "minmax_incremental_updates_total")
+    absorbed = {k: sum(global_stats.counter_totals(k).values()) for k in tiers}
+    before = K.launch_counts()
+    for k in range(12):
+        col = int(rng.integers(0, 3 * SHARD_WIDTH))
+        write = (f"{'Set' if k % 3 else 'Clear'}({col}, {'fgh'[k % 3]}={k % 4})" if k % 2
+                 else f"Set({col}, v={int(rng.integers(-9500, 9500))})")
+        cpu.execute("i", write)
+        for q in queries:
+            assert dev.execute("i", q) == cpu.execute("i", q), (write, q)
+    after = K.launch_counts()
+    for name in ("group_tile_stats_pershard", "popcount_rows", "row_popcounts", "bsi_minmax"):
+        assert after[name] == before[name], name
+    for k in tiers:
+        assert sum(global_stats.counter_totals(k).values()) > absorbed[k], k
+    h.close()
