@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--root DIR] [--churn | --miss]
+    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget]
 
 Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
@@ -65,6 +65,21 @@ chip_smoke.py to time it).
    Count(Row(v > 100));
    then, after phase 4, Sum/Min/Max with filters, a Count over a BSI
    condition and Shifts over the first 32 shards against the CPU oracle;
+3c. row paging under a device byte budget (phase_budget): a second
+   CUDABackend with max_bytes 512 MiB over the same index (f, g and v over
+   it, h not) and a tall field t in an index of its own (1024 rows over 64
+   shards, an 8 GiB stack, 64 pages of 16 rows under the budget): the
+   cold and the repeated Count, Row(f=2), a 3-row Count, the 16-Count pair
+   request, TopN(f) (one 8-row page of 954 MiB, past the budget), the
+   filtered TopN(f, Row(g=7)), TopN(t), Rows(t), GroupBy(Rows(t)) and
+   Sum(field=v), each equal to the unbudgeted backend's answer, with its
+   host time, its device time in kernels and copies, its K8 and K11
+   launches, page uploads and bytes, evictions and resident bytes against
+   the budget; only Sum may be routed to the host. Then the repeated paged
+   Count's device profile beside the resident Count's, the paged TopN of t
+   timed a page at a time (host pack, copy, K8, readback) with the upload
+   rate beside a pinned-memory copy_ of the same bytes and K8's share of
+   its bound, and the phase's peak device memory over its start;
 4. the HTTP server (pilosa_tpu_torch.server) over the same index and
    backend: the north-star Count, the 16-Count pair request, three
    GroupBys, TopN(f, n=5) and Sum(field=v) sent as JSON and as protobuf,
@@ -103,7 +118,9 @@ chip_smoke.py to time it).
    and the CLI's server (`python -m pilosa_tpu_torch.cli server`) booted
    as a process on a 4-shard on-disk index that `cli import` loads, its Count,
    Row and GroupBy over HTTP equal to the in-process executor's over the
-   same directory, stopped by SIGINT with exit code 0;
+   same directory, stopped by SIGINT with exit code 0; then again with
+   --max-hbm-bytes at half of one of its stacks: the same answers, and a
+   /debug/hbm that lists row pages whose tierBytes sum to residentBytes;
 5. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
@@ -145,6 +162,9 @@ chip_smoke.py to time it).
    and no query may be routed to the CPU oracle.
 
 cpu_routed_total is printed after each phase.
+
+``--budget`` runs only phase 3c (with bench.py's index and its BSI field v
+built) and the CLI's two servers.
 
 ``--churn`` runs only the two churn windows (with bench.py's BSI field v
 built), and ``--miss`` only the cache-missing window, on bench.py's index
@@ -1263,6 +1283,9 @@ CLI_ROWS = 4
 CLI_BITS = 3000
 CLI_QUERIES = ["Count(Intersect(Row(f=1), Row(g=2)))", "Row(f=3)",
                "GroupBy(Rows(f), Rows(g))"]
+# The budgeted CLI server's max-hbm-bytes: four row pages of the 4-shard
+# index, half of one of its 8-row stacks.
+CLI_BUDGET = 4 * CLI_SHARDS * 32768 * 4
 
 
 def http_post(conn, path, body, headers=None):
@@ -1811,6 +1834,33 @@ def phase_window(root, which: str) -> int:
     return 0
 
 
+def phase_budget_alone(root) -> int:
+    """`chip_smoke.py --budget`: bench.py's index with its BSI field v, the
+    row-paging phase over it and the CLI's two servers."""
+    import torch
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+
+    card_line = phase_card()
+    phase_probe(card_line)
+    holder = Holder(None).open()
+    t0 = time.perf_counter()
+    build_bench_index(holder)
+    build_bsi_field(holder)
+    log(f"budget: index build seconds {time.perf_counter() - t0:.1f}")
+    backend = CUDABackend(holder)
+    phase_budget(holder, backend)
+    holder.close()
+    del backend
+    torch.cuda.empty_cache()
+    phase_cli(root)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def free_port() -> int:
     import socket
 
@@ -1831,6 +1881,259 @@ def wait_for_port(port: int, proc, seconds: float = 90.0) -> None:
             check(proc.poll() is None, f"cli: server exited with {proc.returncode}")
             check(time.perf_counter() < deadline, "cli: server did not bind")
             time.sleep(0.1)
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: row paging under a device byte budget
+# ---------------------------------------------------------------------------
+
+# A second CUDABackend over the bench index with this budget: f and g (954
+# MiB stacks) and v (1.9 GB) are over it, h (477 MiB) fits; a row page of f
+# is 954 x 128 KiB = 119.25 MiB.
+BUDGET_BYTES = 512 << 20
+# The tall field t, in an index of its own: TALL_ROWS rows over TALL_SHARDS
+# shards (an 8 GiB stack), each row TALL_BITS random columns a shard
+# (density 256 / 2^20). Under the budget a page is 16 rows (128 MiB), so
+# TopN(t) streams 64 pages.
+TALL_SHARDS = 64
+TALL_ROWS = 1024
+TALL_BITS = 256
+BUDGET_CALLS = [
+    ("Count, cold", "bench", "Count(Intersect(Row(f=1), Row(g=2)))"),
+    ("Count, repeated", "bench", "Count(Intersect(Row(f=1), Row(g=2)))"),
+    ("Row(f=2)", "bench", "Row(f=2)"),
+    ("3-row Count", "bench", "Count(Intersect(Row(f=1), Row(g=2), Row(h=3)))"),
+    ("16-Count pair request", "bench", PAIR_REQUEST),
+    ("TopN(f)", "bench", "TopN(f)"),
+    ("TopN(f, Row(g=7))", "bench", "TopN(f, Row(g=7))"),
+    ("TopN(t)", "tall", "TopN(t)"),
+    ("Rows(t)", "tall", "Rows(t)"),
+    ("GroupBy(Rows(t))", "tall", "GroupBy(Rows(t))"),
+    ("Sum(field=v)", "bench", "Sum(field=v)"),
+]
+
+
+def build_tall_index(holder):
+    """Index "tall", field t: TALL_BITS random columns a row a shard for
+    TALL_ROWS rows over TALL_SHARDS shards, from PCG64(11)."""
+    import numpy as np
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    field = holder.create_index("tall").create_field("t")
+    rng = np.random.default_rng(11)
+    rows = np.repeat(np.arange(TALL_ROWS, dtype=np.uint64), TALL_BITS)
+    for shard in range(TALL_SHARDS):
+        cols = rng.integers(0, SHARD_WIDTH, rows.size, dtype=np.uint64)
+        field.import_bits(rows, cols + np.uint64(shard * SHARD_WIDTH))
+
+
+def profiled_device_ms(fn):
+    """(kernel ms, copy ms) of one call of fn, from torch.profiler's device
+    events (memcpy and memset events are the copies); (None, None) when the
+    profiler saw no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = copy = 0.0
+    seen = False
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us <= 0 or not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        seen = True
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copy += us / 1e3
+        else:
+            kern += us / 1e3
+    return (kern, copy) if seen else (None, None)
+
+
+def paged_topn_split(bud, holder, want_counts):
+    """The paged TopN of t a page at a time, as _topn_paged_counts runs it,
+    timed by part: the host pack (host clock), the pageable host-to-device
+    copy (CUDA events), the launch of K8 to its end (CUDA events around the
+    wrapper call, so the wrapper's host work is in it) and the readback of
+    the page's summed counts (host clock, which waits for the sum). Its
+    counts must be the backend's. Then K8's own time on the last page
+    (kernel_ms: back-to-back bare launches) against its bound, and a
+    pinned-memory copy_ of one page's bytes. Returns K8's kernel_ms."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.ops.blocks import WORDS_PER_SHARD, pack_rows
+
+    shards = tuple(range(TALL_SHARDS))
+    v = holder.index("tall").field("t").view("standard")
+    frags = [v.fragment(s) for s in shards]
+    n_rows = max(fr.max_row_id + 1 for fr in frags if fr is not None)
+    page = bud._topn_page_rows(len(shards))
+    counts = np.zeros(-(-n_rows // page) * page, dtype=np.int64)
+    parts = {"pack": [], "copy": [], "k8_launch": [], "readback": []}
+    host = None
+    for start in range(0, n_rows, page):
+        stop = min(start + page, n_rows)
+        t0 = time.perf_counter()
+        host = np.zeros((len(shards), page, WORDS_PER_SHARD), dtype=np.uint32)
+        for i, fr in enumerate(frags):
+            if fr is not None and start <= fr.max_row_id:
+                host[i, : stop - start] = pack_rows(fr, start, stop)
+        parts["pack"].append((time.perf_counter() - t0) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        dev = bud.blocks._put(host)
+        ev[1].record()
+        table = K.row_popcounts(dev, 0, page)[0]
+        ev[2].record()
+        t0 = time.perf_counter()
+        counts[start : start + page] += table.sum(dim=0, dtype=torch.int64).cpu().numpy()
+        parts["readback"].append((time.perf_counter() - t0) * 1e3)
+        parts["copy"].append(ev[0].elapsed_time(ev[1]))
+        parts["k8_launch"].append(ev[1].elapsed_time(ev[2]))
+        if stop < n_rows:
+            del dev, table
+    check(np.array_equal(counts[:n_rows], want_counts),
+          "budget: the timed page loop's counts disagree with the backend's")
+    k8_ms = kernel_ms(bare_row_popcounts(dev, 0, page))
+    del dev, table
+    page_bytes = host.nbytes
+    pinned = torch.empty(host.shape, dtype=torch.int32, pin_memory=True)
+    pinned.numpy()[:] = host.view(np.int32)
+    target = torch.empty(host.shape, dtype=torch.int32, device="cuda")
+    pinned_ms = time_ms(lambda: target.copy_(pinned, non_blocking=True), reps=5, warm=1)
+    bound_ms, by, _ = kernel_bound(row_popcounts_work(len(shards), page, WORDS_PER_SHARD, 0))
+    med = {k: statistics.median(x) for k, x in parts.items()}
+    log(f"budget: TopN(t) by page ({len(parts['copy'])} pages of {page} rows, "
+        f"{page_bytes} bytes): median ms " + json.dumps(med) + ", total ms "
+        + json.dumps({k: sum(x) for k, x in parts.items()}))
+    log(f"budget: page upload {page_bytes / med['copy'] / 1e6:.2f} GB/s pageable "
+        f"(median of {len(parts['copy'])}), pinned copy_ of the same bytes "
+        f"{page_bytes / pinned_ms / 1e6:.2f} GB/s ({pinned_ms:.4f} ms)")
+    log(f"budget: K8 a page, kernel_ms {k8_ms:.4f} against its bound {bound_ms:.4f} ms "
+        f"({by}): {bound_ms / k8_ms:.2f} of the bound; from the launch to its end "
+        f"{med['k8_launch']:.4f} ms")
+    return k8_ms
+
+
+def phase_budget(holder, backend):
+    """Row paging under a device byte budget: a second CUDABackend with
+    max_bytes BUDGET_BYTES over the bench index (f, g, h and v) and the tall
+    field t of an index of its own. Every call of BUDGET_CALLS answers what
+    the unbudgeted backend answers; each logs its host time, its device
+    time split into kernels and copies (torch.profiler, a second call in
+    the same cache state), its K8 and K11 launches, page uploads and bytes,
+    evictions, and resident bytes against the budget. Sum(field=v) stays on
+    the host, counted once in cpu_routed_total; nothing else is routed.
+    Then the paged TopN of t a page at a time (paged_topn_split), the
+    repeated paged Count's device profile beside the resident Count's, and
+    the phase's peak device memory over its start."""
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    t0 = time.perf_counter()
+    build_tall_index(holder)
+    log(f"budget: tall index built in {time.perf_counter() - t0:.1f} s ({TALL_SHARDS} "
+        f"shards x {TALL_ROWS} rows x {TALL_BITS} columns)")
+    dev = Executor(holder, backend=backend)
+    # The tall field's unbudgeted answers from a backend of its own, whose
+    # 8 GiB stack is freed before the phase's peak memory is read.
+    ref = CUDABackend(holder)
+    rdev = Executor(holder, backend=ref)
+    want = {}
+    for label, index, q in BUDGET_CALLS:
+        want[label] = (rdev if index == "tall" else dev).execute(index, q)
+    del rdev, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    bud = CUDABackend(holder, max_bytes=BUDGET_BYTES)
+    bdev = Executor(holder, backend=bud)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def counter(name):
+        return sum(global_stats.counter_totals(name).values())
+
+    def empty_cache():
+        bud.blocks.make_room(BUDGET_BYTES)
+        bud._topn_cache.clear()
+
+    resets = {"Count, cold": empty_cache, "3-row Count": empty_cache,
+              "16-Count pair request": empty_cache, "TopN(f)": empty_cache,
+              "TopN(t)": empty_cache}
+    routed0 = global_stats.counter_totals("cpu_routed_total")
+    K.reset_launch_counts()
+    path_launches = {}
+    rows = {}
+    for label, index, q in BUDGET_CALLS:
+        launches = K.launch_counts()
+        pages = (counter("hbm_page_uploads_total"), counter("hbm_page_bytes_total"))
+        evictions = bud.blocks.evictions
+        t0 = time.perf_counter()
+        got = bdev.execute(index, q)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        now = K.launch_counts()
+        for k, n in now.items():
+            path_launches[k] = path_launches.get(k, 0) + n - launches[k]
+        row = {
+            "host_ms": host,
+            "K8": now["row_popcounts"] - launches["row_popcounts"],
+            "K11": now["spec_eval"] - launches["spec_eval"],
+            "page_uploads": counter("hbm_page_uploads_total") - pages[0],
+            "page_bytes": counter("hbm_page_bytes_total") - pages[1],
+            "evictions": bud.blocks.evictions - evictions,
+            "resident_bytes": bud.blocks.resident_bytes(),
+            "budget": BUDGET_BYTES,
+        }
+        check(same_answers(got, want[label]), f"budget: {label} disagrees with the "
+              "unbudgeted backend")
+        check(row["resident_bytes"] <= BUDGET_BYTES,
+              f"budget: {label} left {row['resident_bytes']} bytes resident")
+        # The device time from a second call in the same cache state (its
+        # launches are not counted as the path's).
+        if label in resets:
+            resets[label]()
+        row["device_kernel_ms"], row["device_copy_ms"] = profiled_device_ms(
+            lambda: bdev.execute(index, q))
+        rows[label] = row
+        log(f"budget: {label}: " + json.dumps(row))
+    peak = torch.cuda.max_memory_allocated() - base
+    routed = global_stats.counter_totals("cpu_routed_total")
+    delta = {k: v - routed0.get(k, 0) for k, v in routed.items() if v != routed0.get(k, 0)}
+    log("budget: launches on the path " + json.dumps(path_launches))
+    log("budget: cpu_routed_total delta " + json.dumps(delta))
+    # Each call ran twice (timed, then profiled): Sum is routed twice.
+    check(delta == {'cpu_routed_total{call="Sum"}': 2},
+          f"budget: only Sum may be routed to the host, got {delta}")
+    for name in ("spec_eval", "row_popcounts"):
+        check(path_launches.get(name, 0) > 0, f"budget: {name} was not launched")
+    check(rows["TopN(t)"]["K8"] == rows["TopN(t)"]["page_uploads"] == -(-TALL_ROWS // 16),
+          f"budget: TopN(t) took {rows['TopN(t)']} (expected one K8 launch a 16-row page)")
+    check(rows["Count, repeated"]["page_uploads"] == 0,
+          "budget: the repeated Count's pages did not hit the cache")
+    log(f"budget: peak device memory over the phase's start {peak} bytes "
+        f"({peak / BUDGET_BYTES:.3f} x the budget of {BUDGET_BYTES})")
+    count_q = BUDGET_CALLS[0][2]
+    device_share(lambda: bdev.execute("bench", count_q), "paged Count, repeated")
+    device_share(lambda: dev.execute("bench", count_q), "resident Count")
+    # The paged counts the profiled TopN(t) left in the TopN cache.
+    paged_topn_split(bud, holder, bud._topn_cache[("tall", "t")][1])
+    log_routed("budget")
+    del bdev, bud
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return path_launches
 
 
 def phase_http(holder, backend, root):
@@ -2034,10 +2337,11 @@ def phase_cli(root):
     """`python -m pilosa_tpu_torch.cli server` as a process on a
     CLI_SHARDS-shard on-disk index that `cli import` loads: its answers
     over HTTP equal the in-process executor's over the same directory
-    after it stops, and SIGINT stops it with exit code 0."""
-    import signal
+    after it stops, and SIGINT stops it with exit code 0. Then the same
+    server with --max-hbm-bytes CLI_BUDGET, below one of the index's
+    stacks: its answers equal the first run's, and its /debug/hbm lists
+    row pages whose tierBytes sum to residentBytes."""
     import tempfile
-    import urllib.request
 
     import numpy as np
 
@@ -2053,44 +2357,26 @@ def phase_cli(root):
     cli = [sys.executable, "-m", "pilosa_tpu_torch.cli"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         data_dir = os.path.join(tmp, "data")
-        port = free_port()
-        host = f"http://127.0.0.1:{port}"
         rng = np.random.default_rng(7)
         for name in ("f", "g"):
             with open(os.path.join(tmp, f"{name}.csv"), "w") as f:
                 for row in range(CLI_ROWS):
                     cols = rng.integers(0, CLI_SHARDS * SHARD_WIDTH, CLI_BITS)
                     f.writelines(f"{row},{c}\n" for c in cols)
-        with open(os.path.join(tmp, "server.log"), "w") as out:
-            proc = subprocess.Popen(
-                cli + ["server", "-d", data_dir, "--bind", f"127.0.0.1:{port}"],
-                cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
-        try:
-            wait_for_port(port, proc)
-            boot_s = time.perf_counter() - t0
+
+        def load(host):
             for name in ("f", "g"):
                 imp = subprocess.run(
                     cli + ["import", "--host", host, "-i", "small", "-f", name, "--create",
                            os.path.join(tmp, f"{name}.csv")],
                     cwd=root, env=env, capture_output=True, text=True, timeout=120)
                 check(imp.returncode == 0, f"cli: import {name} failed: {imp.stderr[-2000:]}")
-            got = {}
-            for q in CLI_QUERIES:
-                req = urllib.request.Request(f"{host}/index/small/query", data=q.encode(),
-                                             method="POST")
-                got[q] = urllib.request.urlopen(req, timeout=120).read()
-            metrics = urllib.request.urlopen(f"{host}/metrics", timeout=120).read().decode()
-            proc.send_signal(signal.SIGINT)
-            rc = proc.wait(timeout=60)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        log_text = open(os.path.join(tmp, "server.log")).read()
-        check(rc == 0, f"cli: server exited with {rc}: {log_text[-2000:]}")
-        check("executor=cuda: device backend on cuda" in log_text,
-              f"cli: the server did not serve on the card: {log_text[-2000:]}")
-        check("device_launches_total" in metrics and "cpu_routed_total" not in metrics,
+
+        run = cli_server_run(root, env, data_dir, tmp, [], load)
+        check("executor=cuda: device backend on cuda" in run["log"],
+              f"cli: the server did not serve on the card: {run['log'][-2000:]}")
+        check("device_launches_total" in run["metrics"]
+              and "cpu_routed_total" not in run["metrics"],
               "cli: the server's requests did not stay on the card")
         holder = Holder(data_dir).open()
         try:
@@ -2099,14 +2385,75 @@ def phase_cli(root):
             for q in CLI_QUERIES:
                 want = fastjson.response_body(
                     [fastjson.encode_result(r) for r in dev.execute("small", q)])
-                check(got[q] == want, f"cli: {q} over HTTP disagrees with the in-process executor")
+                check(run["got"][q] == want,
+                      f"cli: {q} over HTTP disagrees with the in-process executor")
                 check(same_answers(dev.execute("small", q), oracle.execute("small", q)),
                       f"cli: {q} disagrees with the CPU oracle")
         finally:
             holder.close()
-    log(f"cli: server booted in {boot_s:.1f} s, {len(CLI_QUERIES)} answers over HTTP "
-        f"agree with the in-process executor and the oracle, exit code {rc}, "
-        f"{time.perf_counter() - t0:.1f} s")
+        log(f"cli: server booted in {run['boot_s']:.1f} s, {len(CLI_QUERIES)} answers over "
+            f"HTTP agree with the in-process executor and the oracle, exit code {run['rc']}")
+        budgeted = cli_server_run(root, env, data_dir, tmp,
+                                  ["--max-hbm-bytes", str(CLI_BUDGET)], None)
+        check(f"max-hbm-bytes {CLI_BUDGET}" in budgeted["log"],
+              f"cli: the budgeted server did not take its budget: {budgeted['log'][-2000:]}")
+        for q in CLI_QUERIES:
+            check(budgeted["got"][q] == run["got"][q],
+                  f"cli: {q} under max-hbm-bytes disagrees with the unbudgeted server")
+        hbm = budgeted["hbm"]
+        pages = [e for e in hbm["entries"] if "row" in e]
+        check(pages and sum(hbm["tierBytes"].values()) == hbm["residentBytes"]
+              and hbm["residentBytes"] <= CLI_BUDGET,
+              f"cli: /debug/hbm under max-hbm-bytes {CLI_BUDGET}: {hbm}")
+        routed = [ln for ln in budgeted["metrics"].splitlines()
+                  if ln.startswith("pilosa_cpu_routed_total")]
+        log(f"cli: with --max-hbm-bytes {CLI_BUDGET} (a stack is "
+            f"{CLI_SHARDS * 8 * SHARD_WIDTH // 8} bytes) the answers equal the unbudgeted "
+            f"run's; /debug/hbm: residentBytes {hbm['residentBytes']}, tierBytes "
+            f"{json.dumps(hbm['tierBytes'])}, evictions {hbm['evictions']}, entries "
+            + json.dumps([(e["field"], e.get("row"), e["bytes"]) for e in hbm["entries"]])
+            + f"; routed {routed}; exit code {budgeted['rc']}")
+    log(f"cli: {time.perf_counter() - t0:.1f} s")
+
+
+def cli_server_run(root, env, data_dir, tmp, extra, load):
+    """One `cli server` process over data_dir with the extra flags: load(host)
+    first when given, then CLI_QUERIES over HTTP, /metrics and /debug/hbm,
+    then SIGINT, which must stop it with exit code 0."""
+    import signal
+    import urllib.request
+
+    t0 = time.perf_counter()
+    port = free_port()
+    host = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(tmp, f"server{len(extra)}.log")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-d", data_dir,
+             "--bind", f"127.0.0.1:{port}"] + extra,
+            cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        wait_for_port(port, proc)
+        boot_s = time.perf_counter() - t0
+        if load is not None:
+            load(host)
+        got = {}
+        for q in CLI_QUERIES:
+            req = urllib.request.Request(f"{host}/index/small/query", data=q.encode(),
+                                         method="POST")
+            got[q] = urllib.request.urlopen(req, timeout=120).read()
+        metrics = urllib.request.urlopen(f"{host}/metrics", timeout=120).read().decode()
+        hbm = json.loads(urllib.request.urlopen(f"{host}/debug/hbm", timeout=120).read())
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log_text = open(log_path).read()
+    check(rc == 0, f"cli: server {extra} exited with {rc}: {log_text[-2000:]}")
+    return {"got": got, "metrics": metrics, "hbm": hbm, "rc": rc, "log": log_text,
+            "boot_s": boot_s}
 
 
 # ---------------------------------------------------------------------------
@@ -3061,6 +3408,9 @@ def main(argv=None) -> int:
     ap.add_argument("--miss", action="store_true",
                     help="run only the cache-missing window (miss_window) on the --root "
                          "checkout's package")
+    ap.add_argument("--budget", action="store_true",
+                    help="run only the row-paging phase (phase_budget, with bench.py's "
+                         "index and BSI field v built) and the CLI's servers (phase_cli)")
     args = ap.parse_args(argv)
     if args.http_load:  # a throughput window's clients (phase_http)
         with open(args.http_load) as f:
@@ -3087,6 +3437,8 @@ def main(argv=None) -> int:
     log(f"package: {os.path.dirname(pilosa_tpu_torch.__file__)}")
     if args.churn or args.miss:
         return phase_window(root, "churn" if args.churn else "miss")
+    if args.budget:
+        return phase_budget_alone(root)
 
     card_line = phase_card()
     phase_probe(card_line)
@@ -3095,6 +3447,7 @@ def main(argv=None) -> int:
     holder, backend, wide_stacks = phase_main(results)
     group_launches, gstacks, served = phase_groupby(holder, backend)
     bsi_launches, bsi_stacks = phase_bsi(holder, backend)
+    phase_budget(holder, backend)
     phase_http(holder, backend, root)
     groupby_oracle_check(holder, backend)
     bsi_oracle_check(holder, backend)

@@ -20,9 +20,6 @@ _ROADMAP = "ROADMAP.md, queue 1"
 #: so any value but the default is refused at startup, never ignored.
 #: heat-half-life alone is accepted and inert (ROADMAP.md).
 _UNREAD_SETTINGS = {
-    # Over-budget fields would be answered by the CPU oracle until row
-    # paging is ported; the server never moves a field off the card.
-    "max-hbm-bytes": ("max_hbm_bytes", "row paging of fields over the device budget"),
     "anti-entropy.interval": ("anti_entropy_interval", "multi-node serving"),
     "client-timeout": ("client_timeout", "multi-node serving"),
     "client-retries": ("client_retries", "multi-node serving"),
@@ -101,6 +98,7 @@ def cmd_server(args) -> int:
             "data_dir": args.data_dir,
             "bind": args.bind,
             "executor": args.executor,
+            "max_hbm_bytes": args.max_hbm_bytes,
             "verbose": args.verbose or None,
         },
     )
@@ -133,7 +131,9 @@ def cmd_server(args) -> int:
         try:
             from pilosa_tpu_torch.exec.cuda import CUDABackend
 
-            backend = CUDABackend(holder)
+            # max-hbm-bytes: the device byte budget (0: none). A field over
+            # it is paged through the card a row at a time.
+            backend = CUDABackend(holder, max_bytes=cfg.max_hbm_bytes or None)
         except Exception as e:  # noqa: BLE001 — reported, never served around
             log.printf(
                 "executor=cuda: %s; not serving (--executor=cpu runs the "
@@ -141,8 +141,9 @@ def cmd_server(args) -> int:
             )
             holder.close()
             return 1
-        log.printf("executor=cuda: device backend on %s (%s)",
-                   backend.device, torch.cuda.get_device_name(backend.device))
+        log.printf("executor=cuda: device backend on %s (%s), max-hbm-bytes %d",
+                   backend.device, torch.cuda.get_device_name(backend.device),
+                   cfg.max_hbm_bytes)
     executor = Executor(
         holder, backend=backend if backend is not None else CPUBackend(holder)
     )
@@ -383,6 +384,11 @@ def main(argv=None) -> int:
         "--executor", choices=["cuda", "cpu"], default=None,
         help="cuda (default): serve on the card, exit if it cannot be "
         "used; cpu: serve on the CPU oracle",
+    )
+    sp.add_argument(
+        "--max-hbm-bytes", type=int, default=None, metavar="N",
+        help="device byte budget of the resident stacks and row pages "
+        "(0: none); a field over it is paged through the card",
     )
     sp.add_argument(
         "--join",

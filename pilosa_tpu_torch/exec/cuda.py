@@ -40,10 +40,16 @@ The counterpart of the JAX package's TPUBackend:
   group-tile kernels K4/K5 over the extra fields' live row combinations
   (ops/kernels.py).
 
+Under a byte budget (``max_bytes``), a field whose stack cannot be resident
+is paged through the card as the JAX package pages it: a ``Row`` leaf takes
+its [S, 1, W] row page (_StackedBlocks.get_row), and TopN, Rows and 1-field
+GroupBy stream fixed-height row pages through K8 (_topn_paged_counts).
+
 A call without a device lowering here raises _Unsupported while its tree is
-assembled (a stack over the byte budget, a BSI depth past MAX_BSI_DEPTH)
-and is answered on the host, counted in ``cpu_routed_total{call}``. Kernel
-failures are not caught: they raise to the caller.
+assembled (a time range, ``Not``'s existence stack or a BSI stack over the
+byte budget, a BSI depth past MAX_BSI_DEPTH) and is answered on the host,
+counted in ``cpu_routed_total{call}``. Kernel failures are not caught: they
+raise to the caller.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from __future__ import annotations
 import functools
 import itertools
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -65,9 +72,13 @@ from pilosa_tpu_torch.core.view import VIEW_STANDARD, bsi_view_name
 from pilosa_tpu_torch.exec.cpu import CPUBackend, NotFoundError, QueryError
 from pilosa_tpu_torch.exec.result import FieldRow, GroupCount
 from pilosa_tpu_torch.ops.blocks import (
+    ROW_PAD,
     WORDS_PER_SHARD,
     _padded_rows,
+    fragment_tier_words,
     pack_fragment,
+    pack_row,
+    pack_rows,
     unpack_row,
     unpack_slab_columns,
 )
@@ -216,8 +227,11 @@ def _host_slab_groupn(slabs: list, rs: list) -> np.ndarray:
 class _StackedBlocks:
     """Device cache: (index, field, view) -> int32[S, R_pad, W] + freshness.
 
-    An optional byte budget LRU-evicts whole stacks; a stack that can never
-    fit is not cached and its callers route to the CPU oracle."""
+    An optional byte budget LRU-evicts whole stacks and row pages. A stack
+    that can never fit is not cached: its callers page its rows through
+    the device (get_row, CUDABackend._topn_paged_counts) or, for the calls
+    the JAX package does not page, route to the CPU oracle. Each resident
+    entry has an HBM ledger entry (ledger(), tier_bytes(), /debug/hbm)."""
 
     #: Incremental-update cutoff: splice at most 1/2 of the shard axis
     #: before a full repack wins.
@@ -227,12 +241,22 @@ class _StackedBlocks:
     #: the host staging buffer stays small for any dirty count.
     UPDATE_CHUNK = 8
 
+    #: Decayed-frequency half-life of an entry's heat, in seconds: an entry
+    #: untouched for one half-life keeps half its heat.
+    HEAT_HALF_LIFE = 300.0
+
     def __init__(self, device: torch.device, max_bytes: Optional[int] = None):
         self.device = device
         self.max_bytes = max_bytes
         # key -> (fingerprint, device tensor, rows_p, per-shard versions).
         self._entries: dict[tuple, tuple[tuple, torch.Tensor, int, Optional[tuple]]] = {}
         self.evictions = 0
+        # The HBM ledger: key -> resident bytes split by representation tier
+        # (dense / array-container / run-container source), upload epoch and
+        # uploads, access count, last access and heat. Keys mirror _entries;
+        # access stats survive a key's re-uploads.
+        self._ledger: dict[tuple, dict] = {}
+        self._upload_epoch = 0
         self._lock = InstrumentedRLock("device_stacks")
         # Per-key build latch: concurrent misses for one stack build it once.
         self._building: dict[tuple, threading.Event] = {}
@@ -254,33 +278,43 @@ class _StackedBlocks:
 
         def build(stale):
             frags = {s: (v.fragment(s) if v is not None else None) for s in shards}
-            # Read before the pack, so a stack is never recorded as newer
-            # than its content (the tables' delta replay trusts it).
-            vers = tuple(_locked_version(frags[s]) for s in shards)
             n_rows = max(
                 [fr.max_row_id + 1 for fr in frags.values() if fr is not None]
                 + [min_rows]
             )
             rows_p = _padded_rows(n_rows)
-            updated = self._try_incremental(stale, shards, min_rows, frags, vers, rows_p)
-            if updated is not None:
-                return updated, rows_p, vers
             shape = (len(shards), rows_p, WORDS_PER_SHARD)
             nbytes = shape[0] * rows_p * WORDS_PER_SHARD * 4
             if self.max_bytes is not None and nbytes > self.max_bytes:
-                return None, rows_p, vers
+                # Before the version walk, which a paged field would pay on
+                # every call: a stale stack of this shape would have fit,
+                # so no splice is lost.
+                return None, rows_p, None, None
+            # Read before the pack, so a stack is never recorded as newer
+            # than its content (the tables' delta replay trusts it).
+            vers = tuple(_locked_version(frags[s]) for s in shards)
+            updated = self._try_incremental(stale, shards, min_rows, frags, vers, rows_p)
+            if updated is not None:
+                # tiers None: the ledger keeps the previous split, as the
+                # splice touched only the dirty shards.
+                return updated, rows_p, vers, None
             if stale is not None:
                 global_stats.count("stack_full_rebuilds_total")
             # Drop the stale stack before allocating its successor, so a
-            # rebuild never holds two copies on the device.
+            # rebuild never holds two copies on the device. Its ledger
+            # entry stays: access stats survive a re-upload.
             with self._lock:
                 self._entries.pop(key, None)
+            tiers = [0, 0]
             host = np.zeros(shape, dtype=np.uint32)
             for i, s in enumerate(shards):
                 fr = frags[s]
                 if fr is not None:
                     host[i] = pack_fragment(fr, n_rows=rows_p)
-            return self._put(host), rows_p, vers
+                    a, r = fragment_tier_words(fr, rows_p)
+                    tiers[0] += a
+                    tiers[1] += r
+            return self._put(host), rows_p, vers, tiers
 
         return self._cached_build(key, fingerprint, build)
 
@@ -322,6 +356,29 @@ class _StackedBlocks:
         global_stats.count("stack_incremental_shards_total", len(dirty))
         return old_arr
 
+    def get_row(self, index: str, field_obj, shards: tuple[int, ...],
+                view_name: str, row_id: int) -> torch.Tensor:
+        """[S, 1, W] single-row stack: the page of a field whose whole stack
+        exceeds the byte budget. Keyed (index, field, view, "row", row_id),
+        rebuilt whole when the view's generation moves, cached, LRU-evicted
+        and ledgered like a stack; each costs S x 128 KiB. One row, not
+        ROW_PAD: a K11 leaf takes its shard stride from the stack's height."""
+        v = field_obj.view(view_name)
+        fingerprint = (tuple(shards), v.generation if v is not None else -1)
+        key = (index, field_obj.name, view_name, "row", row_id)
+
+        def build(stale):
+            host = np.zeros((len(shards), 1, WORDS_PER_SHARD), dtype=np.uint32)
+            for i, s in enumerate(shards):
+                fr = v.fragment(s) if v is not None else None
+                if fr is not None and row_id <= fr.max_row_id:
+                    host[i, 0] = pack_row(fr, row_id)
+            global_stats.count("hbm_page_uploads_total")
+            global_stats.count("hbm_page_bytes_total", host.nbytes)
+            return self._put(host), 1, None, None
+
+        return self._cached_build(key, fingerprint, build)[0]
+
     def get_with_versions(self, index: str, field_obj, shards: tuple[int, ...],
                           view_name: str = VIEW_STANDARD, min_rows: int = 1):
         """get() plus the per-shard (uid, version) tuple the returned stack
@@ -333,14 +390,19 @@ class _StackedBlocks:
         return block, rows_p, vers
 
     def _cached_build(self, key: tuple, fingerprint: tuple, build):
-        """Hit / latch / build / evict. build(stale) receives the stale entry
-        for this key (or None) and returns (tensor_or_None, rows_p,
-        versions); None means 'cannot be resident' and is not cached."""
+        """Hit / latch / build / evict, for stacks and row pages alike.
+        build(stale) receives the stale entry for this key (or None) and
+        returns (tensor_or_None, rows_p, versions, tier words or None); None
+        means 'cannot be resident' and is not cached. A hit bumps the
+        entry's ledger stats, an upload records one."""
         while True:
             with self._lock:
                 cached = self._entries.get(key)
                 if cached is not None and cached[0] == fingerprint:
                     self._entries[key] = self._entries.pop(key)  # LRU touch
+                    led = self._ledger.get(key)
+                    if led is not None:
+                        self._bump_heat(led)
                     return cached[1], cached[2]
                 latch = self._building.get(key)
                 if latch is None:
@@ -348,20 +410,56 @@ class _StackedBlocks:
                     break
             latch.wait()
         try:
-            arr, rows_p, vers = build(cached)
+            arr, rows_p, vers, tiers = build(cached)
             if arr is None:
                 return None, rows_p
             with self._lock:
                 self._entries.pop(key, None)
                 self._entries[key] = (fingerprint, arr, rows_p, vers)
+                self._ledger_upload(key, arr, tiers)
                 self._evict(keep=key)
             return arr, rows_p
         finally:
             with self._lock:
                 self._building.pop(key).set()
 
+    def _ledger_upload(self, key: tuple, arr: torch.Tensor, tiers) -> None:
+        """Record a (re)upload in the HBM ledger (caller holds _lock). Access
+        stats survive re-uploads of the same key. tiers None with an
+        unchanged byte size keeps the previous tier split (an in-place
+        splice does not re-attribute); otherwise bytes not attributed to
+        array or run containers are dense."""
+        nbytes = arr.numel() * 4
+        self._upload_epoch += 1
+        led = self._ledger.get(key)
+        if led is None:
+            led = {"access_count": 0, "uploads": 0}
+            self._ledger[key] = led
+        if tiers is None and led.get("bytes") == nbytes and "tier_bytes" in led:
+            tier_bytes = led["tier_bytes"]
+        else:
+            array_b = min(int(tiers[0]) * 4, nbytes) if tiers else 0
+            run_b = min(int(tiers[1]) * 4, nbytes - array_b) if tiers else 0
+            tier_bytes = {"dense": nbytes - array_b - run_b, "array": array_b, "run": run_b}
+        led.update(bytes=nbytes, tier_bytes=tier_bytes, upload_epoch=self._upload_epoch)
+        led["uploads"] += 1
+        self._bump_heat(led)
+
+    def _bump_heat(self, led: dict) -> None:
+        """One access of a ledger entry (caller holds _lock): the stored heat
+        decays by 2^(-idle / half-life) since the last access, then gains
+        this access."""
+        now = time.monotonic()
+        heat = led.get("heat", 0.0)
+        if heat:
+            heat *= 2.0 ** ((led["last_access"] - now) / self.HEAT_HALF_LIFE)
+        led["heat"] = heat + 1.0
+        led["access_count"] += 1
+        led["last_access"] = now
+
     def make_room(self, nbytes: int) -> None:
-        """LRU-evict cached stacks until `nbytes` fits under the budget."""
+        """LRU-evict cached entries until `nbytes` fits under the budget (a
+        page sweep's transient page stays inside it)."""
         if self.max_bytes is None:
             return
         with self._lock:
@@ -377,11 +475,57 @@ class _StackedBlocks:
 
     def _drop(self, victim: tuple) -> None:
         self._entries.pop(victim)
+        self._ledger.pop(victim, None)
         self.evictions += 1
 
     def resident_bytes(self) -> int:
         with self._lock:
             return sum(e[1].numel() * 4 for e in self._entries.values())
+
+    def tier_bytes(self) -> dict[str, int]:
+        """Resident bytes by representation tier; the dict sums exactly to
+        resident_bytes() (each ledger entry's tiers sum to its bytes)."""
+        out = {"dense": 0, "array": 0, "run": 0}
+        with self._lock:
+            for key in self._entries:
+                led = self._ledger.get(key)
+                if led is None:
+                    continue
+                for t, b in led["tier_bytes"].items():
+                    out[t] += b
+        return out
+
+    def ledger(self) -> list[dict]:
+        """The per-entry HBM ledger, coldest first: the LRU order in which
+        _evict takes victims (served at /debug/hbm). A row page's entry
+        names its row."""
+        # Idle ages run on the monotonic clock; one wall-clock read maps
+        # them onto the operator-facing lastAccess stamps.
+        now = time.monotonic()
+        wall = time.time()  # lint: allow-monotonic-time(lastAccess is an operator-facing epoch display; idleSeconds math is monotonic)
+        out = []
+        with self._lock:
+            for key, (_, _, rows_p, _) in self._entries.items():
+                led = self._ledger.get(key)
+                if led is None:
+                    continue
+                ent = {
+                    "index": key[0],
+                    "field": key[1],
+                    "view": key[2],
+                    "bytes": led["bytes"],
+                    "tierBytes": dict(led["tier_bytes"]),
+                    "rows": rows_p,
+                    "uploadEpoch": led["upload_epoch"],
+                    "uploads": led["uploads"],
+                    "accessCount": led["access_count"],
+                    "lastAccess": round(wall - (now - led["last_access"]), 3),
+                    "idleSeconds": round(now - led["last_access"], 3),
+                }
+                if len(key) > 3 and key[3] == "row":
+                    ent["row"] = key[4]
+                out.append(ent)
+        return out
 
 
 class _PairEntry:
@@ -781,7 +925,15 @@ class CUDABackend:
             raise QueryError("Row() must specify row")
         if "from" in c.args or "to" in c.args:
             return self._build_time_row(index, c, f, row_id, shards, blocks, scalars)
-        block, rows_p = self._get_block(index, f, shards)
+        try:
+            block, rows_p = self._get_block(index, f, shards)
+        except _Unsupported:
+            # Row paging: the whole stack is over the byte budget, but one
+            # row fits. Its [S, 1, W] page is an ordinary K11 leaf.
+            blocks.append(self.blocks.get_row(index, f, shards, VIEW_STANDARD, row_id))
+            scalars.append(0)
+            scalars.append(1)
+            return ("R", field_name)
         blocks.append(block)
         scalars.append(min(row_id, rows_p - 1))
         scalars.append(1 if row_id < rows_p else 0)
@@ -1616,9 +1768,9 @@ class CUDABackend:
         """Exact TopN in one launch of K8: the per-row popcounts of the
         field's stack (ANDed with the src tree's slab when there is one),
         summed over shards on the card in int64; the counts vector reads
-        back once. None when the call cannot run on the card (a src tree
-        without a lowering, a stack over the byte budget): the executor's
-        host iterator answers it and counts it."""
+        back once; a field over the byte budget is swept a row page at a
+        time. None when the src tree has no lowering: the executor's host
+        iterator answers it and counts it."""
         idx = self.holder.index(index)
         f = idx.field(field_name) if idx else None
         if f is None:
@@ -1692,30 +1844,82 @@ class CUDABackend:
         under ckey when given. Unfiltered, K8's [S, R] table is read back
         and kept when it passes the retention gate (_topn_pershard_ok), so
         later epochs update it on the host; otherwise it is summed on the
-        card in int64. The generation in cfp was read before the stack, so
-        a write racing the build costs a re-dispatch, never a stale
-        answer."""
+        card in int64. A stack over the byte budget is swept a row page at
+        a time (_topn_paged_counts), and its counts are cached with no
+        per-shard table, so a write epoch re-sweeps it. The generation in
+        cfp was read before the stack, so a write racing the build costs a
+        re-dispatch, never a stale answer."""
         prof = current_profile()
         with prof.phase("stack_fetch"):
-            block, rows_p, vers = self._get_block_with_versions(index, f, shards_t)
+            block, rows_p, vers = self.blocks.get_with_versions(index, f, shards_t)
         if vers is None:
             vers = live_vers  # the stack's entry was replaced: the earlier walk
         pershard = None
         with prof.phase("device_dispatch"):
-            masks = () if src is None else (self._filter_slab(src),)
-            self._launched("topn")
-            table = row_popcounts(block, 0, rows_p, masks)[0]
-            if src is None and self._topn_pershard_ok(block.shape[0], rows_p):
-                pershard = table.cpu().numpy().astype(np.int64)
-                counts = pershard.sum(axis=0)
+            if block is None:
+                counts = self._topn_paged_counts(f, shards_t, src)
             else:
-                counts = table.sum(dim=0, dtype=torch.int64).cpu().numpy()
+                masks = () if src is None else (self._filter_slab(src),)
+                self._launched("topn")
+                table = row_popcounts(block, 0, rows_p, masks)[0]
+                if src is None and self._topn_pershard_ok(block.shape[0], rows_p):
+                    pershard = table.cpu().numpy().astype(np.int64)
+                    counts = pershard.sum(axis=0)
+                else:
+                    counts = table.sum(dim=0, dtype=torch.int64).cpu().numpy()
         if ckey is not None:
             # The launch read the stack after its versions: a shard that
             # moved meanwhile is recorded stale (_confirm_vers).
             vers = self._confirm_vers(f, shards_t, vers, tier="topn")
             self._topn_store(ckey, (cfp, counts, pershard, vers))
         return counts
+
+    def _topn_page_rows(self, n_shards: int) -> int:
+        """Row height of a paged TopN's page (the JAX package's rule): a
+        quarter of the byte budget, floored at ROW_PAD. One page is in
+        flight at a time, so the cache plus the page stay near 1.25 times
+        the budget; the floor can take one page past the whole budget on a
+        wide shard set."""
+        bytes_per_row = n_shards * WORDS_PER_SHARD * 4
+        budget = self.blocks.max_bytes or (1 << 30)
+        return max(ROW_PAD, (budget // 4) // bytes_per_row // ROW_PAD * ROW_PAD)
+
+    def _topn_paged_counts(self, f, shards_t, src) -> np.ndarray:
+        """Per-row popcounts int64[n_rows] of a field too tall to be
+        resident: fixed-height row pages packed on the host, copied to the
+        card and counted by one K8 launch each (ANDed with the src tree's
+        slab when there is one), summed over shards on the card and
+        accumulated on the host in int64.
+
+        Unlike the JAX package, which re-evaluates the src tree for every
+        page (its topn_src program), the src tree is evaluated once and its
+        slab is every page's mask: the same counts, one filter evaluation a
+        request. K8 launches through raw pointers, so the page's tensor is
+        referenced until the page's readback returns; the launch is on the
+        stream the page was allocated on, which the caching allocator frees
+        on."""
+        v = f.view(VIEW_STANDARD)
+        frags = {s: (v.fragment(s) if v is not None else None) for s in shards_t}
+        n_rows = max([fr.max_row_id + 1 for fr in frags.values() if fr is not None] + [1])
+        page = self._topn_page_rows(len(shards_t))
+        masks = () if src is None else (self._filter_slab(src),)
+        self.blocks.make_room(len(shards_t) * page * WORDS_PER_SHARD * 4)
+        counts = np.zeros(-(-n_rows // page) * page, dtype=np.int64)
+        for start in range(0, n_rows, page):
+            stop = min(start + page, n_rows)
+            host = np.zeros((len(shards_t), page, WORDS_PER_SHARD), dtype=np.uint32)
+            for i, s in enumerate(shards_t):
+                fr = frags[s]
+                if fr is not None and start <= fr.max_row_id:
+                    host[i, : stop - start] = pack_rows(fr, start, stop)
+            dev = self.blocks._put(host)
+            global_stats.count("hbm_page_uploads_total")
+            global_stats.count("hbm_page_bytes_total", host.nbytes)
+            self._launched("topn")
+            table = row_popcounts(dev, 0, page, masks)[0]
+            counts[start : start + page] += table.sum(dim=0, dtype=torch.int64).cpu().numpy()
+            del dev, table  # after the readback: one page in flight
+        return counts[:n_rows]
 
     def _topn_pershard_ok(self, s_pad: int, rows_p: int) -> bool:
         """The TopN table's retention gate (the JAX package's _topn_gates

@@ -80,6 +80,28 @@ def pack_fragment(frag, n_rows: Optional[int] = None) -> np.ndarray:
     return arr
 
 
+def fragment_tier_words(frag, n_rows: int) -> tuple[int, int]:
+    """(array_words, run_words): how many of this fragment's resident
+    device words trace back to array / run roaring containers, the
+    representation-tier attribution of the HBM ledger. Each container owns
+    a fixed _WORDS_PER_CONTAINER span of the dense device slab; everything
+    else (bitmap containers, empty space) counts as the dense tier.
+    O(keys), negligible next to the pack it attributes."""
+    array_w = run_w = 0
+    storage = frag.storage
+    for key in storage.keys():
+        c = storage.container(key)
+        if c is None or c.n == 0:
+            continue
+        if key // _CONTAINERS_PER_ROW >= n_rows:
+            continue
+        if c.typ == "array":
+            array_w += _WORDS_PER_CONTAINER
+        elif c.typ == "run":
+            run_w += _WORDS_PER_CONTAINER
+    return array_w, run_w
+
+
 def unpack_row(words: np.ndarray) -> np.ndarray:
     """uint32[WORDS] -> sorted shard-relative column positions."""
     bits = np.unpackbits(words.view(np.uint8), bitorder="little")
@@ -127,3 +149,33 @@ def unpack_slab_columns(host: np.ndarray, bases: np.ndarray) -> np.ndarray:
     if not parts:
         return np.empty(0, dtype=np.uint64)
     return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+def pack_row(frag, row_id: int) -> np.ndarray:
+    """One row of a fragment as uint32[WORDS]: the row-paging unit, so a
+    stack too tall for the device budget is served a row at a time instead
+    of by the CPU oracle."""
+    return pack_rows(frag, row_id, row_id + 1)[0]
+
+
+def pack_rows(frag, row_start: int, row_end: int) -> np.ndarray:
+    """Rows [row_start, row_end) as uint32[row_end - row_start, WORDS]: one
+    page of a fragment too tall to be resident whole. Walks only the
+    container-key range of the requested rows (keys are sorted)."""
+    import bisect
+
+    storage = frag.storage
+    arr = np.zeros((row_end - row_start, WORDS_PER_SHARD), dtype=np.uint32)
+    ks = storage.keys()
+    lo = bisect.bisect_left(ks, row_start * _CONTAINERS_PER_ROW)
+    hi = bisect.bisect_left(ks, row_end * _CONTAINERS_PER_ROW)
+    for key in ks[lo:hi]:
+        c = storage.container(key)
+        if c is None or c.n == 0:
+            continue
+        _scatter_container(
+            arr[key // _CONTAINERS_PER_ROW - row_start],
+            key % _CONTAINERS_PER_ROW,
+            c,
+        )
+    return arr

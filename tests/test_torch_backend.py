@@ -28,6 +28,18 @@ from pilosa_tpu_torch.exec.result import result_to_json
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils.stats import global_stats
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain kernels' tensors here are small: one intra-op thread does
+    their work in a fraction of the CPU time, which counts where test files
+    run side by side. The process's setting is restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_SHARDS = 4
 
 # tests/test_tpu_live.py's list, cut to the slice's Count/Row queries, with
@@ -206,19 +218,27 @@ def test_bsi_condition_is_routed_and_counted(pair):
 @pytest.mark.parametrize("q", ["TopN(f, n=2)", "Rows(f)", "GroupBy(Rows(f))",
                                "Sum(field=v)", "Min(field=v)", "Max(field=v)"])
 def test_refused_device_calls_are_counted_once(pair, q):
-    """A device method that refuses a call (here: no stack fits a byte
-    budget of 1, so topn_field, rows_field, group_by, bsi_sum, bsi_min and
-    bsi_max return None) leaves it to the host iterator, counted once under
-    the call's name."""
+    """Under a byte budget of 1 no stack fits. TopN, Rows and 1-field
+    GroupBy are answered on the card from row pages, as the JAX package
+    pages them: cpu_routed_total stays flat and page uploads grow. bsi_sum,
+    bsi_min and bsi_max refuse the call (no BSI paging, in the reference
+    either) and leave it to the host iterator, counted once under the
+    call's name."""
     th = pair[2].holder
     small = Executor(th, backend=CUDABackend(th, device="cpu", max_bytes=1))
     key = f'cpu_routed_total{{call="{q[: q.index("(")]}"}}'
+    paged = not q.startswith(("Sum", "Min", "Max"))
     before = global_stats.counter_totals("cpu_routed_total")
+    uploads = _counter("hbm_page_uploads_total")
     want = [result_to_json(r) for r in pair[2].execute("i", q)]
     assert [result_to_json(r) for r in small.execute("i", q)] == want
     after = global_stats.counter_totals("cpu_routed_total")
-    assert after[key] == before.get(key, 0) + 1
-    assert sum(after.values()) == sum(before.values()) + 1
+    if paged:
+        assert after == before
+        assert _counter("hbm_page_uploads_total") > uploads
+    else:
+        assert after[key] == before.get(key, 0) + 1
+        assert sum(after.values()) == sum(before.values()) + 1
 
 
 @pytest.mark.parametrize("q", ROUTED_QUERIES)
@@ -276,14 +296,19 @@ def test_pair_gates_match_jax(pair):
         assert backend._pair_gates(s_pad, rf, rg) == ref._pair_gates(s_pad, rf, rg)
 
 
-def test_budget_too_small_routes_to_cpu(pair):
+def test_budget_too_small_pages_rows_on_card(pair):
+    """Under a byte budget of 1 no stack fits, and the Count is answered on
+    the card from its two rows' pages, as the JAX backend answers it:
+    cpu_routed_total flat, two page uploads."""
     tcpu = pair[2]
     th = tcpu.holder
     small = Executor(th, backend=CUDABackend(th, device="cpu", max_bytes=1))
     q = "Count(Intersect(Row(f=1), Row(g=7)))"
     before = _counter("cpu_routed_total")
+    uploads = _counter("hbm_page_uploads_total")
     assert small.execute("i", q) == tcpu.execute("i", q)
-    assert _counter("cpu_routed_total") == before + 1
+    assert _counter("cpu_routed_total") == before
+    assert _counter("hbm_page_uploads_total") == uploads + 2
 
 
 def _small_port_holder():

@@ -16,6 +16,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from pilosa_tpu.core import Holder as JaxHolder
 from pilosa_tpu.exec import Executor as JaxExecutor
@@ -30,6 +31,17 @@ from pilosa_tpu_torch.exec.cuda import CUDABackend
 from pilosa_tpu_torch.exec.result import result_to_json
 from pilosa_tpu_torch.utils.stats import global_stats
 from tests.test_batcher import DIFF_QUERIES, StubBackend, _build_index, _run_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain kernels' tensors here are small: one intra-op thread does
+    their work in a fraction of the CPU time, which counts where test files
+    run side by side. The process's setting is restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class TestLegComposition:

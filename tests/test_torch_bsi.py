@@ -41,6 +41,18 @@ from pilosa_tpu_torch.ops import kernels as K
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils.stats import global_stats
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain kernels' tensors here are small: one intra-op thread does
+    their work in a fraction of the CPU time, which counts where test files
+    run side by side. The process's setting is restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BSI_QUERIES = jax_tpu_tests.TestTPUBackendDifferential.BSI_QUERIES
 # tests/test_tpu.py test_shift_on_device and test_time_range_on_device, and
 # shifts across a word (32), past it (33, 40) and of a BSI row.

@@ -962,3 +962,129 @@ def test_groupn_and_aggregate_epochs_absorbed_without_a_launch(card):
     for k in tiers:
         assert sum(global_stats.counter_totals(k).values()) > absorbed[k], k
     h.close()
+
+
+def _paging_holder(seed, s=3, t_rows=40):
+    """Fields f and g (8 rows) and a tall field t (t_rows rows, row r with
+    20 + r columns, so no two rows tie) over s shards."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(seed)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name in ("f", "g"):
+        field = idx.create_field(name)
+        for row in range(8):
+            cols = np.unique(rng.integers(0, s * SHARD_WIDTH, 3000, dtype=np.uint64))
+            field.import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+    field = idx.create_field("t")
+    for row in range(t_rows):
+        cols = rng.choice(s * SHARD_WIDTH, 20 + row, replace=False).astype(np.uint64)
+        field.import_bits(np.full(cols.size, row, dtype=np.uint64), cols)
+    return h
+
+
+def test_paged_calls_on_card_equal_resident_and_plain(card):
+    """Under a budget of two and a half row pages no stack fits: a Count,
+    Row and a tall field's TopN (filtered and not), Rows and GroupBy run on
+    the card from row pages (K11 over [S, 1, W] leaves, K8 once a page),
+    and answer what the resident backend, the plain forms under the same
+    budget and the CPU oracle answer; nothing is routed to the host."""
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    h = _paging_holder(31)
+    budget = 5 * 3 * W * 4 // 2
+    paged = Executor(h, backend=CUDABackend(h, max_bytes=budget))
+    resident = Executor(h, backend=CUDABackend(h))
+    plain = Executor(h, backend=CUDABackend(h, device="cpu", max_bytes=budget))
+    cpu = Executor(h, backend=CPUBackend(h))
+
+    def total(name):
+        return sum(global_stats.counter_totals(name).values())
+
+    routed = total("cpu_routed_total")
+    queries = ["Count(Intersect(Row(f=1), Row(g=7)))", "Count(Intersect(Row(f=1), Row(g=7)))",
+               "Row(f=2)", "Count(Intersect(Row(f=1), Row(g=2), Row(t=3)))",
+               "TopN(t)", "TopN(t, Row(f=1), n=5)", "Rows(t)", "GroupBy(Rows(t))"]
+    for q in queries:
+        uploads = total("hbm_page_uploads_total")
+        K.reset_launch_counts()
+        got = paged.execute("i", q)
+        launched = K.launch_counts()
+        if q == "TopN(t)":
+            assert launched["row_popcounts"] == 5  # 40 rows, 8-row pages
+        elif q.startswith("Count") or q.startswith("Row("):
+            assert launched["spec_eval"] == 1, q
+        for other in (resident, plain, cpu):
+            want = other.execute("i", q)
+            if q.startswith("Row("):
+                np.testing.assert_array_equal(got[0].columns(), want[0].columns())
+            else:
+                assert got == want, q
+        if q in queries[2:5]:
+            assert total("hbm_page_uploads_total") > uploads, q
+    assert paged.backend.blocks.resident_bytes() <= budget
+    assert total("cpu_routed_total") == routed
+    h.close()
+
+
+@pytest.mark.parametrize("q", [1, 8, 64])
+def test_spec_eval_page_leaf_beside_a_stack_leaf(card, q):
+    """K11 over one window naming a [S, 1, W] row page and an [S, 8, W]
+    stack: a leaf's shard stride is its own height, so both read their
+    shards' rows; equal to the plain form in both modes."""
+    rng = np.random.default_rng(300 + q)
+    page, stack = _words(rng, 3, 1, W), _words(rng, 3, 8, W)
+    ops = K.spec_program(("I", (("R", "t"), ("R", "g")))).ops
+    rows = [[0, int(rng.integers(0, 8))] for _ in range(q)]
+    dev = [stack_from_reference(x, card) for x in (page, stack)]
+    cpu = [stack_from_reference(x, "cpu") for x in (page, stack)]
+    for mode in ("count", "slab"):
+        got = K.spec_eval(ops, dev, rows, mode)
+        assert torch.equal(got.cpu(), K.spec_eval_torch(ops, cpu, rows, mode)), mode
+
+
+def test_page_evicted_while_a_window_names_it(card):
+    """8 threads send count windows over a paged field under a budget of
+    two row pages: a page is evicted from the cache while another thread's
+    window, which holds it, is in flight. Every answer is the CPU
+    oracle's."""
+    import threading
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.pql import parse_string
+
+    h = _paging_holder(47)
+    be = CUDABackend(h, max_bytes=2 * 3 * W * 4)
+    cpu = Executor(h, backend=CPUBackend(h))
+    qs = [f"Intersect(Row(t={a}), Row(f={b}))" for a in range(0, 40, 3) for b in (1, 5)]
+    want = {q: cpu.execute("i", f"Count({q})")[0] for q in qs}
+    calls = {q: parse_string(q).calls[0] for q in qs}
+    errors = []
+
+    def worker(k):
+        try:
+            for j in range(12):
+                window = [qs[(k * 5 + j * 3 + i) % len(qs)] for i in range(3)]
+                got = be.count_batch("i", [calls[q] for q in window], [0, 1, 2])
+                if got != [want[q] for q in window]:
+                    errors.append((k, j, window))
+        except Exception as e:  # noqa: BLE001 - reported by the assert
+            errors.append((k, repr(e)))
+
+    evictions = be.blocks.evictions
+    pool = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    assert errors == []
+    assert be.blocks.evictions > evictions
+    assert be.blocks.resident_bytes() <= 2 * 3 * W * 4
+    h.close()

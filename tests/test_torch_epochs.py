@@ -39,6 +39,18 @@ from pilosa_tpu_torch.roaring.bitmap import Bitmap
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils.stats import global_stats
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain kernels' tensors here are small: one intra-op thread does
+    their work in a fraction of the CPU time, which counts where test files
+    run side by side. The process's setting is restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SW = SHARD_WIDTH
 N_SHARDS = 4
 ROWS = 6  # rows 0..5 of f and g: stacks of 8 padded rows

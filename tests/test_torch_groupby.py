@@ -38,6 +38,18 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils.stats import global_stats
 from tests.test_groupby_tiles import LIVE, QUERIES, WIDE_QUERIES, build, build_wide
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain kernels' tensors here are small: one intra-op thread does
+    their work in a fraction of the CPU time, which counts where test files
+    run side by side. The process's setting is restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # (a) the plain group functions against the JAX package's kernels
 # ---------------------------------------------------------------------------

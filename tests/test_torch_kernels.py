@@ -23,6 +23,18 @@ from pilosa_tpu.ops.kernels import pair_stats_xla
 from pilosa_tpu_torch.carry import stack_from_reference
 from pilosa_tpu_torch.ops import kernels as K
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain kernels' tensors here are small: one intra-op thread does
+    their work in a fraction of the CPU time, which counts where test files
+    run side by side. The process's setting is restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W = 32768
 
 # (shards, Rf, Rg): the main path's square 8 x 8 pair, Rf != Rg both ways,

@@ -14,6 +14,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from pilosa_tpu.core import Holder as JaxHolder
 from pilosa_tpu.core.field import options_for_int
@@ -30,6 +31,18 @@ from pilosa_tpu_torch.exec.cuda import CUDABackend
 from pilosa_tpu_torch.exec.rescache import ResultCache, result_nbytes
 from pilosa_tpu_torch.exec.result import result_to_json
 from pilosa_tpu_torch.utils.qprofile import profile_scope
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain kernels' tensors here are small: one intra-op thread does
+    their work in a fraction of the CPU time, which counts where test files
+    run side by side. The process's setting is restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 READS = [
     "Count(Intersect(Row(f=1), Row(g=2)))",

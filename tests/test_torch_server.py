@@ -48,6 +48,18 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils.stats import global_stats
 from tests.test_torch_backend import N_SHARDS, PAIR_REQUEST, ROUTED_QUERIES, SLICE_QUERIES
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain kernels' tensors here are small: one intra-op thread does
+    their work in a fraction of the CPU time, which counts where test files
+    run side by side. The process's setting is restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: The per-request write-call cap both servers run with.
@@ -95,14 +107,21 @@ class _Pair:
     """The JAX server and the port's server, each over its own copy of
     one data directory."""
 
-    def __init__(self, src, root, cache_bytes=0):
+    def __init__(self, src, root, cache_bytes=0, budget=None):
         jdir, tdir = os.path.join(root, "jax"), os.path.join(root, "port")
         shutil.copytree(src, jdir)
         shutil.copytree(src, tdir)
         self.jh = JaxHolder(jdir).open()
         self.th = open_reference_holder(tdir)
-        self.backend = CUDABackend(self.th, device="cpu")
+        self.backend = CUDABackend(self.th, device="cpu", max_bytes=budget)
         japi = JaxAPI(self.jh, JaxExecutor(self.jh))
+        if budget is not None:
+            # The JAX server over its device backend with the same budget,
+            # for the HBM ledger behind /debug/hbm.
+            from pilosa_tpu.exec.tpu import TPUBackend
+
+            japi = JaxAPI(self.jh, JaxExecutor(self.jh, backend=TPUBackend(
+                self.jh, max_bytes=budget)))
         tapi = API(self.th, Executor(self.th, backend=self.backend))
         if cache_bytes:
             # Wired as `cli server` wires each package with a device
@@ -168,6 +187,20 @@ def _send(srv, method, path, body=b"", headers=None, marker=False):
 def servers(written, tmp_path_factory):
     """A pair shared by the read-only cases."""
     pair = _Pair(written, str(tmp_path_factory.mktemp("read_pair")))
+    yield pair
+    pair.close()
+
+
+#: A budget of two and a half row pages over N_SHARDS shards: no stack of
+#: the written directory fits, two row pages do.
+HBM_BUDGET = 5 * N_SHARDS * (SHARD_WIDTH // 32) * 4 // 2
+
+
+@pytest.fixture(scope="module")
+def budgeted_servers(written, tmp_path_factory):
+    """A pair whose backends both run under HBM_BUDGET, the JAX server's
+    over a TPUBackend: its /debug/hbm serves the JAX package's ledger."""
+    pair = _Pair(written, str(tmp_path_factory.mktemp("hbm_pair")), budget=HBM_BUDGET)
     yield pair
     pair.close()
 
@@ -282,15 +315,44 @@ def test_get_bytes_identical(servers, path):
     ("POST", "/cluster/resize/remove-node", {"id": "node-x"}, 400),
     ("POST", "/cluster/resize/abort", {}, 400),
     ("POST", "/internal/fragment/repair", {"index": "i", "field": "f"}, 400),
+    # The HBM ledger (against the JAX package's, see below).
+    ("GET", "/debug/hbm", b"", 200),
     # Debug planes the port has not ported answer as on a backend without
     # them.
-    ("GET", "/debug/hbm", b"", 200),
     ("GET", "/debug/heat", b"", 200),
     ("GET", "/debug/programs", b"", 200),
     ("GET", "/debug/rescache", b"", 200),
 ])
-def test_single_node_routes_bytes_identical(servers, method, path, body, status):
+def test_single_node_routes_bytes_identical(servers, request, method, path, body, status):
+    if path == "/debug/hbm":
+        _same_hbm_ledger(request.getfixturevalue("budgeted_servers"))
+        return
     servers.same(method, path, body, status=status)
+
+
+def _same_hbm_ledger(pair):
+    """/debug/hbm of the port's server equals the JAX server's over a
+    TPUBackend with the same budget, after the same requests, on every
+    field but the entries' clock fields (lastAccess, idleSeconds): the row
+    pages the Counts took, their tiers summing to residentBytes."""
+    for q in ("TopN(f, n=2)", "Count(Intersect(Row(f=1), Row(g=7)))", "Row(f=2)",
+              "Count(Row(g=7))"):
+        _query(pair, q, "json")
+
+    def ledger(srv, top=""):
+        status, ctype, body = _send(srv, "GET", f"/debug/hbm{top}")
+        assert (status, ctype) == (200, "application/json")
+        d = json.loads(body)
+        for e in d["entries"]:
+            del e["lastAccess"], e["idleSeconds"]
+        return d
+
+    for top in ("", "?top=1"):
+        got = ledger(pair.port, top)
+        assert got == ledger(pair.jax, top)
+    got = ledger(pair.port)
+    assert [(e["field"], e["row"]) for e in got["entries"]] == [("f", 2), ("g", 7)]
+    assert sum(got["tierBytes"].values()) == got["residentBytes"] > 0
 
 
 @pytest.mark.parametrize("path", ["/status", "/info", "/version", "/debug/diagnostics"])
@@ -462,7 +524,6 @@ def _write_topology(data_dir, n_nodes):
 
 #: A non-default value of every setting the port's server does not read.
 UNREAD_SETTING_TOML = {
-    "max-hbm-bytes": "max-hbm-bytes = 1073741824\n",
     "anti-entropy.interval": "[anti-entropy]\ninterval = 60.0\n",
     "client-timeout": "client-timeout = 5.0\n",
     "client-retries": "client-retries = 3\n",
@@ -512,12 +573,53 @@ def test_cli_refuses_unported_knob(tmp_path, monkeypatch, capsys, knob, toml, ar
 
 def test_cli_refuses_unread_setting_from_env(tmp_path, monkeypatch, capsys):
     _no_serving(monkeypatch)
-    monkeypatch.setenv("PILOSA_TPU_MAX_HBM_BYTES", "1073741824")
+    monkeypatch.setenv("PILOSA_TPU_CLIENT_TIMEOUT", "5.0")
     rc = cli.main(["server", "-d", str(tmp_path / "d"), "--bind", "127.0.0.1:0",
                    "--executor", "cpu"])
     err = capsys.readouterr().err
     assert rc != 0
-    assert "max-hbm-bytes" in err and "ROADMAP.md" in err
+    assert "client-timeout" in err and "ROADMAP.md" in err
+
+
+@pytest.mark.parametrize("toml,env,argv,budget", [
+    ("", {}, [], None),
+    ("max-hbm-bytes = 1073741824\n", {}, [], 1 << 30),
+    ("", {"PILOSA_TPU_MAX_HBM_BYTES": "536870912"}, [], 1 << 29),
+    ("max-hbm-bytes = 1073741824\n", {}, ["--max-hbm-bytes", "4096"], 4096),
+], ids=["default", "toml", "env", "flag"])
+def test_cli_max_hbm_bytes_reaches_the_backend(tmp_path, monkeypatch, toml, env, argv,
+                                               budget):
+    """max-hbm-bytes, from TOML, from PILOSA_TPU_MAX_HBM_BYTES or from the
+    flag (which wins), is the byte budget of the server's CUDABackend
+    (0, the default: none). The card is stood in for by the plain versions
+    on the CPU."""
+    from pilosa_tpu_torch.exec import cuda as cuda_mod
+    from pilosa_tpu_torch.server import api as api_mod
+
+    built = {}
+
+    def capture(self, holder, executor, *a, **k):
+        built["executor"] = executor
+        raise _Booted
+
+    real = cuda_mod.CUDABackend
+    monkeypatch.setattr(cuda_mod, "CUDABackend",
+                        lambda holder, **k: real(holder, device="cpu", **k))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "stand-in")
+    monkeypatch.setattr(api_mod.API, "__init__", capture)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    conf = tmp_path / "c.toml"
+    conf.write_text(toml)
+    with pytest.raises(_Booted):
+        cli.main(["server", "-d", str(tmp_path / "d"), "--bind", "127.0.0.1:0",
+                  "-c", str(conf)] + argv)
+    ex = built["executor"]
+    try:
+        assert isinstance(ex.backend, real)
+        assert ex.backend.blocks.max_bytes == budget
+    finally:
+        ex.holder.close()
 
 
 class _Booted(Exception):
@@ -547,7 +649,8 @@ def test_cli_wires_batcher_and_cache(tmp_path, monkeypatch, toml, executor, wind
         raise _Booted
 
     real = cuda_mod.CUDABackend
-    monkeypatch.setattr(cuda_mod, "CUDABackend", lambda holder: real(holder, device="cpu"))
+    monkeypatch.setattr(cuda_mod, "CUDABackend",
+                        lambda holder, **k: real(holder, device="cpu", **k))
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "stand-in")
     monkeypatch.setattr(api_mod.API, "__init__", capture)
     conf = tmp_path / "c.toml"

@@ -55,6 +55,18 @@ from pilosa_tpu_torch.ops.blocks import WORDS_PER_SHARD
 from pilosa_tpu_torch.pql import parse_string
 from tests.test_torch_bsi import N_SHARDS, SHIFT_QUERIES, _bsi_stack, _build
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain kernels' tensors here are small: one intra-op thread does
+    their work in a fraction of the CPU time, which counts where test files
+    run side by side. The process's setting is restored after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 S, R, W = 3, 8, 128
 DEPTH = 10
 
