@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget]
+    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --host-count | --host-count-ab PARENT]
 
 Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
@@ -65,6 +65,11 @@ chip_smoke.py to time it).
    Count(Row(v > 100));
    then, after phase 4, Sum/Min/Max with filters, a Count over a BSI
    condition and Shifts over the first 32 shards against the CPU oracle;
+   then the program ledger against the launch counters (phase_ledger):
+   after phases 2 to 3b, whose backend made every launch of the process,
+   its launches equal device_launches_total in total and by kind, with no
+   recompile (phase 2 prints the single Count's ledger deviceSeconds a
+   launch beside the profiler's kernel time for the same calls);
 3c. row paging under a device byte budget (phase_budget): a second
    CUDABackend with max_bytes 512 MiB over the same index (f, g and v over
    it, h not) and a tall field t in an index of its own (1024 rows over 64
@@ -109,7 +114,10 @@ chip_smoke.py to time it).
    two epochs'; then the aggregate churn window, the same with Sum, Min
    and Max of v while the writer swaps the column of v's largest value
    with -9500: no K8, K3 or K9, the Sum and Min/Max counters grow and a
-   shard is re-derived; then with the result cache on too, the Count at 1 and
+   shard is re-derived; then the churn window twice more, without and
+   with the windowed refresher at 50 ms (refresh_windows): the refresher's
+   counters and the launches by kind of each, no stack rebuilt whole, the
+   refresher's window refreshing some; then with the result cache on too, the Count at 1 and
    16 (cache hits) and the same Set/Clear window; then the Count and
    3-row Counts without HTTP (threads calling Executor.execute) at 1, 4
    and 16 threads, without and with the batcher; no batch dispatch error
@@ -121,6 +129,20 @@ chip_smoke.py to time it).
    same directory, stopped by SIGINT with exit code 0; then again with
    --max-hbm-bytes at half of one of its stacks: the same answers, and a
    /debug/hbm that lists row pages whose tierBytes sum to residentBytes;
+   then with preheat = true, refresh-window-ms = 50 and heat-half-life =
+   60 in its TOML (planes_cli_run): the same answers, its log's
+   `preheat: N stacks resident` and window, no failed preheat line,
+   /debug/programs' launches equal to device_launches_total, /debug/heat's
+   entries, tier heat and reuse curve, and one ?explain=1 launch record
+   per launch of a Count;
+   after phase 4, the main backend's f, g, h and v stacks, spliced in
+   place through its write windows, must equal fresh packs of the holder
+   bit for bit (phase_stacks_exact);
+4b. preheat at 954 shards (phase_preheat, after phase 4's oracle checks,
+   on bench.py's index alone): a fresh backend's preheat() seconds and
+   stacks, then the first Count, TopN(f), 16-Count pair request and
+   3-field GroupBy after it, which must upload nothing, beside the same
+   calls on a cold backend, whose answers they must equal;
 5. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
@@ -164,7 +186,14 @@ chip_smoke.py to time it).
 cpu_routed_total is printed after each phase.
 
 ``--budget`` runs only phase 3c (with bench.py's index and its BSI field v
-built) and the CLI's two servers.
+built) and the CLI's servers.
+
+``--host-count`` runs only the single Count's host time on bench.py's index
+(phase_host_count: the first Count's stack build and upload, the Count's
+host time one call after another and from 16 threads, a ledger record's
+host time). ``--host-count-ab PARENT`` runs it for PARENT's package and
+the --root checkout's in two processes, in alternating rounds (--pairs N),
+and prints the change over the parent for each metric.
 
 ``--churn`` runs only the two churn windows (with bench.py's BSI field v
 built), and ``--miss`` only the cache-missing window, on bench.py's index
@@ -527,6 +556,7 @@ def device_share(fn, label: str, n: int = 10, warm: int = 3) -> None:
     for us, count, key in sorted(rows, reverse=True)[:6]:
         log(f"profile {label}:   {us / n / 1e3:.4f} ms/call, {count} in {n} calls "
             f"{key[:90]}")
+    return wall_us / n / 1e3, dev_us / n / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -705,7 +735,14 @@ def phase_main(results: dict):
         first, med, out = host_ms(lambda q=q: dev.execute("bench", q))
         latencies[q] = {"first_ms": first, "median_ms": med}
         answers[q] = out
-    device_share(lambda: dev.execute("bench", singles[0]), "single Count")
+    led0 = ledger_kind(backend, "count")
+    _, prof_ms = device_share(lambda: dev.execute("bench", singles[0]), "single Count")
+    led1 = ledger_kind(backend, "count")
+    launches = led1["launches"] - led0["launches"]
+    led_ms = (led1["deviceSeconds"] - led0["deviceSeconds"]) * 1e3 / max(1, launches)
+    log(f"ledger: single Count deviceSeconds {led_ms:.4f} ms a launch over {launches} "
+        f"launches (dispatch to readback) beside the profiler's {prof_ms:.4f} ms of "
+        "kernels a call over the last 10 of them")
     device_share(lambda: dev.execute("bench", "Row(f=2)"), "Row(f=2)", n=2)
     per_request = {}
 
@@ -822,6 +859,45 @@ def phase_main(results: dict):
     check(a_stack.shape == (WIDE_SHARDS, WIDE_ROWS, 32768),
           f"a stack {tuple(a_stack.shape)}")
     return holder, backend, (a_stack, b_stack)
+
+
+def ledger_kind(backend, kind: str) -> dict:
+    """The program ledger's launches and deviceSeconds of one kind, summed
+    over its entries."""
+    out = {"launches": 0, "deviceSeconds": 0.0}
+    for e in backend.programs.ledger():
+        if e["kind"] == kind:
+            out["launches"] += e["launches"]
+            out["deviceSeconds"] += e["deviceSeconds"]
+    return out
+
+
+def kind_launches() -> dict:
+    """device_launches_total by kind so far."""
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    return {name.split('kind="')[1].rstrip('"}'): v for name, v in
+            global_stats.counter_totals("device_launches_total").items()}
+
+
+def phase_ledger(backend) -> None:
+    """The program ledger against the launch counters after the main-path
+    phases, in which this backend made every launch of the process: its
+    launches equal device_launches_total in total and by kind, and no
+    program recompiled."""
+    counts = backend.programs.counts()
+    by_kind: dict = {}
+    for e in backend.programs.ledger():
+        by_kind[e["kind"]] = by_kind.get(e["kind"], 0) + e["launches"]
+    counters = kind_launches()
+    check(counts["launches"] == sum(counters.values()),
+          f"ledger: {counts['launches']} launches against device_launches_total "
+          f"{sum(counters.values())}")
+    check(by_kind == {k: int(v) for k, v in counters.items() if v},
+          f"ledger: launches by kind {by_kind} against the counters {counters}")
+    check(counts["recompiles"] == 0, f"ledger: {counts['recompiles']} recompiles")
+    log("ledger: " + json.dumps(counts) + " by kind " + json.dumps(by_kind)
+        + " equal to device_launches_total")
 
 
 def log_routed(phase: str) -> None:
@@ -1271,11 +1347,16 @@ MISS_QUERIES = [PAIR_REQUEST, GROUP_QUERIES[2], GROUP_QUERIES[3], GROUP_QUERIES[
 # writer toggles one bit every CHURN_WRITE_SECONDS.
 CHURN_CLIENTS = 4
 CHURN_WRITE_SECONDS = 0.05
+# The refresher's window in the churn window beside it (refresh-window-ms),
+# and in the CLI's third server.
+REFRESH_WINDOW_MS = 50
 # Clients of the windows served from the result cache, and its budget.
 CACHED_CLIENTS = (1, 16)
 RESCACHE_BYTES = 64 << 20
 INPROC_SECONDS = 1.0
 INPROC_THREADS = (1, 4, 16)
+# Calls of the single Count timed one after another by --host-count.
+HOST_COUNT_CALLS = 2000
 # The CLI's on-disk index: CLI_SHARDS shards, fields f and g of CLI_ROWS
 # rows, CLI_BITS bits a row, imported through `cli import`.
 CLI_SHARDS = 4
@@ -1283,6 +1364,9 @@ CLI_ROWS = 4
 CLI_BITS = 3000
 CLI_QUERIES = ["Count(Intersect(Row(f=1), Row(g=2)))", "Row(f=3)",
                "GroupBy(Rows(f), Rows(g))"]
+# A Count of the CLI's index that the pair plan does not serve: one K11
+# launch each time, for the explain check.
+EXPLAIN_COUNT = "Count(Union(Row(f=1), Row(g=2), Row(g=3)))"
 # The budgeted CLI server's max-hbm-bytes: four row pages of the 4-shard
 # index, half of one of its 8-row stacks.
 CLI_BUDGET = 4 * CLI_SHARDS * 32768 * 4
@@ -1693,6 +1777,7 @@ def epoch_window(label: str, port: int, path: str, dev, queries, to_b: str, to_a
         c.close()
 
     before, t0 = K.launch_counts(), tier_totals()
+    rf0, kl0 = refresh_totals(), kind_launches()
     w = threading.Thread(target=writer)
     w.start()
     try:
@@ -1701,6 +1786,10 @@ def epoch_window(label: str, port: int, path: str, dev, queries, to_b: str, to_a
         done.set()
         w.join()
     after, t1 = K.launch_counts(), tier_totals()
+    rf1, kl1 = refresh_totals(), kind_launches()
+    r["refresh"] = {k: rf1[k] - rf0[k] for k in REFRESH_COUNTERS}
+    r["launches_by_kind"] = {k: v - kl0.get(k, 0) for k, v in kl1.items()
+                             if v != kl0.get(k, 0)}
     n = max(1, r["requests"])
     r["launches_per_request"] = {k: (after[k] - before[k]) / n for k in SWEEP_KERNELS}
     r["launches"] = {k: after[k] - before[k] for k in SWEEP_KERNELS}
@@ -1724,6 +1813,17 @@ def epoch_window(label: str, port: int, path: str, dev, queries, to_b: str, to_a
     return r
 
 
+#: The stack counters of the windowed refresher.
+REFRESH_COUNTERS = ("stack_windowed_refresh_total", "stack_refresh_forced_total",
+                    "stack_full_rebuilds_total")
+
+
+def refresh_totals() -> dict:
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    return {n: sum(global_stats.counter_totals(n).values()) for n in REFRESH_COUNTERS}
+
+
 def churn_window(port: int, path: str, backend, dev, pair_request: str, col: int,
                  clients: int, seconds: float) -> dict:
     """The churn window: the 16-Count pair request, TopN(f) and the
@@ -1744,6 +1844,58 @@ def churn_window(port: int, path: str, backend, dev, pair_request: str, col: int
                      kernels, counters, rederive=False)
     r["request"] = "16-Count pair request, TopN(f) and 3-field GroupBy under Set/Clear epochs"
     return r
+
+
+def count_churn_window(port: int, path: str, dev, col: int, clients: int,
+                       seconds: float) -> dict:
+    """Single Counts under writes: 3-row Counts of f=1, g=0 and the h row
+    of `col`, whose K11 launch fetches f's stack, while a writer toggles
+    bit (f=1, col) with Set and Clear (epoch_window), so each read after a
+    write meets a stale stack: the traffic the windowed refresher is for."""
+    h = dev.holder.index("bench").field("h").view("standard").fragment(0)
+    c = next(r for r in range(H_ROWS) if h.row(r).includes_column(col))
+    q = f"Count(Intersect(Row(f=1), Row(g=0), Row(h={c})))"
+    r = epoch_window("count churn", port, path, dev, [q], f"Set({col}, f=1)",
+                     f"Clear({col}, f=1)", clients, seconds, [], [], rederive=False)
+    r["request"] = f"{q} under Set/Clear epochs"
+    return r
+
+
+def refresh_windows(port: int, path: str, backend, dev, pair_request: str,
+                    col: int) -> list:
+    """The churn window and the single Counts' churn window, each without
+    and with the windowed refresher at REFRESH_WINDOW_MS (the server of
+    `cli server` with refresh-window-ms): requests/s, p50/p99, the
+    refresher's counters and the launches by kind of each; every answer
+    checked, and no stack rebuilt whole in any."""
+    t_phase = time.perf_counter()
+    out = []
+    for mix, refresher in (("churn", False), ("churn", True),
+                           ("count churn", False), ("count churn", True)):
+        if refresher:
+            backend.start_refresher(REFRESH_WINDOW_MS)
+        try:
+            if mix == "churn":
+                r = churn_window(port, path, backend, dev, pair_request, col,
+                                 CHURN_CLIENTS, HTTP_SECONDS)
+            else:
+                r = count_churn_window(port, path, dev, col, CHURN_CLIENTS, HTTP_SECONDS)
+        finally:
+            backend.stop_refresher()
+        r["wiring"] = (f"batcher + refresher at {REFRESH_WINDOW_MS} ms" if refresher
+                       else "batcher, no refresher")
+        check(r["refresh"]["stack_full_rebuilds_total"] == 0,
+              f"refresh: a stack was rebuilt whole in the window ({r['wiring']})")
+        if refresher and mix == "churn":
+            # The churn mix's tables fetch no stack: only the refresher
+            # refreshes f's. In the count mix reads may beat it to each.
+            check(r["refresh"]["stack_windowed_refresh_total"] > 0,
+                  "refresh: the refresher refreshed no stack in its window")
+        r["mix"] = mix
+        out.append(r)
+        log("refresh: throughput " + json.dumps(r))
+    log(f"refresh: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return out
 
 
 def value_column(holder, fname: str, value: int) -> int:
@@ -1858,6 +2010,319 @@ def phase_budget_alone(root) -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def phase_stacks_exact(holder, backend, gstacks, rebuilds_before: float):
+    """After phase 4's write windows (Set/Clear epochs beside concurrent
+    readers, with and without the refresher splicing in place): the main
+    backend's stacks of f, g, h and v's BSI view, refreshed to the last
+    write, equal the stacks a fresh backend packs from the holder, bit for
+    bit; phase 3's stacks are still the resident tensors (a splice writes
+    in place; only a full rebuild replaces one), and no stack was rebuilt
+    whole since rebuilds_before (stack_full_rebuilds_total before phase
+    4), so the odometer cross-check sweeps the index's last epoch."""
+    import torch
+
+    from pilosa_tpu_torch.core.fragment import BSI_OFFSET_BIT
+    from pilosa_tpu_torch.core.view import VIEW_STANDARD, bsi_view_name
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    t0 = time.perf_counter()
+    idx = holder.index("bench")
+    fresh = CUDABackend(holder)
+    shards = tuple(range(SHARDS))
+    same = []
+    for name, view, min_rows in (
+            ("f", VIEW_STANDARD, 1), ("g", VIEW_STANDARD, 1), ("h", VIEW_STANDARD, 1),
+            ("v", bsi_view_name("v"), BSI_OFFSET_BIT + idx.field("v").options.bit_depth)):
+        field = idx.field(name)
+        got, _ = backend.blocks.get("bench", field, shards, view, min_rows)
+        want, _ = fresh.blocks.get("bench", field, shards, view, min_rows)
+        check(torch.equal(got, want),
+              f"stacks: the resident {name} stack differs from a fresh pack of the holder")
+        if name in gstacks:
+            same.append((name, gstacks[name] is got))
+    counters = {n: sum(global_stats.counter_totals(n).values()) for n in
+                ("stack_incremental_updates_total", "stack_full_rebuilds_total")}
+    del fresh
+    torch.cuda.empty_cache()
+    check(counters["stack_full_rebuilds_total"] == rebuilds_before,
+          f"stacks: {counters['stack_full_rebuilds_total'] - rebuilds_before} stacks "
+          "were rebuilt whole since phase 4 began")
+    check(all(ok for _, ok in same), f"stacks: a phase 3 stack was replaced {same}")
+    log(f"stacks: the resident f, g, h and v stacks equal fresh packs after the write "
+        f"windows; phase 3's stacks still resident {same}; {json.dumps(counters)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+class LogLines:
+    """A logger that keeps its lines (preheat's)."""
+
+    def __init__(self):
+        self.lines = []
+
+    def printf(self, fmt, *args):
+        self.lines.append(fmt % args)
+
+
+#: The first requests timed after preheat and on a cold backend.
+FIRST_CALLS = [("Count", "Count(Intersect(Row(f=1), Row(g=2)))"), ("TopN(f)", "TopN(f)"),
+               ("16-Count pair request", PAIR_REQUEST), ("3-field GroupBy", GROUP_QUERIES[3])]
+
+
+def phase_preheat(holder):
+    """Preheat at 954 shards: bench.py's index alone (the phase drops the
+    other indexes of the holder first), a fresh CUDABackend's preheat()
+    (seconds, stacks made resident, resident bytes, the seconds of its
+    library load, _preheat_programs, which launches nothing), then the
+    first Count, TopN(f),
+    16-Count pair request and 3-field GroupBy on it, each timed to its
+    readback, which must upload nothing (the HBM ledger's uploads); then
+    the same four calls on a cold backend, whose answers the preheated
+    ones must equal."""
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.ops import build
+
+    t_phase = time.perf_counter()
+    for name in list(holder.indexes):
+        if name != "bench":
+            holder.delete_index(name)
+    torch.cuda.empty_cache()
+    lines = LogLines()
+    warm = CUDABackend(holder)
+    programs_s = [0.0]
+    inner = warm._preheat_programs
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return inner(*a, **k)
+        finally:
+            programs_s[0] += time.perf_counter() - t
+
+    warm._preheat_programs = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = warm.preheat(logger=lines)
+    torch.cuda.synchronize()
+    preheat_s = time.perf_counter() - t0
+    check(not lines.lines, f"preheat: {lines.lines}")
+    keys = [(e["field"], e["view"]) for e in warm.blocks.ledger()]
+    check(n == len(keys) and {("f", "standard"), ("g", "standard"), ("h", "standard"),
+                              ("v", "bsig_v")} <= set(keys),
+          f"preheat: {n} stacks resident: {keys}")
+    uploads = sum(e["uploads"] for e in warm.blocks.ledger())
+    check(warm.programs.counts()["launches"] == 0, "preheat: preheat launched a kernel")
+    log(f"preheat: {n} stacks resident ({keys}) in {preheat_s:.3f} s, "
+        f"{warm.blocks.resident_bytes()} bytes; its library load (_preheat_programs) "
+        f"{programs_s[0]:.4f} s, 0 s of it loading (this process loaded the "
+        f"libraries in phase 1: {build.load_seconds:.3f} s, nvcc "
+        f"{build.build_seconds:.3f} s); ledger {json.dumps(warm.programs.counts())}")
+
+    def first_calls(backend):
+        dev = Executor(holder, backend=backend)
+        out = {}
+        for label, q in FIRST_CALLS:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ans = dev.execute("bench", q)
+            torch.cuda.synchronize()
+            out[label] = (time.perf_counter() - t, ans)
+        return out
+
+    hot = first_calls(warm)
+    check(sum(e["uploads"] for e in warm.blocks.ledger()) == uploads,
+          "preheat: a first call after preheat uploaded a stack")
+    cold_be = CUDABackend(holder)
+    cold = first_calls(cold_be)
+    for label, _ in FIRST_CALLS:
+        check(same_answers(hot[label][1], cold[label][1]),
+              f"preheat: {label} after preheat disagrees with the cold backend's")
+    log("preheat: first calls seconds " + json.dumps(
+        {label: {"after preheat": hot[label][0], "cold": cold[label][0]}
+         for label, _ in FIRST_CALLS}))
+    del warm, cold_be
+    torch.cuda.empty_cache()
+    log(f"preheat: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def phase_host_count(root, rounds: int = 0) -> int:
+    """`chip_smoke.py --host-count [--root DIR] [--rounds N]`: bench.py's
+    index served by DIR's package in-process, its kernel libraries loaded
+    first: the first Count's seconds (its two stacks built and uploaded),
+    then rounds of the single Count's host time: one call after another
+    (median and mean of HOST_COUNT_CALLS calls, each to its readback) and
+    from 1 and 16 threads (requests/s, p50/p99). Then one stack hit's host
+    time in the block cache and, where the package has the program ledger,
+    the host time of one record_launch and of one _launched around a
+    launch that does nothing, on the Count's arguments. With --rounds N it
+    waits for a line on its standard input before each of N rounds and
+    prints each round's line (host_count_ab drives two such processes);
+    without, it runs one round."""
+    import torch
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    log(smi.stdout.strip().splitlines()[0])
+    from pilosa_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    for name in build.SOURCES:
+        build.library(name)
+    log(f"host-count: kernel libraries loaded in {time.perf_counter() - t0:.1f} s")
+    holder = Holder(None).open()
+    t0 = time.perf_counter()
+    build_bench_index(holder)
+    log(f"host-count: index build seconds {time.perf_counter() - t0:.1f}")
+    backend = CUDABackend(holder)
+    dev = Executor(holder, backend=backend)
+    q = FIRST_CALLS[0][1]
+    t0 = time.perf_counter()
+    want = dev.execute("bench", q)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    out = {"package": root, "first_count_s": first_s,
+           "resident_bytes": backend.blocks.resident_bytes()}
+    for _ in range(50):
+        dev.execute("bench", q)
+
+    def one_round() -> dict:
+        r = {}
+        times = []
+        for _ in range(HOST_COUNT_CALLS):
+            t = time.perf_counter()
+            got = dev.execute("bench", q)
+            times.append((time.perf_counter() - t) * 1e3)
+            check(got == want, "host-count: a Count moved")
+        r["one_thread_ms"] = {"median": statistics.median(times),
+                              "mean": statistics.fmean(times), "calls": len(times)}
+        for n in (1, 16):
+            w = inproc_load(dev, [q], {q: want}, n, HTTP_SECONDS)
+            check(w["mismatches"] == 0, f"host-count: {w['mismatches']} answers disagree")
+            r[f"threads_{n}"] = w
+        return r
+
+    if rounds:
+        log("host-count-ready")
+        for i in range(rounds):
+            if not sys.stdin.readline():
+                break
+            print("host-count-round: " + json.dumps(one_round()), flush=True)
+    else:
+        out.update(one_round())
+    # One resident stack's hit in the block cache, as each Count takes two.
+    f_obj, shards = holder.index("bench").field("f"), tuple(range(SHARDS))
+    reps = 20000
+    t = time.perf_counter()
+    for _ in range(reps):
+        backend.blocks.get("bench", f_obj, shards)
+    out["stack_hit_us"] = (time.perf_counter() - t) / reps * 1e6
+    programs = getattr(backend, "programs", None)
+    if programs is not None:
+        # The chokepoint alone, on the Count's arguments: the ledger record
+        # (signature and entry), then the whole of _launched under a
+        # profile as the executor runs it, around a launch that does
+        # nothing (these launches are counted; the mode ends here).
+        from pilosa_tpu_torch.exec.cuda import _shape_sig, _Slots
+        from pilosa_tpu_torch.utils.qprofile import profile_scope
+
+        args = (backend.blocks.peek("bench", "f"), backend.blocks.peek("bench", "g"),
+                _Slots(1, 2))
+        key = ("count", (0, 1, 32))
+        done = torch.zeros(1, SHARDS, dtype=torch.int32, device=backend.device)
+        t = time.perf_counter()
+        for _ in range(reps):
+            programs.record_launch("count", key, _shape_sig(args)[0], t)
+        out["record_launch_us"] = (time.perf_counter() - t) / reps * 1e6
+        programs.block_ready()
+        with profile_scope(index="bench", query="chokepoint"):
+            t = time.perf_counter()
+            for _ in range(reps):
+                backend._launched("count", key, args, lambda: done)
+            out["launched_us"] = (time.perf_counter() - t) / reps * 1e6
+        programs.block_ready()
+    holder.close()
+    log("host-count: " + json.dumps(out))
+    return 0
+
+
+def host_count_ab(parent_root: str, change_root: str, pairs: int) -> int:
+    """`chip_smoke.py --host-count-ab PARENT [--root CHANGE] [--pairs N]`:
+    the single Count's host time of two checkouts' packages, compared in
+    one call. Two --host-count --rounds processes, one a package, build
+    bench.py's index side by side and then run their rounds in turns, one
+    at a time, parent and change first in alternate pairs, so drifts of the
+    host hit both alike. Prints every round and, for each metric, the
+    change's median over the parent's and the change/parent ratio of each
+    pair."""
+    me = os.path.abspath(__file__)
+    procs = {}
+    for name, r in (("parent", parent_root), ("change", change_root)):
+        procs[name] = subprocess.Popen(
+            [sys.executable, me, "--host-count", "--root", r, "--rounds", str(pairs)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        for name, p in procs.items():
+            for line in p.stdout:
+                log(f"{name}: {line.rstrip()}")
+                if line.startswith("host-count-ready"):
+                    break
+            else:
+                check(False, f"host-count-ab: the {name} process ended before its rounds")
+        rounds = {"parent": [], "change": []}
+        for i in range(pairs):
+            for name in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
+                p = procs[name]
+                p.stdin.write("round\n")
+                p.stdin.flush()
+                for line in p.stdout:
+                    if line.startswith("host-count-round: "):
+                        r = json.loads(line.split(": ", 1)[1])
+                        rounds[name].append(r)
+                        log(f"{name} round {i}: one-thread median "
+                            f"{r['one_thread_ms']['median']:.4f} ms, "
+                            f"1 thread {r['threads_1']['rps']:.1f}/s, "
+                            f"16 threads {r['threads_16']['rps']:.1f}/s")
+                        break
+                    log(f"{name}: {line.rstrip()}")
+                else:
+                    check(False, f"host-count-ab: the {name} process ended mid-round")
+        for name, p in procs.items():
+            p.stdin.close()
+            for line in p.stdout:
+                log(f"{name}: {line.rstrip()}")
+            check(p.wait(timeout=300) == 0, f"host-count-ab: the {name} process failed")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    metrics = {"one_thread_median_ms": lambda r: r["one_thread_ms"]["median"],
+               "counts_per_s_1_thread": lambda r: r["threads_1"]["rps"],
+               "counts_per_s_16_threads": lambda r: r["threads_16"]["rps"]}
+    summary = {"pairs": pairs}
+    for m, get in metrics.items():
+        par = [get(r) for r in rounds["parent"]]
+        chg = [get(r) for r in rounds["change"]]
+        ratios = [c / p for p, c in zip(par, chg)]
+        summary[m] = {"parent": par, "change": chg,
+                      "parent_median": statistics.median(par),
+                      "change_median": statistics.median(chg),
+                      "change_over_parent_median": statistics.median(chg) / statistics.median(par),
+                      "pair_ratios": ratios,
+                      "pair_ratio_median": statistics.median(ratios)}
+    log("host-count-ab: " + json.dumps(summary))
     return 0
 
 
@@ -2290,6 +2755,8 @@ def phase_http(holder, backend, root):
             r["wiring"] = "batcher"
             throughput.append(r)
             log("http: throughput " + json.dumps(r))
+        throughput += refresh_windows(server.port, path, backend, dev, pair_request,
+                                      churn_column(holder))
         dev.rescache = ResultCache(holder, max_bytes=RESCACHE_BYTES)
         for n in CACHED_CLIENTS:
             hits = dev.rescache.hits
@@ -2413,20 +2880,102 @@ def phase_cli(root):
             f"{json.dumps(hbm['tierBytes'])}, evictions {hbm['evictions']}, entries "
             + json.dumps([(e["field"], e.get("row"), e["bytes"]) for e in hbm["entries"]])
             + f"; routed {routed}; exit code {budgeted['rc']}")
+        planes_cli_run(root, env, data_dir, tmp, run)
     log(f"cli: {time.perf_counter() - t0:.1f} s")
 
 
-def cli_server_run(root, env, data_dir, tmp, extra, load):
+def metric_sum(metrics: str, family: str) -> float:
+    """The sum of a counter family's series in /metrics text."""
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in metrics.splitlines()
+               if ln.startswith(f"pilosa_{family}{{") or ln.startswith(f"pilosa_{family} "))
+
+
+def planes_cli_run(root, env, data_dir, tmp, first):
+    """The CLI's server once more, with preheat = true, refresh-window-ms =
+    REFRESH_WINDOW_MS and heat-half-life = 60 in its TOML: it logs the
+    stacks preheat made resident and its window, answers as the first run;
+    /debug/programs' entries sum to device_launches_total, and the library
+    load preheat made is the compile of the first launch after it;
+    /debug/heat has entries, tierHeat and a
+    reuse curve; the ?explain=1 plan of a Count that no cache serves
+    (EXPLAIN_COUNT, one K11 launch) holds one launch record per launch."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    conf = os.path.join(tmp, "planes.toml")
+    with open(conf, "w") as f:
+        f.write(f"preheat = true\nrefresh-window-ms = {REFRESH_WINDOW_MS}\n"
+                "heat-half-life = 60.0\n")
+
+    def probe(host):
+        def get(path):
+            return urllib.request.urlopen(f"{host}{path}", timeout=120).read()
+
+        def post(path, body):
+            req = urllib.request.Request(f"{host}{path}", data=body.encode(), method="POST")
+            return urllib.request.urlopen(req, timeout=120).read()
+
+        out = {}
+        before = metric_sum(get("/metrics").decode(), "device_launches_total")
+        explained = json.loads(post("/index/small/query?explain=1", EXPLAIN_COUNT))
+        after = metric_sum(get("/metrics").decode(), "device_launches_total")
+        out["explain_records"] = [r for c in explained["explain"]["calls"]
+                                  for r in c.get("launches", [])]
+        out["explain_launches"] = after - before
+        out["programs"] = json.loads(get("/debug/programs"))
+        out["launches_total"] = metric_sum(get("/metrics").decode(), "device_launches_total")
+        out["heat"] = json.loads(get("/debug/heat"))
+        return out
+
+    run = cli_server_run(root, env, data_dir, tmp, ["-c", conf], None,
+                         wait_log="stacks resident", probe=probe)
+    log_text = run["log"]
+    failed = [ln for ln in log_text.splitlines() if "preheat" in ln and "failed" in ln]
+    check(not failed, f"cli: {failed}")
+    resident = [ln for ln in log_text.splitlines() if "stacks resident" in ln]
+    check(resident and f"windowed device refresh: {REFRESH_WINDOW_MS} ms" in log_text,
+          f"cli: the planes server did not preheat or window: {log_text[-2000:]}")
+    for q in CLI_QUERIES:
+        check(run["got"][q] == first["got"][q],
+              f"cli: {q} with preheat and the refresher disagrees with the first run")
+    pr = run["probe"]
+    programs, heat = pr["programs"], pr["heat"]
+    recs = pr["explain_records"]
+    check(len(recs) == pr["explain_launches"] > 0
+          and all(r["bytesShipped"] > 0 for r in recs),
+          f"cli: explain records {recs} against {pr['explain_launches']} launches")
+    check(programs["entries"] and programs["launches"]
+          == sum(e["launches"] for e in programs["entries"]) == pr["launches_total"]
+          and programs["recompiles"] == 0,
+          f"cli: /debug/programs {programs} against device_launches_total "
+          f"{pr['launches_total']}")
+    check(heat["entries"] and heat["tierHeat"] and heat["reuse"]["curve"]
+          and heat["halfLifeSeconds"] == 60.0, f"cli: /debug/heat {heat}")
+    compiled = [e for e in programs["entries"] if e["compiles"]]
+    log(f"cli: with preheat, refresh-window-ms {REFRESH_WINDOW_MS} and heat-half-life 60 "
+        f"the answers equal the first run's; {resident[0].split(' ', 1)[1]}; "
+        f"/debug/programs {programs['programs']} programs, {programs['launches']} launches "
+        f"= device_launches_total, compiles {programs['compiles']} "
+        + json.dumps([(e["kind"], e["compileSeconds"]) for e in compiled])
+        + f"; /debug/heat {len(heat['entries'])} entries, tierHeat "
+        f"{json.dumps(heat['tierHeat'])}, reuse {heat['reuse']['samples']} samples, "
+        f"{len(heat['reuse']['curve'])} curve points; explain: {len(recs)} records for "
+        f"{pr['explain_launches']:.0f} launches; {time.perf_counter() - t0:.1f} s")
+
+
+def cli_server_run(root, env, data_dir, tmp, extra, load, wait_log=None, probe=None):
     """One `cli server` process over data_dir with the extra flags: load(host)
-    first when given, then CLI_QUERIES over HTTP, /metrics and /debug/hbm,
-    then SIGINT, which must stop it with exit code 0."""
+    first when given, then (when wait_log is given, once its log holds that
+    text) CLI_QUERIES over HTTP, /metrics and /debug/hbm, then probe(host)
+    when given, then SIGINT, which must stop it with exit code 0."""
     import signal
     import urllib.request
 
     t0 = time.perf_counter()
     port = free_port()
     host = f"http://127.0.0.1:{port}"
-    log_path = os.path.join(tmp, f"server{len(extra)}.log")
+    log_path = os.path.join(
+        tmp, f"server{sum(n.startswith('server') for n in os.listdir(tmp))}.log")
     with open(log_path, "w") as out:
         proc = subprocess.Popen(
             [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-d", data_dir,
@@ -2437,6 +2986,11 @@ def cli_server_run(root, env, data_dir, tmp, extra, load):
         boot_s = time.perf_counter() - t0
         if load is not None:
             load(host)
+        deadline = time.monotonic() + 120
+        while wait_log is not None and wait_log not in open(log_path).read():
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  f"cli: no {wait_log!r} in the log: {open(log_path).read()[-2000:]}")
+            time.sleep(0.1)
         got = {}
         for q in CLI_QUERIES:
             req = urllib.request.Request(f"{host}/index/small/query", data=q.encode(),
@@ -2444,6 +2998,7 @@ def cli_server_run(root, env, data_dir, tmp, extra, load):
             got[q] = urllib.request.urlopen(req, timeout=120).read()
         metrics = urllib.request.urlopen(f"{host}/metrics", timeout=120).read().decode()
         hbm = json.loads(urllib.request.urlopen(f"{host}/debug/hbm", timeout=120).read())
+        probed = probe(host) if probe is not None else None
         proc.send_signal(signal.SIGINT)
         rc = proc.wait(timeout=60)
     finally:
@@ -2453,7 +3008,7 @@ def cli_server_run(root, env, data_dir, tmp, extra, load):
     log_text = open(log_path).read()
     check(rc == 0, f"cli: server {extra} exited with {rc}: {log_text[-2000:]}")
     return {"got": got, "metrics": metrics, "hbm": hbm, "rc": rc, "log": log_text,
-            "boot_s": boot_s}
+            "boot_s": boot_s, "probe": probed}
 
 
 # ---------------------------------------------------------------------------
@@ -3411,6 +3966,15 @@ def main(argv=None) -> int:
     ap.add_argument("--budget", action="store_true",
                     help="run only the row-paging phase (phase_budget, with bench.py's "
                          "index and BSI field v built) and the CLI's servers (phase_cli)")
+    ap.add_argument("--host-count", action="store_true",
+                    help="run only the single Count's host time (phase_host_count) on "
+                         "the --root checkout's package")
+    ap.add_argument("--rounds", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--host-count-ab", metavar="PARENT",
+                    help="compare the single Count's host time of PARENT's package and "
+                         "the --root checkout's in alternating rounds (host_count_ab)")
+    ap.add_argument("--pairs", type=int, default=10,
+                    help="rounds of each package in --host-count-ab (default 10)")
     args = ap.parse_args(argv)
     if args.http_load:  # a throughput window's clients (phase_http)
         with open(args.http_load) as f:
@@ -3439,6 +4003,10 @@ def main(argv=None) -> int:
         return phase_window(root, "churn" if args.churn else "miss")
     if args.budget:
         return phase_budget_alone(root)
+    if args.host_count:
+        return phase_host_count(root, args.rounds)
+    if args.host_count_ab:
+        return host_count_ab(os.path.abspath(args.host_count_ab), root, args.pairs)
 
     card_line = phase_card()
     phase_probe(card_line)
@@ -3447,10 +4015,16 @@ def main(argv=None) -> int:
     holder, backend, wide_stacks = phase_main(results)
     group_launches, gstacks, served = phase_groupby(holder, backend)
     bsi_launches, bsi_stacks = phase_bsi(holder, backend)
+    phase_ledger(backend)
     phase_budget(holder, backend)
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    rebuilds = sum(global_stats.counter_totals("stack_full_rebuilds_total").values())
     phase_http(holder, backend, root)
+    phase_stacks_exact(holder, backend, gstacks, rebuilds)
     groupby_oracle_check(holder, backend)
     bsi_oracle_check(holder, backend)
+    phase_preheat(holder)
     holder.close()
     del backend
     phase_groupby_tiles()

@@ -18,7 +18,6 @@ _ROADMAP = "ROADMAP.md, queue 1"
 #: Settings that configure a plane the port's server does not have yet,
 #: by their TOML key: (Config attribute, the plane). Nothing reads them,
 #: so any value but the default is refused at startup, never ignored.
-#: heat-half-life alone is accepted and inert (ROADMAP.md).
 _UNREAD_SETTINGS = {
     "anti-entropy.interval": ("anti_entropy_interval", "multi-node serving"),
     "client-timeout": ("client_timeout", "multi-node serving"),
@@ -57,10 +56,6 @@ def _unported_knobs(cfg, args) -> list[str]:
     ]
     if cfg.executor not in ("cuda", "cpu"):
         out.append(f"executor={cfg.executor!r}: choose cuda or cpu")
-    if cfg.preheat:
-        out.append("preheat: stack preheating is not ported yet")
-    if cfg.refresh_window_ms > 0:
-        out.append("refresh-window-ms: windowed device refresh is not ported yet")
     if cfg.mesh_devices not in (0, 1):
         out.append("mesh-devices: the multi-device mesh is not ported yet")
     if cfg.profile_port:
@@ -99,6 +94,9 @@ def cmd_server(args) -> int:
             "bind": args.bind,
             "executor": args.executor,
             "max_hbm_bytes": args.max_hbm_bytes,
+            "preheat": args.preheat or None,
+            "refresh_window_ms": args.refresh_window_ms,
+            "heat_half_life": args.heat_half_life,
             "verbose": args.verbose or None,
         },
     )
@@ -132,8 +130,10 @@ def cmd_server(args) -> int:
             from pilosa_tpu_torch.exec.cuda import CUDABackend
 
             # max-hbm-bytes: the device byte budget (0: none). A field over
-            # it is paged through the card a row at a time.
-            backend = CUDABackend(holder, max_bytes=cfg.max_hbm_bytes or None)
+            # it is paged through the card a row at a time. heat-half-life:
+            # the half-life of the stacks' heat (/debug/heat).
+            backend = CUDABackend(holder, max_bytes=cfg.max_hbm_bytes or None,
+                                  heat_half_life=cfg.heat_half_life or None)
         except Exception as e:  # noqa: BLE001 — reported, never served around
             log.printf(
                 "executor=cuda: %s; not serving (--executor=cpu runs the "
@@ -153,6 +153,20 @@ def cmd_server(args) -> int:
         from pilosa_tpu_torch.exec.batcher import ShardLegBatcher
 
         executor.batcher = ShardLegBatcher(backend, window=cfg.batch_window)
+        if cfg.preheat:
+            from pilosa_tpu_torch.utils.threads import spawn
+
+            def _preheat():
+                n = backend.preheat(logger=log)
+                log.printf("preheat: %d stacks resident", n)
+
+            spawn("preheat", _preheat)
+        if cfg.refresh_window_ms > 0:
+            # Windowed device refresh: a window's writes reach the resident
+            # stacks in one splice round, off the read path.
+            backend.start_refresher(cfg.refresh_window_ms)
+            log.printf("windowed device refresh: %d ms coalescing window",
+                       cfg.refresh_window_ms)
     # Epoch-tagged result cache (exec/rescache.py): serve hot terminal
     # answers from memory while their epoch vector matches. 0 bytes =
     # disabled; cache-enabled=false keeps it out even with a budget set.
@@ -216,6 +230,8 @@ def cmd_server(args) -> int:
         log.printf("shutting down")
         for d in daemons:
             d.stop()
+        if backend is not None:
+            backend.stop_refresher()
         holder.close()
     return 0
 
@@ -389,6 +405,19 @@ def main(argv=None) -> int:
         "--max-hbm-bytes", type=int, default=None, metavar="N",
         help="device byte budget of the resident stacks and row pages "
         "(0: none); a field over it is paged through the card",
+    )
+    sp.add_argument(
+        "--preheat", action="store_true", default=None,
+        help="upload every field's stacks at startup, on a thread of its own",
+    )
+    sp.add_argument(
+        "--refresh-window-ms", type=int, default=None, metavar="N",
+        help="splice the writes of each N-ms window into the resident stacks "
+        "off the read path (0: reads refresh inline)",
+    )
+    sp.add_argument(
+        "--heat-half-life", type=float, default=None, metavar="S",
+        help="half-life in seconds of the resident stacks' heat (/debug/heat)",
     )
     sp.add_argument(
         "--join",

@@ -71,6 +71,7 @@ from pilosa_tpu_torch.core.timequantum import parse_time, views_by_time_range
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, bsi_view_name
 from pilosa_tpu_torch.exec.cpu import CPUBackend, NotFoundError, QueryError
 from pilosa_tpu_torch.exec.result import FieldRow, GroupCount
+from pilosa_tpu_torch.ops.build import take_load_seconds
 from pilosa_tpu_torch.ops.blocks import (
     ROW_PAD,
     WORDS_PER_SHARD,
@@ -110,7 +111,8 @@ from pilosa_tpu_torch.pql.ast import (
 )
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.utils.locks import InstrumentedRLock
-from pilosa_tpu_torch.utils.qprofile import current_profile
+from pilosa_tpu_torch.utils.qprofile import NOP_PROFILE, current_profile
+from pilosa_tpu_torch.utils.reuse import ReuseDistanceEstimator
 from pilosa_tpu_torch.utils.stats import global_stats
 
 _DEVICE_LOWERED = ("Row", "Range", "Union", "Intersect", "Difference", "Xor", "Not", "All",
@@ -224,6 +226,17 @@ def _host_slab_groupn(slabs: list, rs: list) -> np.ndarray:
     return out.reshape(-1).astype(np.int32)
 
 
+#: Marks the calling thread as the windowed refresher: refresh_stale() sets
+#: it around its get() calls, so the freshness counters tell a window's
+#: flush (stack_windowed_refresh_total) from a read that refreshed a stale
+#: stack inline mid-window (stack_refresh_forced_total).
+_REFRESHER = threading.local()
+
+
+def _count_reuse_samples(n: int) -> None:
+    global_stats.count("reuse_distance_samples_total", n)
+
+
 class _StackedBlocks:
     """Device cache: (index, field, view) -> int32[S, R_pad, W] + freshness.
 
@@ -231,7 +244,16 @@ class _StackedBlocks:
     that can never fit is not cached: its callers page its rows through
     the device (get_row, CUDABackend._topn_paged_counts) or, for the calls
     the JAX package does not page, route to the CPU oracle. Each resident
-    entry has an HBM ledger entry (ledger(), tier_bytes(), /debug/hbm)."""
+    entry has an HBM ledger entry (ledger(), tier_bytes(), /debug/hbm), with
+    a decayed-frequency heat (heat_snapshot(), /debug/heat), and every
+    access, hit or upload, feeds the reuse-distance estimator behind the
+    /debug/heat miss-ratio curve.
+
+    With refresh_window_ms > 0 the backend's refresher thread calls
+    refresh_stale() every window, so the shards a window's writes dirtied
+    are spliced into each resident stack once, off the read path. A read
+    that meets a stale stack mid-window still refreshes it inline first,
+    so answers are those of unwindowed execution."""
 
     #: Incremental-update cutoff: splice at most 1/2 of the shard axis
     #: before a full repack wins.
@@ -245,9 +267,15 @@ class _StackedBlocks:
     #: untouched for one half-life keeps half its heat.
     HEAT_HALF_LIFE = 300.0
 
-    def __init__(self, device: torch.device, max_bytes: Optional[int] = None):
+    def __init__(self, device: torch.device, max_bytes: Optional[int] = None,
+                 heat_half_life: Optional[float] = None):
         self.device = device
         self.max_bytes = max_bytes
+        self.heat_half_life = heat_half_life or self.HEAT_HALF_LIFE
+        # Every ledger access (hit or upload) is offered to the estimator's
+        # queue (one append), recorded in bulk; each bulk's admitted samples
+        # bump reuse_distance_samples_total.
+        self.reuse = ReuseDistanceEstimator(on_samples=_count_reuse_samples)
         # key -> (fingerprint, device tensor, rows_p, per-shard versions).
         self._entries: dict[tuple, tuple[tuple, torch.Tensor, int, Optional[tuple]]] = {}
         self.evictions = 0
@@ -260,6 +288,13 @@ class _StackedBlocks:
         self._lock = InstrumentedRLock("device_stacks")
         # Per-key build latch: concurrent misses for one stack build it once.
         self._building: dict[tuple, threading.Event] = {}
+        # The refresher's window (0: none; CUDABackend.start_refresher sets
+        # it) and, by key, the build arguments (field, shards, view,
+        # min_rows) it replays through get(): whole stacks only, as row
+        # pages are paged on demand. Pruned against _entries and _building
+        # under _lock in refresh_stale.
+        self.refresh_window_ms = 0
+        self._refresh_args: dict[tuple, tuple] = {}
 
     def _put(self, host: np.ndarray) -> torch.Tensor:
         """uint32 host words -> int32 tensor with the same bits on the device."""
@@ -277,6 +312,18 @@ class _StackedBlocks:
         key = (index, field_obj.name, view_name)
 
         def build(stale):
+            # Recorded where the entry is (re)built, not on every hit: a hit
+            # matched the fingerprint, so its arguments are these. A GIL-atomic
+            # write; refresh_stale leaves a key that is building.
+            self._refresh_args[key] = (field_obj, shards, view_name, min_rows)
+            if stale is not None and self.refresh_window_ms > 0:
+                # Under a window, a stale stack refreshed by the refresher
+                # is a window's flush; one refreshed by a read is the
+                # inline barrier firing mid-window.
+                if getattr(_REFRESHER, "active", False):
+                    global_stats.count("stack_windowed_refresh_total")
+                else:
+                    global_stats.count("stack_refresh_forced_total")
             frags = {s: (v.fragment(s) if v is not None else None) for s in shards}
             n_rows = max(
                 [fr.max_row_id + 1 for fr in frags.values() if fr is not None]
@@ -340,7 +387,14 @@ class _StackedBlocks:
         ):
             return None
         dirty = [i for i in range(len(shards)) if old_vers[i] != vers[i]]
-        if not dirty or len(dirty) > max(1, len(shards) // self.MAX_INCREMENTAL_FRACTION):
+        if not dirty:
+            # The generation moved but no shard's version did: a write landed
+            # between the stale build's generation read and its version
+            # reads, so its content already holds the write. Rebuilding would
+            # only replace the tensor (the JAX package, whose splice makes a
+            # new array anyway, rebuilds here).
+            return old_arr
+        if len(dirty) > max(1, len(shards) // self.MAX_INCREMENTAL_FRACTION):
             return None
         for c0 in range(0, len(dirty), self.UPDATE_CHUNK):
             chunk = dirty[c0 : c0 + self.UPDATE_CHUNK]
@@ -394,7 +448,9 @@ class _StackedBlocks:
         build(stale) receives the stale entry for this key (or None) and
         returns (tensor_or_None, rows_p, versions, tier words or None); None
         means 'cannot be resident' and is not cached. A hit bumps the
-        entry's ledger stats, an upload records one."""
+        entry's ledger stats, an upload records one; both are offered to the
+        reuse-distance estimator (a queue append, recorded at the next
+        readback: CUDABackend._readback)."""
         while True:
             with self._lock:
                 cached = self._entries.get(key)
@@ -403,6 +459,7 @@ class _StackedBlocks:
                     led = self._ledger.get(key)
                     if led is not None:
                         self._bump_heat(led)
+                    self.reuse.offer(key, led["bytes"] if led is not None else 0)
                     return cached[1], cached[2]
                 latch = self._building.get(key)
                 if latch is None:
@@ -418,6 +475,9 @@ class _StackedBlocks:
                 self._entries[key] = (fingerprint, arr, rows_p, vers)
                 self._ledger_upload(key, arr, tiers)
                 self._evict(keep=key)
+            # Misses are references too: without them every distance in
+            # the reuse stream would look resident.
+            self.reuse.offer(key, arr.numel() * 4)
             return arr, rows_p
         finally:
             with self._lock:
@@ -452,10 +512,57 @@ class _StackedBlocks:
         now = time.monotonic()
         heat = led.get("heat", 0.0)
         if heat:
-            heat *= 2.0 ** ((led["last_access"] - now) / self.HEAT_HALF_LIFE)
+            heat *= 2.0 ** ((led["last_access"] - now) / self.heat_half_life)
         led["heat"] = heat + 1.0
         led["access_count"] += 1
         led["last_access"] = now
+
+    def peek(self, index: str, field_name: str, view_name: str = VIEW_STANDARD):
+        """The resident stack of a key, or None. Never builds: preheat's
+        launches must not upload or evict."""
+        with self._lock:
+            ent = self._entries.get((index, field_name, view_name))
+            return ent[1] if ent is not None else None
+
+    def refresh_stale(self) -> int:
+        """One window's flush: re-run get() for every resident stack whose
+        view generation moved since its upload, so the shards the window
+        dirtied are spliced in once (_try_incremental) and the reads after
+        the window find a fresh stack. Returns the stacks refreshed. A
+        failed refresh is dropped: the next read refreshes inline.
+
+        The splice writes the resident tensor in place, on the stream the
+        readers launch on (the device's current stream, as a read's inline
+        splice does): a launch enqueued before the copy reads the old
+        content, one enqueued after it the new. The tables that keep host
+        rows confirm the versions they recorded after their sweep
+        (CUDABackend._confirm_vers), so a splice racing a sweep marks its
+        shards stale instead of being counted twice."""
+        with self._lock:
+            for k in list(self._refresh_args):
+                if k not in self._entries and k not in self._building:
+                    del self._refresh_args[k]
+            work = list(self._refresh_args.items())
+        n = 0
+        for key, (field_obj, shards, view_name, min_rows) in work:
+            try:
+                v = field_obj.view(view_name)
+            except Exception:  # lint: allow-except-exception(field deleted mid-walk: the entry prunes on the next round)
+                continue
+            gen = v.generation if v is not None else -1
+            with self._lock:
+                ent = self._entries.get(key)
+                if ent is None or ent[0] == (tuple(shards), gen, min_rows):
+                    continue  # evicted, or already fresh
+            _REFRESHER.active = True
+            try:
+                self.get(key[0], field_obj, shards, view_name, min_rows)
+                n += 1
+            except Exception:  # lint: allow-except-exception(a failed background round is dropped; the read path refreshes inline and raises there)
+                pass
+            finally:
+                _REFRESHER.active = False
+        return n
 
     def make_room(self, nbytes: int) -> None:
         """LRU-evict cached entries until `nbytes` fits under the budget (a
@@ -526,6 +633,50 @@ class _StackedBlocks:
                     ent["row"] = key[4]
                 out.append(ent)
         return out
+
+    def heat_snapshot(self, entries: int = -1) -> dict:
+        """Per-entry decayed-frequency heat, decayed to now, hottest first,
+        and the per-tier rollup behind the hbm_access_heat{tier} gauges: an
+        entry's heat splits over its tiers by their share of its bytes.
+        entries: -1 all, 0 the rollup only, N > 0 the hottest N. Records
+        the reuse estimator's queue first, so a /metrics scrape
+        (publish_hbm_gauges) publishes reuse_distance_samples_total whole."""
+        self.reuse.flush()
+        now = time.monotonic()
+        hl = self.heat_half_life
+        tier_heat = {"dense": 0.0, "array": 0.0, "run": 0.0}
+        ents: list[dict] = []
+        with self._lock:
+            for key in self._entries:
+                led = self._ledger.get(key)
+                if led is None:
+                    continue
+                heat = led.get("heat", 0.0) * 2.0 ** ((led["last_access"] - now) / hl)
+                b = led["bytes"] or 1
+                for t, tb in led["tier_bytes"].items():
+                    tier_heat[t] += heat * (tb / b)
+                if entries == 0:
+                    continue
+                ent = {
+                    "index": key[0],
+                    "field": key[1],
+                    "view": key[2],
+                    "bytes": led["bytes"],
+                    "heat": round(heat, 4),
+                    "accessCount": led["access_count"],
+                    "idleSeconds": round(now - led["last_access"], 3),
+                }
+                if len(key) > 3 and key[3] == "row":
+                    ent["row"] = key[4]
+                ents.append(ent)
+        ents.sort(key=lambda e: e["heat"], reverse=True)
+        if entries > 0:
+            ents = ents[:entries]
+        return {
+            "halfLifeSeconds": hl,
+            "tierHeat": {t: round(v, 4) for t, v in tier_heat.items()},
+            "entries": ents,
+        }
 
 
 class _PairEntry:
@@ -675,6 +826,263 @@ def _eval_spec(spec, blocks_it, scalars_it) -> torch.Tensor:
     return acc
 
 
+def _shape_sig(tree) -> tuple[tuple, int]:
+    """(hashable nested (dtype, shape) signature, total bytes) of a launch's
+    argument tree, in one walk that reads the tensors' shapes, never their
+    values. (kind, key, shape signature) names one program of the ledger;
+    the bytes are a launch record's bytesShipped. The dtype and shape
+    objects are kept as they are (a torch.Size is a tuple): _sig_text
+    spells them for display, once a program."""
+    out = []
+    nbytes = 0
+    for a in tree:
+        if isinstance(a, _SIG_LEAVES):
+            out.append((a.dtype, a.shape))
+            nbytes += a.nbytes
+        elif isinstance(a, (tuple, list)):
+            sig, n = _shape_sig(a)
+            out.append(sig)
+            nbytes += n
+        else:
+            out.append(type(a).__name__)
+    return tuple(out), nbytes
+
+
+def _sig_text(shape_sig) -> str:
+    """A shape signature as text: ('int32', (954, 8, 32768)) a tensor."""
+
+    def plain(sig):
+        if (isinstance(sig, tuple) and len(sig) == 2 and not isinstance(sig[0], tuple)
+                and isinstance(sig[1], tuple) and all(isinstance(d, int) for d in sig[1])):
+            return (str(sig[0]).removeprefix("torch."), tuple(sig[1]))
+        if isinstance(sig, tuple):
+            return tuple(plain(x) for x in sig)
+        return sig
+
+    return repr(plain(shape_sig))[:200]
+
+
+def _tree_nbytes(tree) -> int:
+    """Total tensor bytes in a (possibly nested) output tree: a launch
+    record's bytesReturned. Walked only when a profile is active."""
+    if isinstance(tree, (tuple, list)):
+        return sum(_tree_nbytes(a) for a in tree)
+    return int(getattr(tree, "nbytes", 0) or 0)
+
+
+def _sig_occupancy(shape_sig) -> Optional[int]:
+    """Largest leading dim among rank-1 leaves of a shape signature: the
+    slot count Q of a batched launch (None when it has no per-slot
+    operand)."""
+    best = None
+    for leaf in shape_sig:
+        if isinstance(leaf, tuple) and leaf and isinstance(leaf[0], tuple):
+            inner = _sig_occupancy(leaf)
+            if inner is not None:
+                best = inner if best is None else max(best, inner)
+        elif (
+            isinstance(leaf, tuple) and len(leaf) == 2
+            and isinstance(leaf[1], tuple) and len(leaf[1]) == 1
+        ):
+            n = int(leaf[1][0])
+            best = n if best is None else max(best, n)
+    return best
+
+
+class _Slots:
+    """The slot axis of a K11 launch as a launch argument: shape (Q,), and
+    the bytes of its [Q, leaves] int32 row table, which the launch ships."""
+
+    __slots__ = ("shape", "nbytes")
+    dtype = "slots"
+
+    def __init__(self, q: int, n_leaves: int):
+        self.shape = (q,)
+        self.nbytes = 4 * q * n_leaves
+
+
+# The leaves of a launch's argument tree that have a shape and bytes.
+_SIG_LEAVES = (torch.Tensor, _Slots)
+_SLOTS: dict = {}
+
+
+def _slots(q: int, n_leaves: int) -> _Slots:
+    """The _Slots of (q, n_leaves), made once."""
+    s = _SLOTS.get((q, n_leaves))
+    if s is None:
+        s = _SLOTS[(q, n_leaves)] = _Slots(q, n_leaves)
+    return s
+
+
+class _ProgramEntry:
+    """Ledger row for one program (see _ProgramLedger)."""
+
+    __slots__ = (
+        "kind", "program", "bucket", "shapes", "compiles",
+        "compile_seconds", "launches", "device_seconds", "waits",
+        "last_launch",
+    )
+
+    def __init__(self, kind: str, program: str, bucket, shapes: str):
+        self.kind = kind
+        self.program = program
+        self.bucket = bucket
+        self.shapes = shapes
+        self.compiles = 0
+        self.compile_seconds = 0.0
+        self.launches = 0
+        self.device_seconds = 0.0
+        # Device seconds closed by block_ready, not yet in device_seconds:
+        # appended without the ledger's lock, folded under it (_fold).
+        self.waits: list = []
+        self.last_launch = 0.0   # perf_counter of the last dispatch
+
+
+class _ProgramLedger:
+    """Device-program ledger: every program the backend launched, keyed by
+    (kind, key, argument shape signature), served coldest first at
+    GET /debug/programs. Registration is at the launch chokepoint
+    (CUDABackend._launched), so the ledger sees the launches that
+    device_launches_total counts.
+
+    A compile here is the one load of the kernel libraries in the process
+    (ops/build.py: nvcc runs for a source that changed, then the libraries
+    are loaded): the first launch after it records it, with the load's
+    wall as its compile seconds (device_compile_seconds{kind}). A new shape
+    compiles nothing, as the kernels take their shapes at run time, and on
+    the CPU nothing compiles. A compile of a signature already in the
+    ledger is a recompile (device_recompiles_total{kind}); since the load
+    happens once, that count stays 0 in one process. The entry count is
+    the device_programs_live gauge.
+
+    Device time: each launch parks (entry, dispatch t0) on the dispatching
+    thread, at most _PENDING_CAP of them; block_ready(), called right after
+    a synchronizing readback, closes every parked launch of that thread
+    into its entry's device seconds.
+
+    Host cost: a launch takes the ledger's lock once (record_launch) and
+    reads no clock of its own (its dispatch t0 is the caller's); the
+    readback closes its launches without the lock, and reads fold them in
+    (_fold). lastLaunch's epoch stamp is derived when the ledger is read."""
+
+    _PENDING_CAP = 64
+    # Closed waits an entry holds before record_launch folds them.
+    _FOLD_AT = 32
+
+    def __init__(self, stats):
+        self._lock = threading.Lock()
+        self._entries: dict[tuple, _ProgramEntry] = {}
+        self._stats = stats
+        self._local = threading.local()
+
+    def record_launch(self, kind: str, key, shape_sig: tuple, t_dispatch: float):
+        """Record one launch of the program (kind, key, shape_sig),
+        dispatched at t_dispatch (perf_counter), and return its compile
+        seconds: the library load, when this is the first launch after it,
+        else None."""
+        sig = (kind, key, shape_sig)
+        with self._lock:
+            e = self._entries.get(sig)
+            if e is None:
+                e = self._entries[sig] = _ProgramEntry(
+                    kind,
+                    repr(key)[:120] if key is not None else kind,
+                    _sig_occupancy(shape_sig),
+                    _sig_text(shape_sig),
+                )
+            e.launches += 1
+            e.last_launch = t_dispatch
+            if len(e.waits) >= self._FOLD_AT:
+                self._fold(e)
+        try:
+            pend = self._local.pending
+        except AttributeError:
+            pend = self._local.pending = []
+        if len(pend) < self._PENDING_CAP:
+            pend.append((e, t_dispatch))
+        compile_seconds = take_load_seconds()
+        if compile_seconds is not None:
+            self._compiled(kind, e, compile_seconds)
+        return compile_seconds
+
+    def _compiled(self, kind: str, e: _ProgramEntry, seconds: float) -> None:
+        with self._lock:
+            e.compiles += 1
+            e.compile_seconds += seconds
+            recompile = e.compiles > 1
+            live = len(self._entries)
+        st = self._stats.with_tags(f"kind:{kind}")
+        st.timing("device_compile_seconds", seconds)
+        if recompile:
+            st.count("device_recompiles_total")
+        self._stats.gauge("device_programs_live", live)
+
+    def block_ready(self) -> None:
+        """Close this thread's parked launches into their entries' device
+        seconds; the caller has just synchronized with the card (a readback
+        to the host). Lock-free: a list append is atomic, and _fold takes
+        the closed waits under the lock."""
+        pend = getattr(self._local, "pending", None)
+        if pend:
+            now = time.perf_counter()
+            for e, t0 in pend:
+                e.waits.append(now - t0)
+            pend.clear()
+
+    @staticmethod
+    def _fold(e: _ProgramEntry) -> None:
+        """Move an entry's closed waits into its device seconds (caller
+        holds _lock; block_ready only appends, so the prefix it takes is
+        whole)."""
+        w = e.waits
+        n = len(w)
+        if n:
+            e.device_seconds += sum(w[:n])
+            del w[:n]
+
+    def _entries_folded(self) -> list:
+        with self._lock:
+            entries = list(self._entries.values())
+            for e in entries:
+                self._fold(e)
+        return entries
+
+    def ledger(self) -> list[dict]:
+        """Ledger rows, coldest first (longest since the last launch), as
+        /debug/hbm lists its entries."""
+        entries = self._entries_folded()
+        now = time.perf_counter()
+        # lint: allow-monotonic-time(operator-facing epoch display stamp)
+        wall = time.time()
+        entries.sort(key=lambda e: e.last_launch)
+        return [
+            {
+                "kind": e.kind,
+                "program": e.program,
+                "bucket": e.bucket,
+                "shapes": e.shapes,
+                "compiles": e.compiles,
+                "compileSeconds": round(e.compile_seconds, 6),
+                "launches": e.launches,
+                "deviceSeconds": round(e.device_seconds, 6),
+                "lastLaunch": wall - (now - e.last_launch) if e.last_launch else None,
+                "idleSeconds": (
+                    round(now - e.last_launch, 3) if e.last_launch else None
+                ),
+            }
+            for e in entries
+        ]
+
+    def counts(self) -> dict:
+        entries = self._entries_folded()
+        return {
+            "programs": len(entries),
+            "compiles": sum(e.compiles for e in entries),
+            "recompiles": sum(max(0, e.compiles - 1) for e in entries),
+            "launches": sum(e.launches for e in entries),
+        }
+
+
 class CUDABackend:
     """Device backend for the Executor: bitmap calls, Count, TopN, Rows,
     Sum, Min, Max and GroupBy on the card.
@@ -698,7 +1106,13 @@ class CUDABackend:
     #: (K * rf * rg * W a slab shard). Past it one sweep on the card does.
     MAX_GROUPN_HOST_SLAB_WORDS = 1 << 29
 
-    def __init__(self, holder, device="cuda", max_bytes: Optional[int] = None):
+    #: Queued stack references the reuse estimator records at a readback,
+    #: while the card runs: a few Counts' worth, so its lock and counter
+    #: are paid once for several.
+    _REUSE_BATCH = 8
+
+    def __init__(self, holder, device="cuda", max_bytes: Optional[int] = None,
+                 heat_half_life: Optional[float] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -713,7 +1127,14 @@ class CUDABackend:
         self.device = device
         self.cpu = CPUBackend(holder)
         self.stats = global_stats
-        self.blocks = _StackedBlocks(device, max_bytes)
+        self.blocks = _StackedBlocks(device, max_bytes, heat_half_life)
+        # Device-program ledger behind GET /debug/programs, fed by _launched,
+        # and its counters' tagged clients by kind.
+        self.programs = _ProgramLedger(self.stats)
+        self._kind_stats: dict = {}
+        # The windowed refresher (start_refresher), when refresh-window-ms > 0.
+        self._refresher: Optional[threading.Thread] = None
+        self._refresher_stop: Optional[threading.Event] = None
         # Pair-stats cache: (index, fa, fb) -> _PairEntry, keyed fresh on
         # the two views' generations. Guarded: resolvers run on server
         # worker threads.
@@ -742,9 +1163,157 @@ class CUDABackend:
         a bounded label)."""
         self.stats.with_tags(f"call:{c.name}").count("cpu_routed_total")
 
-    def _launched(self, kind: str) -> None:
-        self.stats.with_tags(f"kind:{kind}").count("device_launches_total")
-        current_profile().incr("device_launches")
+    def _launched(self, kind: str, key, args, launch):
+        """The launch chokepoint: run launch(), the kernel wrapper call(s) of
+        one launch of program `key` over `args`, and return its output.
+        Counts device_launches_total{kind}, records the launch in the
+        program ledger and, under an active profile, adds its dispatch wall
+        to device_wait_us, its argument and output bytes to bytes_shipped
+        and bytes_returned, and one launch record to an EXPLAIN plan. An
+        unprofiled launch pays only the counter and the ledger."""
+        t0 = time.perf_counter()
+        out = launch()
+        wall = time.perf_counter() - t0
+        # The bookkeeping runs while the card runs the launch.
+        stats = self._kind_stats.get(kind)
+        if stats is None:
+            stats = self._kind_stats[kind] = self.stats.with_tags(f"kind:{kind}")
+        stats.count("device_launches_total")
+        shape_sig, shipped = _shape_sig(args)
+        loaded = self.programs.record_launch(kind, key, shape_sig, t0)
+        prof = current_profile()
+        if prof is not NOP_PROFILE:
+            returned = out.nbytes if isinstance(out, torch.Tensor) else _tree_nbytes(out)
+            c = prof.counters
+            c["device_launches"] = c.get("device_launches", 0) + 1
+            c["device_wait_us"] = c.get("device_wait_us", 0) + int(wall * 1e6)
+            c["bytes_shipped"] = c.get("bytes_shipped", 0) + shipped
+            c["bytes_returned"] = c.get("bytes_returned", 0) + returned
+            ex = prof.explain
+            if ex is not None:
+                ex.add_launch({
+                    "kind": kind,
+                    "program": kind if key is None else repr(key)[:120],
+                    "shapes": _sig_text(shape_sig),
+                    "occupancy": _sig_occupancy(shape_sig),
+                    "compiled": loaded is not None,
+                    "dispatchMs": round(wall * 1e3, 3),
+                    "bytesShipped": shipped,
+                    "bytesReturned": returned,
+                    "devices": 1,
+                })
+        return out
+
+    def _readback(self, t: torch.Tensor) -> np.ndarray:
+        """t on the host as numpy. The copy waits for the card, so this
+        thread's parked launches close into the ledger's device seconds;
+        before it, the reuse estimator records its queue while the card
+        runs."""
+        self.blocks.reuse.flush(self._REUSE_BATCH)
+        host = t.cpu().numpy()
+        self.programs.block_ready()
+        return host
+
+    # -- windowed refresher and preheat ------------------------------------
+
+    def start_refresher(self, window_ms: float) -> None:
+        """Start the windowed refresher: every window it splices the shards
+        dirtied since the last round into each resident stack
+        (blocks.refresh_stale), one incremental round a stack. Idempotent;
+        a window of 0 keeps it off (reads refresh inline)."""
+        if window_ms <= 0 or self._refresher is not None:
+            return
+        self.blocks.refresh_window_ms = window_ms
+        stop = threading.Event()
+        self._refresher_stop = stop
+
+        def _loop():
+            while not stop.wait(window_ms / 1000.0):
+                try:
+                    self.blocks.refresh_stale()
+                except Exception:  # lint: allow-except-exception(one failed round must not end the refresher; reads refresh inline)
+                    pass
+
+        from pilosa_tpu_torch.utils.threads import spawn
+
+        self._refresher = spawn("device-refresh", _loop, name="stack-refresh")
+
+    def stop_refresher(self) -> None:
+        """Stop the refresher and wait for its round in flight, so the window
+        is cleared only once no refresh is running (its splices are counted
+        as windowed) and a start_refresher after it runs one thread."""
+        if self._refresher is not None:
+            self._refresher_stop.set()
+            self._refresher.join()
+            self._refresher = None
+            self._refresher_stop = None
+            self.blocks.refresh_window_ms = 0
+
+    def preheat(self, logger=None) -> int:
+        """Pack and upload every field's stacks (each view, over its index's
+        shard union, BSI views at full plane height) so the first queries
+        skip the cold pack and upload, and load the kernel libraries
+        (_preheat_programs). Returns the stacks made resident. Under a byte
+        budget it stops at the first upload that evicted: later ones would
+        only evict earlier ones. A stack over the budget is skipped (it is
+        paged). Best-effort: a failure is logged and the walk goes on."""
+        n = 0
+        for iname in list(self.holder.indexes):
+            idx = self.holder.index(iname)
+            if idx is None:
+                continue
+            # Queries assemble against the index-wide shard union, so the
+            # stacks are keyed the same way, or the first query would
+            # replace them.
+            shards = tuple(int(s) for s in idx.available_shards().to_array().tolist())
+            if not shards:
+                continue
+            for fname in list(idx.fields):
+                try:
+                    f = idx.field(fname)
+                    if f is None:
+                        continue
+                    for view_name in list(f.views):
+                        min_rows = 1
+                        if view_name == bsi_view_name(fname) and (
+                            f.options.type == FIELD_TYPE_INT
+                        ):
+                            min_rows = BSI_OFFSET_BIT + f.options.bit_depth
+                        ev_before = self.blocks.evictions
+                        block, _ = self.blocks.get(iname, f, shards, view_name, min_rows)
+                        if self.blocks.evictions > ev_before:
+                            if logger is not None:
+                                logger.printf("preheat: HBM budget reached at %s/%s",
+                                              iname, fname)
+                            self._preheat_programs(logger)
+                            return n
+                        if block is not None:
+                            n += 1
+                except Exception as e:  # noqa: BLE001 — best-effort: a
+                    # concurrent schema change must not end the walk.
+                    if logger is not None:
+                        logger.printf("preheat %s/%s failed: %s", iname, fname, e)
+        self._preheat_programs(logger)
+        return n
+
+    def _preheat_programs(self, logger) -> None:
+        """Load the kernel libraries, building those whose source changed,
+        so the first request does not pay the load. This is all the port
+        has to warm: the JAX package's counterpart compiles a TopN and pair
+        programs for each resident stack shape, but these kernels take
+        their shapes at run time, and launching them on the preheated
+        stacks made the first TopN and pair request no faster on the card
+        (PERF.md). Best-effort, as the stack walk."""
+        if self.device.type != "cuda":
+            return
+        from pilosa_tpu_torch.ops.build import SOURCES, library
+
+        try:
+            for name in SOURCES:
+                library(name)
+        except Exception as e:  # noqa: BLE001
+            if logger is not None:
+                logger.printf("preheat kernel libraries failed: %s", e)
 
     # -- spec + leaf assembly ----------------------------------------------
 
@@ -1074,14 +1643,18 @@ class CUDABackend:
         tree split past K11's limits) runs one slot a launch, since those
         leaves depend on the slot's scalars: its slab leaves are evaluated
         first for that slot (K10, _shift_slab, K11 in slab mode)."""
+        key = (mode, prog.ops)
+        n = len(prog.leaves)
         if prog.per_slot:
-            outs = []
-            for scalars in slots:
-                self._launched(kind)
-                outs.append(self._spec_launch(prog, blocks, [scalars], mode))
+            args = (*blocks, _slots(1, n))
+            outs = [
+                self._launched(kind, key, args,
+                               lambda sc=sc: self._spec_launch(prog, blocks, [sc], mode))
+                for sc in slots
+            ]
             return outs[0] if len(outs) == 1 else torch.cat(outs)
-        self._launched(kind)
-        return self._spec_launch(prog, blocks, slots, mode)
+        return self._launched(kind, key, (*blocks, _slots(len(slots), n)),
+                              lambda: self._spec_launch(prog, blocks, slots, mode))
 
     def _spec_launch(self, prog, blocks, slots, mode: str) -> torch.Tensor:
         leaves = [self._spec_leaf(leaf, blocks, slots[0]) for leaf in prog.leaves]
@@ -1135,9 +1708,8 @@ class CUDABackend:
                 bases = uniq
         return Row.from_columns(unpack_slab_columns(host, bases))
 
-    @staticmethod
-    def _to_host_words(t: torch.Tensor) -> np.ndarray:
-        return t.cpu().numpy().view(np.uint32)
+    def _to_host_words(self, t: torch.Tensor) -> np.ndarray:
+        return self._readback(t).view(np.uint32)
 
     def bitmap_call_shard(self, index: str, c: Call, shard: int) -> Row:
         shards_t, pos = self._resident_shards(index, shard)
@@ -1197,7 +1769,11 @@ class CUDABackend:
             self._cpu_routed(c)
             return sum(self.cpu.count_shard(index, c, s) for s in shards)
         with prof.phase("device_dispatch"):
-            return int(self._count_program(spec, blocks, scalars))
+            total = self._count_program(spec, blocks, scalars)
+            self.blocks.reuse.flush(self._REUSE_BATCH)  # while the card runs K11
+            count = int(total)  # waits for K11
+        self.programs.block_ready()
+        return count
 
     def count_batch(self, index: str, calls: list[Call], shards: list[int]) -> list[int]:
         """Q count queries; see count_batch_async."""
@@ -1284,7 +1860,7 @@ class CUDABackend:
         def resolve() -> list[int]:
             results: list = [None] * len(calls)
             with current_profile().phase("device_dispatch"):
-                hosts = [totals.cpu().numpy() for _, totals, _, _ in pending]
+                hosts = [self._readback(totals) for _, totals, _, _ in pending]
             for (idxs, _, slot_of, _), host in zip(pending, hosts):
                 for i in idxs:
                     results[i] = int(host[slot_of[i]])
@@ -1447,10 +2023,12 @@ class CUDABackend:
                       pershard: bool) -> torch.Tensor:
         """One pair sweep: the per-shard table int32[S, D] (K1), or its sum
         over shards int32[D] (K2) past the retention gate."""
-        self._launched("pair_stats")
+        args = (fblock, gblock)
         if pershard:
-            return pair_stats_pershard(fblock, gblock)
-        return pair_stats(fblock, gblock)
+            return self._launched("pair_stats", "pair_stats_pershard", args,
+                                  lambda: pair_stats_pershard(fblock, gblock))
+        return self._launched("pair_stats", "pair_stats", args,
+                              lambda: pair_stats(fblock, gblock))
 
     def _pair_batch_dispatch(self, index, plan, shards_t):
         entries, fa, fb = plan
@@ -1725,7 +2303,7 @@ class CUDABackend:
         stats = ent.stats
         if isinstance(stats, np.ndarray):
             return stats
-        raw = stats.cpu().numpy()  # ONE readback for all stats
+        raw = self._readback(stats)  # ONE readback for all stats
         if raw.ndim == 2:
             pershard, totals = raw, raw.sum(axis=0, dtype=np.int64)
         else:
@@ -1860,13 +2438,13 @@ class CUDABackend:
                 counts = self._topn_paged_counts(f, shards_t, src)
             else:
                 masks = () if src is None else (self._filter_slab(src),)
-                self._launched("topn")
-                table = row_popcounts(block, 0, rows_p, masks)[0]
+                table = self._launched("topn", "row_popcounts", (block, masks),
+                                       lambda: row_popcounts(block, 0, rows_p, masks))[0]
                 if src is None and self._topn_pershard_ok(block.shape[0], rows_p):
-                    pershard = table.cpu().numpy().astype(np.int64)
+                    pershard = self._readback(table).astype(np.int64)
                     counts = pershard.sum(axis=0)
                 else:
-                    counts = table.sum(dim=0, dtype=torch.int64).cpu().numpy()
+                    counts = self._readback(table.sum(dim=0, dtype=torch.int64))
         if ckey is not None:
             # The launch read the stack after its versions: a shard that
             # moved meanwhile is recorded stale (_confirm_vers).
@@ -1915,9 +2493,9 @@ class CUDABackend:
             dev = self.blocks._put(host)
             global_stats.count("hbm_page_uploads_total")
             global_stats.count("hbm_page_bytes_total", host.nbytes)
-            self._launched("topn")
-            table = row_popcounts(dev, 0, page, masks)[0]
-            counts[start : start + page] += table.sum(dim=0, dtype=torch.int64).cpu().numpy()
+            table = self._launched("topn", "row_popcounts", (dev, masks),
+                                   lambda: row_popcounts(dev, 0, page, masks))[0]
+            counts[start : start + page] += self._readback(table.sum(dim=0, dtype=torch.int64))
             del dev, table  # after the readback: one page in flight
         return counts[:n_rows]
 
@@ -2058,12 +2636,14 @@ class CUDABackend:
                 consider = consider & filt
             neg = (bsi_block[:, BSI_SIGN_BIT, :] & consider).contiguous()
             pos = (consider & ~neg).contiguous()
-            self._launched("bsi_sum")
-            planes = row_popcounts(bsi_block, BSI_OFFSET_BIT, depth, (pos, neg))
-            cnt = popcount_rows(consider.contiguous()).sum(dtype=torch.int64)
+            consider = consider.contiguous()
+            planes, cnt = self._launched(
+                "bsi_sum", ("row_popcounts", "popcount_rows"), (bsi_block, pos, neg, consider),
+                lambda: (row_popcounts(bsi_block, BSI_OFFSET_BIT, depth, (pos, neg)),
+                         popcount_rows(consider)))
             # One readback: [pos counts | neg counts | considered count].
-            host = torch.cat([planes.sum(dim=1, dtype=torch.int64).reshape(-1),
-                              cnt.reshape(1)]).cpu().numpy()
+            host = self._readback(torch.cat([planes.sum(dim=1, dtype=torch.int64).reshape(-1),
+                                             cnt.sum(dtype=torch.int64).reshape(1)]))
             pos_c, neg_c, count = host[:depth], host[depth:-1], int(host[-1])
         with prof.phase("host_reduce"):
             total = sum((int(pos_c[i]) - int(neg_c[i])) << i for i in range(depth))
@@ -2213,10 +2793,11 @@ class CUDABackend:
         depth = opts.bit_depth
         with prof.phase("device_dispatch"):
             filt = self._filter_slab(src)
-            self._launched(kind)
-            table = bsi_minmax(bsi_block, depth, filt, "min" if kind == "bsi_min" else "max")
+            table = self._launched(
+                kind, "bsi_minmax", (bsi_block, filt),
+                lambda: bsi_minmax(bsi_block, depth, filt, "min" if kind == "bsi_min" else "max"))
         with prof.phase("readback"):
-            table = table.cpu()  # waits for K9
+            table = torch.from_numpy(self._readback(table))  # waits for K9
         bits_a, cnt_a, bits_b, cnt_b, branch_any, consider_any = (
             x.numpy() for x in split_minmax(table, depth))
         with prof.phase("host_reduce"):
@@ -2573,14 +3154,16 @@ class CUDABackend:
         f = stacks[0]
         if filt is not None:
             f = f & filt[:, None, :]
-        self._launched("groupby")
         if len(stacks) == 1:
             s, r, w = f.shape
-            counts = popcount_rows(f.reshape(s * r, w)).reshape(s, r)
-            return counts.sum(dim=0, dtype=torch.int64).cpu().numpy()
+            rows = f.reshape(s * r, w)
+            counts = self._launched("groupby", "popcount_rows", (rows,),
+                                    lambda: popcount_rows(rows)).reshape(s, r)
+            return self._readback(counts.sum(dim=0, dtype=torch.int64))
         rf, rg = f.shape[1], stacks[1].shape[1]
-        flat = pair_stats(f, stacks[1])
-        return flat[: rf * rg].reshape(rf, rg).cpu().numpy().astype(np.int64)
+        g = stacks[1]
+        flat = self._launched("groupby", "pair_stats", (f, g), lambda: pair_stats(f, g))
+        return self._readback(flat[: rf * rg].reshape(rf, rg)).astype(np.int64)
 
     def _group_live_rows(self, stacks) -> list:
         """Per extra field, its live row ids: the rows with any bit in the
@@ -2590,9 +3173,10 @@ class CUDABackend:
         out = []
         for st in stacks[2:]:
             s, r, w = st.shape
-            self._launched("groupby")
-            counts = popcount_rows(st.reshape(s * r, w)).reshape(s, r)
-            live = counts.sum(dim=0, dtype=torch.int64).cpu().numpy() > 0
+            rows = st.reshape(s * r, w)
+            counts = self._launched("groupby", "popcount_rows", (rows,),
+                                    lambda rows=rows: popcount_rows(rows)).reshape(s, r)
+            live = self._readback(counts.sum(dim=0, dtype=torch.int64)) > 0
             out.append(np.nonzero(live)[0].astype(np.int32))
         return out
 
@@ -2630,12 +3214,17 @@ class CUDABackend:
             active = np.ones(len(rows_idx), np.int32)
             self.stats.count("groupby_tiles_total")
             self.stats.histogram("groupby_tile_occupancy", len(rows_idx))
-            self._launched(kind)
             if pershard:
-                pending.append(group_tile_stats_pershard(f, g, extras, rows_idx, active))
+                pending.append(self._launched(
+                    kind, "group_tile_stats_pershard", (f, g, extras, rows_idx, active),
+                    lambda ri=rows_idx, ac=active: group_tile_stats_pershard(f, g, extras,
+                                                                             ri, ac)))
             else:
-                pending.append(group_tile_stats(f, g, extras, rows_idx, active, filt))
-        return np.concatenate([t.cpu().numpy() for t in pending])
+                pending.append(self._launched(
+                    kind, "group_tile_stats", (f, g, extras, rows_idx, active, filt),
+                    lambda ri=rows_idx, ac=active: group_tile_stats(f, g, extras, ri, ac,
+                                                                    filt)))
+        return np.concatenate([self._readback(t) for t in pending])
 
     def _group_tiled_sweep(self, stacks, filt, rs):
         """Prune + tile + sweep the N>=3 group tensor: the ("live",

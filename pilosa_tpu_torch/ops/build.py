@@ -53,6 +53,11 @@ build_seconds = None
 #: nvcc's output (the ptxas resource reports) of the last build, "" when
 #: every library was already built for its source.
 build_log = ""
+#: Wall seconds of the load (the build, if any, and the libraries' dlopen);
+#: None until the libraries are loaded.
+load_seconds = None
+# The load's wall until a launch takes it (take_load_seconds).
+_untaken_load = None
 
 
 class KernelBuildError(RuntimeError):
@@ -154,15 +159,30 @@ def _bind(name: str, lib) -> None:
         fn.restype = i32
 
 
+def take_load_seconds():
+    """The wall seconds of the library load, for the first caller after it,
+    else None. A process loads the libraries once, so this is the port's one
+    compile: the first launch after the load records it (exec/cuda.py
+    _ProgramLedger), usually the launch that triggered it. Every later call
+    costs one global read."""
+    global _untaken_load
+    if _untaken_load is None:
+        return None
+    with _lock:
+        seconds, _untaken_load = _untaken_load, None
+    return seconds
+
+
 def library(name: str):
     """The loaded kernel library ``name`` ("bitcount", "bmma" or "spec"). The
     first call builds every library whose source changed."""
-    global build_seconds, build_log
+    global build_seconds, build_log, load_seconds, _untaken_load
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
         if not _libs:
+            t_load = time.perf_counter()
             digests = {n: _source_digest(n) for n in SOURCES}
             stale = {n: d for n, d in digests.items() if not _fresh(n, d)}
             t0 = time.perf_counter()
@@ -173,4 +193,5 @@ def library(name: str):
                 _bind(n, loaded)
                 _libs[n] = loaded
             build_seconds, build_log = built, log
+            load_seconds = _untaken_load = time.perf_counter() - t_load
     return _libs[name]

@@ -178,9 +178,23 @@ class StatsClient:
             self._counters: dict[tuple, float] = defaultdict(float)
             self._gauges: dict[tuple, float] = {}
             self._timings: dict[tuple, _Histogram] = {}
+            # with_tags' children by (parent tags, added tags).
+            self._children: dict[tuple, "StatsClient"] = {}
+
+    #: Children the root keeps for with_tags; past it they are made anew.
+    MAX_CHILDREN = 4096
 
     def with_tags(self, *tags: str) -> "StatsClient":
-        child = StatsClient(self.tags + tuple(tags), _root=self._root)
+        """A client whose series also carry `tags`. The root keeps each
+        child, so a hot path that tags every call (a query's phase timings)
+        makes and sorts nothing after the first."""
+        root = self._root
+        k = (self.tags, tags)
+        child = root._children.get(k)
+        if child is None:
+            child = StatsClient(self.tags + tuple(tags), _root=root)
+            if len(root._children) < self.MAX_CHILDREN:
+                root._children[k] = child
         return child
 
     def _key(self, name: str) -> tuple:

@@ -1088,3 +1088,185 @@ def test_page_evicted_while_a_window_names_it(card):
     assert be.blocks.evictions > evictions
     assert be.blocks.resident_bytes() <= 2 * 3 * W * 4
     h.close()
+
+
+def _planes_holder(seed, s=3):
+    """Fields f, g and h (8, 12 and 4 rows: stacks of 8, 16 and 8) and an int
+    field v over s shards. Row r holds 3000 + 7 r columns, so no two rows of
+    a field tie and TopN's order is the CPU oracle's."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.field import options_for_int
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(seed)
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name, rows in (("f", 8), ("g", 12), ("h", 4)):
+        field = idx.create_field(name)
+        for row in range(rows):
+            cols = rng.choice(s * SHARD_WIDTH, 3000 + 7 * row, replace=False)
+            field.import_bits(np.full(cols.size, row, dtype=np.uint64),
+                              cols.astype(np.uint64))
+    cols = np.unique(rng.integers(0, s * SHARD_WIDTH, 2000, dtype=np.uint64))
+    idx.create_field("v", options_for_int(-500, 500)).import_value(
+        cols, rng.integers(-500, 501, cols.size))
+    return h
+
+
+#: A Count, Row, the pair request, TopN, Sum, Min, a BSI condition and a
+#: 3-field GroupBy, and the kernels each launches once on a cold backend.
+PLANE_QUERIES = [
+    ("Count(Intersect(Row(f=1), Row(g=7)))", {"count": 1}, {"spec_eval": 1}),
+    ("Row(f=2)", {"vec": 1}, {"spec_eval": 1}),
+    (" ".join(f"Count(Intersect(Row(f={a}), Row(g={b})))" for a in range(4) for b in range(4)),
+     {"pair_stats": 1}, {"pair_stats_pershard": 1}),
+    ("TopN(f, n=3)", {"topn": 1}, {"row_popcounts": 1}),
+    ("Sum(field=v)", {"bsi_sum": 1}, {"row_popcounts": 1, "popcount_rows": 1}),
+    ("Min(field=v)", {"bsi_min": 1}, {"bsi_minmax": 1}),
+    ("Count(Row(v > 100))", {"count": 1}, {"bsi_compare": 1, "spec_eval": 1}),
+    ("GroupBy(Rows(f), Rows(g), Rows(h))", {"groupby": 1, "group_tile_pershard": 1},
+     {"popcount_rows": 1, "group_tile_stats_pershard": 1}),
+]
+
+
+def test_ledger_launches_equal_the_kernel_launches(card):
+    """Each request's ledger launches by kind equal device_launches_total's
+    increase, and the kernels those launches made equal the increase of
+    ops.kernels.launch_counts(); the answers are the CPU oracle's; the
+    ledger records no recompile."""
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    h = _planes_holder(21)
+    be = CUDABackend(h)
+    dev, cpu = Executor(h, backend=be), Executor(h, backend=CPUBackend(h))
+
+    def ledger_by_kind():
+        out = {}
+        for e in be.programs.ledger():
+            out[e["kind"]] = out.get(e["kind"], 0) + e["launches"]
+        return out
+
+    for q, kinds, kernels in PLANE_QUERIES:
+        led0, k0 = ledger_by_kind(), K.launch_counts()
+        c0 = global_stats.counter_totals("device_launches_total")
+        assert dev.execute("i", q) == cpu.execute("i", q), q
+        torch.cuda.synchronize()
+        led = {k: v - led0.get(k, 0) for k, v in ledger_by_kind().items()
+               if v != led0.get(k, 0)}
+        ctr = {s.split('kind="')[1].rstrip('"}'): v - c0.get(s, 0.0)
+               for s, v in global_stats.counter_totals("device_launches_total").items()
+               if v != c0.get(s, 0.0)}
+        made = {k: v - k0[k] for k, v in K.launch_counts().items() if v != k0[k]}
+        assert led == ctr == kinds, q
+        assert made == kernels, q
+    counts = be.programs.counts()
+    assert counts["recompiles"] == 0 and counts["compiles"] <= 1
+    h.close()
+
+
+def test_preheat_on_card_loads_libraries_and_leaves_caches_empty(card):
+    """preheat on the card: every kernel library is loaded, the stacks are
+    resident, no kernel was launched, and no pair, TopN, aggregate or GroupN
+    cache entry exists; the first queries then upload nothing and answer as
+    the CPU oracle."""
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.ops import build
+
+    h = _planes_holder(22)
+    be = CUDABackend(h)
+    k0 = K.launch_counts()
+    assert be.preheat() == 4  # f, g, h and v's BSI view
+    torch.cuda.synchronize()
+    assert set(build._libs) == set(build.SOURCES)
+    assert K.launch_counts() == k0 and be.programs.counts()["launches"] == 0
+    assert be._pair_cache == {} and be._topn_cache == {}
+    assert be._agg_cache == {} and be._groupn_cache == {}
+    uploads = sum(e["uploads"] for e in be.blocks.ledger())
+    dev, cpu = Executor(h, backend=be), Executor(h, backend=CPUBackend(h))
+    for q, _, _ in PLANE_QUERIES:
+        assert dev.execute("i", q) == cpu.execute("i", q), q
+    assert sum(e["uploads"] for e in be.blocks.ledger()) == uploads
+    h.close()
+
+
+def test_refresher_beside_readers_and_a_writer_equals_unwindowed(card):
+    """A refresher at a 5 ms window, 8 reader threads and a writer on one
+    backend: every answer equals an unwindowed backend's over the same
+    holder in the same write epoch (a reader holds the epoch for its two
+    calls; the writer stops new reads and waits for those in flight), and
+    no stack is rebuilt whole."""
+    import threading
+    import time
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    h = _planes_holder(23)
+    win, plain = CUDABackend(h), CUDABackend(h)
+    wex, pex = Executor(h, backend=win), Executor(h, backend=plain)
+    queries = [PLANE_QUERIES[0][0], PLANE_QUERIES[2][0], "TopN(f, n=3)",
+               "Count(Union(Row(f=3), Row(h=1)))", "GroupBy(Rows(f), Rows(g), Rows(h))"]
+    for q in queries:
+        assert wex.execute("i", q) == pex.execute("i", q)
+    rebuilds = sum(global_stats.counter_totals("stack_full_rebuilds_total").values())
+    windowed = sum(global_stats.counter_totals("stack_windowed_refresh_total").values())
+    win.start_refresher(5)
+    stop = threading.Event()
+    errors = []
+    epoch = threading.Condition()
+    state = {"readers": 0, "writing": False}
+
+    def reader(i):
+        k = i
+        while not stop.is_set():
+            q = queries[k % len(queries)]
+            k += 1
+            with epoch:
+                epoch.wait_for(lambda: not state["writing"])
+                state["readers"] += 1
+            try:
+                got, want = wex.execute("i", q), pex.execute("i", q)
+            finally:
+                with epoch:
+                    state["readers"] -= 1
+                    epoch.notify_all()
+            if got != want:
+                errors.append(q)
+
+    def writer():
+        rng = np.random.default_rng(24)
+        for k in range(60):
+            # Shard 1 only: one dirty shard a stack is spliced, never
+            # rebuilt, by either backend.
+            col = int(rng.integers(SHARD_WIDTH, 2 * SHARD_WIDTH))
+            with epoch:
+                state["writing"] = True  # new reads wait: no starved writer
+                epoch.wait_for(lambda: state["readers"] == 0)
+                h.index("i").field("fgh"[k % 3]).set_bit(k % 4, col)
+                state["writing"] = False
+                epoch.notify_all()
+            time.sleep(0.005)
+
+    threads = [threading.Thread(target=reader, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    w = threading.Thread(target=writer)
+    w.start()
+    w.join()
+    stop.set()
+    for t in threads:
+        t.join()
+    win.stop_refresher()
+    assert errors == []
+    assert sum(global_stats.counter_totals("stack_windowed_refresh_total").values()) > windowed
+    assert sum(global_stats.counter_totals("stack_full_rebuilds_total").values()) == rebuilds
+    for q in queries:
+        assert wex.execute("i", q) == pex.execute("i", q)
+    h.close()

@@ -107,7 +107,7 @@ class _Pair:
     """The JAX server and the port's server, each over its own copy of
     one data directory."""
 
-    def __init__(self, src, root, cache_bytes=0, budget=None):
+    def __init__(self, src, root, cache_bytes=0, budget=None, jax_device=False):
         jdir, tdir = os.path.join(root, "jax"), os.path.join(root, "port")
         shutil.copytree(src, jdir)
         shutil.copytree(src, tdir)
@@ -115,9 +115,10 @@ class _Pair:
         self.th = open_reference_holder(tdir)
         self.backend = CUDABackend(self.th, device="cpu", max_bytes=budget)
         japi = JaxAPI(self.jh, JaxExecutor(self.jh))
-        if budget is not None:
+        if budget is not None or jax_device:
             # The JAX server over its device backend with the same budget,
-            # for the HBM ledger behind /debug/hbm.
+            # for the HBM ledger behind /debug/hbm, block heat behind
+            # /debug/heat and the program ledger behind /debug/programs.
             from pilosa_tpu.exec.tpu import TPUBackend
 
             japi = JaxAPI(self.jh, JaxExecutor(self.jh, backend=TPUBackend(
@@ -201,6 +202,15 @@ def budgeted_servers(written, tmp_path_factory):
     """A pair whose backends both run under HBM_BUDGET, the JAX server's
     over a TPUBackend: its /debug/hbm serves the JAX package's ledger."""
     pair = _Pair(written, str(tmp_path_factory.mktemp("hbm_pair")), budget=HBM_BUDGET)
+    yield pair
+    pair.close()
+
+
+@pytest.fixture(scope="module")
+def device_servers(written, tmp_path_factory):
+    """A pair whose JAX server runs over a TPUBackend, unbudgeted: its
+    /debug/heat and /debug/programs serve the JAX package's planes."""
+    pair = _Pair(written, str(tmp_path_factory.mktemp("device_pair")), jax_device=True)
     yield pair
     pair.close()
 
@@ -315,19 +325,80 @@ def test_get_bytes_identical(servers, path):
     ("POST", "/cluster/resize/remove-node", {"id": "node-x"}, 400),
     ("POST", "/cluster/resize/abort", {}, 400),
     ("POST", "/internal/fragment/repair", {"index": "i", "field": "f"}, 400),
-    # The HBM ledger (against the JAX package's, see below).
+    # The HBM ledger, block heat and the program ledger (against the JAX
+    # package's device backend, see below).
     ("GET", "/debug/hbm", b"", 200),
-    # Debug planes the port has not ported answer as on a backend without
-    # them.
     ("GET", "/debug/heat", b"", 200),
     ("GET", "/debug/programs", b"", 200),
+    # A server without a result cache.
     ("GET", "/debug/rescache", b"", 200),
 ])
 def test_single_node_routes_bytes_identical(servers, request, method, path, body, status):
     if path == "/debug/hbm":
         _same_hbm_ledger(request.getfixturevalue("budgeted_servers"))
         return
+    if path == "/debug/heat":
+        _same_heat(request.getfixturevalue("device_servers"))
+        return
+    if path == "/debug/programs":
+        _same_programs(request.getfixturevalue("device_servers"))
+        return
     servers.same(method, path, body, status=status)
+
+
+#: The requests both device pairs serve before their debug planes are read.
+PLANE_QUERIES = ("TopN(f, n=2)", "Count(Intersect(Row(f=1), Row(g=7)))", "Row(f=2)",
+                 "Count(Row(g=7))", "Count(Intersect(Row(f=1), Row(g=7)))")
+
+
+def _debug(srv, path):
+    status, ctype, body = _send(srv, "GET", path)
+    assert (status, ctype) == (200, "application/json")
+    return json.loads(body)
+
+
+def _same_heat(pair):
+    """/debug/heat of the port's server against the JAX server's over a
+    TPUBackend after the same requests: the same half-life, tier keys,
+    entries (but for the clock-dependent heat and idleSeconds) and
+    reuse-distance block; entries hottest first; the tier rollup sums the
+    entries' heat; ?top=1 keeps one entry."""
+    for q in PLANE_QUERIES:
+        _query(pair, q, "json")
+
+    def timeless(d):
+        return sorted(
+            ({k: v for k, v in e.items() if k not in ("heat", "idleSeconds")}
+             for e in d["entries"]), key=lambda e: e["field"])
+
+    got, want = _debug(pair.port, "/debug/heat"), _debug(pair.jax, "/debug/heat")
+    assert got.keys() == want.keys() == {"halfLifeSeconds", "tierHeat", "entries", "reuse"}
+    assert got["halfLifeSeconds"] == want["halfLifeSeconds"] == 300.0
+    assert got["tierHeat"].keys() == want["tierHeat"].keys()
+    assert timeless(got) == timeless(want) and got["entries"]
+    assert got["reuse"] == want["reuse"] and got["reuse"]["samples"] > 0
+    heats = [e["heat"] for e in got["entries"]]
+    assert heats == sorted(heats, reverse=True) and heats[0] > 0
+    assert sum(got["tierHeat"].values()) == pytest.approx(sum(heats), rel=1e-3)
+    top = _debug(pair.port, "/debug/heat?top=1")
+    assert len(top["entries"]) == 1
+
+
+def _same_programs(pair):
+    """/debug/programs of the port's server has the JAX server's keys, at
+    the top and in every entry, after the same requests; its entries'
+    launches sum to its total, coldest first, with no recompile."""
+    for q in PLANE_QUERIES:
+        _query(pair, q, "json")
+    got, want = _debug(pair.port, "/debug/programs"), _debug(pair.jax, "/debug/programs")
+    assert got.keys() == want.keys()
+    assert got["entries"] and want["entries"]
+    assert {k for e in got["entries"] for k in e} == {k for e in want["entries"] for k in e}
+    assert got["launches"] == sum(e["launches"] for e in got["entries"]) > 0
+    assert got["programs"] == len(got["entries"])
+    assert got["recompiles"] == 0
+    idle = [e["idleSeconds"] for e in got["entries"]]
+    assert idle == sorted(idle, reverse=True)
 
 
 def _same_hbm_ledger(pair):
@@ -547,8 +618,6 @@ def test_every_unread_setting_is_tested():
 
 @pytest.mark.parametrize("knob,toml,argv", [
     *((k, t, []) for k, t in UNREAD_SETTING_TOML.items()),
-    ("preheat", "preheat = true\n", []),
-    ("refresh-window-ms", "refresh-window-ms = 5\n", []),
     ("mesh-devices", "mesh-devices = 2\n", []),
     ("profile.port", "[profile]\nport = 6060\n", []),
     ("cluster.hosts", '[cluster]\nhosts = ["127.0.0.1:10101", "127.0.0.1:10102"]\n', []),
@@ -695,18 +764,116 @@ def test_generate_config_names_cuda(capsys):
 
 def test_config_defaults_serve():
     """Every refused knob is off by default, so the default configuration
-    starts (heat-half-life is accepted and inert)."""
+    starts."""
     cfg = cli_config("/nonexistent")
     assert cfg.executor == "cuda"
     assert cfg.heat_half_life == 300.0
     assert cli._unported_knobs(cfg, None) == []
 
 
-def test_heat_half_life_is_accepted():
-    """heat-half-life is accepted and inert until block heat is ported."""
+def test_heat_half_life_is_accepted(tmp_path, monkeypatch):
+    """heat-half-life is accepted, and its value is the half-life of the
+    server's stack heat (backend.blocks.heat_half_life, /debug/heat)."""
     cfg = cli_config("/nonexistent")
     cfg.heat_half_life = 60.0
     assert cli._unported_knobs(cfg, None) == []
+    ex = _boot(tmp_path, monkeypatch, "heat-half-life = 60.0\n", {}, [])
+    try:
+        assert ex.backend.blocks.heat_half_life == 60.0
+    finally:
+        ex.holder.close()
+
+
+def _boot(tmp_path, monkeypatch, toml, env, argv):
+    """Run `cli server` with the card stood in for by the plain versions on
+    the CPU, up to where it builds its API; returns its executor."""
+    from pilosa_tpu_torch.exec import cuda as cuda_mod
+    from pilosa_tpu_torch.server import api as api_mod
+
+    built = {}
+
+    def capture(self, holder, executor, *a, **k):
+        built["executor"] = executor
+        raise _Booted
+
+    real = cuda_mod.CUDABackend
+    monkeypatch.setattr(cuda_mod, "CUDABackend",
+                        lambda holder, **k: real(holder, device="cpu", **k))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "stand-in")
+    monkeypatch.setattr(api_mod.API, "__init__", capture)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    conf = tmp_path / "c.toml"
+    conf.write_text(toml)
+    with pytest.raises(_Booted):
+        cli.main(["server", "-d", str(tmp_path / "d"), "--bind", "127.0.0.1:0",
+                  "-c", str(conf)] + argv)
+    return built["executor"]
+
+
+#: Each plane knob, as TOML, as an environment variable and as a flag.
+PLANE_KNOBS = {
+    "preheat": ("preheat = true\n", {"PILOSA_TPU_PREHEAT": "true"}, ["--preheat"]),
+    "refresh-window-ms": ("refresh-window-ms = 25\n",
+                          {"PILOSA_TPU_REFRESH_WINDOW_MS": "25"},
+                          ["--refresh-window-ms", "25"]),
+    "heat-half-life": ("heat-half-life = 45.0\n", {"PILOSA_TPU_HEAT_HALF_LIFE": "45"},
+                       ["--heat-half-life", "45"]),
+}
+
+
+@pytest.mark.parametrize("source", ["toml", "env", "flag"])
+@pytest.mark.parametrize("knob", list(PLANE_KNOBS))
+def test_cli_plane_knob_reaches_the_backend(tmp_path, monkeypatch, capsys, knob, source):
+    """preheat, refresh-window-ms and heat-half-life, from TOML, from the
+    environment or from a flag, reach the server's CUDABackend: preheat
+    runs on a thread of its own and logs the stacks it made resident; the
+    refresher starts with the window, which the log names; the half-life
+    is the blocks' heat half-life."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec.cuda import CUDABackend as real
+
+    data = Holder(str(tmp_path / "d")).open()
+    data.create_index("i").create_field("f")
+    data.index("i").field("f").set_bit(1, 3)
+    data.close()
+    ran = {}
+    preheat = real.preheat
+
+    def counted(self, logger=None):
+        ran["n"] = preheat(self, logger=logger)
+        return ran["n"]
+
+    monkeypatch.setattr(real, "preheat", counted)
+    toml, env, argv = PLANE_KNOBS[knob]
+    src = {"toml": (toml, {}, []), "env": ("", env, []), "flag": ("", {}, argv)}[source]
+    ex = _boot(tmp_path, monkeypatch, *src)
+    be = ex.backend
+    log = capsys.readouterr().err
+    try:
+        if knob == "preheat":
+            deadline = time.monotonic() + 30
+            while "stacks resident" not in log:
+                assert time.monotonic() < deadline, "preheat did not finish"
+                time.sleep(0.02)
+                log += capsys.readouterr().err
+            assert ran["n"] >= 1
+            assert f"preheat: {ran['n']} stacks resident" in log
+            assert be.blocks.peek("i", "f") is not None
+        else:
+            assert "n" not in ran and be.blocks.peek("i", "f") is None
+        if knob == "refresh-window-ms":
+            assert be._refresher is not None and be._refresher.is_alive()
+            assert be.blocks.refresh_window_ms == 25
+            assert "windowed device refresh: 25 ms coalescing window" in log
+        else:
+            assert be._refresher is None and be.blocks.refresh_window_ms == 0
+        want = 45.0 if knob == "heat-half-life" else 300.0
+        assert be.blocks.heat_half_life == want
+    finally:
+        be.stop_refresher()
+        ex.holder.close()
+    assert be._refresher is None and be.blocks.refresh_window_ms == 0
 
 
 def test_cli_import_and_export_through_the_port(fresh, tmp_path, capsys):
