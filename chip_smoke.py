@@ -16,7 +16,7 @@ chip_smoke.py to time it).
    and CUDA versions, and the kernel build seconds with ptxas's report
    (ops/csrc/bmma.cu: K1, K2 and K4 to K7 on the tensor cores' binary MMA,
    and the probe; ops/csrc/bitcount.cu: K3, K8, K9 and K10;
-   ops/csrc/spec.cu: K11);
+   ops/csrc/spec.cu: K11; ops/csrc/expand.cu: K12 to K14);
    then the AND-popcount rate probe (ops/csrc/bmma.cu, ops/probe.py): the
    b1 tensor-core MMA's and the CUDA cores' popcount rates in bit-products
    a second, which set the kernels' operations bounds;
@@ -143,6 +143,21 @@ chip_smoke.py to time it).
    stacks, then the first Count, TopN(f), 16-Count pair request and
    3-field GroupBy after it, which must upload nothing, beside the same
    calls on a cold backend, whose answers they must equal;
+4c. the chunked cold build (phase_cold_build, on bench.py's index alone
+   after phase 4b): preheat() and the first Count on fresh backends by
+   the dense path (MIN_CHUNKED_WORDS past every stack, the container tier
+   off: the parent's pack and pageable copy) and by the chunked path
+   (ops/sparse.py); then a run-heavy field r in an index of its own (954
+   shards x 8 rows, every roaring container one run of 1000 to 60000
+   columns, imported as run containers, checked to be runs), and, with
+   the launch counters zeroed, f, g, h, v's BSI view, the existence row
+   and r each built on fresh backends by both paths over 2 rounds in
+   alternating order (v also with the container tier off, so that its
+   chunks take the words tier), each pair torch.equal; each build prints
+   its wall, version walk, tier walk, host pack, copy and expansion, wire
+   and dense bytes, chunks by tier, drains and peak device memory over
+   its start (at most the stack plus MAX_PENDING_BYTES when chunked);
+   K12, K13 and K14 must each have launched;
 5. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
@@ -170,7 +185,9 @@ chip_smoke.py to time it).
    its two timed variants, from 8 threads at once, and at edge shapes
    (S = 1, word axes off its chunk, the full leaf table and stack, zero
    leaves, per-slot rows past the launch's parameters) in both modes on
-   every body;
+   every body; K12, K13 and K14 on the first chunks of f, r and v (its
+   words tier) that phase 4c's builds shipped, their wire as the builder
+   staged it (phase_expand_kernels);
 5b. the host rows of the tables (exec/cuda.py _host_slab_pair_flat,
    _host_slab_row_counts, _host_slab_groupn), which a write epoch derives
    on the host, against K1's, K8's, K7's and K5's rows of two random slab
@@ -208,6 +225,7 @@ With no CUDA card the script exits with code 2 before doing anything.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -279,8 +297,17 @@ REPLACES = {
     "bsi_compare": "pilosa_tpu/exec/tpu.py:1243",
     # The fused count, count_batch and vec_batch programs (and vec, :2084).
     "spec_eval": "pilosa_tpu/exec/tpu.py:2070, :2091, :2116",
+    # The cold build's XLA expansion programs (ops/sparse.py _pos_prog,
+    # _run_prog, and the mask decompress _chunk_prog at sparse.py:213).
+    "expand_positions": "pilosa_tpu/ops/kernels.py:410",
+    "expand_runs": "pilosa_tpu/ops/kernels.py:446",
+    "expand_words": "pilosa_tpu/ops/sparse.py:213",
 }
 COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "spec_eval")
+# The cold build's expansion kernels (K12 to K14). They launch where a
+# request builds a stack (a chunk at a time), so the per-request launch
+# counts of the query phases leave them out (query_launches).
+BUILD_KERNELS = ("expand_positions", "expand_runs", "expand_words")
 # Each kernel's earlier time at the shape timed here, recorded by this
 # script on an NVIDIA H100 80GB HBM3 at 700.00 W on the CUDA cores: K2 and
 # K4 before they moved to the tensor cores, K1 and K5 before they followed
@@ -303,6 +330,14 @@ EARLIER_MS = {
 # K64_SHARDS shards, K7's over the last as well (the plain pass over all
 # 954 would take about a minute).
 K64_SHARDS = 64
+
+
+def query_launches() -> dict:
+    """ops.kernels.launch_counts() of the query kernels (all but
+    BUILD_KERNELS)."""
+    from pilosa_tpu_torch.ops import kernels as K
+
+    return {k: v for k, v in K.launch_counts().items() if k not in BUILD_KERNELS}
 
 
 def log(*args) -> None:
@@ -747,11 +782,11 @@ def phase_main(results: dict):
     per_request = {}
 
     def launches_of(label, fn):
-        before = K.launch_counts()
+        before = query_launches()
         t0 = time.perf_counter()
         out = fn()
         ms = (time.perf_counter() - t0) * 1e3
-        per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()
+        per_request[label] = {k: v - before[k] for k, v in query_launches().items()
                               if v != before[k]}
         return ms, out
 
@@ -807,7 +842,7 @@ def phase_main(results: dict):
     check(same_answers(out, answers[wide_request]), "uncached wide answers moved")
     latencies["16-Count wide pair request, uncached"] = {"median_ms": med}
     torch.cuda.synchronize()
-    launches = K.launch_counts()
+    launches = query_launches()
     log("main: launches per request " + json.dumps(per_request))
     want = {
         "single Count": {"spec_eval": 1},
@@ -956,12 +991,12 @@ def phase_groupby(holder, backend):
     answers = {}
 
     def request(label, q):
-        before = K.launch_counts()
+        before = query_launches()
         t0 = time.perf_counter()
         out = dev.execute("bench", q)
         torch.cuda.synchronize()
         latencies[label] = (time.perf_counter() - t0) * 1e3
-        per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()
+        per_request[label] = {k: v - before[k] for k, v in query_launches().items()
                               if v != before[k]}
         return group_tuples(out[0])
 
@@ -973,7 +1008,7 @@ def phase_groupby(holder, backend):
     answers[GROUP_QUERIES[4]] = request("3-field filtered", GROUP_QUERIES[4])
     answers[GROUP_QUERIES[5]] = request("3-field limit/offset", GROUP_QUERIES[5])
     torch.cuda.synchronize()
-    launches = K.launch_counts()
+    launches = query_launches()
     log("groupby: launches per request " + json.dumps(per_request))
     log("groupby: launches " + json.dumps(launches))
     want = {
@@ -1128,12 +1163,12 @@ def phase_bsi(holder, backend):
     drop_caches()
     K.reset_launch_counts()
     for q in topn_queries + list(agg_queries) + list(cond_queries):
-        before = K.launch_counts()
+        before = query_launches()
         answers[q] = dev.execute("bench", q)[0]
         torch.cuda.synchronize()
-        per_request[q] = {k: v - before[k] for k, v in K.launch_counts().items()
+        per_request[q] = {k: v - before[k] for k, v in query_launches().items()
                           if v != before[k]}
-    launches = K.launch_counts()
+    launches = query_launches()
     log(f"bsi: first pass {time.perf_counter() - t0:.1f} s (the BSI stack build included)")
     log("bsi: launches per request " + json.dumps(per_request))
     want = {"TopN(f, n=5)": {"row_popcounts": 1}, "TopN(f)": {}, "Rows(f)": {},
@@ -1468,14 +1503,13 @@ def inproc_load(dev, queries, expected, threads: int, seconds: float) -> dict:
 def batch_counters() -> tuple:
     """(batch legs, device programs, kernel launches, occupancy sum,
     occupancy count) so far: the batcher's and the backend's counters."""
-    from pilosa_tpu_torch.ops import kernels as K
     from pilosa_tpu_torch.utils.stats import global_stats
 
     occ = [v for k, v in global_stats.histogram_snapshot().items()
            if k.startswith("batch_occupancy")]
     return (sum(global_stats.counter_totals("batch_legs_total").values()),
             sum(global_stats.counter_totals("device_launches_total").values()),
-            sum(K.launch_counts().values()),
+            sum(query_launches().values()),
             sum(v["sum"] for v in occ), sum(v["count"] for v in occ))
 
 
@@ -1590,7 +1624,6 @@ def miss_window(port: int, path: str, backend, dev, queries, col: int,
     import random
     import threading
 
-    from pilosa_tpu_torch.ops import kernels as K
     from pilosa_tpu_torch.utils import fastjson
 
     def body(results):
@@ -1639,7 +1672,7 @@ def miss_window(port: int, path: str, backend, dev, queries, col: int,
                 time.sleep(0.05)
         conn.close()
 
-    before, split0 = K.launch_counts(), phase_split_totals()
+    before, split0 = query_launches(), phase_split_totals()
     w = threading.Thread(target=writer)
     w.start()
     try:
@@ -1647,7 +1680,7 @@ def miss_window(port: int, path: str, backend, dev, queries, col: int,
     finally:
         done.set()
         w.join()
-    after = K.launch_counts()
+    after = query_launches()
     r.update(phase_split(split0))
     r["request"] = "cache-missing mix under Set/Clear epochs"
     r["launches_per_request"] = {k: (after[k] - before[k]) / max(1, r["requests"])
@@ -1727,7 +1760,6 @@ def epoch_window(label: str, port: int, path: str, dev, queries, to_b: str, to_a
     import random
     import threading
 
-    from pilosa_tpu_torch.ops import kernels as K
     from pilosa_tpu_torch.utils import fastjson
 
     def body(results):
@@ -1776,7 +1808,7 @@ def epoch_window(label: str, port: int, path: str, dev, queries, to_b: str, to_a
                 time.sleep(CHURN_WRITE_SECONDS)
         c.close()
 
-    before, t0 = K.launch_counts(), tier_totals()
+    before, t0 = query_launches(), tier_totals()
     rf0, kl0 = refresh_totals(), kind_launches()
     w = threading.Thread(target=writer)
     w.start()
@@ -1785,7 +1817,7 @@ def epoch_window(label: str, port: int, path: str, dev, queries, to_b: str, to_a
     finally:
         done.set()
         w.join()
-    after, t1 = K.launch_counts(), tier_totals()
+    after, t1 = query_launches(), tier_totals()
     rf1, kl1 = refresh_totals(), kind_launches()
     r["refresh"] = {k: rf1[k] - rf0[k] for k in REFRESH_COUNTERS}
     r["launches_by_kind"] = {k: v - kl0.get(k, 0) for k, v in kl1.items()
@@ -2149,6 +2181,341 @@ def phase_preheat(holder):
     del warm, cold_be
     torch.cuda.empty_cache()
     log(f"preheat: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the chunked cold build (ops/sparse.py) against the dense build
+# ---------------------------------------------------------------------------
+
+#: The run-heavy field r, in an index of its own: 954 shards x 8 rows, every
+#: roaring container of a row one column interval of RUN_MIN to RUN_MAX
+#: columns, imported as run containers.
+RUN_MIN, RUN_MAX = 1000, 60000
+COLD_ROUNDS = 2
+#: The paths every stack is built by: "dense" packs the stack on the host
+#: and copies it whole (MIN_CHUNKED_WORDS past the stack, the container
+#: tier off: the parent's path), "chunked" streams it (ops/sparse.py). v is
+#: also built by "words": streamed with the container tier off, so that its
+#: chunks take the words tier and expand through K14.
+COLD_PATHS = ("dense", "chunked")
+
+
+def build_run_field(holder):
+    """r: per shard, one roaring Bitmap whose every container (8 rows x 16
+    containers) holds one run of RUN_MIN to RUN_MAX columns at a random
+    offset, imported with Field.import_roaring; every container of every
+    fragment must be a run container."""
+    import numpy as np
+
+    from pilosa_tpu_torch.roaring.bitmap import Bitmap, Container
+    from pilosa_tpu_torch.roaring.codec import serialize
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(11)
+    field = holder.create_index("runs").create_field("r")
+    keys = ROWS * (SHARD_WIDTH >> 16)
+    for shard in range(SHARDS):
+        lens = rng.integers(RUN_MIN, RUN_MAX + 1, keys)
+        starts = (rng.random(keys) * (65536 - lens)).astype(np.int64)
+        bm = Bitmap()
+        for key in range(keys):
+            bm.put_container(key, Container.from_runs(
+                np.array([[starts[key], starts[key] + lens[key] - 1]], dtype=np.int64)))
+        field.import_roaring(shard, serialize(bm))
+    kinds = set()
+    for shard in range(SHARDS):
+        fr = field.view("standard").fragment(shard)
+        with fr.lock:
+            fr.storage.optimize()
+            kinds |= {fr.storage.container(k).typ for k in fr.storage.keys()}
+    check(kinds == {"run"}, f"cold: r's containers are {kinds}, not runs")
+
+
+class build_path:
+    """Sets ops/sparse.py's switches for one build path, and restores them."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        from pilosa_tpu_torch.ops import sparse
+
+        self.saved = (sparse.MIN_CHUNKED_WORDS, sparse.CONTAINER_TIER_ENABLED)
+        if self.path == "dense":
+            sparse.MIN_CHUNKED_WORDS = 1 << 62
+        sparse.CONTAINER_TIER_ENABLED = self.path == "chunked"
+        return self
+
+    def __exit__(self, *exc):
+        from pilosa_tpu_torch.ops import sparse
+
+        sparse.MIN_CHUNKED_WORDS, sparse.CONTAINER_TIER_ENABLED = self.saved
+
+
+class BuildSplit:
+    """Times one full build of _StackedBlocks.get through the names it
+    calls: the version walk (_locked_version), the tier walk
+    (fragment_tier_words), the dense path's host pack (pack_fragment) and
+    copy (_put, to the card's readiness), and the chunked path's builder
+    (timed: host pack, waits, device ms of its copies and expansions), and
+    keeps the first chunk of each wire tier (its views on the host) for the
+    kernels' checks."""
+
+    def __init__(self, backend, capture: dict, label: str):
+        import torch
+
+        from pilosa_tpu_torch.exec import cuda as cuda_mod
+        from pilosa_tpu_torch.ops import sparse
+
+        self.t = {"version_walk_s": 0.0, "tier_walk_s": 0.0, "host_pack_s": 0.0,
+                  "copy_s": 0.0}
+        self.builder = None
+        split = self
+        self.mods = cuda_mod, sparse
+        self.saved = (cuda_mod._locked_version, cuda_mod.fragment_tier_words,
+                      cuda_mod.pack_fragment, sparse.ChunkedStackBuilder)
+
+        def timed(key, fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    split.t[key] += time.perf_counter() - t0
+            return call
+
+        cuda_mod._locked_version = timed("version_walk_s", self.saved[0])
+        cuda_mod.fragment_tier_words = timed("tier_walk_s", self.saved[1])
+        cuda_mod.pack_fragment = timed("host_pack_s", self.saved[2])
+        put = backend.blocks._put
+
+        def timed_put(host):
+            t0 = time.perf_counter()
+            out = put(host)
+            torch.cuda.synchronize()
+            split.t["copy_s"] += time.perf_counter() - t0
+            return out
+
+        backend.blocks._put = timed_put
+
+        class Timed(self.saved[3]):
+            def __init__(b, device, shape):
+                super().__init__(device, shape, timed=True)
+                split.builder = b
+
+            def _ship(b, lay, kind):
+                if (label, kind) not in capture:
+                    capture[(label, kind)] = (b._valid(), [v.clone() for v in
+                                                           lay.views(lay.host)])
+                super()._ship(lay, kind)
+
+        sparse.ChunkedStackBuilder = Timed
+
+    def restore(self):
+        cuda_mod, sparse = self.mods
+        (cuda_mod._locked_version, cuda_mod.fragment_tier_words, cuda_mod.pack_fragment,
+         sparse.ChunkedStackBuilder) = self.saved
+
+
+def cold_stacks(holder):
+    """(label, index, field, view, min_rows) of the stacks the phase builds:
+    f, g, h, v's BSI view, the existence row and r."""
+    from pilosa_tpu_torch.core.fragment import BSI_OFFSET_BIT
+    from pilosa_tpu_torch.core.view import VIEW_STANDARD, bsi_view_name
+
+    idx = holder.index("bench")
+    return [("f", "bench", idx.field("f"), VIEW_STANDARD, 1),
+            ("g", "bench", idx.field("g"), VIEW_STANDARD, 1),
+            ("h", "bench", idx.field("h"), VIEW_STANDARD, 1),
+            ("v", "bench", idx.field("v"), bsi_view_name("v"),
+             BSI_OFFSET_BIT + idx.field("v").options.bit_depth),
+            ("exists", "bench", idx.existence_field(), VIEW_STANDARD, 1),
+            ("r", "runs", holder.index("runs").field("r"), VIEW_STANDARD, 1)]
+
+
+def cold_build(holder, spec, path, capture):
+    """One full build of a stack on a fresh backend by `path`: (stack, its
+    record: wall s to the card's readiness, the split, wire and dense
+    bytes, chunks by tier, drains, peak device bytes over the start)."""
+    import torch
+
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.ops import sparse
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    label, index, field, view, min_rows = spec
+    backend = CUDABackend(holder)
+    drains0 = sum(global_stats.counter_totals("stack_pending_drains_total").values())
+    gc.collect()  # earlier backends' stacks, held in reference cycles
+    with build_path(path):
+        split = BuildSplit(backend, capture, label)
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            stack, _ = backend.blocks.get(index, field, tuple(range(SHARDS)), view, min_rows)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            split.restore()
+    rec = {"s": wall, **split.t, "peak_bytes": peak, "stack_bytes": stack.numel() * 4}
+    b = split.builder
+    if path == "dense":
+        check(b is None, f"cold: the dense path of {label} went through the builder")
+        rec.update(wire_bytes=stack.numel() * 4, dense_bytes=stack.numel() * 4)
+    else:
+        check(b is not None, f"cold: the {path} path of {label} did not stream")
+        rec.update(b.split())
+        rec.update(wire_bytes=b._wire_bytes, dense_bytes=b._dense_bytes,
+                   chunks=dict(b.chunks),
+                   drains=sum(global_stats.counter_totals(
+                       "stack_pending_drains_total").values()) - drains0)
+        check(peak <= rec["stack_bytes"] + sparse.MAX_PENDING_BYTES,
+              f"cold: {label}'s chunked build peaked at {peak} bytes over the stack's "
+              f"{rec['stack_bytes']} plus MAX_PENDING_BYTES")
+    del backend
+    return stack, rec
+
+
+def cold_first_calls(holder):
+    """preheat() and the first Count on fresh backends, on each path:
+    {path: {preheat_s, stacks, first_count_s}}, answers checked equal."""
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+
+    out, answers = {}, {}
+    for path in COLD_PATHS:
+        with build_path(path):
+            warm = CUDABackend(holder)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = warm.preheat()
+            torch.cuda.synchronize()
+            preheat_s = time.perf_counter() - t0
+            del warm
+            torch.cuda.empty_cache()
+            cold = CUDABackend(holder)
+            t0 = time.perf_counter()
+            answers[path] = Executor(holder, backend=cold).execute("bench", FIRST_CALLS[0][1])
+            torch.cuda.synchronize()
+            out[path] = {"preheat_s": preheat_s, "stacks": n,
+                         "first_count_s": time.perf_counter() - t0}
+            del cold
+            torch.cuda.empty_cache()
+    check(same_answers(answers["dense"], answers["chunked"]),
+          "cold: the first Count differs between the paths")
+    return out
+
+
+def phase_cold_build(holder):
+    """The chunked cold build against the dense one at 954 shards: preheat
+    and the first Count on each path (bench.py's index alone); then, with
+    the launch counters zeroed, f, g, h, v's BSI view, the existence row and
+    the run-heavy field r each built on fresh backends by the dense and the
+    chunked path over COLD_ROUNDS rounds in alternating order (and v also
+    by the words path), each pair torch.equal, each build's split, wire,
+    chunks by tier, drains and peak device memory printed; K12, K13 and K14
+    must each have launched. Returns their launches and the first chunk of
+    each tier, by stack, for the kernels' checks."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.ops import sparse
+
+    t_phase = time.perf_counter()
+    first = cold_first_calls(holder)
+    log("cold: preheat and first Count by path " + json.dumps(first))
+    t0 = time.perf_counter()
+    build_run_field(holder)
+    log(f"cold: r built ({SHARDS} shards x {ROWS} rows, a run of {RUN_MIN} to {RUN_MAX} "
+        f"columns in every container) in {time.perf_counter() - t0:.1f} s; its containers "
+        "are runs")
+    capture: dict = {}
+    K.reset_launch_counts()
+    for rnd in range(COLD_ROUNDS):
+        order = COLD_PATHS if rnd % 2 == 0 else COLD_PATHS[::-1]
+        for spec in cold_stacks(holder):
+            paths = order + (("words",) if spec[0] == "v" else ())
+            built = {}
+            for path in paths:
+                stack, rec = cold_build(holder, spec, path, capture)
+                built[path] = stack
+                log(f"cold: round {rnd} {spec[0]} {path} " + json.dumps(rec))
+            for path in paths[1:]:
+                check(torch.equal(built[paths[0]], built[path]),
+                      f"cold: {spec[0]}'s {path} stack differs from its {paths[0]} twin")
+            del built, stack
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts().items() if k in BUILD_KERNELS}
+    log("cold: launches in the phase's builds " + json.dumps(launches))
+    for name in BUILD_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the cold build")
+    holder.delete_index("runs")
+    torch.cuda.empty_cache()
+    log(f"cold: MAX_PENDING_BYTES {sparse.MAX_PENDING_BYTES}, CHUNK_WORDS "
+        f"{sparse.CHUNK_WORDS}; phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, capture
+
+
+def phase_expand_kernels(capture, launches, device="cuda"):
+    """K12 on f's first container chunk, K13 on r's and K14 on v's first
+    words chunk (the chunks the cold build shipped, their wire as the
+    builder staged it) against the plain forms on the card, exactly, with
+    times and bounds."""
+    import torch
+
+    from pilosa_tpu_torch.ops import build
+    from pilosa_tpu_torch.ops import kernels as K
+
+    dev = torch.device(device)
+    lines = []
+    cases = [("expand_positions", ("f", "container")), ("expand_runs", ("r", "container")),
+             ("expand_words", ("v", "words"))]
+    for name, key in cases:
+        check(key in capture, f"expand: no {key[1]} chunk of {key[0]} was captured")
+        valid, views = capture[key]
+        views = [v.to(dev) for v in views]
+        if name == "expand_words":
+            args = views  # mask, vals, bases
+            written = 4 * int(views[1].numel())
+        else:
+            a_slot, a_start, r_slot, r_start, pos, spans = views[:6]
+            args = (pos, a_slot, a_start) if name == "expand_positions" else \
+                (spans, r_slot, r_start)
+            written = 4 * K.CONTAINER_SLOT_WORDS * int(args[1].numel())
+            check(args[1].numel() > 0, f"expand: {key} holds no {name} containers")
+        read = sum(int(a.numel()) * a.element_size() for a in args)
+        wrapper = getattr(K, name)
+        plain = getattr(K, name + "_torch")
+        out = torch.zeros(valid, dtype=torch.int32, device=dev)
+        want = torch.zeros_like(out)
+        wrapper(out, *args)
+        plain(want, *args)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, want)
+        check(err == 0, f"expand: {name} disagrees with its plain form on {key}")
+        ms = time_ms(lambda: wrapper(out, *args))
+        plain_ms = time_ms(lambda: plain(want, *args), reps=3, warm=1)
+        fn = getattr(build.library(K._LIBRARY[name]), name + "_launch")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        n = int(args[1].numel()) if name != "expand_words" else int(args[0].numel())
+
+        def bare(fn=fn, args=args, n=n):
+            rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), n, valid, stream)
+            check(rc == 0, f"{name}: CUDA launch failed with cudaError {rc}")
+
+        k_ms = kernel_ms(bare)
+        line = kernel_line(name, ms, k_ms, plain_ms, (read + written, 0), err,
+                           launches.get(name, 0))
+        log(f"expand: {name} on {key[0]}'s first {key[1]} chunk ({valid} words, "
+            f"{read} bytes read, {written} written) " + json.dumps(line))
+        lines.append(line)
+    return lines
 
 
 def phase_host_count(root, rounds: int = 0) -> int:
@@ -2541,14 +2908,14 @@ def phase_budget(holder, backend):
     path_launches = {}
     rows = {}
     for label, index, q in BUDGET_CALLS:
-        launches = K.launch_counts()
+        launches = query_launches()
         pages = (counter("hbm_page_uploads_total"), counter("hbm_page_bytes_total"))
         evictions = bud.blocks.evictions
         t0 = time.perf_counter()
         got = bdev.execute(index, q)
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
-        now = K.launch_counts()
+        now = query_launches()
         for k, n in now.items():
             path_launches[k] = path_launches.get(k, 0) + n - launches[k]
         row = {
@@ -2651,9 +3018,9 @@ def phase_http(holder, backend, root):
         per_request = {}
         K.reset_launch_counts()
         for label, q in requests:
-            before = K.launch_counts()
+            before = query_launches()
             status, body = http_post(conn, path, q.encode())
-            per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()
+            per_request[label] = {k: v - before[k] for k, v in query_launches().items()
                                   if v != before[k]}
             check(status == 200 and body == json_body(inproc[q]),
                   f"http: JSON {label} disagrees with the in-process executor")
@@ -2662,7 +3029,7 @@ def phase_http(holder, backend, root):
             check(status == 200 and body == encode_query_response(inproc[q], []),
                   f"http: protobuf {label} disagrees with the in-process executor")
         torch.cuda.synchronize()
-        launches = K.launch_counts()
+        launches = query_launches()
         log("http: launches per request (JSON, caches dropped) " + json.dumps(per_request))
         log("http: launches " + json.dumps(launches))
         want = {
@@ -2702,11 +3069,11 @@ def phase_http(holder, backend, root):
         throughput = []
 
         def window(label, qs, n, wiring):
-            before, bc = K.launch_counts(), batch_counters()
+            before, bc = query_launches(), batch_counters()
             r = run_http_load({"host": "127.0.0.1", "port": server.port, "path": path,
                                "clients": n, "seconds": HTTP_SECONDS,
                                "queries": [[q, expected[q]] for q in qs]})
-            after = K.launch_counts()
+            after = query_launches()
             r["request"] = label
             r["wiring"] = wiring
             r["launches_per_request"] = {k: (after[k] - before[k]) / max(1, r["requests"])
@@ -2726,11 +3093,11 @@ def phase_http(holder, backend, root):
         per_request = {}
         for label, q in (("Count", north), ("3-row Count", threes[1])):
             backend._pair_cache.clear()
-            before = K.launch_counts()
+            before = query_launches()
             status, body = http_post(conn, path, q.encode())
             check(status == 200 and body.decode("latin-1") == expected[q],
                   f"http: batched {label} disagrees with the in-process executor")
-            per_request[label] = {k: v - before[k] for k, v in K.launch_counts().items()
+            per_request[label] = {k: v - before[k] for k, v in query_launches().items()
                                   if v != before[k]}
         log("http: launches per request with the batcher (caches dropped) "
             + json.dumps(per_request))
@@ -3067,7 +3434,7 @@ def cross_check(gstacks, served):
     full = K.nary_stats(f, g, (h,))
     tiles = K.group_tile_stats(f, g, (h,), [[r] for r in range(rh)], [1] * rh)
     torch.cuda.synchronize()
-    launches = K.launch_counts()
+    launches = query_launches()
     summed = per.sum(dim=1, dtype=torch.int64).cpu().numpy()
     live = summed.reshape(rh, -1).any(axis=1)
     check(list(np.nonzero(live)[0]) == list(range(H_ROWS)), f"cross: live k {live}")
@@ -3471,9 +3838,9 @@ def phase_spec_kernels(gstacks, exists, launches):
     out = {}
     for label, (ops, leaves, rows, mode) in served.items():
         spans = K.spec_split(leaves, rows)
-        before = K.launch_counts()["spec_eval"]
+        before = query_launches()["spec_eval"]
         got = K.spec_eval(ops, leaves, rows, mode)
-        calls = K.launch_counts()["spec_eval"] - before
+        calls = query_launches()["spec_eval"] - before
         check(calls == len(spans), f"spec_eval {label}: {calls} launches, the split "
               f"reports {len(spans)}")
         check(label == "split" or calls == 1, f"spec_eval {label}: {calls} launches")
@@ -4025,6 +4392,7 @@ def main(argv=None) -> int:
     groupby_oracle_check(holder, backend)
     bsi_oracle_check(holder, backend)
     phase_preheat(holder)
+    cold_launches, capture = phase_cold_build(holder)
     holder.close()
     del backend
     phase_groupby_tiles()
@@ -4041,6 +4409,8 @@ def main(argv=None) -> int:
     lines = phase_kernels(gstacks, wide_stacks, launches)
     lines += phase_bsi_kernels(bsi_stacks, launches)
     lines += phase_spec_kernels(gstacks, results.pop("exists"), launches)
+    lines += phase_expand_kernels(capture, cold_launches)
+    del capture
     del gstacks, wide_stacks, bsi_stacks
     phase_host_rows()
     phase_small()

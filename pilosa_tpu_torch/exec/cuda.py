@@ -71,6 +71,7 @@ from pilosa_tpu_torch.core.timequantum import parse_time, views_by_time_range
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, bsi_view_name
 from pilosa_tpu_torch.exec.cpu import CPUBackend, NotFoundError, QueryError
 from pilosa_tpu_torch.exec.result import FieldRow, GroupCount
+from pilosa_tpu_torch.ops import sparse
 from pilosa_tpu_torch.ops.build import take_load_seconds
 from pilosa_tpu_torch.ops.blocks import (
     ROW_PAD,
@@ -353,14 +354,29 @@ class _StackedBlocks:
             with self._lock:
                 self._entries.pop(key, None)
             tiers = [0, 0]
+            for fr in frags.values():
+                if fr is not None:
+                    a, r = fragment_tier_words(fr, rows_p)
+                    tiers[0] += a
+                    tiers[1] += r
+            if nbytes // 4 >= sparse.MIN_CHUNKED_WORDS:
+                # The chunked cold build (ops/sparse.py): each chunk ships
+                # on its cheapest wire as it packs, array and run
+                # containers as their own positions and spans, expanded
+                # into the stack on the card by K12 to K14.
+                builder = sparse.ChunkedStackBuilder(self.device, shape)
+                for s in shards:
+                    fr = frags[s]
+                    if fr is not None:
+                        builder.feed_fragment(fr, rows_p)
+                    else:
+                        builder.skip(rows_p * WORDS_PER_SHARD)
+                return builder.finish(), rows_p, vers, tiers
             host = np.zeros(shape, dtype=np.uint32)
             for i, s in enumerate(shards):
                 fr = frags[s]
                 if fr is not None:
                     host[i] = pack_fragment(fr, n_rows=rows_p)
-                    a, r = fragment_tier_words(fr, rows_p)
-                    tiers[0] += a
-                    tiers[1] += r
             return self._put(host), rows_p, vers, tiers
 
         return self._cached_build(key, fingerprint, build)

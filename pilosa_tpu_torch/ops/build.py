@@ -34,10 +34,11 @@ BUILD_DIR = os.path.join(_HERE, "build")
 #: the CUDA cores: K3, the per-row popcount-reduce; K8, the per-row
 #: popcounts of TopN and Sum; K9, the Min/Max plane walk; K10, the walk of
 #: a BSI condition) and spec.cu (K11, the evaluation of a bitmap call tree
-#: for a window of query slots).
+#: for a window of query slots) and expand.cu (K12 to K14, the expansion of
+#: a cold build's container wire into the stack, ops/sparse.py).
 SOURCES = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
-    for name in ("bitcount", "bmma", "spec")
+    for name in ("bitcount", "bmma", "spec", "expand")
 }
 
 NVCC_FLAGS = (
@@ -152,6 +153,11 @@ def _bind(name: str, lib) -> None:
         # slots_dev, counts, slab, mode, body, q, s, w, stream
         "spec": {"spec_eval_launch": [ptr, ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr,
                                       i32, i32, i32, i32, i32, ptr]},
+        # data, slots, starts, out, n_containers, n, stream (K12, K13);
+        # mask, vals, bases, out, n_mask, n, stream (K14)
+        "expand": {name: [ptr, ptr, ptr, ptr, i32, i32, ptr] for name in
+                   ("expand_positions_launch", "expand_runs_launch",
+                    "expand_words_launch")},
     }
     for fn_name, argtypes in signatures[name].items():
         fn = getattr(lib, fn_name)
@@ -174,8 +180,8 @@ def take_load_seconds():
 
 
 def library(name: str):
-    """The loaded kernel library ``name`` ("bitcount", "bmma" or "spec"). The
-    first call builds every library whose source changed."""
+    """The loaded kernel library ``name`` ("bitcount", "bmma", "spec" or
+    "expand"). The first call builds every library whose source changed."""
     global build_seconds, build_log, load_seconds, _untaken_load
     lib = _libs.get(name)
     if lib is not None:

@@ -1,10 +1,11 @@
-"""Popcount kernels of the count, GroupBy, TopN and BSI paths, each with
-its plain PyTorch version.
+"""Popcount kernels of the count, GroupBy, TopN and BSI paths, and the
+expansion kernels of the cold build, each with its plain PyTorch version.
 
 Hand-written CUDA kernels, built by ops/build.py: the pair kernels and the
-group-tensor kernels on the tensor cores' binary MMA (ops/csrc/bmma.cu), and
+group-tensor kernels on the tensor cores' binary MMA (ops/csrc/bmma.cu),
 the row popcounts and the BSI plane walk on the CUDA cores
-(ops/csrc/bitcount.cu):
+(ops/csrc/bitcount.cu), K11 (ops/csrc/spec.cu) and K12 to K14
+(ops/csrc/expand.cu):
 
 - ``pair_stats_pershard`` (K1, bmma.cu): per shard s, over int32[S, Rf, W] and
   int32[S, Rg, W] stacks,
@@ -46,6 +47,14 @@ the row popcounts and the BSI plane walk on the CUDA cores
   window past the kernel's caps is cut into launches of whole slots
   (``spec_split``). The single Count, ``Row`` and the batcher's count and
   row windows run on it.
+- ``expand_positions`` (K12), ``expand_runs`` (K13) and ``expand_words``
+  (K14), expand.cu: the cold build's expansion of one chunk of a stack from
+  its container wire (ops/sparse.py ChunkedStackBuilder), written straight
+  into the stack's zeroed words: K12 the u16 positions of array containers
+  and K13 the inclusive u16 spans of run containers, each into its
+  container's 2048-word slot, whole; K14 the nonzero words of a word mask.
+  They are build kernels, not query launches: the backend's launch
+  chokepoint (exec/cuda.py CUDABackend._launched) never sees them.
 - the group tensor of an N-field GroupBy (K4-K7): for slots q, with m_q the
   AND of one row of each extra field (and of a filter slab),
 
@@ -94,6 +103,8 @@ MAX_GROUP_EXTRAS = 8
 
 #: Launches of each CUDA kernel in this process (CPU calls are not counted);
 #: server threads launch concurrently, so counts move under _LAUNCH_LOCK.
+#: The query kernels are listed from the start; the build kernels K12 to
+#: K14 join at their first launch.
 _LAUNCH_LOCK = threading.Lock()
 _LAUNCHES = {
     "pair_stats_pershard": 0, "pair_stats": 0, "popcount_rows": 0,
@@ -120,7 +131,7 @@ def _launch(name: str, device: torch.device, fn, *args) -> None:
     handler thread has its own current device, so the tensor's device
     decides, never the thread's."""
     with _LAUNCH_LOCK:
-        _LAUNCHES[name] += 1
+        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _check_rc(name, fn(*args, stream))
@@ -583,6 +594,7 @@ _LIBRARY = {
     "nary_stats": "bmma", "nary_stats_pershard": "bmma",
     "row_popcounts": "bitcount", "bsi_minmax": "bitcount", "bsi_compare": "bitcount",
     "spec_eval": "spec",
+    "expand_positions": "expand", "expand_runs": "expand", "expand_words": "expand",
 }
 
 
@@ -1272,3 +1284,192 @@ def spec_eval(ops, leaves, rows, mode: str = "count") -> torch.Tensor:
         _launch("spec_eval", dev, fn, *args)
         del keep
     return out
+
+
+# ---------------------------------------------------------------------------
+# the cold build's expansion kernels (K12 to K14)
+# ---------------------------------------------------------------------------
+
+#: Words of one roaring container's slot: K12 and K13 write whole slots.
+CONTAINER_SLOT_WORDS = 2048
+
+#: Mask words of one K14 block, a thread each (32 chunk words a thread).
+EXPAND_WORDS_BLOCK = 256
+
+_U32 = 1 << 32
+
+
+def _as_words(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding uint32 values -> int32 with the same bits."""
+    return torch.where(x >= 1 << 31, x - _U32, x).to(torch.int32)
+
+
+def _container_of(starts: torch.Tensor) -> torch.Tensor:
+    """The container index of each wire entry from the prefix offsets."""
+    counts = (starts[1:] - starts[:-1]).to(torch.int64)
+    return torch.repeat_interleave(
+        torch.arange(counts.numel(), device=starts.device), counts)
+
+
+def expand_positions_torch(out, pos, slots, starts) -> None:
+    """Plain K12: slot slots[c] of ``out`` becomes the bits of positions
+    pos[starts[c] : starts[c + 1]] (u16, held as int16), zeros included."""
+    n = slots.numel()
+    if not n:
+        return
+    p = pos[: int(starts[-1])].to(torch.int64) & 0xFFFF
+    tiles = torch.zeros(n * CONTAINER_SLOT_WORDS, dtype=torch.int64, device=out.device)
+    # Positions are unique within a container, so the sum is the OR.
+    tiles.index_add_(0, _container_of(starts) * CONTAINER_SLOT_WORDS + (p >> 5),
+                     torch.ones_like(p) << (p & 31))
+    out.view(-1, CONTAINER_SLOT_WORDS)[slots.to(torch.int64)] = _as_words(
+        tiles).view(n, CONTAINER_SLOT_WORDS)
+
+
+def expand_runs_torch(out, runs, slots, starts) -> None:
+    """Plain K13: slot slots[c] of ``out`` becomes the bits of the inclusive
+    spans runs[2r], runs[2r + 1] (u16, held as int16) for r in starts[c] ..
+    starts[c + 1], zeros included. The JAX package's expand_run_spans
+    decomposition: edge masks added (the runs of a container are disjoint,
+    so the sum is the OR) and interior words from a coverage count."""
+    n = slots.numel()
+    if not n:
+        return
+    r = runs[: 2 * int(starts[-1])].to(torch.int64).view(-1, 2) & 0xFFFF
+    tile = _container_of(starts) * CONTAINER_SLOT_WORDS
+    lo, hi = r[:, 0], r[:, 1]
+    w_lo, w_hi = tile + (lo >> 5), tile + (hi >> 5)
+    full = _U32 - 1
+    m_lo = (full << (lo & 31)) & full
+    m_hi = full >> (31 - (hi & 31))
+    same = w_lo == w_hi
+    words = torch.zeros(n * CONTAINER_SLOT_WORDS, dtype=torch.int64, device=out.device)
+    words.index_add_(0, w_lo, torch.where(same, m_lo & m_hi, m_lo))
+    words.index_add_(0, w_hi[~same], m_hi[~same])
+    inner = w_hi > w_lo + 1
+    delta = torch.zeros(n * CONTAINER_SLOT_WORDS + 1, dtype=torch.int64, device=out.device)
+    ones = torch.ones(int(inner.sum()), dtype=torch.int64, device=out.device)
+    delta.index_add_(0, (w_lo + 1)[inner], ones)
+    delta.index_add_(0, w_hi[inner], -ones)
+    words = torch.where(torch.cumsum(delta[:-1], 0) > 0, full, words)
+    out.view(-1, CONTAINER_SLOT_WORDS)[slots.to(torch.int64)] = _as_words(
+        words).view(n, CONTAINER_SLOT_WORDS)
+
+
+def expand_words_torch(out, mask, vals, bases=None) -> None:
+    """Plain K14: word 32 j + k of ``out`` becomes the next of ``vals`` where
+    bit k of mask[j] is set; other words are not written. (``bases``, the
+    kernel's per-block offsets, follow from the mask.)"""
+    m = mask.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, dtype=torch.int64, device=out.device)
+    bits = ((m[:, None] >> shifts) & 1).view(-1)[: out.numel()]
+    idx = torch.nonzero(bits).view(-1)
+    out[idx] = vals[: idx.numel()]
+
+
+def expand_words_bases(mask) -> "np.ndarray":
+    """K14's block bases int32[blocks] from the host's uint32 mask: the
+    nonzero words before each block of EXPAND_WORDS_BLOCK mask words."""
+    import numpy as np
+
+    blocks = -(-mask.size // EXPAND_WORDS_BLOCK)
+    per = np.zeros(blocks * EXPAND_WORDS_BLOCK, dtype=np.int64)
+    per[: mask.size] = np.bitwise_count(mask)
+    sums = per.reshape(blocks, EXPAND_WORDS_BLOCK).sum(axis=1)
+    bases = np.zeros(blocks, dtype=np.int32)
+    np.cumsum(sums[:-1], out=bases[1:])
+    return bases
+
+
+def _check_flat(name: str, t: torch.Tensor, dtype, what: str) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be one contiguous axis")
+
+
+def _check_expand(name, out, tensors) -> None:
+    """out int32[n] (the chunk) and its inputs, each (tensor, dtype, what),
+    on one device."""
+    _check_flat(name, out, torch.int32, "out")
+    for t, dtype, what in tensors:
+        _check_flat(name, t, dtype, what)
+        if t.device != out.device:
+            raise ValueError(f"{name}: {what} on {t.device}, out on {out.device}")
+
+
+def _check_slots(name, out, slots, starts) -> None:
+    if starts.numel() != slots.numel() + 1:
+        raise ValueError(
+            f"{name}: {slots.numel()} slots need {slots.numel() + 1} starts, "
+            f"got {starts.numel()}")
+    if out.numel() % CONTAINER_SLOT_WORDS:
+        raise ValueError(
+            f"{name}: the chunk's {out.numel()} words are not whole container slots")
+    if out.is_cuda and out.data_ptr() % 16:
+        raise ValueError(f"{name}: the chunk must be 16-byte aligned")
+
+
+def _launch_slots(name, data, slots, starts, out) -> None:
+    from pilosa_tpu_torch.ops.build import library
+
+    if slots.numel():
+        _launch(name, out.device, getattr(library(_LIBRARY[name]), name + "_launch"),
+                data.data_ptr(), slots.data_ptr(), starts.data_ptr(), out.data_ptr(),
+                slots.numel(), out.numel())
+
+
+def expand_positions(out, pos, slots, starts) -> None:
+    """K12: (out int32[n] a chunk of the stack, pos int16[P] the u16
+    positions of the chunk's array containers in order, slots int32[c] each
+    container's slot, starts int32[c + 1] the offsets of its positions) ->
+    each slot of ``out`` written whole from its positions."""
+    _check_expand("expand_positions", out, ((pos, torch.int16, "pos"),
+                                            (slots, torch.int32, "slots"),
+                                            (starts, torch.int32, "starts")))
+    _check_slots("expand_positions", out, slots, starts)
+    if _plain("expand_positions", out):
+        return expand_positions_torch(out, pos, slots, starts)
+    _launch_slots("expand_positions", pos, slots, starts, out)
+
+
+def expand_runs(out, runs, slots, starts) -> None:
+    """K13: (out int32[n] a chunk of the stack, runs int16[2 R] the
+    inclusive u16 (start, last) spans of the chunk's run containers in
+    order, slots int32[c] each container's slot, starts int32[c + 1] the
+    offsets of its runs) -> each slot of ``out`` written whole from its
+    spans."""
+    _check_expand("expand_runs", out, ((runs, torch.int16, "runs"),
+                                       (slots, torch.int32, "slots"),
+                                       (starts, torch.int32, "starts")))
+    _check_slots("expand_runs", out, slots, starts)
+    if _plain("expand_runs", out):
+        return expand_runs_torch(out, runs, slots, starts)
+    _launch_slots("expand_runs", runs, slots, starts, out)
+
+
+def expand_words(out, mask, vals, bases) -> None:
+    """K14: (out int32[n] a chunk of the stack, mask int32[M] with bit k of
+    mask[j] marking word 32 j + k nonzero, vals int32[nnz] the nonzero words
+    in order, bases int32[ceil(M / EXPAND_WORDS_BLOCK)] from
+    expand_words_bases) -> the nonzero words written; no other word is."""
+    _check_expand("expand_words", out, ((mask, torch.int32, "mask"),
+                                        (vals, torch.int32, "vals"),
+                                        (bases, torch.int32, "bases")))
+    blocks = -(-mask.numel() // EXPAND_WORDS_BLOCK)
+    if bases.numel() != blocks:
+        raise ValueError(
+            f"expand_words: {mask.numel()} mask words need {blocks} bases, "
+            f"got {bases.numel()}")
+    if out.numel() > 32 * mask.numel():
+        raise ValueError(
+            f"expand_words: {mask.numel()} mask words cover {32 * mask.numel()} of "
+            f"the chunk's {out.numel()} words")
+    if _plain("expand_words", out):
+        return expand_words_torch(out, mask, vals, bases)
+    from pilosa_tpu_torch.ops.build import library
+
+    if mask.numel():
+        _launch("expand_words", out.device, library(_LIBRARY["expand_words"]).expand_words_launch,
+                mask.data_ptr(), vals.data_ptr(), bases.data_ptr(), out.data_ptr(),
+                mask.numel(), out.numel())

@@ -1270,3 +1270,153 @@ def test_refresher_beside_readers_and_a_writer_equals_unwindowed(card):
     for q in queries:
         assert wex.execute("i", q) == pex.execute("i", q)
     h.close()
+
+
+# -- the cold build's expansion kernels (K12 to K14) ------------------------
+
+SLOT = 2048
+
+
+def _expand_inputs(rng, n_slots, full):
+    """A chunk of n_slots container slots: array containers (positions 0,
+    31 and 65535 among them) and run containers (a whole-container run, one-
+    word spans, a span ending on bit 31, one inside one word, two sharing an
+    edge word) on alternate slots, and a word mask with its values. With
+    `full`, array containers of about 3277 positions (density 0.05) on
+    every slot not a run."""
+    arrays, runs = [], []
+    edge_runs = [[(0, 65535)], [(0, 0), (31, 31), (32, 63), (65535, 65535)],
+                 [(5, 9), (10, 10), (40, 100), (101, 4000)]]
+    for slot in range(n_slots):
+        if slot % 4 == 3:
+            cuts = np.sort(rng.choice(65536, 2 * int(rng.integers(1, 60)), replace=False))
+            spans = edge_runs[slot // 4] if slot // 4 < len(edge_runs) else \
+                [(int(a), int(b)) for a, b in cuts.reshape(-1, 2)]
+            runs.append((slot, np.array(spans, dtype=np.uint16)))
+        elif full or slot % 4 == 0:
+            n = 3277 if full else int(rng.integers(1, 4000))
+            pos = np.sort(rng.choice(65536, n, replace=False)).astype(np.uint16)
+            if slot == 0:
+                pos = np.union1d(pos, np.array([0, 31, 65535], dtype=np.uint16))
+            arrays.append((slot, pos))
+    words = np.zeros(n_slots * SLOT, dtype=np.uint32)
+    at = rng.choice(words.size, words.size // 5, replace=False)
+    words[at] = rng.integers(1, 2**32, at.size, dtype=np.uint32)
+    words[0], words[-1] = 0x80000000, 0xFFFFFFFF
+    return arrays, runs, words
+
+
+def _csr_tensors(entries, device):
+    slots = torch.tensor([s for s, _ in entries], dtype=torch.int32, device=device)
+    starts = torch.tensor(np.concatenate([[0], np.cumsum([len(d) for _, d in entries])]),
+                          dtype=torch.int32, device=device)
+    return slots, starts
+
+
+def _u16(parts, device):
+    cat = np.concatenate([p.reshape(-1) for p in parts]) if parts else np.zeros(0, np.uint16)
+    return torch.from_numpy(cat.astype(np.uint16).view(np.int16)).to(device)
+
+
+@pytest.mark.parametrize("n_slots,full", [(12, False), (4096, True)])
+def test_expand_kernels_equal_plain_forms(card, n_slots, full):
+    """K12, K13 and K14 on the card against their plain forms on the CPU,
+    exactly: edge positions and spans, and a full-size chunk (2^23 words,
+    4096 slots) at the bench density."""
+    rng = np.random.default_rng(n_slots)
+    arrays, runs, words = _expand_inputs(rng, n_slots, full)
+    mask, vals, _ = _compress(words)
+    bases = K.expand_words_bases(mask)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        out = torch.zeros(n_slots * SLOT, dtype=torch.int32, device=dev)
+        K.expand_positions(out, _u16([d for _, d in arrays], dev), *_csr_tensors(arrays, dev))
+        K.expand_runs(out, _u16([d for _, d in runs], dev), *_csr_tensors(runs, dev))
+        words_out = torch.zeros_like(out)
+        K.expand_words(words_out, torch.from_numpy(mask.view(np.int32)).to(dev),
+                       torch.from_numpy(vals.view(np.int32)).to(dev),
+                       torch.from_numpy(bases).to(dev))
+        outs.append((out.cpu(), words_out.cpu()))
+    torch.cuda.synchronize()
+    (kernel, kernel_words), (plain, plain_words) = outs
+    assert torch.equal(kernel, plain) and torch.equal(kernel_words, plain_words)
+    np.testing.assert_array_equal(kernel_words.numpy().view(np.uint32), words)
+
+
+def _compress(words):
+    """(mask, nonzero values, count) of a word vector of any length."""
+    nz = words != 0
+    mask = np.bitwise_or.reduce(
+        nz.reshape(-1, 32).astype(np.uint32) << np.arange(32, dtype=np.uint32), axis=1)
+    return mask.astype(np.uint32), words[nz], int(nz.sum())
+
+
+def test_expand_kernels_count_their_launches(card):
+    out = torch.zeros(SLOT, dtype=torch.int32, device=card)
+    one = torch.tensor([0, 1], dtype=torch.int32, device=card)
+    before = K.launch_counts()
+    K.expand_positions(out, torch.tensor([7], dtype=torch.int16, device=card), one[:1], one)
+    K.expand_runs(out, torch.tensor([3, 9], dtype=torch.int16, device=card), one[:1], one)
+    K.expand_words(out, torch.zeros(64, dtype=torch.int32, device=card),
+                   torch.zeros(0, dtype=torch.int32, device=card), one[:1])
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name in ("expand_positions", "expand_runs", "expand_words"):
+        assert after[name] == before.get(name, 0) + 1
+
+
+def test_chunked_build_on_card_equals_the_dense_pack(card, monkeypatch):
+    """A CUDABackend over a 72-shard index (a field of array containers, a
+    field of run containers, and one with a bitmap and array containers a
+    shard, whose chunks carry a word-mask remainder; 18.9M words a stack,
+    past MIN_CHUNKED_WORDS): its stacks are built chunk by chunk at the
+    full chunk size and its Counts equal the CPU oracle's; the same stacks
+    built by a builder whose wire bound makes it wait on every chunk equal
+    their dense packs byte for byte."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.ops import sparse
+    from pilosa_tpu_torch.ops.blocks import pack_fragment
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    rng = np.random.default_rng(31)
+    shards = 72
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    f, r, b = (idx.create_field(n) for n in "frb")
+    for s in range(shards):
+        base = s * SHARD_WIDTH
+        cols = rng.integers(0, SHARD_WIDTH, 8 * 52_000, dtype=np.uint64) + base
+        f.import_bits(rng.integers(0, 8, cols.size, dtype=np.uint64), cols)
+        start = int(rng.integers(0, SHARD_WIDTH - 70_000))
+        span = np.arange(start, start + int(rng.integers(1000, 60_000)), dtype=np.uint64)
+        r.import_bits(np.full(span.size, s % 8, dtype=np.uint64), span + base)
+        dense = np.arange(0, 65536, 2, dtype=np.uint64) + base
+        b.import_bits(np.zeros(dense.size, dtype=np.uint64), dense)
+        sparse_cols = rng.integers(0, SHARD_WIDTH, 3000, dtype=np.uint64) + base
+        b.import_bits(np.ones(sparse_cols.size, dtype=np.uint64), sparse_cols)
+        fr = r.view("standard").fragment(s)
+        with fr.lock:
+            fr.storage.optimize()
+        assert {fr.storage.container(k).typ for k in fr.storage.keys()} == {"run"}
+    dev = Executor(h, backend=CUDABackend(h))
+    cpu = Executor(h, backend=CPUBackend(h))
+    n0 = sum(global_stats.counter_totals("stack_sparse_uploads_total").values())
+    for q in ["Count(Intersect(Row(f=1), Row(r=2)))", "Count(Union(Row(b=0), Row(f=3)))",
+              "Count(Row(r=5))"]:
+        assert dev.execute("i", q) == cpu.execute("i", q), q
+    assert sum(global_stats.counter_totals("stack_sparse_uploads_total").values()) == n0 + 3
+    monkeypatch.setattr(sparse, "MAX_PENDING_BYTES", 1)
+    for name in "frb":
+        frags = [idx.field(name).view("standard").fragment(s) for s in range(shards)]
+        want = np.stack([pack_fragment(fr, n_rows=8) for fr in frags])
+        builder = sparse.ChunkedStackBuilder(card, want.shape)
+        for fr in frags:
+            builder.feed_fragment(fr, 8)
+        got = builder.finish().cpu().numpy().view(np.uint32)
+        np.testing.assert_array_equal(got, want)
+        assert builder.chunks["container"] > 0
+    h.close()
