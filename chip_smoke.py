@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --host-count | --host-count-ab PARENT]
+    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --cold | --host-count | --host-count-ab PARENT]
 
 Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
@@ -149,15 +149,21 @@ chip_smoke.py to time it).
    off: the parent's pack and pageable copy) and by the chunked path
    (ops/sparse.py); then a run-heavy field r in an index of its own (954
    shards x 8 rows, every roaring container one run of 1000 to 60000
-   columns, imported as run containers, checked to be runs), and, with
-   the launch counters zeroed, f, g, h, v's BSI view, the existence row
-   and r each built on fresh backends by both paths over 2 rounds in
-   alternating order (v also with the container tier off, so that its
+   columns, imported as run containers, checked to be runs) and a
+   skewed field s in another (954 shards x 8 rows: row 0 at bit density
+   0.5 in bitmap containers, rows 1 to 7 at 0.01 in array containers; its
+   first Count(Row(s=0)) timed on a fresh backend by each path), and,
+   with the launch counters zeroed, f, g, h, v's BSI view, the existence
+   row, r and s each built on fresh backends by both paths over 2 rounds
+   in alternating order (v also with the container tier off, so that its
    chunks take the words tier), each pair torch.equal; each build prints
    its wall, version walk, tier walk, host pack, copy and expansion, wire
    and dense bytes, chunks by tier, drains and peak device memory over
    its start (at most the stack plus MAX_PENDING_BYTES when chunked);
-   K12, K13 and K14 must each have launched;
+   each chunked build of s must ship 30 container chunks with a word-mask
+   remainder, K12 and K14 launched once a chunk; K12, K13 and K14 must
+   each have launched (``--cold`` runs this phase and the expansion
+   kernels' checks alone);
 5. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
@@ -186,8 +192,12 @@ chip_smoke.py to time it).
    (S = 1, word axes off its chunk, the full leaf table and stack, zero
    leaves, per-slot rows past the launch's parameters) in both modes on
    every body; K12, K13 and K14 on the first chunks of f, r and v (its
-   words tier) that phase 4c's builds shipped, their wire as the builder
-   staged it (phase_expand_kernels);
+   words tier) that phase 4c's builds shipped, and K14 also on the word-
+   mask remainder of s's first container chunk, their wire as the builder
+   staged it, beside the launch floor (ops/probe.py noop, a kernel that
+   does nothing), each also timed as 20 launches replayed in one CUDA
+   graph (graph_ms: the device's time without the host's launch cost)
+   (phase_expand_kernels);
 5b. the host rows of the tables (exec/cuda.py _host_slab_pair_flat,
    _host_slab_row_counts, _host_slab_groupn), which a write epoch derives
    on the host, against K1's, K8's, K7's and K5's rows of two random slab
@@ -2045,6 +2055,33 @@ def phase_budget_alone(root) -> int:
     return 0
 
 
+def phase_cold_alone(root) -> int:
+    """`chip_smoke.py --cold`: bench.py's index with its BSI field v, the
+    cold-build phase over it (with r and s) and the expansion kernels'
+    checks, launch floor and times (phase_expand_kernels)."""
+    import torch
+
+    from pilosa_tpu_torch.core import Holder
+
+    card_line = phase_card()
+    phase_probe(card_line)
+    holder = Holder(None).open()
+    t0 = time.perf_counter()
+    build_bench_index(holder)
+    build_bsi_field(holder)
+    log(f"cold: index build seconds {time.perf_counter() - t0:.1f}")
+    launches, capture = phase_cold_build(holder)
+    holder.close()
+    lines = phase_expand_kernels(capture, launches)
+    del capture
+    torch.cuda.empty_cache()
+    print(json.dumps({"kernels": lines}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def phase_stacks_exact(holder, backend, gstacks, rebuilds_before: float):
     """After phase 4's write windows (Set/Clear epochs beside concurrent
     readers, with and without the refresher splicing in place): the main
@@ -2231,6 +2268,79 @@ def build_run_field(holder):
     check(kinds == {"run"}, f"cold: r's containers are {kinds}, not runs")
 
 
+#: The skewed field s, in an index of its own: 954 shards x 8 rows, row 0
+#: broad (every roaring container a bitmap container of random words, bit
+#: density 0.5) and rows 1 to 7 narrow (array containers of about 655
+#: positions, bit density SKEW_NARROW): a segment field whose majority row
+#: puts bitmap containers into every chunk, so that each chunk takes the
+#: container tier with a word-mask remainder (K12 and K14 once a chunk).
+SKEW_NARROW = 0.01
+#: Chunks of a 954-shard, 8-row stack: 32 shards a 2^23-word chunk.
+SKEW_CHUNKS = 30
+
+
+def roaring_blob(entries) -> bytes:
+    """Pilosa's roaring file (roaring/codec.py serialize's layout, no op
+    log) of (key, type code, bit count, body) entries in key order, with no
+    re-encoding: each container keeps the type it is given."""
+    import struct
+
+    from pilosa_tpu_torch.roaring.codec import MAGIC_NUMBER, STORAGE_VERSION
+
+    out = bytearray(struct.pack("<II", MAGIC_NUMBER | (STORAGE_VERSION << 16), len(entries)))
+    for key, typ, n, _ in entries:
+        out += struct.pack("<QHH", key, typ, n - 1)
+    offset = 8 + 16 * len(entries)
+    for *_, body in entries:
+        out += struct.pack("<I", offset)
+        offset += len(body)
+    for *_, body in entries:
+        out += body
+    return bytes(out)
+
+
+def build_skew_field(holder) -> int:
+    """s: per shard, row 0's 16 bitmap containers (random words) and rows 1
+    to 7's 112 array containers (a Bernoulli process of SKEW_NARROW drawn by
+    geometric gaps), imported with Field.import_roaring as one roaring file
+    (roaring_blob); row 0's containers must all be bitmap containers and
+    the others arrays. Returns row 0's bit count (Count(Row(s=0)))."""
+    import numpy as np
+
+    from pilosa_tpu_torch.roaring.bitmap import ARRAY_MAX_SIZE
+    from pilosa_tpu_torch.roaring.codec import TYPE_CODE_ARRAY, TYPE_CODE_BITMAP
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng(17)
+    field = holder.create_index("skew").create_field("s")
+    per_row = SHARD_WIDTH >> 16
+    narrow = (ROWS - 1) * per_row
+    draws = int(2 * 65536 * SKEW_NARROW)
+    row0 = 0
+    for shard in range(SHARDS):
+        words = np.frombuffer(rng.bytes(per_row * 8192), dtype="<u8").reshape(per_row, 1024)
+        counts = np.bitwise_count(words).sum(axis=1)
+        row0 += int(counts.sum())
+        check(bool((counts > ARRAY_MAX_SIZE).all()), "cold: a broad container of s is sparse")
+        entries = [(key, TYPE_CODE_BITMAP, int(counts[key]), words[key].tobytes())
+                   for key in range(per_row)]
+        cols = np.cumsum(rng.geometric(SKEW_NARROW, (narrow, draws)), axis=1) - 1
+        check(bool((cols[:, -1] >= 65536).all()), "cold: s's narrow draws end short")
+        for i in range(narrow):
+            pos = cols[i][cols[i] < 65536].astype("<u2")
+            check(0 < pos.size <= ARRAY_MAX_SIZE, "cold: a narrow container of s is full")
+            entries.append((per_row + i, TYPE_CODE_ARRAY, int(pos.size), pos.tobytes()))
+        field.import_roaring(shard, roaring_blob(entries))
+    for shard in range(SHARDS):
+        fr = field.view("standard").fragment(shard)
+        with fr.lock:
+            kinds = {(k // per_row == 0, fr.storage.container(k).typ)
+                     for k in fr.storage.keys()}
+        check(kinds == {(True, "bitmap"), (False, "array")},
+              f"cold: s's shard {shard} holds containers {kinds}")
+    return row0
+
+
 class build_path:
     """Sets ops/sparse.py's switches for one build path, and restores them."""
 
@@ -2319,7 +2429,7 @@ class BuildSplit:
 
 def cold_stacks(holder):
     """(label, index, field, view, min_rows) of the stacks the phase builds:
-    f, g, h, v's BSI view, the existence row and r."""
+    f, g, h, v's BSI view, the existence row, r and s."""
     from pilosa_tpu_torch.core.fragment import BSI_OFFSET_BIT
     from pilosa_tpu_torch.core.view import VIEW_STANDARD, bsi_view_name
 
@@ -2330,7 +2440,8 @@ def cold_stacks(holder):
             ("v", "bench", idx.field("v"), bsi_view_name("v"),
              BSI_OFFSET_BIT + idx.field("v").options.bit_depth),
             ("exists", "bench", idx.existence_field(), VIEW_STANDARD, 1),
-            ("r", "runs", holder.index("runs").field("r"), VIEW_STANDARD, 1)]
+            ("r", "runs", holder.index("runs").field("r"), VIEW_STANDARD, 1),
+            ("s", "skew", holder.index("skew").field("s"), VIEW_STANDARD, 1)]
 
 
 def cold_build(holder, spec, path, capture):
@@ -2411,16 +2522,46 @@ def cold_first_calls(holder):
     return out
 
 
+def cold_first_skew_count(holder, want: int) -> dict:
+    """The first Count(Row(s=0)) on a fresh backend by each path, host
+    clock to its readback (s's stack built, uploaded and counted):
+    {path: seconds}, each answer checked against row 0's bit count."""
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+
+    out = {}
+    for path in COLD_PATHS:
+        with build_path(path):
+            gc.collect()
+            cold = CUDABackend(holder)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = Executor(holder, backend=cold).execute("skew", "Count(Row(s=0))")
+            torch.cuda.synchronize()
+            out[path] = time.perf_counter() - t0
+            check(got == [want], f"cold: s's first Count by the {path} path is {got}, "
+                                 f"not [{want}]")
+            del cold
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_cold_build(holder):
     """The chunked cold build against the dense one at 954 shards: preheat
     and the first Count on each path (bench.py's index alone); then, with
-    the launch counters zeroed, f, g, h, v's BSI view, the existence row and
-    the run-heavy field r each built on fresh backends by the dense and the
-    chunked path over COLD_ROUNDS rounds in alternating order (and v also
-    by the words path), each pair torch.equal, each build's split, wire,
+    the launch counters zeroed, f, g, h, v's BSI view, the existence row,
+    the run-heavy field r and the skewed field s each built on fresh
+    backends by the dense and the chunked path over COLD_ROUNDS rounds in
+    alternating order (and v also by the words path), each pair
+    torch.equal, each build's split, wire,
     chunks by tier, drains and peak device memory printed; K12, K13 and K14
-    must each have launched. Returns their launches and the first chunk of
-    each tier, by stack, for the kernels' checks."""
+    must each have launched. The skewed field s (its own index) is built
+    first, and its first Count timed on a fresh backend by each path; each
+    of its chunked builds must ship SKEW_CHUNKS container chunks with K12
+    and K14 launched once a chunk. Returns their launches and the first
+    chunk of each tier, by stack, for the kernels' checks."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels as K
@@ -2434,6 +2575,14 @@ def phase_cold_build(holder):
     log(f"cold: r built ({SHARDS} shards x {ROWS} rows, a run of {RUN_MIN} to {RUN_MAX} "
         f"columns in every container) in {time.perf_counter() - t0:.1f} s; its containers "
         "are runs")
+    t0 = time.perf_counter()
+    skew_row0 = build_skew_field(holder)
+    log(f"cold: s built ({SHARDS} shards x {ROWS} rows, row 0 at bit density "
+        f"0.5 in bitmap containers, rows 1 to {ROWS - 1} at {SKEW_NARROW} in "
+        f"array containers; {skew_row0} bits in row 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("cold: s's first Count(Row(s=0)) seconds by path "
+        + json.dumps(cold_first_skew_count(holder, skew_row0)))
     capture: dict = {}
     K.reset_launch_counts()
     for rnd in range(COLD_ROUNDS):
@@ -2442,9 +2591,20 @@ def phase_cold_build(holder):
             paths = order + (("words",) if spec[0] == "v" else ())
             built = {}
             for path in paths:
+                before = K.launch_counts()
                 stack, rec = cold_build(holder, spec, path, capture)
                 built[path] = stack
                 log(f"cold: round {rnd} {spec[0]} {path} " + json.dumps(rec))
+                if spec[0] == "s" and path == "chunked":
+                    after = K.launch_counts()
+                    grew = {k: after.get(k, 0) - before.get(k, 0) for k in BUILD_KERNELS}
+                    check(rec["chunks"] == {"empty": 0, "words": 0, "container": SKEW_CHUNKS,
+                                            "raw": 0},
+                          f"cold: s's chunked build shipped {rec['chunks']}, not "
+                          f"{SKEW_CHUNKS} container chunks")
+                    check(grew == {"expand_positions": SKEW_CHUNKS, "expand_runs": 0,
+                                   "expand_words": SKEW_CHUNKS},
+                          f"cold: s's chunked build launched {grew}")
             for path in paths[1:]:
                 check(torch.equal(built[paths[0]], built[path]),
                       f"cold: {spec[0]}'s {path} stack differs from its {paths[0]} twin")
@@ -2456,33 +2616,101 @@ def phase_cold_build(holder):
     for name in BUILD_KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the cold build")
     holder.delete_index("runs")
+    holder.delete_index("skew")
     torch.cuda.empty_cache()
     log(f"cold: MAX_PENDING_BYTES {sparse.MAX_PENDING_BYTES}, CHUNK_WORDS "
         f"{sparse.CHUNK_WORDS}; phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches, capture
 
 
+#: The expansion kernels' cases: (kernel, stack, tier) of the first chunk
+#: of that tier the cold build shipped for that stack. K14 runs on two: v's
+#: words-tier chunk (its whole wire: sparse, launch-bound) and s's first
+#: container chunk's word-mask remainder (its last three wire views: 512
+#: bitmap containers, 2^20 words in runs of all-ones mask words).
+EXPAND_CASES = (("expand_positions", "f", "container"), ("expand_runs", "r", "container"),
+                ("expand_words", "v", "words"), ("expand_words", "s", "container"))
+#: Grids of the launch floor's no-op kernel: one block, K14's grid over a
+#: 2^23-word chunk (128 tiles of 2048 mask words), and the grid of its
+#: earlier 256-word blocks.
+FLOOR_BLOCKS = (1, 128, 1024)
+
+
+def graph_ms(launch, n: int = 20, reps: int = 5) -> float:
+    """A launch's device ms with the host out of the way: n calls of
+    ``launch`` (which must enqueue on the current stream at each call)
+    captured as one CUDA graph, the median of reps replays timed by CUDA
+    events, over n."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
+def launch_floor() -> dict:
+    """The no-op kernel's (ops/probe.py noop) kernel_ms and graph_ms by
+    grid, timed as the kernels are: {blocks: {kernel_ms, graph_ms}}; empty
+    for a package without it (a checkout from before the floor)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import probe
+
+    if not hasattr(probe, "noop"):
+        return {}
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for blocks in FLOOR_BLOCKS:
+        out[blocks] = {"kernel_ms": kernel_ms(probe.noop(blocks=blocks, stream=stream)),
+                       "graph_ms": graph_ms(probe.noop(blocks=blocks))}
+    return out
+
+
 def phase_expand_kernels(capture, launches, device="cuda"):
-    """K12 on f's first container chunk, K13 on r's and K14 on v's first
-    words chunk (the chunks the cold build shipped, their wire as the
-    builder staged it) against the plain forms on the card, exactly, with
-    times and bounds."""
+    """K12 on f's first container chunk, K13 on r's, and K14 on v's first
+    words chunk and on s's first container chunk's remainder (the chunks
+    the cold build shipped, their wire as the builder staged it) against
+    the plain forms on the card, exactly, with times and bounds, beside the
+    launch floor. K14's line is v's chunk's, with both chunks under
+    ``cases`` and the floor under ``launch_floor``."""
     import torch
 
     from pilosa_tpu_torch.ops import build
     from pilosa_tpu_torch.ops import kernels as K
 
     dev = torch.device(device)
-    lines = []
-    cases = [("expand_positions", ("f", "container")), ("expand_runs", ("r", "container")),
-             ("expand_words", ("v", "words"))]
-    for name, key in cases:
-        check(key in capture, f"expand: no {key[1]} chunk of {key[0]} was captured")
+    floor = launch_floor()
+    log("expand: launch floor (a kernel that does nothing) by grid "
+        + json.dumps(floor))
+    lines, words_cases = [], {}
+    for name, label, tier in EXPAND_CASES:
+        key = (label, tier)
+        check(key in capture, f"expand: no {tier} chunk of {label} was captured")
         valid, views = capture[key]
         views = [v.to(dev) for v in views]
         if name == "expand_words":
-            args = views  # mask, vals, bases
-            written = 4 * int(views[1].numel())
+            # mask, vals, bases: the words tier's wire, or the container
+            # tier's remainder after its six container views.
+            check(len(views) in (3, 9) and (tier == "words") == (len(views) == 3),
+                  f"expand: {key} holds no word mask")
+            args = views[-3:]
+            written = 4 * int(views[-2].numel())
         else:
             a_slot, a_start, r_slot, r_start, pos, spans = views[:6]
             args = (pos, a_slot, a_start) if name == "expand_positions" else \
@@ -2502,19 +2730,34 @@ def phase_expand_kernels(capture, launches, device="cuda"):
         ms = time_ms(lambda: wrapper(out, *args))
         plain_ms = time_ms(lambda: plain(want, *args), reps=3, warm=1)
         fn = getattr(build.library(K._LIBRARY[name]), name + "_launch")
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        fixed = torch.cuda.current_stream(dev).cuda_stream
         n = int(args[1].numel()) if name != "expand_words" else int(args[0].numel())
 
-        def bare(fn=fn, args=args, n=n):
-            rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), n, valid, stream)
-            check(rc == 0, f"{name}: CUDA launch failed with cudaError {rc}")
+        def bare(fn=fn, args=args, n=n, stream=fixed):
+            # stream None: the current stream at each call (a graph's capture)
+            rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), n, valid,
+                    stream if stream is not None else
+                    torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise SmokeFailure(f"{name}: CUDA launch failed with cudaError {rc}")
 
         k_ms = kernel_ms(bare)
         line = kernel_line(name, ms, k_ms, plain_ms, (read + written, 0), err,
                            launches.get(name, 0))
-        log(f"expand: {name} on {key[0]}'s first {key[1]} chunk ({valid} words, "
+        line["graph_ms"] = graph_ms(lambda: bare(stream=None))
+        log(f"expand: {name} on {label}'s first {tier} chunk ({valid} words, "
             f"{read} bytes read, {written} written) " + json.dumps(line))
-        lines.append(line)
+        if name == "expand_words":
+            words_cases[f"{label}_{tier}"] = line
+        else:
+            lines.append(line)
+    line = dict(words_cases["v_words"])
+    line["max_abs_err"] = max(c["max_abs_err"] for c in words_cases.values())
+    line["cases"] = {k: {f: c[f] for f in ("max_abs_err", "ms", "kernel_ms", "graph_ms",
+                                           "plain_ms", "bound_ms", "bound_by")}
+                     for k, c in words_cases.items()}
+    line["launch_floor"] = floor
+    lines.append(line)
     return lines
 
 
@@ -4333,6 +4576,11 @@ def main(argv=None) -> int:
     ap.add_argument("--budget", action="store_true",
                     help="run only the row-paging phase (phase_budget, with bench.py's "
                          "index and BSI field v built) and the CLI's servers (phase_cli)")
+    ap.add_argument("--cold", action="store_true",
+                    help="run only the cold-build phase (phase_cold_build, with bench.py's "
+                         "index and BSI field v built, r and s) and the expansion "
+                         "kernels' checks (phase_expand_kernels) on the --root "
+                         "checkout's package")
     ap.add_argument("--host-count", action="store_true",
                     help="run only the single Count's host time (phase_host_count) on "
                          "the --root checkout's package")
@@ -4370,6 +4618,8 @@ def main(argv=None) -> int:
         return phase_window(root, "churn" if args.churn else "miss")
     if args.budget:
         return phase_budget_alone(root)
+    if args.cold:
+        return phase_cold_alone(root)
     if args.host_count:
         return phase_host_count(root, args.rounds)
     if args.host_count_ab:

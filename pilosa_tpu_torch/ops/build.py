@@ -30,8 +30,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
 #: Kernel sources by library name: bmma.cu (the pair kernels K1, K2, the
 #: group tiles K4, K5 and the odometer group tensor K6, K7 on the tensor
-#: cores' binary MMA, and the AND-popcount rate probe) and bitcount.cu (on
-#: the CUDA cores: K3, the per-row popcount-reduce; K8, the per-row
+#: cores' binary MMA, the AND-popcount rate probe and the no-op launch
+#: floor) and bitcount.cu (on the CUDA cores: K3, the per-row
+#: popcount-reduce; K8, the per-row
 #: popcounts of TopN and Sum; K9, the Min/Max plane walk; K10, the walk of
 #: a BSI condition) and spec.cu (K11, the evaluation of a bitmap call tree
 #: for a window of query slots) and expand.cu (K12 to K14, the expansion of
@@ -148,7 +149,9 @@ def _bind(name: str, lib) -> None:
                  "group_tile_stats_pershard_launch": group,
                  "nary_stats_launch": group, "nary_stats_pershard_launch": group,
                  # mode, iters, out, blocks, stream
-                 "and_popc_probe_launch": [i32, i32, ptr, i32, ptr]},
+                 "and_popc_probe_launch": [i32, i32, ptr, i32, ptr],
+                 # blocks, stream
+                 "noop_launch": [i32, ptr]},
         # bases, strides, n_entries, ops, n_ops, n_leaves, slots_host,
         # slots_dev, counts, slab, mode, body, q, s, w, stream
         "spec": {"spec_eval_launch": [ptr, ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr,

@@ -17,12 +17,23 @@
 //       [start, last] (inclusive, u16): lane 0 ORs the edge masks into the
 //       tile, the lanes store all-ones into the words strictly inside it,
 //       then the block stores the tile.
-//   K14 expand_words: one block 256 mask words (8192 chunk words). Each
-//       thread takes the popcount of its mask word, the block scans them
-//       into offsets from the block's base (the host computes the bases from
-//       the mask it already holds), then each warp walks its 32 mask words
-//       one at a time, lane b storing value number base + rank of bit b when
-//       the bit is set: the stores of a mask word are one 128-byte segment.
+//   K14 expand_words: one block a tile of 2048 mask words (65536 chunk
+//       words), 512 threads, each taking a group of 4 mask words with one
+//       16-byte load, the tile's base (computed by the host from the mask
+//       it already holds) loaded beside it. The block scans the groups'
+//       popcounts into value offsets and sorts each group four ways. Zero
+//       groups cost nothing more. A sparse group (1 to 4 set bits) is
+//       stored by its own thread, which finds its bits in order and loads
+//       their values while the block waits at its barrier. An all-ones
+//       group, whose 128 words and 128 values are both contiguous, goes to
+//       a list in shared memory that all 16 warps copy with 16-byte loads
+//       and stores, 8 groups' loads in flight a lane (4 when a value offset
+//       sits off 16 bytes: each lane then loads the two aligned vectors its
+//       16 bytes span and shifts). A mixed group goes to a second list,
+//       whose groups the warps share 2 at a time, lane b storing value
+//       base + popc(m & below) for each set bit b. So a block waits on two
+//       round trips to memory, the mask and then the values, and a run of
+//       bitmap containers is a block-wide copy.
 //
 // Why plain stores are enough: the stack starts as torch.zeros. Container
 // slots partition a chunk (a container key occurs once in a fragment, and
@@ -40,6 +51,18 @@
 // device memory sees one coalesced read of the positions and one coalesced
 // write of the words. K13 reads 4 bytes a run and writes 8 KiB a container;
 // K14 reads the mask, the values and the bases and writes the nonzero words.
+//
+// What bounds K14 depends on the mask. A container chunk's remainder of
+// bitmap containers (s's in chip_smoke.py: 2^20 values in runs of all-ones
+// mask words, 9.4 MB moved) is bound by its bytes, which only runs of
+// 16-byte copies with many loads in flight reach. A sparse words chunk
+// (v's: 6355 values in 1.1 MB of mask) is bound by the launch and by the
+// round trips a block waits on; a walk of every mask word, zeros
+// included, and a block every 256 mask words spend their time there. So
+// the grid is 128 blocks a 2^23-word chunk, a block waits on two round
+// trips (mask, then values), and its batches are sized so that nothing
+// spills at 512 threads (128 registers a thread): a copy batch of 16
+// groups spilled, and ran slower.
 //
 // Each entry point returns cudaGetLastError() right after its launch, so a
 // launch the card refuses is reported to the caller instead of being lost.
@@ -119,40 +142,185 @@ expand_runs_kernel(const uint16_t* __restrict__ runs, const int32_t* __restrict_
   store_tile(tile, out, slots[blockIdx.x], n);
 }
 
-// K14. Block b covers mask words [256 b, 256 b + 256): bit k of mask[j]
-// marks chunk word 32 j + k nonzero, and the nonzero words are vals in
-// order, block b's first at vals[bases[b]].
-__global__ void __launch_bounds__(kThreads)
+// K14: mask words a group (one 16-byte load, one thread), threads a block
+// and so mask words a tile (EXPAND_WORDS_BLOCK in ops/kernels.py); the
+// most set bits of a sparse group, which its own thread stores; the
+// all-ones groups a warp copies at once (half that when a value offset
+// sits off 16 bytes), and the mixed groups a warp stores at once.
+constexpr int kGroup = 4;
+constexpr int kWordsThreads = 512;
+constexpr int kWordsWarps = kWordsThreads / 32;
+constexpr int kWordsTile = kGroup * kWordsThreads;
+constexpr int kSparse = 4;
+constexpr int kCopyBatch = 8;
+constexpr int kMixBatch = 2;
+
+// Copies all-ones groups list[0 .. count) (count <= D): group (g, o) holds
+// the 128 chunk words from word 32 g, its values vals[o .. o + 128); lane i
+// moves 16 bytes of each. SHIFT: a value offset may sit off a 16-byte
+// boundary, so each lane loads the two aligned vectors its 16 bytes span
+// and shifts. Every load of the batch is issued before its first store.
+template <int D, bool SHIFT>
+__device__ __forceinline__ void copy_groups(const int2* list, int count,
+                                            const uint32_t* __restrict__ vals,
+                                            uint32_t* __restrict__ out, int lane) {
+  uint4 a[D], b[D];
+  int r[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    if (k < count) {
+      const uint32_t* p = vals + list[k].y;
+      r[k] = SHIFT ? static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3u) : 0;
+      const uint4* q = reinterpret_cast<const uint4*>(p - r[k]);
+      a[k] = q[lane];
+      if (SHIFT && r[k]) b[k] = q[lane + 1];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    if (k < count) {
+      uint4 v = a[k];
+      if (SHIFT) {
+        if (r[k] == 1) v = make_uint4(a[k].y, a[k].z, a[k].w, b[k].x);
+        else if (r[k] == 2) v = make_uint4(a[k].z, a[k].w, b[k].x, b[k].y);
+        else if (r[k] == 3) v = make_uint4(a[k].w, b[k].x, b[k].y, b[k].z);
+      }
+      reinterpret_cast<uint4*>(out + 32LL * list[k].x)[lane] = v;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pick(const uint4& m, int k) {
+  return k == 0 ? m.x : k == 1 ? m.y : k == 2 ? m.z : m.w;
+}
+
+// K14. Block t covers mask words [2048 t, 2048 t + 2048), thread i the
+// group of 4 from 2048 t + 4 i: bit k of mask[j] marks chunk word 32 j + k
+// nonzero, and the nonzero words are vals in order, block t's first at
+// vals[bases[t]]. mask and out are 16-byte aligned; vals need not be.
+__global__ void __launch_bounds__(kWordsThreads, 1)
 expand_words_kernel(const uint32_t* __restrict__ mask, const uint32_t* __restrict__ vals,
                     const int32_t* __restrict__ bases, uint32_t* __restrict__ out,
                     int n_mask, int n) {
-  __shared__ uint32_t m_s[kThreads];
-  __shared__ int32_t off_s[kThreads];
-  __shared__ int32_t warp_total[kWarps];
+  __shared__ int2 full_s[kWordsThreads];
+  __shared__ int2 mixed_s[kWordsThreads];
+  __shared__ uint4 mixed_m[kWordsThreads];
+  __shared__ int32_t warp_words[kWordsWarps];
+  __shared__ int32_t warp_groups[kWordsWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const uint32_t m = j < n_mask ? mask[j] : 0u;
-  const int c = __popc(m);
-  int x = c;  // inclusive scan within the warp
+  const int base = bases[blockIdx.x];  // in flight with the mask's load
+  const int g = blockIdx.x * kWordsTile + kGroup * threadIdx.x;
+  uint4 m;
+  if (g + kGroup <= n_mask) {
+    m = reinterpret_cast<const uint4*>(mask)[g / kGroup];
+  } else {
+    m = make_uint4(g < n_mask ? mask[g] : 0u, g + 1 < n_mask ? mask[g + 1] : 0u,
+                   g + 2 < n_mask ? mask[g + 2] : 0u, 0u);
+  }
+  const int c = __popc(m.x) + __popc(m.y) + __popc(m.z) + __popc(m.w);
+  const bool full = (m.x & m.y & m.z & m.w) == 0xffffffffu &&
+                    32LL * (g + kGroup) <= static_cast<long long>(n);
+  // All-ones groups counted low, mixed groups (more than kSparse set bits,
+  // not all ones) from bit 16.
+  const int groups = full ? 1 : c > kSparse ? 1 << 16 : 0;
+  int x = c, y = groups;  // inclusive scans within the warp
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+    const int xs = __shfl_up_sync(0xffffffffu, x, o);
+    const int ys = __shfl_up_sync(0xffffffffu, y, o);
+    if (lane >= o) {
+      x += xs;
+      y += ys;
+    }
   }
-  if (lane == 31) warp_total[warp] = x;
+  if (lane == 31) {
+    warp_words[warp] = x;
+    warp_groups[warp] = y;
+  }
   __syncthreads();
-  int before = bases[blockIdx.x];
-  for (int i = 0; i < warp; ++i) before += warp_total[i];
-  m_s[threadIdx.x] = m;
-  off_s[threadIdx.x] = before + x - c;
+  int off = base + x - c, at = y - groups, total = 0;
+#pragma unroll
+  for (int i = 0; i < kWordsWarps; ++i) {
+    if (i < warp) {
+      off += warp_words[i];
+      at += warp_groups[i];
+    }
+    total += warp_groups[i];
+  }
+  if (full) {
+    full_s[at & 0xffff] = make_int2(g, off);
+  } else if (c > kSparse) {
+    mixed_m[at >> 16] = m;
+    mixed_s[at >> 16] = make_int2(g, off);
+  }
+  // A sparse group (1 to kSparse set bits): its own thread finds the bits
+  // in order and loads their values now, under the barrier, and stores
+  // them after it.
+  uint32_t sv[kSparse];
+  long long sat[kSparse];
+  uint32_t w[kGroup] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+  for (int t = 0; t < kSparse; ++t) {
+    const int k = w[0] ? 0 : w[1] ? 1 : w[2] ? 2 : w[3] ? 3 : kGroup;
+    uint32_t cur = 0u;
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q) cur = q == k ? w[q] : cur;
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q) w[q] = q == k ? (cur & (cur - 1u)) : w[q];
+    sat[t] = c <= kSparse && k < kGroup ? 32LL * (g + k) + (__ffs(cur) - 1)
+                                        : static_cast<long long>(n);
+    if (sat[t] < n) sv[t] = vals[off + t];
+  }
   __syncthreads();
+#pragma unroll
+  for (int t = 0; t < kSparse; ++t) {
+    if (sat[t] < n) out[sat[t]] = sv[t];
+  }
+  const int n_full = total & 0xffff, n_mixed = total >> 16;
   const uint32_t below = (1u << lane) - 1u;
-  for (int k = 0; k < 32; ++k) {
-    const int t = warp * 32 + k;
-    const uint32_t mk = m_s[t];
-    if ((mk >> lane) & 1u) {
-      const long long word = ((long long)blockIdx.x * kThreads + t) * 32 + lane;
-      if (word < n) out[word] = vals[off_s[t] + __popc(mk & below)];
+  // Mixed groups, the block's list: lane b stores value o + popc(m & below)
+  // for each set bit b of each mask word, kMixBatch groups' loads before
+  // their stores.
+  for (int b0 = warp * kMixBatch; b0 < n_mixed; b0 += kWordsWarps * kMixBatch) {
+    uint32_t v[kMixBatch][kGroup];
+    bool on[kMixBatch][kGroup];
+    long long w0[kMixBatch];
+#pragma unroll
+    for (int j = 0; j < kMixBatch; ++j) {
+      const bool live = b0 + j < n_mixed;
+      const int2 e = live ? mixed_s[b0 + j] : make_int2(0, 0);
+      const uint4 mm = live ? mixed_m[b0 + j] : make_uint4(0u, 0u, 0u, 0u);
+      w0[j] = 32LL * e.x + lane;
+      int o = e.y;
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const uint32_t mk = pick(mm, k);
+        on[j][k] = ((mk >> lane) & 1u) && w0[j] + 32 * k < n;
+        if (on[j][k]) v[j][k] = vals[o + __popc(mk & below)];
+        o += __popc(mk);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMixBatch; ++j) {
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        if (on[j][k]) out[w0[j] + 32 * k] = v[j][k];
+      }
+    }
+  }
+  // All-ones groups, the block's list: straight copies, kCopyBatch a warp.
+  for (int b0 = warp * kCopyBatch; b0 < n_full; b0 += kWordsWarps * kCopyBatch) {
+    const int count = min(kCopyBatch, n_full - b0);
+    const bool off16 = lane < count &&
+                       (reinterpret_cast<uintptr_t>(vals + full_s[b0 + lane].y) & 15u);
+    if (!__ballot_sync(0xffffffffu, off16)) {
+      copy_groups<kCopyBatch, false>(full_s + b0, count, vals, out, lane);
+    } else {
+      copy_groups<kCopyBatch / 2, true>(full_s + b0, min(count, kCopyBatch / 2), vals, out,
+                                        lane);
+      if (count > kCopyBatch / 2)
+        copy_groups<kCopyBatch / 2, true>(full_s + b0 + kCopyBatch / 2,
+                                          count - kCopyBatch / 2, vals, out, lane);
     }
   }
 }
@@ -180,11 +348,17 @@ extern "C" int expand_runs_launch(const void* runs, const void* slots, const voi
 }
 
 // mask uint32[n_mask], vals uint32[popcount(mask)], bases int32[blocks],
-// out uint32[n] (the chunk) -> one block each 256 mask words.
+// out uint32[n] (the chunk) -> one block each 2048 mask words. mask and
+// out must be 16-byte aligned and n at most 32 n_mask, else the launch is
+// refused with cudaErrorInvalidValue.
 extern "C" int expand_words_launch(const void* mask, const void* vals, const void* bases,
                                    void* out, int n_mask, int n, void* stream) {
-  const int blocks = (n_mask + kThreads - 1) / kThreads;
-  expand_words_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n_mask <= 0 || n < 0 || static_cast<long long>(n) > 32LL * n_mask ||
+      (reinterpret_cast<uintptr_t>(mask) & 15u) || (reinterpret_cast<uintptr_t>(out) & 15u)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (n_mask + kWordsTile - 1) / kWordsTile;
+  expand_words_kernel<<<blocks, kWordsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(vals),
       static_cast<const int32_t*>(bases), static_cast<uint32_t*>(out), n_mask, n);
   return static_cast<int>(cudaGetLastError());

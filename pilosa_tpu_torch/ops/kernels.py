@@ -1293,8 +1293,9 @@ def spec_eval(ops, leaves, rows, mode: str = "count") -> torch.Tensor:
 #: Words of one roaring container's slot: K12 and K13 write whole slots.
 CONTAINER_SLOT_WORDS = 2048
 
-#: Mask words of one K14 block, a thread each (32 chunk words a thread).
-EXPAND_WORDS_BLOCK = 256
+#: Mask words of one K14 block (a tile: 512 threads of 4 mask words, 65536
+#: chunk words), so that a 2^23-word chunk takes 128 blocks.
+EXPAND_WORDS_BLOCK = 2048
 
 _U32 = 1 << 32
 
@@ -1452,7 +1453,9 @@ def expand_words(out, mask, vals, bases) -> None:
     """K14: (out int32[n] a chunk of the stack, mask int32[M] with bit k of
     mask[j] marking word 32 j + k nonzero, vals int32[nnz] the nonzero words
     in order, bases int32[ceil(M / EXPAND_WORDS_BLOCK)] from
-    expand_words_bases) -> the nonzero words written; no other word is."""
+    expand_words_bases) -> the nonzero words written; no other word is. On
+    the card out and mask must be 16-byte aligned (the builder's chunks and
+    staging segments are); vals need not be."""
     _check_expand("expand_words", out, ((mask, torch.int32, "mask"),
                                         (vals, torch.int32, "vals"),
                                         (bases, torch.int32, "bases")))
@@ -1467,6 +1470,8 @@ def expand_words(out, mask, vals, bases) -> None:
             f"the chunk's {out.numel()} words")
     if _plain("expand_words", out):
         return expand_words_torch(out, mask, vals, bases)
+    if out.data_ptr() % 16 or mask.data_ptr() % 16:
+        raise ValueError("expand_words: the chunk and the mask must be 16-byte aligned")
     from pilosa_tpu_torch.ops.build import library
 
     if mask.numel():

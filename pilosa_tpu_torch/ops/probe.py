@@ -7,7 +7,8 @@ One block per SM runs a register-only loop of one instruction kind:
 - ``popc``: ``__popc(a & b)`` on the CUDA cores, 32 bit-products each.
 
 ``and_popc_rates()`` times each with CUDA events and returns bit-products
-a second. It needs a CUDA card.
+a second. It needs a CUDA card. ``noop()`` launches a kernel that does
+nothing: the launch floor beside a kernel's time.
 
 The bound of a pair or group kernel is the least time the card could take
 for its work: the larger of its bytes (each input read once, each output
@@ -78,6 +79,29 @@ def and_popc_rates(device="cuda", target_ms: float = 50.0) -> dict:
         work = blocks * PROBE_THREADS * iters * _WORK[mode]
         rates[mode] = work / (ms / 1e3)
     return rates
+
+
+def noop(device="cuda", blocks: int = 1, stream=None):
+    """One launch of the kernel that does nothing (``noop_launch`` in
+    bmma.cu), as a callable that enqueues it on ``stream`` (a CUDA stream
+    handle), or on the device's current stream at each call when None (as
+    a CUDA graph's capture needs): timed like a kernel's bare launches, it
+    is the launch floor under which no kernel's time can fall. It needs a
+    CUDA card."""
+    from pilosa_tpu_torch.ops.build import library
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("noop: the launch floor is a CUDA card's")
+    fn = library("bmma").noop_launch
+
+    def launch():
+        rc = fn(blocks, stream if stream is not None
+                else torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"noop: CUDA launch failed with cudaError {rc}")
+
+    return launch
 
 
 def pair_work(s: int, rf: int, rg: int, w: int, pershard: bool) -> tuple:

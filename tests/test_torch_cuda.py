@@ -1365,6 +1365,90 @@ def test_expand_kernels_count_their_launches(card):
         assert after[name] == before.get(name, 0) + 1
 
 
+#: A full chunk of the cold build, in words, and K14's mask words over it.
+CHUNK = 1 << 23
+CHUNK_MASK = CHUNK // 32
+#: An out-of-range word: K14 must leave every word it does not own as it is.
+SENTINEL = 0x5A5A5A5A
+
+
+def _words_mask(rng, family):
+    """(mask uint32[M], n) of one K14 case at a full chunk: all zero, all
+    ones, mixed (random words, 30 % zero, all-ones runs of 1024 mask words
+    like a broad row's bitmap containers, an all-ones span across a tile
+    edge and one off the 4-word groups, zero spans across tile edges), the
+    same with its values off 16-byte alignment, or a ragged end (M off the
+    groups and tiles, n off the words, set bits past n)."""
+    tile = K.EXPAND_WORDS_BLOCK
+    if family == "zero":
+        return np.zeros(CHUNK_MASK, dtype=np.uint32), CHUNK
+    if family == "ones":
+        return np.full(CHUNK_MASK, 0xFFFFFFFF, dtype=np.uint32), CHUNK
+    mask = rng.integers(0, 2**32, CHUNK_MASK, dtype=np.uint32)
+    mask[rng.random(CHUNK_MASK) < 0.3] = 0
+    for start in range(0, CHUNK_MASK, 8192):
+        mask[start : start + 1024] = 0xFFFFFFFF
+    mask[5 * tile - 40 : 5 * tile + 24] = 0xFFFFFFFF
+    mask[7 * tile - 300 : 7 * tile + 500] = 0
+    mask[9 * tile + 3 : 9 * tile + 17] = 0xFFFFFFFF
+    if family == "unaligned":
+        mask[0] = 0b111  # three values ahead of the first all-ones run
+        return mask, CHUNK
+    if family == "ragged":
+        m = CHUNK_MASK - 37
+        mask = mask[:m].copy()
+        mask[-9:] = 0xFFFFFFFF
+        return mask, 32 * m - 5
+    return mask, CHUNK
+
+
+@pytest.mark.parametrize("family", ["zero", "ones", "mixed", "unaligned", "ragged"])
+def test_expand_words_at_a_full_chunk_equals_its_plain_form(card, family):
+    """K14 on a 2^23-word chunk against expand_words_torch, exactly, every
+    word it does not own left as it was: all-zero, all-ones and mixed
+    masks, values whose offsets sit off 16-byte alignment (and a vals
+    tensor that starts 4 bytes into its storage), and a ragged end."""
+    rng = np.random.default_rng(len(family))
+    mask, n = _words_mask(rng, family)
+    nnz = int(np.bitwise_count(mask).sum())
+    vals = rng.integers(0, 2**32, nnz + 1, dtype=np.uint32).view(np.int32)
+    bases = torch.from_numpy(K.expand_words_bases(mask))
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        buf = torch.full((n + 64,), SENTINEL, dtype=torch.int32, device=dev)
+        v = torch.from_numpy(vals).to(dev)
+        v = v[1:] if family == "unaligned" else v[:nnz]
+        K.expand_words(buf[:n], torch.from_numpy(mask.view(np.int32)).to(dev), v,
+                       bases.to(dev))
+        outs.append(buf.cpu())
+    torch.cuda.synchronize()
+    kernel, plain = outs
+    assert torch.equal(kernel, plain)
+    assert (kernel[n:] == SENTINEL).all()
+    if family == "ones":
+        assert torch.equal(kernel[:n], torch.from_numpy(vals[:nnz]))
+
+
+def test_expand_words_refuses_misaligned_launches(card):
+    """The wrapper raises on a chunk off 16-byte alignment before any
+    launch; the entry point refuses such a launch itself, and the launch
+    path raises on the refusal."""
+    from pilosa_tpu_torch.ops.build import library
+
+    buf = torch.zeros(SLOT + 4, dtype=torch.int32, device=card)
+    mask = torch.zeros(SLOT // 32, dtype=torch.int32, device=card)
+    vals = torch.zeros(1, dtype=torch.int32, device=card)
+    bases = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.expand_words(buf[1 : SLOT + 1], mask, vals, bases)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        K._launch("expand_words", card, library("expand").expand_words_launch,
+                  mask.data_ptr(), vals.data_ptr(), bases.data_ptr(), buf.data_ptr() + 4,
+                  mask.numel(), SLOT)
+    torch.cuda.synchronize()
+    assert not buf.any()
+
+
 def test_chunked_build_on_card_equals_the_dense_pack(card, monkeypatch):
     """A CUDABackend over a 72-shard index (a field of array containers, a
     field of run containers, and one with a bitmap and array containers a

@@ -297,7 +297,7 @@ def test_every_kernel_source_is_built():
     assert set(K._LIBRARY.values()) == set(build.SOURCES)
 
 
-@pytest.mark.parametrize("lib_name", ["bitcount", "bmma", "spec"])
+@pytest.mark.parametrize("lib_name", ["bitcount", "bmma", "spec", "expand"])
 def test_bind_covers_exactly_the_entry_points_of_each_source(lib_name):
     """_bind binds every entry point a source defines and nothing else (a
     stale name would fail the real library's load), each with argtypes
@@ -310,3 +310,12 @@ def test_bind_covers_exactly_the_entry_points_of_each_source(lib_name):
     assert set(stub.fns) == set(entries)
     for fn_name, argtypes in entries.items():
         assert stub.fns[fn_name].argtypes == argtypes, fn_name
+
+
+def test_launch_floor_needs_a_card():
+    """The launch floor's no-op kernel (ops/probe.py noop) is a CUDA card's:
+    asked for on the CPU it refuses before loading any library."""
+    from pilosa_tpu_torch.ops import probe
+
+    with pytest.raises(ValueError, match="CUDA card"):
+        probe.noop(device="cpu")

@@ -212,6 +212,85 @@ def test_expand_words_bases_count_the_words_before_each_block(rng):
     assert bases.dtype == np.int32 and bases.tolist() == want
 
 
+#: A chunk of five whole K14 tiles and a ragged sixth (100 mask words).
+TILED_CHUNK = 32 * (5 * K.EXPAND_WORDS_BLOCK + 100)
+
+
+def _tile_walk(mask, vals, bases, n):
+    """K14's indexing, as its CUDA blocks take it, in numpy: tile b's groups
+    of 4 mask words take their values from bases[b] on; an all-ones group
+    wholly inside the n words is a straight copy of 128 values, any other
+    nonzero group a rank store of its set bits below word n."""
+    out = np.zeros(n, dtype=np.uint32)
+    tile = K.EXPAND_WORDS_BLOCK
+    padded = np.zeros(-(-mask.size // tile) * tile, dtype=np.uint32)
+    padded[: mask.size] = mask
+    for b, base in enumerate(bases.tolist()):
+        groups = padded[b * tile : (b + 1) * tile].reshape(-1, 4)
+        per = np.bitwise_count(groups).sum(axis=1).astype(np.int64)
+        offs = base + np.cumsum(per) - per
+        for i in np.flatnonzero(groups.any(axis=1)):
+            w0 = 32 * (b * tile + 4 * int(i))
+            if (groups[i] == 0xFFFFFFFF).all() and w0 + 128 <= n:
+                out[w0 : w0 + 128] = vals[offs[i] : offs[i] + 128]
+                continue
+            bits = ((groups[i][:, None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(-1)
+            at = np.flatnonzero(bits)
+            keep = w0 + at < n
+            out[w0 + at[keep]] = vals[offs[i] + np.arange(at.size)[keep]]
+    return out
+
+
+def _mask_family(rng, family, n_mask):
+    """A mask of n_mask words: all zero, all ones, or mixed: random words,
+    an all-ones span across the tile 0/1 edge, zero spans across the tile
+    2 and 3 edges, an all-ones span off the 4-word groups, full words in
+    the ragged last tile."""
+    if family == "zero":
+        return np.zeros(n_mask, dtype=np.uint32)
+    if family == "ones":
+        return np.full(n_mask, 0xFFFFFFFF, dtype=np.uint32)
+    tile = K.EXPAND_WORDS_BLOCK
+    mask = rng.integers(0, 2**32, n_mask, dtype=np.uint32)
+    mask[rng.random(n_mask) < 0.3] = 0
+    mask[tile - 40 : tile + 24] = 0xFFFFFFFF
+    mask[2 * tile - 300 : 2 * tile + 500] = 0
+    mask[3 * tile - 7 : 3 * tile + 9] = 0
+    mask[3001:3014] = 0xFFFFFFFF
+    mask[-60:-20] = 0xFFFFFFFF
+    return mask
+
+
+@pytest.mark.parametrize("family", ["zero", "ones", "mixed"])
+@pytest.mark.parametrize("short", [0, 4 * 32 * 7 + 13])
+def test_expand_words_tiles_equal_jax_chunk_prog(rng, monkeypatch, family, short):
+    """The plain K14, and K14's tile walk over expand_words_bases at the
+    tile size (EXPAND_WORDS_BLOCK mask words), against the JAX package's
+    mask decompress on a chunk of five tiles and a ragged sixth: all-zero,
+    all-ones and mixed masks whose spans cross the tiles' edges, the whole
+    chunk or a short last chunk (its words past n zero in the mask)."""
+    monkeypatch.setattr(jax_sparse, "CHUNK_WORDS", TILED_CHUNK)
+    n = TILED_CHUNK - short
+    mask = _mask_family(rng, family, TILED_CHUNK // 32)
+    bits = ((mask[:, None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(-1)
+    bits[n:] = 0
+    mask = np.bitwise_or.reduce(
+        bits.reshape(-1, 32).astype(np.uint32) << np.arange(32, dtype=np.uint32), axis=1)
+    nnz = int(bits.sum())
+    vals = rng.integers(1, 2**32, nnz, dtype=np.uint32)
+    bucket = max(nnz, 1)
+    padded = np.zeros(bucket, dtype=np.uint32)
+    padded[:nnz] = vals
+    want = np.asarray(jax_sparse._chunk_prog(None, bucket)(
+        jax.device_put(mask), jax.device_put(padded)))[:n]
+    bases = K.expand_words_bases(mask)
+    assert bases.size == 6
+    out = torch.zeros(n, dtype=torch.int32)
+    K.expand_words(out, _i32(mask.view(np.int32)), _i32(vals.view(np.int32)), _i32(bases))
+    np.testing.assert_array_equal(_words(out), want)
+    np.testing.assert_array_equal(_tile_walk(mask, vals, bases, n), want)
+
+
 @pytest.mark.parametrize("call,args,err", [
     ("expand_positions", lambda o: (o, _i16([1]), _i32([0]), _i32([0])), ValueError),
     ("expand_positions", lambda o: (o[:100], _i16([1]), _i32([0]), _i32([0, 1])), ValueError),
@@ -464,6 +543,91 @@ def test_container_chunk_with_a_bitmap_remainder(rng, small_chunks):
     remainder (K12 and K14 on one chunk)."""
     b = _fragment_build(rng, bitmap=True, packed_bitmap=True)
     assert b.chunks["container"] > 0 and b.chunks["raw"] == 0
+
+
+#: One shard's 8 rows: the chunk of the skewed-field test, so that each
+#: chunk holds what a 2^23-word chunk of 32 shards holds, at 1/32 scale.
+SKEW_CHUNK = 8 * WORDS_PER_SHARD
+
+
+@pytest.fixture
+def skew_chunks(monkeypatch):
+    """Both packages' chunks set to SKEW_CHUNK words, the JAX programs
+    compiled first (as small_chunks does)."""
+    monkeypatch.setattr(sparse, "CHUNK_WORDS", SKEW_CHUNK)
+    monkeypatch.setattr(sparse, "MIN_CHUNKED_WORDS", 2 * SKEW_CHUNK)
+    monkeypatch.setattr(jax_sparse, "CHUNK_WORDS", SKEW_CHUNK)
+    monkeypatch.setattr(jax_sparse, "BUCKETS", (SKEW_CHUNK // 32, SKEW_CHUNK // 16,
+                                                SKEW_CHUNK // 8, SKEW_CHUNK // 4))
+    monkeypatch.setattr(jax_sparse, "MIN_CHUNKED_WORDS", 2 * SKEW_CHUNK)
+    for b in jax_sparse.BUCKETS:
+        jax_sparse._chunk_prog(None, b)
+    jax_sparse._chunk_zeros_prog(None)
+    jax_sparse._or_prog(None)
+    jax_sparse._pos_prog(None)
+    jax_sparse._run_prog(None)
+    assert jax_sparse.container_progs_ready(None)
+
+
+def test_skewed_field_rides_the_container_tier_with_a_words_remainder(rng, skew_chunks):
+    """A field shaped like chip_smoke.py's s: row 0 broad (every container
+    a bitmap container of random words, bit density 0.5), rows 1 to 7
+    narrow (array containers, bit density 0.01), over 3 shards of one chunk
+    each. Every chunk ships on the container tier with its bitmap
+    containers as a word-mask remainder of exactly CHUNK_WORDS // 8 words,
+    and the stack equals the dense pack and the JAX builder's."""
+    n_shards, per_row = 3, SHARD_WIDTH >> 16
+    holders, frags = [], {}
+    for holder_cls, view, container in ((JaxHolder, JAX_VIEW_STANDARD, JaxContainer),
+                                        (Holder, VIEW_STANDARD, Container)):
+        h = holder_cls(None).open()
+        holders.append(h)
+        f = h.create_index("i").create_field("s")
+        frags[holder_cls] = []
+        draw = np.random.default_rng(5)
+        for shard in range(n_shards):
+            narrow = draw.random((7, SHARD_WIDTH)) < 0.01
+            rows, cols = np.nonzero(narrow)
+            f.import_bits((rows + 1).astype(np.uint64),
+                          (shard * SHARD_WIDTH + cols).astype(np.uint64))
+            fr = f.view(view).fragment(shard)
+            words = np.frombuffer(draw.bytes(per_row * 8192), dtype="<u8").reshape(per_row, -1)
+            for key in range(per_row):
+                fr.storage.put_container(key, container.from_bitmap_words(words[key].copy()))
+            kinds = {(k // per_row == 0, fr.storage.container(k).typ) for k in fr.storage.keys()}
+            assert kinds == {(True, "bitmap"), (False, "array")}
+            frags[holder_cls].append(fr)
+    shipped = []
+
+    class Capture(sparse.ChunkedStackBuilder):
+        def _ship(self, lay, kind):
+            shipped.append((kind, [v.numel() for v in lay.views(lay.host)]))
+            super()._ship(lay, kind)
+
+    def feed(b):
+        own = frags[Holder] if isinstance(b, sparse.ChunkedStackBuilder) else frags[JaxHolder]
+        for fr in own:
+            b.feed_fragment(fr, 8)
+
+    try:
+        port = Capture("cpu", (n_shards, 8, WORDS_PER_SHARD))
+        feed(port)
+        got = _words(port.finish())
+        for shard, fr in enumerate(frags[Holder]):
+            np.testing.assert_array_equal(got[shard], pack_fragment(fr, n_rows=8))
+        b, both = _both_build((n_shards, 8, WORDS_PER_SHARD), feed)
+        np.testing.assert_array_equal(both, got)
+    finally:
+        for h in holders:
+            h.close()
+    assert port.chunks == {"empty": 0, "words": 0, "container": n_shards, "raw": 0}
+    assert b.chunks == port.chunks
+    assert [kind for kind, _ in shipped] == ["container"] * n_shards
+    for _, sizes in shipped:
+        # six container views, then the remainder: mask, values, bases
+        assert len(sizes) == 9 and sizes[4] > 0
+        assert sizes[6:] == [SKEW_CHUNK // 32, SKEW_CHUNK // 8,
+                             -(-SKEW_CHUNK // 32 // K.EXPAND_WORDS_BLOCK)]
 
 
 def test_dense_rows_materialize(rng, small_chunks):
