@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --cold | --host-count | --host-count-ab PARENT]
+    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --cold | --cluster | --host-count | --host-count-ab PARENT]
 
 Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
@@ -164,6 +164,26 @@ chip_smoke.py to time it).
    remainder, K12 and K14 launched once a chunk; K12, K13 and K14 must
    each have launched (``--cold`` runs this phase and the expansion
    kernels' checks alone);
+4d. two nodes of a cluster sharing the card (phase_cluster, after the
+   2-shard tile index; ``--cluster`` runs it alone, after the kernel
+   libraries' build and load): bench.py's f, g and h over CLUSTER_SHARDS
+   shards (cut from 954; PERF.md section 4) and the existence of h's
+   columns, written through the port's holder into a data directory and
+   copied to a second; two `cli server` processes with executor cuda, the
+   same cluster.hosts, replicas 2, hedge-delay 0 and a 10 s anti-entropy
+   interval. Count(Row), Count(Intersect), Count(Union), Count(Not),
+   TopN(f), Rows(f), a filtered 2-field and a 3-field GroupBy go to each
+   node, every answer equal to the in-process single-node executor's over
+   the same data; each kind and node prints its first request, p50 and
+   p99, and both nodes' launches by kind (/debug/programs),
+   cpu_routed_total and stack_full_rebuilds_total deltas. Then a Set and
+   a Clear through the node that is not the coordinator, read back from
+   each replica by a pinned remote leg; that node killed (SIGKILL) and
+   every read answered as before by the survivor (its first answer
+   timed); a write on the survivor, the lost node restarted on its
+   persisted topology, and its pinned answer holding the write after an
+   anti-entropy pass. A non-zero exit, a traceback or a refusal in a
+   node's log fails the phase;
 5. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
@@ -659,10 +679,11 @@ def phase_probe(card_line):
 # ---------------------------------------------------------------------------
 
 
-def build_bench_index(holder):
+def build_bench_index(holder, shards: int = SHARDS):
     """bench.py build_index: per shard, f and g hold ROWS * SHARD_WIDTH *
     DENSITY uniform columns per row, and h H_ROWS rows of n_bits // 4, all
-    from SFC64(42)'s raw stream in that order."""
+    from SFC64(42)'s raw stream in that order, over the first ``shards``
+    shards."""
     import numpy as np
 
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
@@ -681,11 +702,11 @@ def build_bench_index(holder):
     rows = np.repeat(np.arange(ROWS, dtype=np.uint8), n_bits)
     for fname in ("f", "g"):
         field = idx.create_field(fname)
-        for shard in range(SHARDS):
+        for shard in range(shards):
             field.import_bits(rows, rand_cols(shard, rows.size))
     hrows = np.repeat(np.arange(H_ROWS, dtype=np.uint8), n_bits // 4)
     field = idx.create_field("h")
-    for shard in range(SHARDS):
+    for shard in range(shards):
         field.import_bits(hrows, rand_cols(shard, hrows.size))
 
 
@@ -3622,6 +3643,365 @@ def cli_server_run(root, env, data_dir, tmp, extra, load, wait_log=None, probe=N
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: two nodes of a cluster sharing the card
+# ---------------------------------------------------------------------------
+
+#: Shards of the cluster phase's index: bench.py's f, g and h (8, 8 and 4
+#: rows, density 0.05), cut from 954 because at 954 the phase took past
+#: 240 s before its reads were done (PERF.md section 4).
+CLUSTER_SHARDS = 256
+#: Each node's anti-entropy interval in seconds (short, for the heal step).
+CLUSTER_ANTI_ENTROPY_S = 10.0
+#: A read window after the first request: CLUSTER_WINDOW_N timed requests,
+#: or as many as CLUSTER_WINDOW_S seconds allow but at least
+#: CLUSTER_WINDOW_MIN, over which p50, p90 and p99 are printed.
+CLUSTER_WINDOW_N = 100
+CLUSTER_WINDOW_S = 10.0
+CLUSTER_WINDOW_MIN = 20
+#: (request kind, PQL, windowed): the reads sent to both nodes, each answer
+#: checked. A GroupBy takes seconds on the host of the node it is sent to:
+#: its one request is printed as is, with no window and no percentile.
+CLUSTER_READS = [
+    ("Count(Row)", "Count(Row(f=1))", True),
+    ("Count(Intersect)", "Count(Intersect(Row(f=1), Row(g=2)))", True),
+    ("Count(Union)", "Count(Union(Row(f=3), Row(g=0)))", True),
+    ("Count(Not)", "Count(Not(Row(h=1)))", True),
+    ("TopN(f)", "TopN(f)", True),
+    ("Rows(f)", "Rows(f)", True),
+    ("filtered 2-field GroupBy", "GroupBy(Rows(f), Rows(g), filter=Row(h=1))", False),
+    ("3-field GroupBy", "GroupBy(Rows(f), Rows(g), Rows(h))", False),
+]
+
+
+def build_cluster_index(holder, shards: int) -> None:
+    """bench.py's f, g and h over ``shards`` shards (build_bench_index), and
+    the existence of h's columns, so that Not has a universe."""
+    import numpy as np
+
+    build_bench_index(holder, shards)
+    idx = holder.index("bench")
+    h = idx.field("h")
+    exists = idx.existence_field()
+    for shard in range(shards):
+        cols = np.unique(np.concatenate([h.row(r, shard).columns() for r in range(H_ROWS)]))
+        exists.import_bits(np.zeros(cols.size, dtype=np.uint64), cols.astype(np.uint64))
+
+
+class ClusterNodeProc:
+    """One `python -m pilosa_tpu_torch.cli server` process of the cluster
+    phase, its log appended to across restarts."""
+
+    def __init__(self, root, env, data_dir, port, log_path):
+        self.root, self.env, self.data_dir, self.port = root, env, data_dir, port
+        self.log_path = log_path
+        self.url = f"http://127.0.0.1:{port}"
+        self.id = f"node-127.0.0.1-{port}"
+        self.proc = None
+
+    def start(self, conf: str) -> None:
+        with open(self.log_path, "a") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-d", self.data_dir,
+                 "--bind", f"127.0.0.1:{self.port}", "-c", conf, "--executor", "cuda"],
+                cwd=self.root, env=self.env, stdout=out, stderr=subprocess.STDOUT)
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def stop(self) -> int:
+        """SIGINT, which must stop the node with exit code 0."""
+        import signal
+
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            return self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            return -9
+
+    def kill(self) -> None:
+        if self.alive():
+            self.proc.kill()
+            self.proc.wait()
+
+
+def cluster_http(url: str, path: str, body=None, timeout: float = 900.0):
+    """(parsed JSON answer, seconds) of one request."""
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=None if body is None else body.encode(),
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        raw = r.read()
+    return json.loads(raw), time.perf_counter() - t0
+
+
+def cluster_counters(node) -> dict:
+    """A node's launches by kind (/debug/programs), cpu_routed_total by
+    call and stack_full_rebuilds_total (/metrics)."""
+    import re
+    import urllib.request
+
+    programs, _ = cluster_http(node.url, "/debug/programs")
+    launches: dict = {}
+    for e in programs["entries"]:
+        launches[e["kind"]] = launches.get(e["kind"], 0) + e["launches"]
+    with urllib.request.urlopen(node.url + "/metrics", timeout=120) as r:
+        metrics = r.read().decode()
+    routed: dict = {}
+    for ln in metrics.splitlines():
+        if ln.startswith("pilosa_cpu_routed_total{"):
+            call = re.search(r'call="([^"]+)"', ln)
+            routed[call.group(1) if call else "?"] = float(ln.rsplit(" ", 1)[1])
+    return {"launches": launches, "routed": routed,
+            "rebuilds": metric_sum(metrics, "stack_full_rebuilds_total")}
+
+
+def counters_delta(after: dict, before: dict) -> dict:
+    def d(a, b):
+        return {k: a[k] - b.get(k, 0) for k in sorted(a) if a[k] != b.get(k, 0)}
+
+    return {"launches": d(after["launches"], before["launches"]),
+            "routed": d(after["routed"], before["routed"]),
+            "rebuilds": after["rebuilds"] - before["rebuilds"]}
+
+
+def pinned_columns(node, shard: int, pql: str = "Row(f=1)") -> list:
+    """The columns a node's own copy of `shard` answers for a Row call: a
+    remote (per-node) leg pinned to that shard."""
+    out, _ = cluster_http(node.url, f"/index/bench/query?shards={shard}&remote=true", pql)
+    return out["results"][0]["columns"]
+
+
+def phase_cluster(root, shards: int = CLUSTER_SHARDS):
+    """Two `cli server` processes of one cluster (cluster.hosts, replicas 2,
+    executor cuda) share the card over one index of bench.py's f, g and h,
+    written through the port's holder and copied to the second node. The
+    CLUSTER_READS go to both nodes over HTTP, each answer checked against
+    the CPU oracle's over the same data (which the in-process single-node
+    executor on the card must match first); for each kind and node: the
+    first request's seconds, p50, p90 and p99 over a window of up to 100
+    (a GroupBy's one request alone), and each node's launches by kind
+    (/debug/programs), cpu_routed_total and stack_full_rebuilds_total
+    deltas. Then a Set and a Clear through the
+    node that is not the coordinator, read back from each replica by a
+    pinned remote leg; the loss of that node (SIGKILL), after which the
+    survivor answers every read as before (its first answer's seconds
+    include the stacks it builds for the shards it now serves); a write on
+    the survivor, the lost node restarted on its persisted topology, and
+    its pinned answer holding the write after an anti-entropy pass. A
+    non-zero exit, a traceback or a refusal in a node's log fails the
+    phase; both nodes are stopped when it ends."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cpu import CPUBackend
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.utils import fastjson
+
+    t0 = time.perf_counter()
+    steps = []
+
+    def step(name):
+        steps.append((name, round(time.perf_counter() - t0, 1)))
+        log(f"cluster: {name} done at {steps[-1][1]} s")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    nodes = []
+    try:
+        dirs = [os.path.join(tmp, "node0"), os.path.join(tmp, "node1")]
+        holder = Holder(dirs[0]).open()
+        build_cluster_index(holder, shards)
+        build_s = time.perf_counter() - t0
+
+        def answers(ex):
+            out = {}
+            for kind, q, _ in CLUSTER_READS:
+                body = fastjson.response_body([fastjson.encode_result(r)
+                                               for r in ex.execute("bench", q)])
+                out[kind] = json.loads(body)["results"]
+            return out
+
+        # The expected answers: the CPU oracle's over the same holder, which
+        # the in-process single-node executor on the card must match.
+        t1 = time.perf_counter()
+        expected = answers(Executor(holder, backend=CPUBackend(holder)))
+        oracle_s = time.perf_counter() - t1
+        backend = CUDABackend(holder)
+        single = answers(Executor(holder, backend=backend))
+        for kind, _, _ in CLUSTER_READS:
+            check(single[kind] == expected[kind],
+                  f"cluster: the single node's {kind} disagrees with the CPU oracle")
+        log(f"cluster: the CPU oracle's answers in {oracle_s:.1f} s; the single node on the "
+            "card agrees")
+        holder.close()
+        del single, backend
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        shutil.copytree(dirs[0], dirs[1])
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(dirs[0]) for f in fs)
+        log(f"cluster: index bench, {shards} shards (f, g: {ROWS} rows, h: {H_ROWS} rows, "
+            f"density {DENSITY}), written in {build_s:.1f} s, {size} bytes on disk a node, "
+            f"copied in {time.perf_counter() - t1:.1f} s")
+        step("data")
+
+        env = dict(os.environ, PYTHONPATH=root)
+        ports = [free_port(), free_port()]
+        while ports[1] == ports[0]:
+            ports[1] = free_port()
+        hosts = ", ".join(f'"127.0.0.1:{p}"' for p in ports)
+        common = (f"hedge-delay = 0.0\n[anti-entropy]\ninterval = {CLUSTER_ANTI_ENTROPY_S}\n")
+        conf = os.path.join(tmp, "cluster.toml")
+        with open(conf, "w") as f:
+            f.write(common + f"[cluster]\nhosts = [{hosts}]\nreplicas = 2\n")
+        restart_conf = os.path.join(tmp, "restart.toml")
+        with open(restart_conf, "w") as f:
+            f.write(common)
+        nodes = [ClusterNodeProc(root, env, d, p, os.path.join(tmp, f"node{k}.log"))
+                 for k, (d, p) in enumerate(zip(dirs, ports))]
+        for n in nodes:
+            n.start(conf)
+        for n in nodes:
+            wait_for_port(n.port, n.proc, seconds=600)
+        status, _ = cluster_http(nodes[0].url, "/status")
+        coord_id = next(x["id"] for x in status["nodes"] if x["isCoordinator"])
+        coord = next(n for n in nodes if n.id == coord_id)
+        other = next(n for n in nodes if n is not coord)
+        check(len(status["nodes"]) == 2 and status["state"] == "NORMAL",
+              f"cluster: /status {status}")
+        log(f"cluster: 2 nodes up, coordinator {coord.id}; " + "; ".join(
+            ln for n in nodes for ln in n.log().splitlines()
+            if "clustered:" in ln or "executor=cuda" in ln))
+        step("boot")
+
+        def read(node, kind, q, label):
+            out, sec = cluster_http(node.url, "/index/bench/query", q)
+            check(out["results"] == expected[kind],
+                  f"cluster: {kind} from {label} {node.id} disagrees with the single node")
+            return sec
+
+        summary = []
+        for node in nodes:
+            role = "coordinator" if node is coord else "other"
+            for kind, q, windowed in CLUSTER_READS:
+                before = [cluster_counters(n) for n in nodes]
+                first = read(node, kind, q, role)
+                times: list = []
+                end = time.perf_counter() + CLUSTER_WINDOW_S
+                while windowed and len(times) < CLUSTER_WINDOW_N and (
+                        len(times) < CLUSTER_WINDOW_MIN or time.perf_counter() < end):
+                    times.append(read(node, kind, q, role))
+                delta = [counters_delta(cluster_counters(n), b) for n, b in zip(nodes, before)]
+                row = {"kind": kind, "to": role, "first_ms": round(first * 1e3, 3),
+                       "requests": 1 + len(times)}
+                for p in (50, 90, 99) if times else ():
+                    row[f"p{p}_ms"] = round(float(np.percentile(times, p)) * 1e3, 3)
+                row.update(coordinator=delta[nodes.index(coord)],
+                           other=delta[nodes.index(other)])
+                summary.append(row)
+                log("cluster: " + json.dumps(row))
+        step("reads")
+
+        # Writes through the node that is not the coordinator, read back
+        # from each replica's own copy. The columns written hold h's bits
+        # already, so the existence row (which a Clear leaves) stays as it
+        # was and every expected answer but f's holds.
+        def fresh_column(shard):
+            have = set(pinned_columns(coord, shard))
+            return next(c for c in pinned_columns(coord, shard, "Row(h=0)") if c not in have)
+
+        shard = shards // 2
+        col = fresh_column(shard)
+        cluster_http(other.url, "/index/bench/query", f"Set({col}, f=1)")
+        for n in nodes:
+            check(col in pinned_columns(n, shard), f"cluster: Set({col}) missing on {n.id}")
+        cluster_http(other.url, "/index/bench/query", f"Clear({col}, f=1)")
+        for n in nodes:
+            check(col not in pinned_columns(n, shard),
+                  f"cluster: Clear({col}) did not reach {n.id}")
+        log(f"cluster: Set and Clear of column {col} through {other.id} reached both "
+            "replicas (pinned remote legs)")
+        step("writes")
+
+        # Node loss: the survivor answers every read as before.
+        other.kill()
+        t_loss = time.perf_counter()
+        before = cluster_counters(coord)
+        first = read(coord, "Count(Row)", "Count(Row(f=1))", "survivor")
+        lost = {"first_ms": round(first * 1e3, 3)}
+        for kind, q, _ in CLUSTER_READS:
+            lost[kind + " ms"] = round(read(coord, kind, q, "survivor") * 1e3, 3)
+        lost["survivor"] = counters_delta(cluster_counters(coord), before)
+        log(f"cluster: {other.id} killed (SIGKILL); the survivor's first answer "
+            f"{lost['first_ms']} ms, every read equal in "
+            f"{time.perf_counter() - t_loss:.1f} s: " + json.dumps(lost))
+        step("loss")
+
+        # Heal: a write on the survivor reaches the restarted node by
+        # anti-entropy.
+        shard2 = (shard + 1) % shards
+        col2 = fresh_column(shard2)
+        cluster_http(coord.url, "/index/bench/query", f"Set({col2}, f=1)")
+        check(col2 in pinned_columns(coord, shard2), "cluster: the survivor lost its write")
+        t_restart = time.perf_counter()
+        other.start(restart_conf)
+        wait_for_port(other.port, other.proc, seconds=600)
+        check("restored topology" in other.log(),
+              f"cluster: {other.id} did not restore its topology: {other.log()[-2000:]}")
+        deadline = time.perf_counter() + 6 * CLUSTER_ANTI_ENTROPY_S + 60
+        while col2 not in pinned_columns(other, shard2):
+            check(time.perf_counter() < deadline and other.alive(),
+                  f"cluster: anti-entropy never healed column {col2} on {other.id}")
+            time.sleep(1.0)
+        heal_s = time.perf_counter() - t_restart
+        count, _ = cluster_http(other.url, "/index/bench/query", "Count(Row(f=1))")
+        check(count["results"] == [expected["Count(Row)"][0] + 1],
+              f"cluster: after the heal {other.id} counts {count['results']}")
+        log(f"cluster: {other.id} restarted on its persisted topology; its pinned answer "
+            f"holds the survivor's write {heal_s:.1f} s after the restart")
+        step("heal")
+
+        rcs = [n.stop() for n in nodes]
+        for n, rc in zip(nodes, rcs):
+            text = n.log()
+            check(rc == 0, f"cluster: {n.id} exited with {rc}: {text[-2000:]}")
+            bad = [ln for ln in text.splitlines()
+                   if "Traceback" in ln or "refusing" in ln or "not serving" in ln]
+            check(not bad, f"cluster: {n.id}'s log: {bad[:5]}")
+        log("cluster: " + json.dumps({"shards": shards, "steps": steps, "reads": len(summary)}))
+    finally:
+        for n in nodes:
+            n.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"cluster: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_cluster_alone(root, shards: int) -> int:
+    """`chip_smoke.py --cluster`: the card line and the kernel libraries,
+    built and loaded before any node starts, then phase_cluster."""
+    import torch
+
+    phase_card()
+    phase_cluster(root, shards)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -4588,6 +4968,11 @@ def main(argv=None) -> int:
     ap.add_argument("--host-count-ab", metavar="PARENT",
                     help="compare the single Count's host time of PARENT's package and "
                          "the --root checkout's in alternating rounds (host_count_ab)")
+    ap.add_argument("--cluster", action="store_true",
+                    help="run only the cluster phase (phase_cluster: two `cli server` "
+                         "nodes sharing the card) on the --root checkout's package")
+    ap.add_argument("--cluster-shards", type=int, default=CLUSTER_SHARDS, metavar="N",
+                    help=f"shards of the cluster phase's index (default {CLUSTER_SHARDS})")
     ap.add_argument("--pairs", type=int, default=10,
                     help="rounds of each package in --host-count-ab (default 10)")
     args = ap.parse_args(argv)
@@ -4620,6 +5005,8 @@ def main(argv=None) -> int:
         return phase_budget_alone(root)
     if args.cold:
         return phase_cold_alone(root)
+    if args.cluster:
+        return phase_cluster_alone(root, args.cluster_shards)
     if args.host_count:
         return phase_host_count(root, args.rounds)
     if args.host_count_ab:
@@ -4646,6 +5033,7 @@ def main(argv=None) -> int:
     holder.close()
     del backend
     phase_groupby_tiles()
+    phase_cluster(root)
     launches = dict(results["launches"])
     for name in ("group_tile_stats", "group_tile_stats_pershard"):
         launches[name] = group_launches[name]

@@ -15,70 +15,26 @@ import sys
 #: Where the knobs the server refuses are queued for porting.
 _ROADMAP = "ROADMAP.md, queue 1"
 
-#: Settings that configure a plane the port's server does not have yet,
-#: by their TOML key: (Config attribute, the plane). Nothing reads them,
-#: so any value but the default is refused at startup, never ignored.
-_UNREAD_SETTINGS = {
-    "anti-entropy.interval": ("anti_entropy_interval", "multi-node serving"),
-    "client-timeout": ("client_timeout", "multi-node serving"),
-    "client-retries": ("client_retries", "multi-node serving"),
-    "breaker-threshold": ("breaker_threshold", "multi-node serving"),
-    "breaker-cooldown": ("breaker_cooldown", "multi-node serving"),
-    "hedge-delay": ("hedge_delay", "multi-node serving"),
-    "resize-lease": ("resize_lease", "cluster resize"),
-    "migration-concurrency": ("migration_concurrency", "cluster resize"),
-    "migration-bandwidth": ("migration_bandwidth", "cluster resize"),
-    "read-repair-queue": ("read_repair_queue", "the replica consistency plane"),
-    "cluster.coordinator": ("cluster.coordinator", "multi-node serving"),
-    "cluster.replicas": ("cluster.replicas", "multi-node serving"),
-    "tls.ca-certificate": ("tls.ca_certificate", "multi-node serving"),
-    "tls.skip-verify": ("tls.skip_verify", "multi-node serving"),
-}
-
-
-def _setting(cfg, attr: str):
-    for part in attr.split("."):
-        cfg = getattr(cfg, part)
-    return cfg
-
 
 def _unported_knobs(cfg, args) -> list[str]:
-    """The knobs this slice does not serve, each as a refusal message.
+    """The knobs this port does not serve, each as a refusal message.
     Their defaults are off, so the default configuration serves; a knob
     set on is refused at startup rather than ignored."""
-    from pilosa_tpu_torch.server.config import Config
-
-    default = Config()
-    out = [
-        f"{key}: {plane} is not ported yet"
-        for key, (attr, plane) in _UNREAD_SETTINGS.items()
-        if _setting(cfg, attr) != _setting(default, attr)
-    ]
+    out = []
     if cfg.executor not in ("cuda", "cpu"):
         out.append(f"executor={cfg.executor!r}: choose cuda or cpu")
     if cfg.mesh_devices not in (0, 1):
         out.append("mesh-devices: the multi-device mesh is not ported yet")
     if cfg.profile_port:
         out.append("profile.port: the device profiler server is not ported yet")
-    if getattr(args, "join", None):
-        out.append("--join: multi-node serving is not ported yet")
-    if cfg.cluster.hosts:
-        out.append("cluster.hosts: multi-node serving is not ported yet")
     return [f"{m} ({_ROADMAP})" for m in out]
 
 
-def _saved_cluster_size(data_dir: str) -> int:
-    """Members of the topology persisted in data_dir (0 when none)."""
-    from pilosa_tpu_torch.cluster.topology import TOPOLOGY_FILE, load_topology
-
-    saved = load_topology(os.path.join(data_dir, TOPOLOGY_FILE))
-    return len(saved["nodes"]) if saved else 0
-
-
 def cmd_server(args) -> int:
-    """Serve one node: --executor=cuda (the default) on the card, which
-    exits non-zero where the card cannot be used; --executor=cpu on the
-    CPU oracle, by explicit choice only."""
+    """Serve one node, alone or as a member of a cluster (cluster.hosts,
+    --join, or a persisted multi-node topology): --executor=cuda (the
+    default) on the card, which exits non-zero where the card cannot be
+    used; --executor=cpu on the CPU oracle, by explicit choice only."""
     from pilosa_tpu_torch.core import Holder
     from pilosa_tpu_torch.exec import Executor
     from pilosa_tpu_torch.exec.cpu import CPUBackend
@@ -111,11 +67,6 @@ def cmd_server(args) -> int:
     log = StandardLogger(stream=log_stream, verbose=cfg.verbose)
     data_dir = os.path.expanduser(cfg.data_dir)
     refused = _unported_knobs(cfg, args)
-    if _saved_cluster_size(data_dir) > 1:
-        refused.append(
-            "a persisted multi-node topology: multi-node serving is not "
-            f"ported yet ({_ROADMAP})"
-        )
     if refused:
         for m in refused:
             log.printf("refusing to start: %s", m)
@@ -208,6 +159,125 @@ def cmd_server(args) -> int:
     )
     api.ingest_derate = cfg.ingest_derate
 
+    # TLS (reference server/tlsconfig.go): certificate+key serve HTTPS;
+    # peers are dialed with a CA-verified (or skip-verify) context. A
+    # bare host in cluster.hosts inherits the local scheme so an
+    # all-TLS cluster doesn't need https:// spelled on every host.
+    local_scheme = "https" if cfg.tls.enabled else "http"
+    client_ssl = (
+        cfg.tls.client_context()
+        if (cfg.tls.enabled or cfg.tls.skip_verify or cfg.tls.ca_certificate)
+        else None
+    )
+
+    # Persisted topology: membership survives restarts in
+    # <data-dir>/.topology, written atomically on every durable change, so
+    # a restarting node rejoins with its same identity and a full-cluster
+    # restart reconverges without operator re-seeding.
+    from pilosa_tpu_torch.cluster.topology import TOPOLOGY_FILE, load_topology
+
+    topo_path = os.path.join(data_dir, TOPOLOGY_FILE)
+    saved = load_topology(topo_path)  # None on absent/corrupt: reseed
+    saved_nodes = []
+    saved_local = None
+    if saved:
+        from pilosa_tpu_torch.cluster import Node
+        from pilosa_tpu_torch.cluster.topology import NODE_STATE_READY
+
+        saved_nodes = [Node.from_json(d) for d in saved["nodes"]]
+        for n in saved_nodes:
+            # Persisted liveness is stale by definition: every member
+            # boots READY and the failure detector re-learns the truth.
+            n.state = NODE_STATE_READY
+        saved_local = next(
+            (
+                n
+                for n in saved_nodes
+                if n.uri.host == cfg.host and n.uri.port == cfg.port
+            ),
+            None,
+        )
+
+    def restore_saved_cluster():
+        """Boot from the persisted topology: the one restore sequence
+        both the --join-restart and no-cluster-config paths share."""
+        if saved.get("replicaN"):
+            cfg.cluster.replicas = int(saved["replicaN"])
+        cluster = wire_cluster(
+            saved_nodes, saved_local.id, partition_n=saved.get("partitionN")
+        )
+        log.printf(
+            "restored topology from %s: %d nodes, replicas=%d, local id %s",
+            topo_path, len(saved_nodes), cfg.cluster.replicas, saved_local.id,
+        )
+        return cluster
+
+    def wire_cluster(topo_nodes, local_id, partition_n=None):
+        """Shared cluster bootstrap for the static-hosts, --join, and
+        persisted-topology paths: build the topology, attach seams,
+        start daemons."""
+        from pilosa_tpu_torch.cluster import Cluster, InternalClient, Topology
+        from pilosa_tpu_torch.cluster.breaker import BreakerRegistry
+        from pilosa_tpu_torch.cluster.sync import FailureDetector, SyncDaemon
+        from pilosa_tpu_torch.cluster.topology import DEFAULT_PARTITION_N
+
+        topo = Topology(
+            topo_nodes,
+            replica_n=cfg.cluster.replicas,
+            partition_n=partition_n or DEFAULT_PARTITION_N,
+        )
+        local = topo.node_by_id(local_id)
+        if local is None:
+            return None
+        cluster = Cluster(
+            local, topo, holder,
+            client=InternalClient(
+                timeout=cfg.client_timeout,
+                ssl_context=client_ssl,
+                retries=cfg.client_retries,
+                breakers=BreakerRegistry(
+                    threshold=cfg.breaker_threshold,
+                    cooldown=cfg.breaker_cooldown,
+                ),
+            ),
+        )
+        cluster.hedge_delay = cfg.hedge_delay
+        cluster.logger = log
+        cluster.attach(executor, api)
+        api.cluster = cluster
+        resizer = cluster.attach_resizer(log)
+        # Cluster-lifecycle knobs: follower rollback lease + migration
+        # throttles.
+        resizer.lease_timeout = cfg.resize_lease
+        resizer.fetch_concurrency = cfg.migration_concurrency
+        resizer.bandwidth_limit = cfg.migration_bandwidth
+        resizer.fetch_timeout = cfg.client_timeout
+        if saved:
+            # The resize epoch survives restarts: a rebooted
+            # coordinator's fresh jobs must outrank any dead job whose
+            # completion reports are still in retry flight.
+            resizer._epoch = int(saved.get("resizeEpoch") or 0)
+        cluster.topology_file = topo_path
+        cluster.persist_topology()
+        daemons.append(
+            SyncDaemon(cluster, interval=cfg.anti_entropy_interval, logger=log).start()
+        )
+        daemons.append(FailureDetector(cluster, logger=log).start())
+        if cfg.read_repair_queue > 0:
+            # Read-path divergence monitor: hedge races' replica-pair
+            # answers feed a bounded queue of background checksum diffs +
+            # targeted epoch-directed repairs, surfaced at
+            # /debug/consistency.
+            from pilosa_tpu_torch.cluster.consistency import DivergenceMonitor
+
+            daemons.append(
+                DivergenceMonitor(
+                    cluster, max_queue=cfg.read_repair_queue, logger=log
+                ).start()
+            )
+        return cluster
+
+    daemons = []
     from pilosa_tpu_torch.utils.monitor import RuntimeMonitor
 
     monitor = RuntimeMonitor(holder, backend)
@@ -216,24 +286,104 @@ def cmd_server(args) -> int:
     monitor.slo = cfg.slo
     api.slo = cfg.slo
     api.monitor = monitor
-    daemons = [monitor.start()]
+    daemons.append(monitor.start())
+    join_cluster_ref = None
+    if getattr(args, "join", None):
+        # Dynamic join (reference gossip join → listenForJoins
+        # cluster.go:1063): boot as a single-node topology; the announce
+        # fires AFTER the HTTP server is bound (below) so the
+        # coordinator's resize instructions can reach us, and the resize
+        # machinery delivers schema + fragments + the real topology.
+        from pilosa_tpu_torch.cluster import Node, URI
 
-    local_scheme = "https" if cfg.tls.enabled else "http"
+        if saved_local is not None and len(saved_nodes) > 1:
+            # Restart of a previously joined node: come back with the
+            # SAME identity and the last known membership — the cluster
+            # still routes shards to us, so booting as a blank
+            # single-node would orphan them until a fresh resize. The
+            # announce below re-syncs schema/shards (handle_join's
+            # restarted-member path) without moving any data.
+            join_cluster_ref = restore_saved_cluster()
+        else:
+            local_id = f"node-{cfg.host}-{cfg.port}"
+            local = Node(
+                id=local_id,
+                uri=URI(scheme=local_scheme, host=cfg.host, port=cfg.port),
+            )
+            join_cluster_ref = wire_cluster([local], local_id)
+    elif cfg.cluster.hosts:
+        from pilosa_tpu_torch.cluster import Node, URI
+
+        # Node IDs derive from the URI so every host computes the same
+        # ID-sorted ring without an out-of-band registry (the reference
+        # persists a UUID and gossips it; static topology needs neither).
+        import dataclasses as _dc
+
+        nodes = []
+        for h in cfg.cluster.hosts:
+            u = URI.parse(h)
+            if "://" not in h and local_scheme != "http":
+                u = _dc.replace(u, scheme=local_scheme)
+            nodes.append(Node(id=f"node-{u.host}-{u.port}", uri=u))
+        local_id = f"node-{cfg.host}-{cfg.port}"
+        if cfg.cluster.coordinator:
+            # cluster.coordinator = true marks THIS node the coordinator
+            # (reference server/config.go Cluster.Coordinator); set it in
+            # every node's config consistently.
+            for n in nodes:
+                n.is_coordinator = n.id == local_id
+        elif nodes:
+            min(nodes, key=lambda n: n.id).is_coordinator = True
+        cluster = wire_cluster(nodes, local_id)
+        if cluster is None:
+            log.printf(
+                "bind %s:%d is not in cluster.hosts %s", cfg.host, cfg.port, cfg.cluster.hosts
+            )
+            _stop(daemons, backend, holder)
+            return 1
+        log.printf(
+            "clustered: %d nodes, replicas=%d, coordinator=%s",
+            len(nodes), cfg.cluster.replicas, cluster.coordinator().id,
+        )
+    elif saved_local is not None and len(saved_nodes) > 1:
+        # No cluster config at all, but a persisted topology: a
+        # full-cluster restart reconverges straight from the file —
+        # every member boots with the membership it last agreed on, no
+        # operator re-seeding.
+        restore_saved_cluster()
+
     server = Server(api, host=cfg.host, port=cfg.port, tls=cfg.tls)  # binds
     log.printf(
         "listening on %s://%s:%d (data: %s)",
         local_scheme, cfg.host, cfg.port, data_dir,
     )
+    if join_cluster_ref is not None:
+        from pilosa_tpu_torch.utils.threads import spawn
+
+        def announce():
+            if join_cluster_ref.join_cluster(args.join):
+                log.printf("joined cluster via %s", args.join)
+            else:
+                log.printf("join via %s timed out; still standalone", args.join)
+
+        spawn("cluster-announce", announce)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         log.printf("shutting down")
-        for d in daemons:
-            d.stop()
-        if backend is not None:
-            backend.stop_refresher()
-        holder.close()
+        _stop(daemons, backend, holder)
     return 0
+
+
+def _stop(daemons, backend, holder) -> None:
+    """Stop the server's daemons (the runtime monitor and, in a cluster,
+    anti-entropy, the failure detector and the divergence monitor), the
+    backend's refresher, and close the holder."""
+    for d in daemons:
+        d.stop()
+    if backend is not None:
+        backend.stop_refresher()
+    holder.close()
 
 
 def _client_tls_context(args):
@@ -423,8 +573,8 @@ def main(argv=None) -> int:
         "--join",
         default=None,
         metavar="URI",
-        help="join a live cluster (refused: multi-node serving is not "
-        "ported yet)",
+        help="announce to a live cluster's coordinator and join it "
+        "(dynamic membership; no operator resize call needed)",
     )
     sp.add_argument("--verbose", action="store_true")
     sp.set_defaults(fn=cmd_server)

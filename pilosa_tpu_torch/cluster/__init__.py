@@ -7,11 +7,13 @@ a ring offset via jump-consistent-hash (cluster.go:947), and ReplicaN
 consecutive ring nodes own each partition. Queries scatter shards to
 owning nodes and stream-reduce; writes fan out to every replica.
 
-This package is the plane across hosts. The port serves one node so
-far: the server imports these types (ClientError, ShardUnavailableError,
-the persisted topology), and multi-node serving, with cluster.sync,
-cluster.resize, cluster.consistency and the executor's mapper and router
-seams, is still to port (ROADMAP.md, queue 1).
+This package is the plane across hosts. Cluster.attach installs the
+executor's mapper and router seams; cluster.sync keeps replicas converged
+(key translation, anti-entropy, failure detection), cluster.resize moves
+shards when a node joins or leaves, and cluster.consistency repairs the
+replica divergence that hedged reads witness. Each node answers its own
+legs on its device backend: a node's card holds the stacks of the shards
+it serves.
 """
 
 from pilosa_tpu_torch.cluster.topology import (

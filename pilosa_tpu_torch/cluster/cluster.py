@@ -6,8 +6,11 @@ the Executor:
 
 - ``mapper`` — the distributed mapReduce. Shards are grouped by owning
   node (reference shardsByNode executor.go:2440); local shards run
-  through the backend in-process, remote groups become one QueryNode HTTP call each with
-  shards pinned and remote=true (reference remoteExec :2419). Responses
+  through the backend in-process, one per-shard call each (on the device
+  backend, one launch over that shard's slab of the resident stacks),
+  remote groups become one QueryNode HTTP call each with shards pinned
+  and remote=true (reference remoteExec :2419), which the peer answers
+  on its own backend, batcher and result cache. Responses
   stream-reduce as they arrive; a failed node is filtered out and its
   shards re-split across remaining replicas (reference :2497-2507).
 - ``router`` — write replication. Set/Clear apply on every replica of
@@ -148,6 +151,8 @@ class Cluster:
         # and the generation it keys on share the peer-epoch lock.
         self._owners_memo: dict = {}
         self._topo_gen = 0
+        # held_shards' memo: (membership, {index: (shards, held shards)}).
+        self._held_cache: tuple = ((), {})
 
     def persist_topology(self) -> None:
         """Best-effort atomic rewrite of the topology file; a failed
@@ -183,6 +188,9 @@ class Cluster:
         executor.mapper = self.map_shards
         executor.router = self
         self.api = api
+        if hasattr(executor.backend, "held_shards"):
+            # The device backend stacks only the shards this node holds.
+            executor.backend.held_shards = self.held_shards
         if self.holder is not None:
             self.holder.broadcast_shard = self._on_local_new_shard
         # Peer view-epoch piggybacks fold into this node's epoch map
@@ -197,6 +205,24 @@ class Cluster:
         from pilosa_tpu_torch.cluster.sync import wrap_translate_stores
 
         wrap_translate_stores(self)
+
+    def held_shards(self, index: str, shards) -> tuple:
+        """The shards among ``shards`` that this node owns under the
+        current topology, memoized per membership (the topology is updated
+        in place) and per index on the identity of ``shards`` (the index's
+        available-shards list, one object while its shard set is
+        unchanged): the same tuple object until either moves."""
+        topo = self.topology
+        members = (tuple(n.id for n in topo.nodes), topo.replica_n)
+        cache = self._held_cache
+        if cache[0] != members:
+            cache = self._held_cache = (members, {})
+        got = cache[1].get(index)
+        if got is None or got[0] is not shards:
+            local_id = self.local_node.id
+            got = cache[1][index] = (
+                shards, tuple(s for s in shards if topo.owns_shard(local_id, index, s)))
+        return got[1]
 
     def attach_resizer(self, logger=None):
         """Install the resize state machine (cluster/resize.py)."""

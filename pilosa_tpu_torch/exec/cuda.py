@@ -280,6 +280,9 @@ class _StackedBlocks:
         # key -> (fingerprint, device tensor, rows_p, per-shard versions).
         self._entries: dict[tuple, tuple[tuple, torch.Tensor, int, Optional[tuple]]] = {}
         self.evictions = 0
+        # Moves whenever an entry is stored or dropped (not on an LRU
+        # touch): CUDABackend._resident_candidates keys its memo on it.
+        self.version = 0
         # The HBM ledger: key -> resident bytes split by representation tier
         # (dense / array-container / run-container source), upload epoch and
         # uploads, access count, last access and heat. Keys mirror _entries;
@@ -353,6 +356,7 @@ class _StackedBlocks:
             # entry stays: access stats survive a re-upload.
             with self._lock:
                 self._entries.pop(key, None)
+                self.version += 1
             tiers = [0, 0]
             for fr in frags.values():
                 if fr is not None:
@@ -489,6 +493,7 @@ class _StackedBlocks:
             with self._lock:
                 self._entries.pop(key, None)
                 self._entries[key] = (fingerprint, arr, rows_p, vers)
+                self.version += 1
                 self._ledger_upload(key, arr, tiers)
                 self._evict(keep=key)
             # Misses are references too: without them every distance in
@@ -598,12 +603,24 @@ class _StackedBlocks:
 
     def _drop(self, victim: tuple) -> None:
         self._entries.pop(victim)
+        self.version += 1
         self._ledger.pop(victim, None)
         self.evictions += 1
 
     def resident_bytes(self) -> int:
         with self._lock:
             return sum(e[1].numel() * 4 for e in self._entries.values())
+
+    def resident_shard_sets(self, index: str) -> list[tuple[int, ...]]:
+        """The distinct shard tuples of the index's resident stacks and row
+        pages, most recently used first."""
+        with self._lock:
+            items = list(self._entries.items())
+        out: list = []
+        for key, entry in reversed(items):
+            if key[0] == index and entry[0][0] not in out:
+                out.append(entry[0][0])
+        return out
 
     def tier_bytes(self) -> dict[str, int]:
         """Resident bytes by representation tier; the dict sums exactly to
@@ -1144,6 +1161,17 @@ class CUDABackend:
         self.cpu = CPUBackend(holder)
         self.stats = global_stats
         self.blocks = _StackedBlocks(device, max_bytes, heat_half_life)
+        # Cluster seam (cluster/cluster.py attach): (index, shards) -> the
+        # shards among them that this node holds. None on a single node,
+        # which holds every shard.
+        self.held_shards: Optional[Callable] = None
+        # Memos by index of _held (the available-shards list it was taken
+        # from, the held tuple) and of _resident_candidates (the held tuple,
+        # blocks.version, the candidates): a clustered coordinator asks for
+        # one shard at a time, and each ask stays O(1) until a stack is
+        # stored or dropped, the shard set moves or the topology changes.
+        self._held_memo: dict = {}
+        self._resident_memo: dict = {}
         # Device-program ledger behind GET /debug/programs, fed by _launched,
         # and its counters' tagged clients by kind.
         self.programs = _ProgramLedger(self.stats)
@@ -1278,10 +1306,10 @@ class CUDABackend:
             idx = self.holder.index(iname)
             if idx is None:
                 continue
-            # Queries assemble against the index-wide shard union, so the
-            # stacks are keyed the same way, or the first query would
-            # replace them.
-            shards = tuple(int(s) for s in idx.available_shards().to_array().tolist())
+            # Queries assemble against the index-wide shard union, or in a
+            # cluster the shards this node holds, so the stacks are keyed
+            # the same way, or the first query would replace them.
+            shards = self._held(iname)
             if not shards:
                 continue
             for fname in list(idx.fields):
@@ -1700,15 +1728,68 @@ class CUDABackend:
 
     # -- backend interface -------------------------------------------------
 
-    def _resident_shards(self, index: str, shard: int) -> tuple[tuple[int, ...], int]:
-        """Shard tuple to assemble a single-shard call against: the index's
-        full available set, so shard-by-shard calls reuse ONE resident
-        stack instead of replacing it with per-shard packs."""
+    def _held(self, index: str) -> tuple[int, ...]:
+        """The index's shards that this node holds: its available shards,
+        or in a cluster those of them that the topology gives this node.
+        The same tuple object while neither moves (held_shards memoizes
+        on the list's identity too)."""
         idx = self.holder.index(index)
-        shards = idx.available_shards().to_array().tolist() if idx else []
-        if shard in shards:
-            return tuple(shards), shards.index(shard)
-        return (shard,), 0
+        avail = idx.available_shards_list() if idx else []
+        if self.held_shards is not None:
+            return tuple(self.held_shards(index, avail))
+        memo = self._held_memo.get(index)
+        if memo is None or memo[0] is not avail:
+            memo = self._held_memo[index] = (avail, tuple(avail))
+        return memo[1]
+
+    def _resident_candidates(self, index: str) -> list:
+        """[(shard tuple, {shard: position})]: the tuples of the index's
+        resident stacks (the most recently used first, when one was last
+        stored or dropped), then the shards this node holds (_held). In a
+        cluster a resident tuple is a candidate only while this node holds
+        all its shards, so no stack is assembled over shards only peers
+        hold. Memoized on the held tuple and blocks.version."""
+        held = self._held(index)
+        version = self.blocks.version  # before the walk: a racing store recomputes
+        memo = self._resident_memo.get(index)
+        if memo is not None and memo[0] is held and memo[1] == version:
+            return memo[2]
+        held_set = set(held)
+        out: list = []
+        for cand in self.blocks.resident_shard_sets(index) + [held]:
+            if not cand or any(c == cand for c, _ in out):
+                continue
+            if self.held_shards is not None and not held_set.issuperset(cand):
+                continue
+            out.append((cand, {s: i for i, s in enumerate(cand)}))
+        self._resident_memo[index] = (held, version, out)
+        return out
+
+    def _resident_shards(self, index: str, shards) -> tuple[tuple[int, ...], list[int]]:
+        """(the shard tuple to assemble a call over ``shards`` against, each
+        requested shard's position in it): the first of
+        _resident_candidates that holds every requested shard, else the
+        shards themselves. Per-shard calls and shard subsets thus reuse ONE
+        resident stack a field instead of replacing it with packs of their
+        own: a clustered coordinator folds its shards one call a shard, and
+        a node's legs name its own subset of the index."""
+        want = tuple(shards)
+        for cand, pos in self._resident_candidates(index):
+            if cand == want:
+                return cand, list(range(len(want)))
+            got = [pos.get(s) for s in want]
+            if None not in got:
+                return cand, got
+        return want, list(range(len(want)))
+
+    def _shard_call(self, index: str, c: Call, shard: int):
+        """(program, the blocks narrowed to ``shard``'s slab, scalars) for a
+        call over one shard, assembled against the resident shard tuple
+        (_resident_shards): the launch reads only that shard's words.
+        Raises _Unsupported as _assemble does."""
+        shards_t, (pos,) = self._resident_shards(index, [shard])
+        spec, blocks, scalars = self._assemble(index, c, shards_t)
+        return spec, tuple(b.narrow(0, pos, 1) for b in blocks), scalars
 
     @staticmethod
     def _slab_row(host: np.ndarray, shards) -> Row:
@@ -1728,14 +1809,13 @@ class CUDABackend:
         return self._readback(t).view(np.uint32)
 
     def bitmap_call_shard(self, index: str, c: Call, shard: int) -> Row:
-        shards_t, pos = self._resident_shards(index, shard)
         try:
-            spec, blocks, scalars = self._assemble(index, c, shards_t)
+            spec, blocks, scalars = self._shard_call(index, c, shard)
         except _Unsupported:
             self._cpu_routed(c)
             return self.cpu.bitmap_call_shard(index, c, shard)
         slab = self._vec_program(spec, blocks, scalars)
-        cols = unpack_row(self._to_host_words(slab[pos])) + np.uint64(
+        cols = unpack_row(self._to_host_words(slab[0])) + np.uint64(
             shard
         ) * np.uint64(SHARD_WIDTH)
         return Row.from_columns(cols)
@@ -1743,15 +1823,7 @@ class CUDABackend:
     def bitmap_call(self, index: str, c: Call, shards: list[int]) -> Row:
         """Whole-query bitmap: evaluate the stack once, read back the
         requested shards' [S, W] words, unpack on the host."""
-        idx = self.holder.index(index)
-        avail = idx.available_shards().to_array().tolist() if idx else []
-        pos_of = {s: i for i, s in enumerate(avail)}
-        if avail and all(s in pos_of for s in shards):
-            shards_t = tuple(avail)
-            positions = [pos_of[s] for s in shards]
-        else:
-            shards_t = tuple(shards)
-            positions = list(range(len(shards)))
+        shards_t, positions = self._resident_shards(index, shards)
         prof = current_profile()
         try:
             with prof.phase("plan"):
@@ -1772,7 +1844,19 @@ class CUDABackend:
             return self._slab_row(host, shards)
 
     def count_shard(self, index: str, c: Call, shard: int) -> int:
-        return self.count_shards(index, c, [shard])
+        """One shard's count: one K11 launch over that shard's slab of the
+        resident stacks (_shard_call), so a clustered coordinator's fold
+        over its shards neither repacks nor evicts a stack."""
+        try:
+            with current_profile().phase("plan"):
+                spec, blocks, scalars = self._shard_call(index, c, shard)
+        except _Unsupported:
+            self._cpu_routed(c)
+            return self.cpu.count_shard(index, c, shard)
+        with current_profile().phase("device_dispatch"):
+            count = int(self._count_program(spec, blocks, scalars))
+        self.programs.block_ready()
+        return count
 
     def count_shards(self, index: str, c: Call, shards: list[int]) -> int:
         """Whole-query count: one evaluation over all shards and one
@@ -1898,15 +1982,7 @@ class CUDABackend:
         (gathering a subset of the shards on the card first) and builds
         every call its own Row. Calls without a device lowering take
         bitmap_call in the resolver."""
-        idx = self.holder.index(index)
-        avail = idx.available_shards().to_array().tolist() if idx else []
-        pos_of = {s: i for i, s in enumerate(avail)}
-        if avail and all(s in pos_of for s in shards):
-            shards_t = tuple(avail)
-            positions = [pos_of[s] for s in shards]
-        else:
-            shards_t = tuple(shards)
-            positions = list(range(len(shards)))
+        shards_t, positions = self._resident_shards(index, shards)
         prof = current_profile()
         groups, assembled, fallbacks = self._group_calls(index, calls, shards_t)
         pending = []  # (call indices, slot_of, launch outputs, slots a launch, blocks)

@@ -7,15 +7,20 @@ evaluation is delegated to a backend: the CUDA device backend's
 whole-query programs by default, or the CPU oracle, whose per-shard calls
 fold through map_reduce() (reference mapperLocal :2578). Two planes sit in
 front of the backend when wired: the result cache (exec/rescache.py) and
-the cross-request batcher (exec/batcher.py). Single node: the cluster
-mapper and router come with the slice that ports multi-node serving.
+the cross-request batcher (exec/batcher.py). In a cluster the cluster
+layer installs two seams (cluster/cluster.py attach): the mapper, which
+scatters map_reduce's shards to their owning nodes, and the router, which
+replicates writes. A clustered coordinator then folds its own shards one
+at a time through the backend's per-shard calls and answers TopN, Rows,
+Sum, Min, Max and GroupBy on the host, as the JAX package does; the
+nodes' legs (``opt.remote``) take the device's whole-query paths.
 """
 
 from __future__ import annotations
 
 import datetime as dt
 from dataclasses import dataclass
-from typing import Any, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 
 from pilosa_tpu_torch.core.cache import Pair, add_pairs, top_n_pairs
@@ -67,9 +72,10 @@ class ExecOptions:
 
 
 class Executor:
-    """Single-node executor. `backend` defaults to the CUDA device backend
-    on the card (which raises where there is none); the CPU oracle is
-    chosen explicitly with ``backend=CPUBackend(holder)``."""
+    """The executor of one node, alone or in a cluster. `backend` defaults
+    to the CUDA device backend on the card (which raises where there is
+    none); the CPU oracle is chosen explicitly with
+    ``backend=CPUBackend(holder)``."""
 
     def __init__(self, holder, backend=None):
         self.holder = holder
@@ -78,10 +84,14 @@ class Executor:
 
             backend = CUDABackend(holder)
         self.backend = backend
-        # Cluster seam: the cluster layer's shard mapper (reference mapper
-        # executor.go:2522). The port serves one node, so it stays None;
-        # the result cache's clustered-coordinator rule reads it.
-        self.mapper = None
+        # Cluster seam: replaced by the cluster layer to scatter shards to
+        # owning nodes (reference mapper :2522). Signature:
+        # (index, shards, call, map_fn, reduce_fn, opt) -> reduced value.
+        self.mapper: Optional[Callable] = None
+        # Cluster seam for write replication: Set/Clear apply on every
+        # replica of the target shard, attr writes on every node
+        # (reference executeSetBitField :2096-2135). None = single node.
+        self.router = None
         # Cross-request shard-leg batcher (exec/batcher.py): when set,
         # eligible device legs (Count runs, a single Count included, bitmap
         # Row/Intersect/Union resolves, BSI Sum/Min/Max and TopN per-row
@@ -162,8 +172,9 @@ class Executor:
         # epoch vector can witness every relevant write. Locally that is
         # the single-node coordinator and remote per-node legs; a
         # CLUSTERED coordinator consults only once the cluster layer has
-        # installed the peer-epoch provider — entries then carry the merged (local + peer) vector and peer
-        # writes invalidate via the piggybacked epoch map. Without the
+        # installed the peer-epoch provider — entries then carry the
+        # merged (local + peer) vector and peer writes invalidate via the
+        # piggybacked epoch map. Without the
         # provider, peer-held shards' writes are unwitnessable and the
         # coordinator must not cache.
         cache = self.rescache
@@ -564,8 +575,11 @@ class Executor:
     # ------------------------------------------------------------------
 
     def map_reduce(self, index, shards, c, opt, map_fn, reduce_fn):
-        """Serial local fold over the shard axis (reference mapperLocal,
-        executor.go:2578)."""
+        """The cluster mapper's scatter-gather on a clustered coordinator,
+        else a serial local fold over the shard axis (reference
+        mapperLocal, executor.go:2578)."""
+        if self.mapper is not None and not opt.remote:
+            return self.mapper(index, shards, c, map_fn, reduce_fn, opt)
         result = None
         for shard in shards:
             v = map_fn(shard)
@@ -590,8 +604,9 @@ class Executor:
         # shard set (a per-shard loop is O(S^2) when each map_fn evaluates
         # the full resident stack). With a batcher, the leg coalesces with
         # concurrent requests' row resolves into shared K11 launches
-        # (exec/batcher.py row legs).
-        if hasattr(self.backend, "bitmap_call"):
+        # (exec/batcher.py row legs). A clustered coordinator folds its own
+        # shards through the mapper's local leg instead.
+        if (self.mapper is None or opt.remote) and hasattr(self.backend, "bitmap_call"):
             if self.batcher is not None and hasattr(self.backend, "row_batch_async"):
                 row = self.batcher.row(index, c, shards)
             else:
@@ -627,16 +642,18 @@ class Executor:
     # aggregates
     # ------------------------------------------------------------------
 
-    def _filter_rows(self, index, c, shards):
+    def _filter_rows(self, index, c, shards, opt):
         """shard -> the filter child's Row in that shard (None without a
         child). A backend with a whole-query bitmap_call evaluates the
-        child once over the shard set and the result is split per shard;
-        per-shard evaluation would run the whole resident stack once for
-        every shard."""
+        child once over the shard set and the result is split per shard.
+        A clustered coordinator evaluates it per shard, as map_fn asks for
+        it: the mapper's local leg folds only the shards this node serves,
+        and the rest of the request's shards are its peers' (the JAX
+        package's _filter_row_shard)."""
         if not c.children:
             return lambda shard: None
         child = c.children[0]
-        if hasattr(self.backend, "bitmap_call"):
+        if (self.mapper is None or opt.remote) and hasattr(self.backend, "bitmap_call"):
             row = self.backend.bitmap_call(index, child, shards)
             return lambda shard: Row.from_segment(shard, row.shard_bitmap(shard))
         return lambda shard: self.backend.bitmap_call_shard(index, child, shard)
@@ -646,7 +663,9 @@ class Executor:
             raise QueryError("Count() only accepts a single bitmap input")
         # Device fast path: the whole scatter-gather collapses into fused
         # bitwise ops + popcount kernel (the device backend's count_shards).
-        if hasattr(self.backend, "count_shards"):
+        # The cluster mapper still splits by node, and each node's shards
+        # fold through count_shard.
+        if self.mapper is None and hasattr(self.backend, "count_shards"):
             return int(self.backend.count_shards(index, c.children[0], shards))
         map_fn = lambda shard: self.backend.count_shard(index, c.children[0], shard)
         result = self.map_reduce(index, shards, c, opt, map_fn, lambda a, b: a + b)
@@ -656,8 +675,9 @@ class Executor:
         """Device fast path for Sum/Min/Max when the backend has one.
         None = not lowerable; caller runs the map-reduce path. With a
         batcher, concurrent identical aggregates dedupe to one backend call
-        (exec/batcher.py bsi legs)."""
-        if not hasattr(self.backend, kind):
+        (exec/batcher.py bsi legs). In a cluster every node answers on the
+        host, as the JAX package does."""
+        if self.mapper is not None or not hasattr(self.backend, kind):
             self._host_routed(c)
             return None
         filter_call = c.children[0] if c.children else None
@@ -693,7 +713,7 @@ class Executor:
         fast = self._bsi_fast("bsi_sum", index, f, c, shards)
         if fast is not None:
             return fast
-        filter_of = self._filter_rows(index, c, shards)
+        filter_of = self._filter_rows(index, c, shards, opt)
 
         def map_fn(shard):
             filt = filter_of(shard)
@@ -716,7 +736,7 @@ class Executor:
         fast = self._bsi_fast("bsi_min", index, f, c, shards)
         if fast is not None:
             return fast
-        filter_of = self._filter_rows(index, c, shards)
+        filter_of = self._filter_rows(index, c, shards, opt)
 
         def map_fn(shard):
             filt = filter_of(shard)
@@ -744,7 +764,7 @@ class Executor:
         fast = self._bsi_fast("bsi_max", index, f, c, shards)
         if fast is not None:
             return fast
-        filter_of = self._filter_rows(index, c, shards)
+        filter_of = self._filter_rows(index, c, shards, opt)
 
         def map_fn(shard):
             filt = filter_of(shard)
@@ -777,7 +797,7 @@ class Executor:
 
     def _execute_min_row(self, index, c, shards, opt) -> PairField:
         self._host_routed(c)
-        filter_of = self._filter_rows(index, c, shards)
+        filter_of = self._filter_rows(index, c, shards, opt)
 
         def map_fn(shard):
             frag = self._minmax_row_fragments(index, c, shard)
@@ -804,7 +824,7 @@ class Executor:
 
     def _execute_max_row(self, index, c, shards, opt) -> PairField:
         self._host_routed(c)
-        filter_of = self._filter_rows(index, c, shards)
+        filter_of = self._filter_rows(index, c, shards, opt)
 
         def map_fn(shard):
             frag = self._minmax_row_fragments(index, c, shard)
@@ -844,7 +864,7 @@ class Executor:
         plain = not any(
             k in c.args for k in ("ids", "threshold", "tanimotoThreshold", "attrName")
         )
-        if plain and hasattr(self.backend, "topn_field"):
+        if plain and self.mapper is None and hasattr(self.backend, "topn_field"):
             src_call = c.children[0] if c.children else None
             if self.batcher is not None:
                 # Concurrent TopN legs on the same (field, src) share one
@@ -857,7 +877,7 @@ class Executor:
 
         self._host_routed(c)
         # The source filter is evaluated once and serves both passes.
-        filter_of = self._filter_rows(index, c, shards)
+        filter_of = self._filter_rows(index, c, shards, opt)
         # Pass 1: approximate candidates from rank caches.
         pairs = self._execute_topn_shards(index, c, shards, opt, filter_of)
 
@@ -932,6 +952,7 @@ class Executor:
             not has_col
             and "from" not in c.args
             and "to" not in c.args
+            and (self.mapper is None or opt.remote)
             and hasattr(self.backend, "rows_field")
         ):
             start = 0
@@ -1030,7 +1051,7 @@ class Executor:
         # Device fast path: the whole-query group-count tensor in ONE
         # program (exec/tpu.py group_by); falls back (None) to the
         # per-shard host iterator for anything not lowerable.
-        if hasattr(self.backend, "group_by"):
+        if (self.mapper is None or opt.remote) and hasattr(self.backend, "group_by"):
             with self.tracer.start_span("executor.executeGroupByDevice"):
                 results = self.backend.group_by(
                     index, c, filter_call, child_rows,
@@ -1053,6 +1074,10 @@ class Executor:
                 if has_lim:
                     results = results[:limit]
                 return results
+        elif hasattr(self.backend, "group_by"):
+            # A clustered coordinator: its own shards fold on the host, as
+            # the JAX package's do, and its peers' legs take the card.
+            self._host_routed(c)
 
         map_fn = lambda shard: self._execute_group_by_shard(
             index, c, filter_call, shard, child_rows, cap
@@ -1138,6 +1163,16 @@ class Executor:
         col_id, ok = c.uint64_arg("_col")
         if not ok:
             raise QueryError("Set() column argument 'col' required")
+        if self.router is not None and not opt.remote:
+            return bool(
+                self.router.route_write(
+                    index, c, col_id // SHARD_WIDTH,
+                    lambda: self._execute_set_local(index, c, col_id),
+                )
+            )
+        return self._execute_set_local(index, c, col_id)
+
+    def _execute_set_local(self, index, c, col_id: int) -> bool:
         field_name = c.field_arg()
         idx = self.holder.index(index)
         f = idx.field(field_name)
@@ -1168,6 +1203,16 @@ class Executor:
         col_id, ok = c.uint64_arg("_col")
         if not ok:
             raise QueryError("Clear() column argument 'col' required")
+        if self.router is not None and not opt.remote:
+            return bool(
+                self.router.route_write(
+                    index, c, col_id // SHARD_WIDTH,
+                    lambda: self._execute_clear_local(index, c, col_id),
+                )
+            )
+        return self._execute_clear_local(index, c, col_id)
+
+    def _execute_clear_local(self, index, c, col_id: int) -> bool:
         field_name = c.field_arg()
         idx = self.holder.index(index)
         f = idx.field(field_name)
@@ -1203,6 +1248,9 @@ class Executor:
                     changed = frag.clear_row(row_id) or changed
             return changed
 
+        # Replicated multi-shard write (see Cluster.route_write_shards).
+        if self.router is not None and not opt.remote:
+            return bool(self.router.route_write_shards(index, c, shards, map_fn))
         return bool(self.map_reduce(index, shards, c, opt, map_fn, lambda a, b: a or b))
 
     def _execute_store(self, index, c, shards, opt) -> bool:
@@ -1225,9 +1273,19 @@ class Executor:
             f.add_available_shard(shard)
             return frag.set_row(row, row_id)
 
+        # Replicated multi-shard write (see Cluster.route_write_shards).
+        if self.router is not None and not opt.remote:
+            return bool(self.router.route_write_shards(index, c, shards, map_fn))
         return bool(self.map_reduce(index, shards, c, opt, map_fn, lambda a, b: a or b))
 
     def _execute_set_row_attrs(self, index, c, opt) -> None:
+        if self.router is not None and not opt.remote:
+            return self.router.fan_out_all(
+                index, c, lambda: self._execute_set_row_attrs_local(index, c)
+            )
+        return self._execute_set_row_attrs_local(index, c)
+
+    def _execute_set_row_attrs_local(self, index, c) -> None:
         field_name = c.args.get("_field")
         idx = self.holder.index(index)
         f = idx.field(field_name)
@@ -1246,6 +1304,13 @@ class Executor:
         return None
 
     def _execute_set_column_attrs(self, index, c, opt) -> None:
+        if self.router is not None and not opt.remote:
+            return self.router.fan_out_all(
+                index, c, lambda: self._execute_set_column_attrs_local(index, c)
+            )
+        return self._execute_set_column_attrs_local(index, c)
+
+    def _execute_set_column_attrs_local(self, index, c) -> None:
         idx = self.holder.index(index)
         col_id, ok = c.uint64_arg("_col")
         if not ok:

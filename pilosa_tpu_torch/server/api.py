@@ -794,9 +794,10 @@ class API:
     def resize_add_node(self, body: dict) -> dict:
         """POST /cluster/resize/add-node {id?, uri}. Non-coordinators
         forward to the coordinator (reference routes joins there)."""
-        rz = self._resizer()  # before the import: one node answers 400
         from pilosa_tpu_torch.cluster.resize import ResizeError
         from pilosa_tpu_torch.cluster.topology import Node, URI
+
+        rz = self._resizer()
 
         if not self.cluster.is_coordinator():
             return self._forward_to_coordinator(
@@ -811,8 +812,9 @@ class API:
         return {"job": job, "node": node_id}
 
     def resize_remove_node(self, node_id: str) -> dict:
-        rz = self._resizer()  # before the import: one node answers 400
         from pilosa_tpu_torch.cluster.resize import ResizeError
+
+        rz = self._resizer()
 
         if not self.cluster.is_coordinator():
             return self._forward_to_coordinator(

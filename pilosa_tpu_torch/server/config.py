@@ -74,10 +74,6 @@ class Config:
     verbose: bool = False
     cluster: ClusterConfig = field(default_factory=ClusterConfig)
     tls: TLSConfig = field(default_factory=TLSConfig)
-    # The port serves one node: cluster.coordinator, cluster.replicas,
-    # tls.ca-certificate, tls.skip-verify, anti-entropy, the internal
-    # client, breaker, hedge, resize and read-repair settings below are
-    # refused at any value but their defaults (cli._UNREAD_SETTINGS).
     anti_entropy_interval: float = 600.0  # seconds (reference: 10m)
     metric_service: str = "memory"  # memory | none
     long_query_time: float = 0.0
@@ -91,7 +87,6 @@ class Config:
     # Pack + upload every field's device stack in the background at
     # startup so first queries skip the cold upload (off by default: it
     # fronts residency for ALL fields, wanted only on read-serving nodes).
-    # Not ported yet: the server refuses it (ROADMAP.md).
     preheat: bool = False
     # TCP port of a device-trace profiler server (the reference's
     # profile.* config, server/config.go:153-155). 0 = off. Not ported
@@ -170,7 +165,6 @@ class Config:
     # splice round per stack, instead of every read paying the splice
     # inline after every write. Reads landing mid-window still force the
     # splice (freshness is never traded away). 0 = off (inline-only).
-    # Not ported yet: the server refuses a nonzero window (ROADMAP.md).
     refresh_window_ms: int = 0
     # SLO-adaptive ingest derating (server/api.py + utils/monitor.py):
     # when a read-latency SLO objective is burning, import admission
@@ -191,16 +185,13 @@ class Config:
     # is set (the bench's enabled-vs-disabled same-run comparison).
     cache_enabled: bool = True
     # Device-memory residency budget in bytes for the CUDA backend's
-    # field stacks (SURVEY §7 hard part c). 0 = unbounded. Row paging of
-    # over-budget fields is not ported yet, and the CUDA backend would
-    # answer them on the CPU oracle, so the server refuses a budget
-    # (ROADMAP.md).
+    # field stacks (SURVEY §7 hard part c). 0 = unbounded; over-budget
+    # fields serve via row paging instead of whole-stack residency.
     max_hbm_bytes: int = 0
     # Half-life (seconds) of the HBM block-heat EWMA: how
     # fast an idle block's decayed-access-frequency heat halves. Short
     # half-lives track phase changes quickly but forget the working set
     # over a lull; the 5-minute default matches the SLO fast window.
-    # Accepted and inert until block heat is ported (ROADMAP.md).
     heat_half_life: float = 300.0
     # Shard the device stacks over this many devices (a mesh). 0 or 1 =
     # single device; the mesh is not ported yet, so the server refuses

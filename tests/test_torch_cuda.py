@@ -1504,3 +1504,64 @@ def test_chunked_build_on_card_equals_the_dense_pack(card, monkeypatch):
         np.testing.assert_array_equal(got, want)
         assert builder.chunks["container"] > 0
     h.close()
+
+
+def _card_cluster(replica_n):
+    """Two in-process port nodes (tests/torch_cluster_harness.py), each with
+    a CUDABackend on the one card."""
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from torch_cluster_harness import PortCluster  # tests/, on pytest's path
+
+    return PortCluster(2, replica_n=replica_n,
+                       backend_factory=lambda i, holder: CUDABackend(holder))
+
+
+def test_cluster_queries_on_card_nodes(card):
+    """tests/test_cluster2.py's per-node device cluster on the port: each
+    node answers its legs on the card, every answer equals the count from
+    the data, and the launches happen on the card."""
+    from pilosa_tpu_torch.exec.result import result_to_json
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    with _card_cluster(1) as c:
+        c.create_index("i")
+        c.create_field("i", "f")
+        c.create_field("i", "g")
+        for s in range(8):
+            base = s * SHARD_WIDTH
+            c.query(0, "i", f"Set({base + 1}, f=1) Set({base + 2}, f=1)")
+            c.query(1, "i", f"Set({base + 1}, g=2)")
+        before = K.launch_counts()
+        for node in (0, 1):
+            assert c.query(node, "i", "Count(Row(f=1))")["results"][0] == 16, node
+            out = c.query(node, "i", "Count(Intersect(Row(f=1), Row(g=2)))")
+            assert out["results"][0] == 8, node
+            top = result_to_json(c.query(node, "i", "TopN(f, n=1)")["results"][0])
+            assert top == [{"id": 1, "count": 16}], node
+        out = c.query(0, "i", "Count(Row(f=1))Count(Row(g=2))Count(Xor(Row(f=1), Row(g=2)))")
+        assert out["results"] == [16, 8, 8]
+        torch.cuda.synchronize()
+        assert K.launch_counts()["spec_eval"] > before["spec_eval"]
+        for cn in c.nodes:
+            assert cn.backend.device.type == "cuda"
+
+
+def test_anti_entropy_heals_card_results(card):
+    """Repair writes move view generations, so both nodes' card stacks
+    serve the healed bit (tests/test_cluster2.py's device-backed form)."""
+    from pilosa_tpu_torch.exec.result import result_to_json
+
+    with _card_cluster(2) as c:
+        c.create_index("i")
+        c.create_field("i", "f")
+        c.query(0, "i", "Set(1, f=3) Set(100, f=3)")
+        for node in (0, 1):
+            assert c.query(node, "i", "Count(Row(f=3))")["results"][0] == 2
+        c[0].holder.index("i").field("f").view("standard").fragment(0).set_bit(3, 777)
+        assert c.sync_all() > 0
+        for node in (0, 1):
+            row = result_to_json(c.query(node, "i", "Row(f=3)")["results"][0])
+            assert row["columns"] == [1, 100, 777], node
+            assert c.query(node, "i", "Count(Row(f=3))")["results"][0] == 3
+            pinned = c[node].api.query("i", "Count(Row(f=3))", shards=[0], remote=True)
+            assert pinned["results"] == [3]

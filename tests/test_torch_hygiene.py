@@ -46,17 +46,6 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-#: Port modules that code of the port imports (lazily, on paths this
-#: slice does not reach) but that are still queued in ROADMAP.md: the
-#: multi-node modules (queue 1 item 6). The list shrinks as later slices
-#: land.
-QUEUED_MODULES = {
-    "pilosa_tpu_torch.cluster.sync": "cluster/sync.py",
-    "pilosa_tpu_torch.cluster.resize": "cluster/resize.py",
-    "pilosa_tpu_torch.cluster.consistency": "cluster/consistency.py",
-}
-
-
 def _module_exists(name):
     path = ROOT.joinpath(*name.split("."))
     return path.with_suffix(".py").exists() or (path / "__init__.py").exists()
@@ -65,21 +54,32 @@ def _module_exists(name):
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_name_existing_or_queued_modules(path):
     """Every pilosa_tpu_torch.* module an import of the port names, lazy
-    ones included, exists or is queued."""
+    ones included, exists: no module is queued any more."""
     missing = sorted(
         m for m in set(_imported_modules(path))
-        if m.split(".")[0] == "pilosa_tpu_torch"
-        and not _module_exists(m) and m not in QUEUED_MODULES
+        if m.split(".")[0] == "pilosa_tpu_torch" and not _module_exists(m)
     )
     assert not missing, f"{path.relative_to(ROOT)} imports missing modules {missing}"
 
 
-@pytest.mark.parametrize("name", sorted(QUEUED_MODULES))
-def test_queued_modules_are_queued_and_absent(name):
-    """A queued module is not in the port yet (drop it from the list when
-    it lands) and ROADMAP.md names it."""
-    assert not _module_exists(name), f"{name} exists: take it off QUEUED_MODULES"
-    assert QUEUED_MODULES[name] in (ROOT / "ROADMAP.md").read_text()
+def _named_port_modules():
+    """Every pilosa_tpu_torch module that an import of the port names."""
+    names = set()
+    for path in _port_files():
+        for m in _imported_modules(path):
+            if m.split(".")[0] == "pilosa_tpu_torch":
+                names.add(m)
+    return sorted(names)
+
+
+@pytest.mark.parametrize("name", _named_port_modules())
+def test_every_named_port_module_imports(name):
+    """Each module that code of the port imports, lazily or not, imports:
+    none dangles (the cluster layer's lazy imports of
+    cluster.sync, cluster.resize and cluster.consistency once did)."""
+    import importlib
+
+    assert importlib.import_module(name).__name__ == name
 
 
 def test_scanner_sees_lazy_imports(tmp_path):

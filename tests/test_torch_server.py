@@ -593,43 +593,17 @@ def _write_topology(data_dir, n_nodes):
     save_topology(os.path.join(data_dir, TOPOLOGY_FILE), Topology(nodes), "node-0")
 
 
-#: A non-default value of every setting the port's server does not read.
-UNREAD_SETTING_TOML = {
-    "anti-entropy.interval": "[anti-entropy]\ninterval = 60.0\n",
-    "client-timeout": "client-timeout = 5.0\n",
-    "client-retries": "client-retries = 3\n",
-    "breaker-threshold": "breaker-threshold = 5\n",
-    "breaker-cooldown": "breaker-cooldown = 2.0\n",
-    "hedge-delay": "hedge-delay = 0.0\n",
-    "resize-lease": "resize-lease = 30.0\n",
-    "migration-concurrency": "migration-concurrency = 4\n",
-    "migration-bandwidth": "migration-bandwidth = 1000000\n",
-    "read-repair-queue": "read-repair-queue = 0\n",
-    "cluster.coordinator": "[cluster]\ncoordinator = true\n",
-    "cluster.replicas": "[cluster]\nreplicas = 2\n",
-    "tls.ca-certificate": '[tls]\nca-certificate = "ca.pem"\n',
-    "tls.skip-verify": "[tls]\nskip-verify = true\n",
-}
-
-
-def test_every_unread_setting_is_tested():
-    assert set(UNREAD_SETTING_TOML) == set(cli._UNREAD_SETTINGS)
-
-
 @pytest.mark.parametrize("knob,toml,argv", [
-    *((k, t, []) for k, t in UNREAD_SETTING_TOML.items()),
     ("mesh-devices", "mesh-devices = 2\n", []),
     ("profile.port", "[profile]\nport = 6060\n", []),
-    ("cluster.hosts", '[cluster]\nhosts = ["127.0.0.1:10101", "127.0.0.1:10102"]\n', []),
-    ("--join", "", ["--join", "http://127.0.0.1:10102"]),
-    ("multi-node topology", "", []),
     ("executor='tpu'", 'executor = "tpu"\n', []),
 ])
 def test_cli_refuses_unported_knob(tmp_path, monkeypatch, capsys, knob, toml, argv):
+    """What the port does not serve yet (the mesh, the profiler server) and
+    an executor it has no backend for are refused at startup. The cluster
+    settings are served (tests/test_torch_cluster.py)."""
     _no_serving(monkeypatch)
     data_dir = str(tmp_path / "d")
-    if knob == "multi-node topology":
-        _write_topology(data_dir, 2)
     conf = tmp_path / "c.toml"
     conf.write_text(toml)
     executor = [] if "executor" in toml else ["--executor", "cpu"]
@@ -638,16 +612,6 @@ def test_cli_refuses_unported_knob(tmp_path, monkeypatch, capsys, knob, toml, ar
     err = capsys.readouterr().err
     assert rc != 0
     assert knob.split()[0] in err and "ROADMAP.md" in err
-
-
-def test_cli_refuses_unread_setting_from_env(tmp_path, monkeypatch, capsys):
-    _no_serving(monkeypatch)
-    monkeypatch.setenv("PILOSA_TPU_CLIENT_TIMEOUT", "5.0")
-    rc = cli.main(["server", "-d", str(tmp_path / "d"), "--bind", "127.0.0.1:0",
-                   "--executor", "cpu"])
-    err = capsys.readouterr().err
-    assert rc != 0
-    assert "client-timeout" in err and "ROADMAP.md" in err
 
 
 @pytest.mark.parametrize("toml,env,argv,budget", [
@@ -753,7 +717,6 @@ def test_cli_single_node_topology_is_not_refused(tmp_path):
     """A persisted one-node topology is not a cluster: no refusal."""
     data_dir = str(tmp_path / "d")
     _write_topology(data_dir, 1)
-    assert cli._saved_cluster_size(data_dir) == 1
     assert cli._unported_knobs(cli_config(data_dir), None) == []
 
 
