@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --cold | --cluster | --host-count | --host-count-ab PARENT]
+    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --cold | --cluster | --mesh | --host-count | --host-count-ab PARENT]
 
 Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
@@ -184,6 +184,25 @@ chip_smoke.py to time it).
    persisted topology, and its pinned answer holding the write after an
    anti-entropy pass. A non-zero exit, a traceback or a refusal in a
    node's log fails the phase;
+4e. the shard mesh on the one card (phase_mesh, after phase 4c, on
+   bench.py's index with v; ``--mesh`` runs it alone with the card line
+   and K15's checks): an unmeshed CUDABackend and CUDABackend(holder,
+   mesh=ShardMesh([cuda:0] * n)) for n = 2 (954 shards in two parts of
+   477) and 4 (padded to 956), each with its batcher; tests/test_mesh.py's
+   FAMILIES (h for its hh), bench.py's Count, the pair request and the
+   GroupBys, every meshed answer equal to the unmeshed one, cold and after
+   each of 3 Set/Clear/value epochs, which every backend absorbs by
+   splices (K15 on the meshed ones, one launch a spliced shard) and no
+   full rebuild; per read kind and backend a window of up to 100
+   requests with the tables dropped, in two runs with the backends built
+   cold and timed in alternating order: p50 and p90, the programs and the
+   kernel launches a request; the
+   kernel counts zeroed before the phase and every kernel of its path
+   launched; `cli server --mesh-devices` past the visible cards exiting
+   non-zero with MeshConfigError's message, and `--mesh-devices 1`
+   serving. K15 (phase_splice_kernel) is held against its plain form at
+   the main path's shape and with duplicate, invalid and clipped entries,
+   with its times, `graph_ms`, bound and `index_copy_`'s time;
 5. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
@@ -332,6 +351,8 @@ REPLACES = {
     "expand_positions": "pilosa_tpu/ops/kernels.py:410",
     "expand_runs": "pilosa_tpu/ops/kernels.py:446",
     "expand_words": "pilosa_tpu/ops/sparse.py:213",
+    # The XLA program the JAX mesh runs under shard_map for a write epoch.
+    "splice_slabs": "pilosa_tpu/ops/kernels.py:497",
 }
 COUNT_KERNELS = ("pair_stats_pershard", "pair_stats", "spec_eval")
 # The cold build's expansion kernels (K12 to K14). They launch where a
@@ -4002,6 +4023,467 @@ def phase_cluster_alone(root, shards: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the shard mesh on the one card
+# ---------------------------------------------------------------------------
+
+#: Parts of the meshed backends: 954 shards in two parts of 477, and in
+#: four of 239 (padded to 956). On a one-card machine every part is on
+#: cuda:0: the run shows the padded placement, the per-part builds, the
+#: K15 splice, the per-part launches and the merges, not distinct cards.
+MESH_PARTS = (2, 4)
+#: A read kind's window on a backend, the tables dropped before each
+#: request: MESH_WINDOW_N timed requests, or as many as MESH_WINDOW_S
+#: seconds allow but at least MESH_WINDOW_MIN; p50 and p90 over it. A
+#: bitmap read (seconds of host unpack) is timed once, in the first run.
+MESH_WINDOW_N = 100
+MESH_WINDOW_S = 1.5
+MESH_WINDOW_MIN = 30
+#: Runs of the windows, the backends in alternating order (unmeshed first,
+#: then last), each after a cold build in that order.
+MESH_RUNS = 2
+#: tests/test_mesh.py's FAMILIES on bench.py's fields (its hh is h here).
+MESH_FAMILIES = [
+    "Count(Row(f=1))",
+    "Count(Intersect(Row(f=1), Row(g=7)))",
+    "Count(Union(Row(f=1), Row(f=2), Row(f=3)))",
+    "Count(Difference(Row(f=1), Row(g=7)))",
+    "Count(Xor(Row(f=1), Row(g=7)))",
+    "Count(Not(Row(f=1)))",
+    "Row(f=2)",
+    "Intersect(Row(f=1), Row(g=7))",
+    "TopN(f, n=3)",
+    "TopN(f, Row(g=7), n=2)",
+    "Sum(field=v)",
+    "Min(field=v)",
+    "Max(field=v)",
+    "Count(Row(v > 100))",
+    "Count(Row(v >< [-100, 100]))",
+    "GroupBy(Rows(f))",
+    "GroupBy(Rows(f), Rows(g))",
+    "GroupBy(Rows(f), Rows(g), Rows(h))",
+]
+#: Write epochs through the executor: bit writes on resident rows (each
+#: set bit cleared by the next epoch) and BSI value writes, in shards of
+#: every part at n = 2 and 4 (shard 10 in the first, 600 and 900 later).
+MESH_EPOCHS = [
+    ["Set(10485770, f=1)", "Set(629145605, g=2)", "Set(943718410, v=1234)"],
+    ["Clear(10485770, f=1)", "Clear(629145605, g=2)", "Set(943718410, v=-4321)"],
+    ["Set(524288019, f=5)", "Set(10485790, h=1)", "Set(943718411, v=17)"],
+]
+#: The kernels that the meshed path must launch (phase_mesh's reads, its
+#: builds and its write epochs).
+MESH_KERNELS = ("spec_eval", "pair_stats_pershard", "pair_stats", "popcount_rows",
+                "row_popcounts", "bsi_minmax", "bsi_compare", "group_tile_stats",
+                "group_tile_stats_pershard", "splice_slabs", "expand_positions")
+
+
+def mesh_reads() -> list:
+    """(kind, PQL, returns a bitmap): the FAMILIES, bench.py's Count, the
+    16-Count pair request and bench.py's GroupBy queries."""
+    out, seen = [], set()
+    for q in (MESH_FAMILIES + ["Count(Intersect(Row(f=1), Row(g=2)))", PAIR_REQUEST]
+              + GROUP_QUERIES):
+        if q not in seen:
+            seen.add(q)
+            kind = "16-Count pair request" if q == PAIR_REQUEST else q
+            out.append((kind, q, q.startswith(("Row(", "Intersect("))))
+    return out
+
+
+def drop_backend_caches(backend) -> None:
+    """Drop the pair, TopN, aggregate and GroupN tables: the next request
+    of each kind sweeps on the card."""
+    with backend._pair_lock:
+        backend._pair_cache.clear()
+        backend._topn_cache.clear()
+        backend._agg_cache.clear()
+        backend._groupn_cache.clear()
+
+
+def counter_total(name: str) -> float:
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    return sum(global_stats.counter_totals(name).values())
+
+
+def mesh_backend(holder, n, cards: bool = False):
+    """The Executor (with its batcher) over CUDABackend(holder), meshed over
+    n parts when n is given: all on cuda:0, or with cards one a card
+    (cuda:0 .. cuda:n-1)."""
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.batcher import ShardLegBatcher
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.parallel import ShardMesh
+
+    mesh = None
+    if n:
+        mesh = ShardMesh([torch.device("cuda", i if cards else 0) for i in range(n)])
+    be = CUDABackend(holder, mesh=mesh)
+    ex = Executor(holder, backend=be)
+    ex.batcher = ShardLegBatcher(be)
+    return be, ex
+
+
+def mesh_read_pass(ex, reads, want=None, label="", rows=True, times=None):
+    """Each read once; its answer checked against want[q] when given, and
+    its ms put in times[kind] when times is given. Returns {q: answer}."""
+    import torch
+
+    got = {}
+    for kind, q, is_row in reads:
+        if is_row and not rows:
+            continue
+        t0 = time.perf_counter()
+        got[q] = ex.execute("bench", q)
+        torch.cuda.synchronize()
+        if times is not None:
+            times[kind] = (time.perf_counter() - t0) * 1e3
+        if want is not None:
+            check(same_answers(got[q], want[q]), f"mesh {label}: {q} disagrees with the "
+                                                 "unmeshed backend")
+    return got
+
+
+def window_stats(times) -> dict:
+    import numpy as np
+
+    return {"n": len(times), "p50_ms": float(np.percentile(times, 50)),
+            "p90_ms": float(np.percentile(times, 90))}
+
+
+def mesh_timings(be, ex, reads, label) -> dict:
+    """Per read kind but the bitmap reads: a window of requests (MESH_WINDOW_N,
+    MESH_WINDOW_S, MESH_WINDOW_MIN), each with the tables dropped first;
+    its ms, programs (device_launches_total) and kernel launches a
+    request."""
+    import torch
+
+    out = {}
+    for kind, q, is_row in reads:
+        if is_row:
+            continue
+        times = []
+        end = time.perf_counter() + MESH_WINDOW_S
+        while len(times) < MESH_WINDOW_N and (
+                len(times) < MESH_WINDOW_MIN or time.perf_counter() < end):
+            drop_backend_caches(be)
+            progs0, k0 = counter_total("device_launches_total"), query_launches()
+            t0 = time.perf_counter()
+            ex.execute("bench", q)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            progs = counter_total("device_launches_total") - progs0
+            kl = {k: v - k0[k] for k, v in query_launches().items() if v != k0[k]}
+        st = window_stats(times)
+        out[kind] = {"times": times, "programs": progs, "launches": kl}
+        log(f"mesh {label}: {kind[:60]}: p50 {st['p50_ms']:.3f} p90 {st['p90_ms']:.3f} ms "
+            f"over {st['n']}, programs {progs:g}, kernel launches {json.dumps(kl)}")
+    return out
+
+
+def drop_backend_stacks(be) -> None:
+    """Drop a backend's tables and resident stacks: its next reads build
+    every stack cold."""
+    import torch
+
+    drop_backend_caches(be)
+    with be.blocks._lock:
+        for key in list(be.blocks._entries):
+            be.blocks._drop(key)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_cli(root) -> None:
+    """`cli server --mesh-devices N`: past the visible cards it exits
+    non-zero with MeshConfigError's message; --mesh-devices 1 serves on the
+    card, its answers those of the in-process executor; where more than
+    one card is visible, --mesh-devices -1 serves over all of them with
+    the same answers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils import fastjson
+
+    visible = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        data_dir = os.path.join(tmp, "data")
+        holder = Holder(data_dir).open()
+        idx = holder.create_index("small")
+        rng = np.random.default_rng(5)
+        for name in ("f", "g"):
+            field = idx.create_field(name)
+            cols = rng.integers(0, CLI_SHARDS * SHARD_WIDTH, CLI_ROWS * CLI_BITS,
+                                dtype=np.uint64)
+            field.import_bits(rng.integers(0, CLI_ROWS, cols.size, dtype=np.uint64), cols)
+        holder.close()
+        want = visible + 1
+        refused = subprocess.run(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-d", data_dir,
+             "--bind", f"127.0.0.1:{free_port()}", "--mesh-devices", str(want)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=120)
+        msg = f"mesh-devices={want} but {visible} card"
+        check(refused.returncode != 0 and msg in refused.stderr,
+              f"mesh: cli server --mesh-devices {want} on {visible} visible: rc "
+              f"{refused.returncode}, {refused.stderr[-1500:]}")
+        log(f"mesh: cli server --mesh-devices {want} exits {refused.returncode}: "
+            + next(ln for ln in refused.stderr.splitlines() if msg in ln).strip())
+        run = cli_server_run(root, env, data_dir, tmp, ["--mesh-devices", "1"], None)
+        check("executor=cuda: device backend on cuda" in run["log"] and "1 device" in run["log"],
+              f"mesh: cli server --mesh-devices 1 did not serve on one card: "
+              f"{run['log'][-1500:]}")
+        holder = Holder(data_dir).open()
+        try:
+            dev = Executor(holder, backend=CUDABackend(holder))
+            for q in CLI_QUERIES:
+                body = fastjson.response_body(
+                    [fastjson.encode_result(r) for r in dev.execute("small", q)])
+                check(run["got"][q] == body, f"mesh: cli {q} disagrees in-process")
+        finally:
+            holder.close()
+        log(f"mesh: cli server --mesh-devices 1 served {len(CLI_QUERIES)} answers equal to "
+            f"the in-process executor's, exit code {run['rc']}")
+        if visible > 1:
+            every = cli_server_run(root, env, data_dir, tmp, ["--mesh-devices", "-1"], None)
+            check(f"{visible} devices" in every["log"] and every["got"] == run["got"],
+                  f"mesh: cli server --mesh-devices -1 over {visible} cards: "
+                  f"{every['log'][-1500:]}")
+            log(f"mesh: cli server --mesh-devices -1 served over {visible} cards, the same "
+                f"answers, exit code {every['rc']}")
+
+
+def phase_mesh(holder, root, cards: bool = False) -> dict:
+    """The shard mesh on the card, on bench.py's index with v (5.0 GB): an
+    unmeshed CUDABackend and meshed ones over ShardMesh([cuda:0] * n), n in
+    MESH_PARTS, each with its batcher. Every read of mesh_reads() answers
+    as the unmeshed backend does, cold and after each of MESH_EPOCHS, which
+    the stacks absorb by splices (K15 on the meshed ones): no stack is
+    rebuilt whole, stack_incremental_updates_total rises, and K15's
+    launches equal the shards it spliced (MESH_UPDATE_CHUNK 1: one launch
+    a part a round). Per read kind and backend, a window of requests
+    (mesh_timings) in each of MESH_RUNS runs, the backends built cold and
+    timed in alternating order; the table pools both windows into p50 and
+    p90 beside each run's p50, with the programs and kernel launches a
+    request. A bitmap read is timed once. The kernel counts are zeroed before the
+    phase and read after: every kernel of MESH_KERNELS must have launched.
+    Returns those counts. cards puts the parts on distinct cards
+    (``--mesh-cards``, on a machine with at least as many), one a card,
+    and prints each card's allocated bytes once the stacks are built."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+
+    t_phase = time.perf_counter()
+    reads = mesh_reads()
+    K.reset_launch_counts()
+    parts = [n for n in MESH_PARTS if not cards or n <= torch.cuda.device_count()]
+    check(parts, f"mesh: {torch.cuda.device_count()} cards for meshes of {MESH_PARTS}")
+    where = "one a card" if cards else "on cuda:0"
+    labels = [("unmeshed", None)] + [(f"mesh {n} ({where})", n) for n in parts]
+    exes, want, runs, row_ms = {}, None, [], {}
+    for run in range(MESH_RUNS):
+        order = labels if run % 2 == 0 else labels[::-1]
+        cold, timings = {}, {}
+        for label, n in order:
+            if run == 0:
+                exes[label] = mesh_backend(holder, n, cards)
+            else:
+                drop_backend_stacks(exes[label][0])
+            be, ex = exes[label]
+            t0 = time.perf_counter()
+            first = mesh_read_pass(ex, reads, want, label, rows=False)
+            cold[label] = time.perf_counter() - t0
+            if run == 0:
+                row_ms[label] = {}
+                rows = mesh_read_pass(ex, [r for r in reads if r[2]], want, label,
+                                      times=row_ms[label])
+                if want is None:
+                    want = dict(first, **rows)
+            if n:
+                entries = be.blocks._entries.items()
+                check(entries and all(len(e[1].parts) == n and e[1].shape[0] % n == 0
+                                      for _, e in entries),
+                      f"mesh {label}: a resident stack is not cut into {n} parts")
+                shapes = [(k[1], k[2], tuple(e[1].shape)) for k, e in entries]
+                part_bytes = sorted({b for _, e in entries for b in e[1].part_bytes()})
+                placed = f", stacks {shapes}, part bytes {part_bytes}"
+                if cards:
+                    placed += ", allocated bytes by card " + json.dumps(
+                        [torch.cuda.memory_allocated(i)
+                         for i in range(torch.cuda.device_count())])
+            else:
+                placed = ""
+            log(f"mesh run {run} {label}: cold reads (stack builds included) "
+                f"{cold[label]:.2f} s, {len(reads)} reads equal to the unmeshed "
+                f"backend's{placed}")
+        for label, _ in order:
+            timings[label] = mesh_timings(*exes[label], reads, f"run {run} {label}")
+        runs.append({"order": [lb for lb, _ in order], "cold_s": cold, "timings": timings})
+    writer = exes["unmeshed"][1]
+    for k, writes in enumerate(MESH_EPOCHS):
+        for q in writes:
+            writer.execute("bench", q)
+        want = mesh_read_pass(writer, reads, None, "unmeshed", rows=k == len(MESH_EPOCHS) - 1)
+        for label, n in labels[1:]:
+            be, ex = exes[label]
+            c0 = {c: counter_total(c) for c in ("stack_incremental_updates_total",
+                                                "stack_incremental_shards_total",
+                                                "stack_full_rebuilds_total")}
+            k15 = K.launch_counts().get("splice_slabs", 0)
+            mesh_read_pass(ex, reads, want, f"{label} epoch {k}",
+                           rows=k == len(MESH_EPOCHS) - 1)
+            d = {c: counter_total(c) - v for c, v in c0.items()}
+            spliced = K.launch_counts().get("splice_slabs", 0) - k15
+            check(d["stack_full_rebuilds_total"] == 0,
+                  f"mesh {label} epoch {k}: a stack was rebuilt whole: {d}")
+            check(d["stack_incremental_updates_total"] > 0 and spliced > 0
+                  and spliced == d["stack_incremental_shards_total"],
+                  f"mesh {label} epoch {k}: K15 launched {spliced} for {d}")
+            log(f"mesh {label} epoch {k}: reads equal; splices "
+                f"{d['stack_incremental_updates_total']:g} over "
+                f"{d['stack_incremental_shards_total']:g} shards, K15 launches {spliced}, "
+                "full rebuilds 0")
+    launches = K.launch_counts()
+    missing = [k for k in MESH_KERNELS if not launches.get(k)]
+    check(not missing, f"mesh: kernels of the meshed path never launched: {missing}")
+    log(f"mesh: kernel launches of the phase {json.dumps(launches)}")
+    for kind, q, is_row in reads:
+        cells = []
+        for label, _ in labels:
+            if is_row:
+                cells.append(f"{label} {row_ms[label][kind]:.3f} ms (one request)")
+                continue
+            pooled = window_stats([t for r in runs for t in r["timings"][label][kind]["times"]])
+            per_run = ", ".join(f"{window_stats(r['timings'][label][kind]['times'])['p50_ms']:.3f}"
+                                for r in runs)
+            last = runs[-1]["timings"][label][kind]
+            cells.append(f"{label} p50 {pooled['p50_ms']:.3f} p90 {pooled['p90_ms']:.3f} ms "
+                         f"over {pooled['n']} (p50 a run {per_run}), programs "
+                         f"{last['programs']:g}, launches {sum(last['launches'].values())}")
+        log(f"mesh table: {kind[:60]}: " + "; ".join(cells))
+    for r in runs:
+        log("mesh cold reads s, in the order built: "
+            + ", ".join(f"{lb} {r['cold_s'][lb]:.2f}" for lb in r["order"]))
+    del exes
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_cli(root)
+    log(f"mesh: {time.perf_counter() - t_phase:.1f} s "
+        + (f"(the parts on distinct cards of {torch.cuda.device_count()})" if cards else
+           "(one card: every part on cuda:0; no placement across cards, P2P copies or "
+           "concurrency between cards)"))
+    return launches
+
+
+def splice_parts(n_parts: int = MESH_PARTS[0]):
+    """K15's inputs at the shape the meshed main path gives it: one part of
+    f's stack over SHARDS shards in n_parts parts (477 x 8 x 32768 words at
+    n = 2) and one slab, a random part's words."""
+    import torch
+
+    s_local = -(-SHARDS // n_parts)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    part = torch.randint(-2**31, 2**31 - 1, (s_local, ROWS, 32768), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    slabs = torch.randint(-2**31, 2**31 - 1, (4, ROWS, 32768), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    return part, slabs, s_local
+
+
+def phase_splice_kernel(launches) -> list:
+    """K15 against its plain form on the card, exactly: at the main path's
+    shape (one slab into a 477-shard part, rows_p = 8) and with duplicate,
+    invalid and clipped entries; graph_ms and kernel_ms at the main path's
+    shape beside the launch floor, the plain form's ms and the library
+    call's (index_copy_ of the same, deduplicated splice) ms."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.ops.build import library
+
+    part, slabs, s_local = splice_parts()
+    cases = {
+        "main path": ([s_local - 1], [1]),
+        "duplicate, invalid, clipped": ([5, 5, 400, -3], [1, 1, 0, 1]),
+    }
+    err = 0
+    for label, (idx, valid) in cases.items():
+        c = len(idx)
+        got = part.clone()
+        want = part.clone()
+        K.splice_slabs(got, slabs[:c].contiguous(), idx, valid)
+        K.splice_slabs_torch(want, slabs[:c], idx, valid)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        log(f"kernel splice_slabs ({label}, {c} entries): max_abs_err {e}")
+        check(e == 0, f"splice_slabs disagrees with its plain form ({label})")
+    one = slabs[:1].contiguous()
+    idx = np.array([s_local - 1], dtype=np.int32)
+    valid = np.ones(1, dtype=np.uint32)
+    lib = library("splice")
+    s_l, rows, w = part.shape
+
+    def bare():
+        lib.splice_slabs_launch(part.data_ptr(), one.data_ptr(), idx.ctypes.data,
+                                valid.ctypes.data, 1, s_l, rows, w,
+                                torch.cuda.current_stream().cuda_stream)
+
+    ms = time_ms(lambda: K.splice_slabs(part, one, idx, valid))
+    k_ms = kernel_ms(bare)
+    g_ms = graph_ms(bare)
+    plain_ms = time_ms(lambda: K.splice_slabs_torch(part, one, idx, valid))
+    idx_t = torch.tensor([s_local - 1], dtype=torch.int64, device="cuda")
+    library_ms = time_ms(lambda: part.index_copy_(0, idx_t, one))
+    floor = launch_floor()
+    nbytes = 2 * one.nbytes  # the slab read, its shard written
+    line = kernel_line("splice_slabs", ms, k_ms, plain_ms, (nbytes, 0), err,
+                       launches.get("splice_slabs", 0))
+    line["graph_ms"] = g_ms
+    line["library_ms"] = library_ms
+    log(f"kernel splice_slabs: ms {ms:.5f}, kernel_ms {k_ms:.5f}, graph_ms {g_ms:.5f}, "
+        f"bound {line['bound_ms']:.5f} ({line['bound_by']}, {nbytes} bytes), plain "
+        f"{plain_ms:.5f}, index_copy_ {library_ms:.5f}; launch floor "
+        + json.dumps({b: {k: round(v, 5) for k, v in f.items()} for b, f in floor.items()}))
+    return [line]
+
+
+def phase_mesh_alone(root, cards: bool = False) -> int:
+    """`chip_smoke.py --mesh`: the card line, bench.py's index with its BSI
+    field v, phase_mesh and K15's checks; `--mesh-cards` the same with the
+    parts on distinct cards."""
+    import torch
+
+    from pilosa_tpu_torch.core import Holder
+
+    card_line = phase_card()
+    phase_probe(card_line)
+    holder = Holder(None).open()
+    t0 = time.perf_counter()
+    build_bench_index(holder)
+    build_bsi_field(holder)
+    log(f"mesh: index build seconds {time.perf_counter() - t0:.1f}")
+    launches = phase_mesh(holder, root, cards)
+    holder.close()
+    lines = phase_splice_kernel(launches)
+    print(json.dumps({"kernels": lines}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -4971,6 +5453,13 @@ def main(argv=None) -> int:
     ap.add_argument("--cluster", action="store_true",
                     help="run only the cluster phase (phase_cluster: two `cli server` "
                          "nodes sharing the card) on the --root checkout's package")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run only the card line, the shard-mesh phase (phase_mesh: "
+                         "bench.py's index with v on meshes of 2 and 4 parts of the "
+                         "card) and K15's checks on the --root checkout's package")
+    ap.add_argument("--mesh-cards", action="store_true",
+                    help="--mesh with each mesh's parts on distinct cards (a machine "
+                         "with 4 cards runs meshes of 2 and 4 cards)")
     ap.add_argument("--cluster-shards", type=int, default=CLUSTER_SHARDS, metavar="N",
                     help=f"shards of the cluster phase's index (default {CLUSTER_SHARDS})")
     ap.add_argument("--pairs", type=int, default=10,
@@ -5007,6 +5496,8 @@ def main(argv=None) -> int:
         return phase_cold_alone(root)
     if args.cluster:
         return phase_cluster_alone(root, args.cluster_shards)
+    if args.mesh or args.mesh_cards:
+        return phase_mesh_alone(root, args.mesh_cards)
     if args.host_count:
         return phase_host_count(root, args.rounds)
     if args.host_count_ab:
@@ -5030,6 +5521,9 @@ def main(argv=None) -> int:
     bsi_oracle_check(holder, backend)
     phase_preheat(holder)
     cold_launches, capture = phase_cold_build(holder)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(holder, root)
     holder.close()
     del backend
     phase_groupby_tiles()
@@ -5048,6 +5542,7 @@ def main(argv=None) -> int:
     lines += phase_bsi_kernels(bsi_stacks, launches)
     lines += phase_spec_kernels(gstacks, results.pop("exists"), launches)
     lines += phase_expand_kernels(capture, cold_launches)
+    lines += phase_splice_kernel(mesh_launches)
     del capture
     del gstacks, wide_stacks, bsi_stacks
     phase_host_rows()

@@ -23,11 +23,29 @@ def _unported_knobs(cfg, args) -> list[str]:
     out = []
     if cfg.executor not in ("cuda", "cpu"):
         out.append(f"executor={cfg.executor!r}: choose cuda or cpu")
-    if cfg.mesh_devices not in (0, 1):
-        out.append("mesh-devices: the multi-device mesh is not ported yet")
     if cfg.profile_port:
         out.append("profile.port: the device profiler server is not ported yet")
     return [f"{m} ({_ROADMAP})" for m in out]
+
+
+def _mesh_devices(cfg):
+    """The cards mesh-devices asks for (the JAX CLI's rule): none for 0; -1
+    every visible card, N the first N. More than are visible raises
+    MeshConfigError. A mesh of one card is one device: the backend takes
+    it as no mesh."""
+    import torch
+
+    from pilosa_tpu_torch.parallel import MeshConfigError
+
+    if not cfg.mesh_devices:
+        return None
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    want = visible if cfg.mesh_devices < 0 else cfg.mesh_devices
+    if want > visible or want < 1:
+        raise MeshConfigError(
+            f"mesh-devices={cfg.mesh_devices} but {visible} card"
+            f"{'' if visible == 1 else 's'} {'is' if visible == 1 else 'are'} visible")
+    return [torch.device("cuda", i) for i in range(want)]
 
 
 def cmd_server(args) -> int:
@@ -53,6 +71,7 @@ def cmd_server(args) -> int:
             "preheat": args.preheat or None,
             "refresh_window_ms": args.refresh_window_ms,
             "heat_half_life": args.heat_half_life,
+            "mesh_devices": args.mesh_devices,
             "verbose": args.verbose or None,
         },
     )
@@ -79,12 +98,18 @@ def cmd_server(args) -> int:
 
         try:
             from pilosa_tpu_torch.exec.cuda import CUDABackend
+            from pilosa_tpu_torch.parallel import ShardMesh
 
+            # mesh-devices: shard the stacks over that many cards (one
+            # process, parallel/mesh.py); a count past the visible cards
+            # raises MeshConfigError, and the server does not start.
             # max-hbm-bytes: the device byte budget (0: none). A field over
             # it is paged through the card a row at a time. heat-half-life:
             # the half-life of the stacks' heat (/debug/heat).
+            devices = _mesh_devices(cfg)
             backend = CUDABackend(holder, max_bytes=cfg.max_hbm_bytes or None,
-                                  heat_half_life=cfg.heat_half_life or None)
+                                  heat_half_life=cfg.heat_half_life or None,
+                                  mesh=ShardMesh(devices) if devices else None)
         except Exception as e:  # noqa: BLE001 — reported, never served around
             log.printf(
                 "executor=cuda: %s; not serving (--executor=cpu runs the "
@@ -92,9 +117,10 @@ def cmd_server(args) -> int:
             )
             holder.close()
             return 1
-        log.printf("executor=cuda: device backend on %s (%s), max-hbm-bytes %d",
-                   backend.device, torch.cuda.get_device_name(backend.device),
-                   cfg.max_hbm_bytes)
+        log.printf("executor=cuda: device backend on %s (%s), max-hbm-bytes %d, "
+                   "%d device%s", backend.device, torch.cuda.get_device_name(backend.device),
+                   cfg.max_hbm_bytes, backend.mesh.n if backend.mesh is not None else 1,
+                   "s" if backend.mesh is not None else "")
     executor = Executor(
         holder, backend=backend if backend is not None else CPUBackend(holder)
     )
@@ -568,6 +594,11 @@ def main(argv=None) -> int:
     sp.add_argument(
         "--heat-half-life", type=float, default=None, metavar="S",
         help="half-life in seconds of the resident stacks' heat (/debug/heat)",
+    )
+    sp.add_argument(
+        "--mesh-devices", type=int, default=None, metavar="N",
+        help="shard the stacks over the first N cards (-1: every visible "
+        "card; 0 or 1: one); more than are visible refuses to start",
     )
     sp.add_argument(
         "--join",

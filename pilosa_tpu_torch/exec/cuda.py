@@ -104,8 +104,10 @@ from pilosa_tpu_torch.ops.kernels import (  # noqa: F401 (the range helpers are 
     spec_eval,
     spec_leaf_rows,
     spec_program,
+    splice_slabs,
     split_minmax,
 )
+from pilosa_tpu_torch.parallel.mesh import Sharded, pad_to_multiple
 from pilosa_tpu_torch.pql.ast import (
     BETWEEN, Call, Condition, EQ, GT, GTE, LT, LTE, NEQ, canonical_key,
     is_reserved_arg,
@@ -254,7 +256,12 @@ class _StackedBlocks:
     refresh_stale() every window, so the shards a window's writes dirtied
     are spliced into each resident stack once, off the read path. A read
     that meets a stale stack mid-window still refreshes it inline first,
-    so answers are those of unwindowed execution."""
+    so answers are those of unwindowed execution.
+
+    Under a mesh (parallel/mesh.py) the shard axis is padded with zero
+    slabs to a multiple of the device count and every stack and row page
+    is a Sharded: one part a mesh device, each built, spliced and held on
+    its own device."""
 
     #: Incremental-update cutoff: splice at most 1/2 of the shard axis
     #: before a full repack wins.
@@ -264,13 +271,19 @@ class _StackedBlocks:
     #: the host staging buffer stays small for any dirty count.
     UPDATE_CHUNK = 8
 
+    #: Slabs a part takes in one round of the sharded splice (one K15
+    #: launch a part with a dirty shard in the round), as in the JAX
+    #: package: a single dirty shard costs one slab's copy, never a part's.
+    MESH_UPDATE_CHUNK = 1
+
     #: Decayed-frequency half-life of an entry's heat, in seconds: an entry
     #: untouched for one half-life keeps half its heat.
     HEAT_HALF_LIFE = 300.0
 
     def __init__(self, device: torch.device, max_bytes: Optional[int] = None,
-                 heat_half_life: Optional[float] = None):
+                 heat_half_life: Optional[float] = None, mesh=None):
         self.device = device
+        self.mesh = mesh  # a ShardMesh of n > 1 devices, or None
         self.max_bytes = max_bytes
         self.heat_half_life = heat_half_life or self.HEAT_HALF_LIFE
         # Every ledger access (hit or upload) is offered to the estimator's
@@ -300,15 +313,24 @@ class _StackedBlocks:
         self.refresh_window_ms = 0
         self._refresh_args: dict[tuple, tuple] = {}
 
-    def _put(self, host: np.ndarray) -> torch.Tensor:
-        """uint32 host words -> int32 tensor with the same bits on the device."""
+    def _pad_shards(self, n: int) -> int:
+        """The shard axis of a stack over n shards: n, or under a mesh the
+        next multiple of its device count (ShardMesh.put's rule)."""
+        return n if self.mesh is None else pad_to_multiple(n, self.mesh.n)
+
+    def _put(self, host: np.ndarray):
+        """uint32 host words -> int32 tensor with the same bits on the
+        device; under a mesh a Sharded, its axis padded with zero slabs."""
+        if self.mesh is not None:
+            return self.mesh.put(host)
         return torch.from_numpy(host.view(np.int32)).to(self.device)
 
     def get(self, index: str, field_obj, shards: tuple[int, ...],
             view_name: str = VIEW_STANDARD, min_rows: int = 1):
         """Returns (stack [S, R_pad, W], rows_p), or (None, rows_p) when the
         stack cannot be resident under the byte budget. Missing fragments
-        pack as zeros."""
+        pack as zeros; under a mesh the stack is a Sharded over S_pad
+        shards, the padding zero."""
         v = field_obj.view(view_name)
         # O(1) freshness: the view's generation covers every fragment
         # mutation and create/delete under it.
@@ -334,8 +356,9 @@ class _StackedBlocks:
                 + [min_rows]
             )
             rows_p = _padded_rows(n_rows)
-            shape = (len(shards), rows_p, WORDS_PER_SHARD)
-            nbytes = shape[0] * rows_p * WORDS_PER_SHARD * 4
+            s_pad = self._pad_shards(len(shards))
+            shape = (s_pad, rows_p, WORDS_PER_SHARD)
+            nbytes = s_pad * rows_p * WORDS_PER_SHARD * 4
             if self.max_bytes is not None and nbytes > self.max_bytes:
                 # Before the version walk, which a paged field would pay on
                 # every call: a stale stack of this shape would have fit,
@@ -364,23 +387,10 @@ class _StackedBlocks:
                     tiers[0] += a
                     tiers[1] += r
             if nbytes // 4 >= sparse.MIN_CHUNKED_WORDS:
-                # The chunked cold build (ops/sparse.py): each chunk ships
-                # on its cheapest wire as it packs, array and run
-                # containers as their own positions and spans, expanded
-                # into the stack on the card by K12 to K14.
-                builder = sparse.ChunkedStackBuilder(self.device, shape)
-                for s in shards:
-                    fr = frags[s]
-                    if fr is not None:
-                        builder.feed_fragment(fr, rows_p)
-                    else:
-                        builder.skip(rows_p * WORDS_PER_SHARD)
-                return builder.finish(), rows_p, vers, tiers
-            host = np.zeros(shape, dtype=np.uint32)
-            for i, s in enumerate(shards):
-                fr = frags[s]
-                if fr is not None:
-                    host[i] = pack_fragment(fr, n_rows=rows_p)
+                # Under a mesh too the gate is the whole stack's, as in
+                # the JAX package.
+                return self._stream_build(frags, shards, rows_p, s_pad), rows_p, vers, tiers
+            host = self._pack_slabs(frags, shards, range(len(shards)), rows_p)
             return self._put(host), rows_p, vers, tiers
 
         return self._cached_build(key, fingerprint, build)
@@ -388,8 +398,10 @@ class _StackedBlocks:
     def _try_incremental(self, stale, shards, min_rows, frags, vers, rows_p):
         """Dirty-shard refresh: when a write epoch touched few shards of a
         resident stack of the same geometry, re-pack just those shard slabs
-        and copy them into the stack in place. Returns the updated stack,
-        or None when a full rebuild is needed.
+        and copy them into the stack in place (_splice; under a mesh
+        through K15). Returns the updated stack, or None when a full
+        rebuild is needed. A failed splice raises: it is not rebuilt
+        around.
 
         In place, unlike the JAX package's new-array splice: caches keyed
         on the stack are keyed on view generations, never on the tensor's
@@ -416,19 +428,83 @@ class _StackedBlocks:
             return old_arr
         if len(dirty) > max(1, len(shards) // self.MAX_INCREMENTAL_FRACTION):
             return None
-        for c0 in range(0, len(dirty), self.UPDATE_CHUNK):
-            chunk = dirty[c0 : c0 + self.UPDATE_CHUNK]
-            slabs = np.zeros((len(chunk), rows_p, WORDS_PER_SHARD), dtype=np.uint32)
-            for j, i in enumerate(chunk):
-                fr = frags[shards[i]]
-                if fr is not None:
-                    slabs[j] = pack_fragment(fr, n_rows=rows_p)
-            idx = torch.tensor(chunk, dtype=torch.int64, device=self.device)
-            old_arr.index_copy_(0, idx, self._put(slabs))
-            global_stats.count("stack_update_bytes_total", slabs.nbytes)
+        return self._splice(old_arr, shards, frags, dirty, rows_p)
+
+    def _pack_slabs(self, frags, shards, positions, rows_p) -> np.ndarray:
+        """uint32[len(positions), rows_p, W]: the fresh packs of the shards
+        at those positions of the stack's axis, zeros for a missing
+        fragment."""
+        slabs = np.zeros((len(positions), rows_p, WORDS_PER_SHARD), dtype=np.uint32)
+        for j, i in enumerate(positions):
+            fr = frags[shards[i]]
+            if fr is not None:
+                slabs[j] = pack_fragment(fr, n_rows=rows_p)
+        return slabs
+
+    def _splice(self, old_arr, shards, frags, dirty, rows_p):
+        """Writes the dirty shards' fresh packs into the resident stack in
+        place and returns it. The dirty shards group by the part that holds
+        them (the whole stack is one part unmeshed), and each round sends
+        every part with a dirty shard left at most a chunk of slabs, packed
+        on the host and copied to the part's device: UPDATE_CHUNK, written
+        by index_copy_, for an unmeshed stack; under a mesh
+        MESH_UPDATE_CHUNK, written by K15 (ops/kernels.py splice_slabs), as
+        the JAX package's _splice_sharded. A part with nothing left in a
+        round is not launched on (the JAX program writes every device's
+        lane, the idle ones with an invalid entry), so a single dirty shard
+        costs one slab's copy and one launch."""
+        meshed = isinstance(old_arr, Sharded)
+        parts = old_arr.parts if meshed else [old_arr]
+        s_local = int(parts[0].shape[0])
+        by_part: dict[int, list[int]] = {}
+        for i in dirty:
+            by_part.setdefault(i // s_local, []).append(i)
+        c = self.MESH_UPDATE_CHUNK if meshed else self.UPDATE_CHUNK
+        rounds = max(len(v) for v in by_part.values())
+        for r0 in range(0, rounds, c):
+            for d, items in by_part.items():
+                chunk = items[r0 : r0 + c]
+                if not chunk:
+                    continue
+                slabs = self._pack_slabs(frags, shards, chunk, rows_p)
+                part = parts[d]
+                src = torch.from_numpy(slabs.view(np.int32)).to(part.device)
+                local = [i - d * s_local for i in chunk]
+                if meshed:
+                    splice_slabs(part, src, np.array(local, dtype=np.int32),
+                                 np.ones(len(chunk), dtype=np.uint32))
+                else:
+                    part.index_copy_(0, torch.tensor(local, dtype=torch.int64,
+                                                     device=part.device), src)
+                global_stats.count("stack_update_bytes_total", slabs.nbytes)
         global_stats.count("stack_incremental_updates_total")
         global_stats.count("stack_incremental_shards_total", len(dirty))
         return old_arr
+
+    def _stream_build(self, frags, shards, rows_p, s_pad):
+        """The chunked cold build (ops/sparse.py): each chunk ships on its
+        cheapest wire as it packs, array and run containers as their own
+        positions and spans, expanded into the stack on the card by K12 to
+        K14. One ChunkedStackBuilder a part (the whole stack unmeshed; under
+        a mesh the JAX package's _sharded_stream_build), on its device, fed
+        the part's run of the padded shard axis in shard order, missing
+        fragments and the padding tail as skip()s. Each builder is finished
+        before the next starts, so one part's pinned staging is in flight
+        at a time. A Sharded under a mesh."""
+        devices = self.mesh.devices if self.mesh is not None else [self.device]
+        s_local = s_pad // len(devices)
+        slab_words = rows_p * WORDS_PER_SHARD
+        parts = []
+        for d, dev in enumerate(devices):
+            builder = sparse.ChunkedStackBuilder(dev, (s_local, rows_p, WORDS_PER_SHARD))
+            for pos in range(d * s_local, (d + 1) * s_local):
+                fr = frags[shards[pos]] if pos < len(shards) else None
+                if fr is not None:
+                    builder.feed_fragment(fr, rows_p)
+                else:
+                    builder.skip(slab_words)
+            parts.append(builder.finish())
+        return parts[0] if self.mesh is None else Sharded(parts, real=len(shards))
 
     def get_row(self, index: str, field_obj, shards: tuple[int, ...],
                 view_name: str, row_id: int) -> torch.Tensor:
@@ -447,9 +523,12 @@ class _StackedBlocks:
                 fr = v.fragment(s) if v is not None else None
                 if fr is not None and row_id <= fr.max_row_id:
                     host[i, 0] = pack_row(fr, row_id)
+            page = self._put(host)
             global_stats.count("hbm_page_uploads_total")
-            global_stats.count("hbm_page_bytes_total", host.nbytes)
-            return self._put(host), 1, None, None
+            # The bytes placed, a mesh's zero padding included, as the JAX
+            # package counts them.
+            global_stats.count("hbm_page_bytes_total", page.nbytes)
+            return page, 1, None, None
 
         return self._cached_build(key, fingerprint, build)[0]
 
@@ -664,6 +743,9 @@ class _StackedBlocks:
                 }
                 if len(key) > 3 and key[3] == "row":
                     ent["row"] = key[4]
+                arr = self._entries[key][1]
+                if isinstance(arr, Sharded):
+                    ent["partBytes"] = arr.part_bytes()
                 out.append(ent)
         return out
 
@@ -760,6 +842,65 @@ def _prod(xs) -> int:
     for x in xs:
         out *= int(x)
     return out
+
+
+def _first_sharded(args) -> Optional[Sharded]:
+    """The first Sharded at any depth of an argument tuple, or None."""
+    for a in args:
+        if isinstance(a, Sharded):
+            return a
+        if isinstance(a, (tuple, list)):
+            found = _first_sharded(a)
+            if found is not None:
+                return found
+    return None
+
+
+def _part_args(args, d: int):
+    """args with every Sharded (at any depth of a tuple or list) replaced by
+    its part d."""
+    out = []
+    for a in args:
+        if isinstance(a, Sharded):
+            a = a.parts[d]
+        elif isinstance(a, (tuple, list)):
+            a = type(a)(_part_args(a, d))
+        out.append(a)
+    return out
+
+
+def _row_counts_summed(n_rows: int):
+    """K8's per-row counts of rows 0 .. n_rows of (stack, masks), summed
+    over the shards in int64: a program body for CUDABackend._run."""
+
+    def body(block, masks):
+        return row_popcounts(block, 0, n_rows, masks)[0].sum(dim=0, dtype=torch.int64)
+
+    return body
+
+
+def _stack_row_counts(stack):
+    """Each row's popcount over every shard of a stack [S, R, W], int64[R]:
+    K3 over its [S * R, W] view, summed over the shards."""
+    s, r, w = stack.shape
+    return popcount_rows(stack.reshape(s * r, w)).reshape(s, r).sum(dim=0, dtype=torch.int64)
+
+
+def _sum_masks(bsi_block, filt):
+    """Sum's column masks of a BSI stack [S, R, W] under a filter slab (or
+    None): the positive and the negative considered columns and the
+    considered ones, each int32[S, W]."""
+    consider = bsi_block[:, BSI_EXISTS_BIT, :]
+    if filt is not None:
+        consider = consider & filt
+    neg = (bsi_block[:, BSI_SIGN_BIT, :] & consider).contiguous()
+    pos = (consider & ~neg).contiguous()
+    return pos, neg, consider.contiguous()
+
+
+def _real_shards(block) -> int:
+    """The shard count a stack or slab holds before any mesh padding."""
+    return block.real if isinstance(block, Sharded) else int(block.shape[0])
 
 
 def _shift_slab(slab, n: int):
@@ -935,7 +1076,7 @@ class _Slots:
 
 
 # The leaves of a launch's argument tree that have a shape and bytes.
-_SIG_LEAVES = (torch.Tensor, _Slots)
+_SIG_LEAVES = (torch.Tensor, _Slots, Sharded)
 _SLOTS: dict = {}
 
 
@@ -1122,7 +1263,15 @@ class CUDABackend:
 
     ``device`` defaults to "cuda" and must name a present device; the CPU
     tests pass device="cpu", where every kernel wrapper takes its plain
-    PyTorch version. Calls not lowered here go to the CPU oracle."""
+    PyTorch version. Calls not lowered here go to the CPU oracle.
+
+    ``mesh`` (parallel/mesh.py ShardMesh, of devices of ``device``'s type)
+    shards every stack over its devices; a mesh of one device is none. Each
+    program then runs its kernels once on every part (_run) and merges the
+    parts' partial results on the mesh's first device, the backend's
+    device: summed in int64 (the JAX package's psum) or gathered in shard
+    order with the padding cut. One program is one launch at the
+    chokepoint (_launched), whatever the number of parts."""
 
     _PAIR_VERBS = {"Intersect": "I", "Union": "U", "Difference": "D", "Xor": "X"}
 
@@ -1145,7 +1294,7 @@ class CUDABackend:
     _REUSE_BATCH = 8
 
     def __init__(self, holder, device="cuda", max_bytes: Optional[int] = None,
-                 heat_half_life: Optional[float] = None):
+                 heat_half_life: Optional[float] = None, mesh=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -1156,11 +1305,19 @@ class CUDABackend:
             # Pin the index: server handler threads each have their own
             # current device, and every allocation and launch names this one.
             device = torch.device("cuda", torch.cuda.current_device())
+        mesh = mesh if mesh is not None and mesh.n > 1 else None
+        if mesh is not None:
+            if any(d.type != device.type for d in mesh.devices):
+                raise ValueError(
+                    f"CUDABackend: a mesh over {mesh.devices[0].type} devices needs "
+                    f"device={mesh.devices[0].type!r}")
+            device = mesh.devices[0]  # where the parts' results merge
         self.holder = holder
         self.device = device
+        self.mesh = mesh
         self.cpu = CPUBackend(holder)
         self.stats = global_stats
-        self.blocks = _StackedBlocks(device, max_bytes, heat_half_life)
+        self.blocks = _StackedBlocks(device, max_bytes, heat_half_life, mesh)
         # Cluster seam (cluster/cluster.py attach): (index, shards) -> the
         # shards among them that this node holds. None on a single node,
         # which holds every shard.
@@ -1244,9 +1401,44 @@ class CUDABackend:
                     "dispatchMs": round(wall * 1e3, 3),
                     "bytesShipped": shipped,
                     "bytesReturned": returned,
-                    "devices": 1,
+                    "devices": self.mesh.n if self.mesh is not None else 1,
                 })
         return out
+
+    def _run(self, fn, args: tuple, merge=None, axis: int = 0):
+        """The body of one program: fn(*args) once, or, when args hold a
+        Sharded (at any depth of a tuple or list), once on each of its parts
+        with every Sharded replaced by its part (any other argument goes to
+        every part as it is). Each part's kernels launch on the part's
+        device (ops/kernels.py _launch takes it from the tensors), in mesh
+        order. merge joins the parts' outputs on the first part's device:
+
+        - None: a Sharded of them (a tuple of Sharded for tuple outputs),
+          each left on its part's device, their axis ``axis`` the shard
+          axis;
+        - "psum": their sum in int64 (fn returns its part's int64 sums);
+        - an int d: concatenated along axis d in shard order, cut at the
+          real shard count.
+
+        With no Sharded among args (no mesh, or a call narrowed to one
+        shard) fn's output is returned as it is."""
+        sh = None if self.mesh is None else _first_sharded(args)
+        if sh is None:
+            return fn(*args)
+        outs = [fn(*_part_args(args, d)) for d in range(len(sh.parts))]
+        if merge is None:
+            if isinstance(outs[0], tuple):
+                return tuple(Sharded([o[k] for o in outs], sh.real, axis)
+                             for k in range(len(outs[0])))
+            return Sharded(outs, sh.real, axis)
+        dev = sh.device
+        if merge == "psum":
+            total = outs[0].to(torch.int64)
+            for o in outs[1:]:
+                total = total + o.to(device=dev, dtype=torch.int64)
+            return total
+        out = torch.cat([o.to(dev) for o in outs], dim=merge)
+        return out if out.shape[merge] == sh.real else out.narrow(merge, 0, sh.real)
 
     def _readback(self, t: torch.Tensor) -> np.ndarray:
         """t on the host as numpy. The copy waits for the card, so this
@@ -1355,6 +1547,11 @@ class CUDABackend:
         try:
             for name in SOURCES:
                 library(name)
+            # Each mesh device's context, so no part's first launch makes
+            # it; a kernel's shared-memory limit is set at its first launch
+            # on a device (ops/csrc), which preheat does not make.
+            for dev in dict.fromkeys(self.mesh.devices if self.mesh is not None else ()):
+                torch.empty(0, device=dev)
         except Exception as e:  # noqa: BLE001
             if logger is not None:
                 logger.printf("preheat kernel libraries failed: %s", e)
@@ -1673,32 +1870,59 @@ class CUDABackend:
         """Popcount of the evaluated tree: per-shard counts int32[S] (one
         K11 launch), summed on the device in int64, exact for any shard
         count."""
-        counts = self._spec_run(spec_program(spec), blocks, [scalars], "count", "count")
-        return counts.sum(dtype=torch.int64)
+        return self._spec_run(spec_program(spec), blocks, [scalars], "count", "count",
+                              "sum")[0]
 
-    def _vec_program(self, spec, blocks, scalars) -> torch.Tensor:
-        """The evaluated bitmap slab int32[S, W] (one K11 launch)."""
-        return self._spec_run(spec_program(spec), blocks, [scalars], "slab", "vec")[0]
+    def _vec_program(self, spec, blocks, scalars):
+        """The evaluated bitmap slab int32[S, W] (one K11 launch); under a
+        mesh a Sharded of the parts' slabs."""
+        return self._spec_run(spec_program(spec), blocks, [scalars], "slab", "vec", "slab")
 
-    def _spec_run(self, prog, blocks, slots, mode: str, kind: str) -> torch.Tensor:
+    def _spec_run(self, prog, blocks, slots, mode: str, kind: str, out: str = "whole"):
         """K11 over one call group's blocks for each slot's scalars:
         int32[Q, S] per-shard counts ("count") or the slabs int32[Q, S, W]
-        ("slab"). A program with slab leaves (a BSI condition, a Shift, a
-        tree split past K11's limits) runs one slot a launch, since those
-        leaves depend on the slot's scalars: its slab leaves are evaluated
-        first for that slot (K10, _shift_slab, K11 in slab mode)."""
+        ("slab"), a mesh's parts gathered along the shard axis (out
+        "whole") or left on their devices as a Sharded along axis 1 (out
+        "parts"); or the counts summed over the shards, int64[Q], psum'd
+        over the parts (out "sum"); or one slot's slab int32[S, W], a
+        Sharded under a mesh (out "slab"). A program with slab leaves (a
+        BSI condition, a Shift, a tree split past K11's limits) runs one
+        slot a launch, since those leaves depend on the slot's scalars: its
+        slab leaves are evaluated first for that slot (K10, _shift_slab,
+        K11 in slab mode)."""
         key = (mode, prog.ops)
         n = len(prog.leaves)
+        if out == "sum":
+            merge = "psum"
+
+            def body(b, sl):
+                return self._spec_launch(prog, b, sl, mode).sum(dim=1, dtype=torch.int64)
+        elif out == "slab":
+            merge = None
+
+            def body(b, sl):
+                return self._spec_launch(prog, b, sl, mode)[0]
+        else:
+            merge = 1 if out == "whole" else None
+
+            def body(b, sl):
+                return self._spec_launch(prog, b, sl, mode)
+        axis = 1 if out == "parts" else 0
         if prog.per_slot:
             args = (*blocks, _slots(1, n))
             outs = [
                 self._launched(kind, key, args,
-                               lambda sc=sc: self._spec_launch(prog, blocks, [sc], mode))
+                               lambda sc=sc: self._run(body, (blocks, [sc]), merge, axis))
                 for sc in slots
             ]
-            return outs[0] if len(outs) == 1 else torch.cat(outs)
+            if len(outs) == 1:
+                return outs[0]
+            if isinstance(outs[0], Sharded):
+                return Sharded([torch.cat(ps) for ps in zip(*(o.parts for o in outs))],
+                               outs[0].real, axis)
+            return torch.cat(outs)
         return self._launched(kind, key, (*blocks, _slots(len(slots), n)),
-                              lambda: self._spec_launch(prog, blocks, slots, mode))
+                              lambda: self._run(body, (blocks, slots), merge, axis))
 
     def _spec_launch(self, prog, blocks, slots, mode: str) -> torch.Tensor:
         leaves = [self._spec_leaf(leaf, blocks, slots[0]) for leaf in prog.leaves]
@@ -1836,6 +2060,8 @@ class CUDABackend:
             return out
         with prof.phase("device_dispatch"):
             slab = self._vec_program(spec, blocks, scalars)
+            if isinstance(slab, Sharded):
+                slab = slab.gather()
             if positions != list(range(slab.shape[0])):
                 idx_t = torch.tensor(positions, dtype=torch.int64, device=slab.device)
                 slab = torch.index_select(slab, 0, idx_t)
@@ -1952,9 +2178,8 @@ class CUDABackend:
             blocks = assembled[idxs[0]][0]
             unique, slot_of = self._distinct_slots(idxs, assembled)
             with prof.phase("device_dispatch"):
-                counts = self._spec_run(spec_program(spec), blocks, unique, "count",
-                                        "count_batch")
-                totals = counts.sum(dim=1, dtype=torch.int64)
+                totals = self._spec_run(spec_program(spec), blocks, unique, "count",
+                                        "count_batch", "sum")
             pending.append((idxs, totals, slot_of, blocks))
 
         def resolve() -> list[int]:
@@ -1980,8 +2205,10 @@ class CUDABackend:
         chunked so that a launch's [Q, S, W] output stays under
         MAX_ROW_BATCH_BYTES. The resolver reads each launch back once
         (gathering a subset of the shards on the card first) and builds
-        every call its own Row. Calls without a device lowering take
-        bitmap_call in the resolver."""
+        every call its own Row. Under a mesh each launch's output stays in
+        its parts, each on its device within the budget, and the resolver
+        reads each part back and joins them on the host. Calls without a
+        device lowering take bitmap_call in the resolver."""
         shards_t, positions = self._resident_shards(index, shards)
         prof = current_profile()
         groups, assembled, fallbacks = self._group_calls(index, calls, shards_t)
@@ -1989,7 +2216,10 @@ class CUDABackend:
         for (spec, _bk), idxs in groups.items():
             blocks = assembled[idxs[0]][0]
             unique, slot_of = self._distinct_slots(idxs, assembled)
-            slab_bytes = len(shards_t) * WORDS_PER_SHARD * 4
+            # A device's share: under a mesh each part's output holds its
+            # own shards only (the JAX package's per-device budget).
+            slab_bytes = (blocks[0].shape[0] // (self.mesh.n if self.mesh is not None else 1)
+                          * WORDS_PER_SHARD * 4)
             # Rounded down to a power of two, as the JAX package's chunks.
             per_chunk = max(1, MAX_ROW_BATCH_BYTES // slab_bytes)
             per_chunk = 1 << (per_chunk.bit_length() - 1)
@@ -1998,22 +2228,26 @@ class CUDABackend:
             with prof.phase("device_dispatch"):
                 for base in range(0, len(unique), per_chunk):
                     outs.append(self._spec_run(prog, blocks, unique[base : base + per_chunk],
-                                               "slab", "vec_batch"))
+                                               "slab", "vec_batch", "parts"))
             pending.append((idxs, slot_of, outs, per_chunk, blocks))
         whole = positions == list(range(len(shards_t)))
         pos_dev = None
-        if pending and not whole:
+        if pending and not whole and self.mesh is None:
             pos_dev = torch.tensor(positions, dtype=torch.int64, device=self.device)
+
+        def host_words(out) -> np.ndarray:
+            """A launch's [Q, S, W] words on the host, the requested
+            shards' only."""
+            if isinstance(out, Sharded):
+                host = np.concatenate([self._to_host_words(p) for p in out.parts], axis=1)
+                return host[:, : out.real] if whole else host[:, positions]
+            return self._to_host_words(out if pos_dev is None
+                                       else torch.index_select(out, 1, pos_dev))
 
         def resolve() -> list[Row]:
             results: list = [None] * len(calls)
             with current_profile().phase("device_dispatch"):
-                hosts = [
-                    [self._to_host_words(out if pos_dev is None
-                                         else torch.index_select(out, 1, pos_dev))
-                     for out in outs]
-                    for _, _, outs, _, _ in pending
-                ]
+                hosts = [[host_words(out) for out in outs] for _, _, outs, _, _ in pending]
             with current_profile().phase("host_reduce"):
                 for (idxs, slot_of, _, per_chunk, _), host in zip(pending, hosts):
                     for i in idxs:
@@ -2111,16 +2345,17 @@ class CUDABackend:
                 return None
         return entries, fa, fb
 
-    def _pair_program(self, fblock: torch.Tensor, gblock: torch.Tensor,
-                      pershard: bool) -> torch.Tensor:
-        """One pair sweep: the per-shard table int32[S, D] (K1), or its sum
-        over shards int32[D] (K2) past the retention gate."""
+    def _pair_program(self, fblock, gblock, pershard: bool) -> torch.Tensor:
+        """One pair sweep: the per-shard table int32[S, D] (K1; under a mesh
+        each part's rows gathered, the padding cut), or its sum over shards
+        (K2, int32[D]; under a mesh each part's sum, psum'd in int64) past
+        the retention gate."""
         args = (fblock, gblock)
         if pershard:
             return self._launched("pair_stats", "pair_stats_pershard", args,
-                                  lambda: pair_stats_pershard(fblock, gblock))
+                                  lambda: self._run(pair_stats_pershard, args, 0))
         return self._launched("pair_stats", "pair_stats", args,
-                              lambda: pair_stats(fblock, gblock))
+                              lambda: self._run(pair_stats, args, "psum"))
 
     def _pair_batch_dispatch(self, index, plan, shards_t):
         entries, fa, fb = plan
@@ -2530,13 +2765,18 @@ class CUDABackend:
                 counts = self._topn_paged_counts(f, shards_t, src)
             else:
                 masks = () if src is None else (self._filter_slab(src),)
-                table = self._launched("topn", "row_popcounts", (block, masks),
-                                       lambda: row_popcounts(block, 0, rows_p, masks))[0]
+                args = (block, masks)
                 if src is None and self._topn_pershard_ok(block.shape[0], rows_p):
+                    table = self._launched(
+                        "topn", "row_popcounts", args,
+                        lambda: self._run(lambda b, m: row_popcounts(b, 0, rows_p, m)[0],
+                                          args, 0))
                     pershard = self._readback(table).astype(np.int64)
                     counts = pershard.sum(axis=0)
                 else:
-                    counts = self._readback(table.sum(dim=0, dtype=torch.int64))
+                    counts = self._readback(self._launched(
+                        "topn", "row_popcounts", args,
+                        lambda: self._run(_row_counts_summed(rows_p), args, "psum")))
         if ckey is not None:
             # The launch read the stack after its versions: a shard that
             # moved meanwhile is recorded stale (_confirm_vers).
@@ -2571,9 +2811,10 @@ class CUDABackend:
         v = f.view(VIEW_STANDARD)
         frags = {s: (v.fragment(s) if v is not None else None) for s in shards_t}
         n_rows = max([fr.max_row_id + 1 for fr in frags.values() if fr is not None] + [1])
-        page = self._topn_page_rows(len(shards_t))
+        s_pad = self.blocks._pad_shards(len(shards_t))
+        page = self._topn_page_rows(s_pad)
         masks = () if src is None else (self._filter_slab(src),)
-        self.blocks.make_room(len(shards_t) * page * WORDS_PER_SHARD * 4)
+        self.blocks.make_room(s_pad * page * WORDS_PER_SHARD * 4)
         counts = np.zeros(-(-n_rows // page) * page, dtype=np.int64)
         for start in range(0, n_rows, page):
             stop = min(start + page, n_rows)
@@ -2584,11 +2825,12 @@ class CUDABackend:
                     host[i, : stop - start] = pack_rows(fr, start, stop)
             dev = self.blocks._put(host)
             global_stats.count("hbm_page_uploads_total")
-            global_stats.count("hbm_page_bytes_total", host.nbytes)
-            table = self._launched("topn", "row_popcounts", (dev, masks),
-                                   lambda: row_popcounts(dev, 0, page, masks))[0]
-            counts[start : start + page] += self._readback(table.sum(dim=0, dtype=torch.int64))
-            del dev, table  # after the readback: one page in flight
+            global_stats.count("hbm_page_bytes_total", dev.nbytes)  # padding included
+            args = (dev, masks)
+            sums = self._launched("topn", "row_popcounts", args,
+                                  lambda: self._run(_row_counts_summed(page), args, "psum"))
+            counts[start : start + page] += self._readback(sums)
+            del dev, sums  # after the readback: one page in flight
         return counts[:n_rows]
 
     def _topn_pershard_ok(self, s_pad: int, rows_p: int) -> bool:
@@ -2688,8 +2930,12 @@ class CUDABackend:
         )
         return opts, src, bsi_block
 
-    def _filter_slab(self, src) -> Optional[torch.Tensor]:
-        return None if src is None else self._vec_program(*src).contiguous()
+    def _filter_slab(self, src):
+        """The src tree's slab [S, W] (a Sharded under a mesh), or None."""
+        if src is None:
+            return None
+        slab = self._vec_program(*src)
+        return slab if isinstance(slab, Sharded) else slab.contiguous()
 
     def bsi_sum(self, index, field_name, shards, filter_call=None):
         """Sum(field): the planes' popcounts over the positive and the
@@ -2723,19 +2969,18 @@ class CUDABackend:
         depth = opts.bit_depth
         with prof.phase("device_dispatch"):
             filt = self._filter_slab(src)
-            consider = bsi_block[:, BSI_EXISTS_BIT, :]
-            if filt is not None:
-                consider = consider & filt
-            neg = (bsi_block[:, BSI_SIGN_BIT, :] & consider).contiguous()
-            pos = (consider & ~neg).contiguous()
-            consider = consider.contiguous()
-            planes, cnt = self._launched(
-                "bsi_sum", ("row_popcounts", "popcount_rows"), (bsi_block, pos, neg, consider),
-                lambda: (row_popcounts(bsi_block, BSI_OFFSET_BIT, depth, (pos, neg)),
-                         popcount_rows(consider)))
-            # One readback: [pos counts | neg counts | considered count].
-            host = self._readback(torch.cat([planes.sum(dim=1, dtype=torch.int64).reshape(-1),
-                                             cnt.sum(dtype=torch.int64).reshape(1)]))
+            pos, neg, consider = self._run(_sum_masks, (bsi_block, filt))
+
+            def sums(b, p, n, c):
+                # [pos counts | neg counts | considered count], int64.
+                planes = row_popcounts(b, BSI_OFFSET_BIT, depth, (p, n))
+                return torch.cat([planes.sum(dim=1, dtype=torch.int64).reshape(-1),
+                                  popcount_rows(c).sum(dtype=torch.int64).reshape(1)])
+
+            args = (bsi_block, pos, neg, consider)
+            totals = self._launched("bsi_sum", ("row_popcounts", "popcount_rows"), args,
+                                    lambda: self._run(sums, args, "psum"))
+            host = self._readback(totals)  # one readback
             pos_c, neg_c, count = host[:depth], host[depth:-1], int(host[-1])
         with prof.phase("host_reduce"):
             total = sum((int(pos_c[i]) - int(neg_c[i])) << i for i in range(depth))
@@ -2885,9 +3130,11 @@ class CUDABackend:
         depth = opts.bit_depth
         with prof.phase("device_dispatch"):
             filt = self._filter_slab(src)
+            which = "min" if kind == "bsi_min" else "max"
+            args = (bsi_block, filt)
             table = self._launched(
-                kind, "bsi_minmax", (bsi_block, filt),
-                lambda: bsi_minmax(bsi_block, depth, filt, "min" if kind == "bsi_min" else "max"))
+                kind, "bsi_minmax", args,
+                lambda: self._run(lambda b, fl: bsi_minmax(b, depth, fl, which), args, 1))
         with prof.phase("readback"):
             table = torch.from_numpy(self._readback(table))  # waits for K9
         bits_a, cnt_a, bits_b, cnt_b, branch_any, consider_any = (
@@ -3095,8 +3342,7 @@ class CUDABackend:
             stacks = [self._get_block(index, fo, shards_t)[0] for _, fo in fields]
             filt = None
             if filter_call is not None:
-                spec, blocks, scalars = self._assemble(index, filter_call, shards_t)
-                filt = self._vec_program(spec, blocks, scalars).contiguous()
+                filt = self._filter_slab(self._assemble(index, filter_call, shards_t))
         except _Unsupported:
             return None
         if stacks[0].shape[0] > MAX_PAIR_SHARDS:
@@ -3242,33 +3488,36 @@ class CUDABackend:
     def _group_dense(self, stacks, filt) -> np.ndarray:
         """The 1- or 2-field group tensor over the filtered first stack:
         int64[R] row counts (K3 over the [S*R, W] view, summed over shards
-        on the card) or the int64[Rf, Rg] pair matrix (K2)."""
-        f = stacks[0]
-        if filt is not None:
-            f = f & filt[:, None, :]
+        on the card) or the int64[Rf, Rg] pair matrix (K2); psum'd over a
+        mesh's parts."""
+        def filtered(f, fl):
+            return f if fl is None else f & fl[:, None, :]
+
         if len(stacks) == 1:
-            s, r, w = f.shape
-            rows = f.reshape(s * r, w)
-            counts = self._launched("groupby", "popcount_rows", (rows,),
-                                    lambda: popcount_rows(rows)).reshape(s, r)
-            return self._readback(counts.sum(dim=0, dtype=torch.int64))
-        rf, rg = f.shape[1], stacks[1].shape[1]
-        g = stacks[1]
-        flat = self._launched("groupby", "pair_stats", (f, g), lambda: pair_stats(f, g))
+            args = (stacks[0], filt)
+            counts = self._launched(
+                "groupby", "popcount_rows", args,
+                lambda: self._run(lambda f, fl: _stack_row_counts(filtered(f, fl)), args,
+                                  "psum"))
+            return self._readback(counts)
+        rf, rg = stacks[0].shape[1], stacks[1].shape[1]
+        args = (stacks[0], stacks[1], filt)
+        flat = self._launched(
+            "groupby", "pair_stats", args,
+            lambda: self._run(lambda f, g, fl: pair_stats(filtered(f, fl), g), args, "psum"))
         return self._readback(flat[: rf * rg].reshape(rf, rg)).astype(np.int64)
 
     def _group_live_rows(self, stacks) -> list:
         """Per extra field, its live row ids: the rows with any bit in the
-        swept stacks (K3 per-row popcounts). Sound by construction: the
-        counts come from the tensors every tile sweeps, so a pruned row is
-        zero in every cell it would have produced."""
+        swept stacks (K3 per-row popcounts, psum'd over a mesh's parts).
+        Sound by construction: the counts come from the tensors every tile
+        sweeps, so a pruned row is zero in every cell it would have
+        produced."""
         out = []
         for st in stacks[2:]:
-            s, r, w = st.shape
-            rows = st.reshape(s * r, w)
-            counts = self._launched("groupby", "popcount_rows", (rows,),
-                                    lambda rows=rows: popcount_rows(rows)).reshape(s, r)
-            live = self._readback(counts.sum(dim=0, dtype=torch.int64)) > 0
+            counts = self._launched("groupby", "popcount_rows", (st,),
+                                    lambda st=st: self._run(_stack_row_counts, (st,), "psum"))
+            live = self._readback(counts) > 0
             out.append(np.nonzero(live)[0].astype(np.int32))
         return out
 
@@ -3297,7 +3546,7 @@ class CUDABackend:
         f, g, extras = stacks[0], stacks[1], tuple(stacks[2:])
         rf, rg = int(f.shape[1]), int(g.shape[1])
         if len(combos) == 0:
-            shape = (0, int(f.shape[0]), rf, rg) if pershard else (0, rf, rg)
+            shape = (0, _real_shards(f), rf, rg) if pershard else (0, rf, rg)
             return np.zeros(shape, np.int32)
         kind = "group_tile_pershard" if pershard else "group_tile"
         pending = []
@@ -3307,15 +3556,16 @@ class CUDABackend:
             self.stats.count("groupby_tiles_total")
             self.stats.histogram("groupby_tile_occupancy", len(rows_idx))
             if pershard:
+                # [T, S, Rf, Rg]: a mesh's parts gathered along the shards.
+                args = (f, g, extras, rows_idx, active)
                 pending.append(self._launched(
-                    kind, "group_tile_stats_pershard", (f, g, extras, rows_idx, active),
-                    lambda ri=rows_idx, ac=active: group_tile_stats_pershard(f, g, extras,
-                                                                             ri, ac)))
+                    kind, "group_tile_stats_pershard", args,
+                    lambda args=args: self._run(group_tile_stats_pershard, args, 1)))
             else:
+                args = (f, g, extras, rows_idx, active, filt)
                 pending.append(self._launched(
-                    kind, "group_tile_stats", (f, g, extras, rows_idx, active, filt),
-                    lambda ri=rows_idx, ac=active: group_tile_stats(f, g, extras, ri, ac,
-                                                                    filt)))
+                    kind, "group_tile_stats", args,
+                    lambda args=args: self._run(group_tile_stats, args, "psum")))
         return np.concatenate([self._readback(t) for t in pending])
 
     def _group_tiled_sweep(self, stacks, filt, rs):
@@ -3348,7 +3598,8 @@ class CUDABackend:
                      if fr is not None]
                     + [1]
                 )
-            shapes.append((len(shards_t), _padded_rows(n_rows), WORDS_PER_SHARD))
+            shapes.append((self.blocks._pad_shards(len(shards_t)), _padded_rows(n_rows),
+                           WORDS_PER_SHARD))
         return tuple(shapes)
 
     def _groupn_tensor(self, index, fields, shards_t):
@@ -3437,11 +3688,15 @@ class CUDABackend:
         rs = [int(st.shape[1]) for st in stacks]
         k_total = _prod(rs[2:])
         face = rs[0] * rs[1]
-        s = int(stacks[0].shape[0])
-        if s > MAX_PAIR_SHARDS or face > (1 << 16):
+        s_pad = int(stacks[0].shape[0])
+        # K5's int32 accumulators bound the shards ONE launch sweeps: a
+        # part's under a mesh (the JAX package's s_kernel).
+        s_kernel = s_pad // (self.mesh.n if self.mesh is not None else 1)
+        if s_kernel > MAX_PAIR_SHARDS or face > (1 << 16):
             return None
-        if s * k_total * face * 4 > self.MAX_PAIR_PERSHARD_BYTES:
+        if s_pad * k_total * face * 4 > self.MAX_PAIR_PERSHARD_BYTES:
             return None  # table too big to retain: the generic path sweeps
+        s = len(shards_t)
         with prof.phase("device_dispatch"):
             # The pruned slots of the dense table stay exactly zero.
             _, combos = self._prune(stacks)

@@ -375,9 +375,14 @@ class Executor:
         return results
 
     def _explain_devices(self) -> dict:
-        """Device placement for an EXPLAIN call node: one device (the port
-        has no mesh) and the backend's class."""
-        return {"n": 1, "mesh": False, "backend": type(self.backend).__name__}
+        """Device placement for an EXPLAIN call node: the backend's mesh
+        (its part count, or one device) and the backend's class."""
+        mesh = getattr(self.backend, "mesh", None)
+        return {
+            "n": mesh.n if mesh is not None else 1,
+            "mesh": mesh is not None,
+            "backend": type(self.backend).__name__,
+        }
 
     def _p99_context(self, index: str) -> str:
         """' p99=12.3ms' for the slow-query log: the index's interpolated

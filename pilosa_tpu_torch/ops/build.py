@@ -36,10 +36,11 @@ BUILD_DIR = os.path.join(_HERE, "build")
 #: popcounts of TopN and Sum; K9, the Min/Max plane walk; K10, the walk of
 #: a BSI condition) and spec.cu (K11, the evaluation of a bitmap call tree
 #: for a window of query slots) and expand.cu (K12 to K14, the expansion of
-#: a cold build's container wire into the stack, ops/sparse.py).
+#: a cold build's container wire into the stack, ops/sparse.py) and
+#: splice.cu (K15, the dirty-shard splice of a sharded stack's part).
 SOURCES = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
-    for name in ("bitcount", "bmma", "spec", "expand")
+    for name in ("bitcount", "bmma", "spec", "expand", "splice")
 }
 
 NVCC_FLAGS = (
@@ -161,6 +162,8 @@ def _bind(name: str, lib) -> None:
         "expand": {name: [ptr, ptr, ptr, ptr, i32, i32, ptr] for name in
                    ("expand_positions_launch", "expand_runs_launch",
                     "expand_words_launch")},
+        # block, slabs, idx (host), valid (host), c, s_local, rows, w, stream
+        "splice": {"splice_slabs_launch": [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]},
     }
     for fn_name, argtypes in signatures[name].items():
         fn = getattr(lib, fn_name)
@@ -183,8 +186,8 @@ def take_load_seconds():
 
 
 def library(name: str):
-    """The loaded kernel library ``name`` ("bitcount", "bmma", "spec" or
-    "expand"). The first call builds every library whose source changed."""
+    """The loaded kernel library ``name`` ("bitcount", "bmma", "spec",
+    "expand" or "splice"). The first call builds every library whose source changed."""
     global build_seconds, build_log, load_seconds, _untaken_load
     lib = _libs.get(name)
     if lib is not None:

@@ -1,11 +1,12 @@
-"""Popcount kernels of the count, GroupBy, TopN and BSI paths, and the
-expansion kernels of the cold build, each with its plain PyTorch version.
+"""Popcount kernels of the count, GroupBy, TopN and BSI paths, the
+expansion kernels of the cold build and the sharded stack's splice, each
+with its plain PyTorch version.
 
 Hand-written CUDA kernels, built by ops/build.py: the pair kernels and the
 group-tensor kernels on the tensor cores' binary MMA (ops/csrc/bmma.cu),
 the row popcounts and the BSI plane walk on the CUDA cores
-(ops/csrc/bitcount.cu), K11 (ops/csrc/spec.cu) and K12 to K14
-(ops/csrc/expand.cu):
+(ops/csrc/bitcount.cu), K11 (ops/csrc/spec.cu), K12 to K14
+(ops/csrc/expand.cu) and K15 (ops/csrc/splice.cu):
 
 - ``pair_stats_pershard`` (K1, bmma.cu): per shard s, over int32[S, Rf, W] and
   int32[S, Rg, W] stacks,
@@ -55,6 +56,10 @@ the row popcounts and the BSI plane walk on the CUDA cores
   container's 2048-word slot, whole; K14 the nonzero words of a word mask.
   They are build kernels, not query launches: the backend's launch
   chokepoint (exec/cuda.py CUDABackend._launched) never sees them.
+- ``splice_slabs`` (K15, splice.cu): a write epoch's dirty shard slabs
+  written into one part of a sharded stack in place, entries in order,
+  later ones winning (the JAX package's splice_shard_slabs). Like K12 to
+  K14 it updates a stack and is not a query launch.
 - the group tensor of an N-field GroupBy (K4-K7): for slots q, with m_q the
   AND of one row of each extra field (and of a filter slab),
 
@@ -595,6 +600,7 @@ _LIBRARY = {
     "row_popcounts": "bitcount", "bsi_minmax": "bitcount", "bsi_compare": "bitcount",
     "spec_eval": "spec",
     "expand_positions": "expand", "expand_runs": "expand", "expand_words": "expand",
+    "splice_slabs": "splice",
 }
 
 
@@ -1478,3 +1484,63 @@ def expand_words(out, mask, vals, bases) -> None:
         _launch("expand_words", out.device, library(_LIBRARY["expand_words"]).expand_words_launch,
                 mask.data_ptr(), vals.data_ptr(), bases.data_ptr(), out.data_ptr(),
                 mask.numel(), out.numel())
+
+
+# ---------------------------------------------------------------------------
+# the dirty-shard splice of a sharded stack (K15)
+# ---------------------------------------------------------------------------
+
+#: Entries of one K15 launch: they travel in the launch's parameters.
+MAX_SPLICE_ENTRIES = 32
+
+
+def _splice_entries(name, block, slabs, idx, valid):
+    """(idx int32[C], valid uint32[C]) as host numpy arrays, checked against
+    block int32[S_local, R, W] and slabs int32[C, R, W]."""
+    import numpy as np
+
+    _check_words(name, block, 3)
+    _check_words(name, slabs, 3)
+    if slabs.device != block.device:
+        raise ValueError(f"{name}: slabs on {slabs.device}, the part on {block.device}")
+    if slabs.shape[1:] != block.shape[1:]:
+        raise ValueError(f"{name}: slabs {tuple(slabs.shape)} do not fit the part "
+                         f"{tuple(block.shape)}")
+    if not block.shape[0]:
+        raise ValueError(f"{name}: the part has no shards")
+    idx = np.asarray(torch.as_tensor(idx).cpu(), dtype=np.int32).reshape(-1)
+    valid = np.asarray(torch.as_tensor(valid).cpu(), dtype=np.int64).reshape(-1)
+    c = slabs.shape[0]
+    if idx.size != c or valid.size != c:
+        raise ValueError(f"{name}: {c} slabs need {c} indices and flags, got "
+                         f"{idx.size} and {valid.size}")
+    if c > MAX_SPLICE_ENTRIES:
+        raise ValueError(f"{name}: {c} entries exceed {MAX_SPLICE_ENTRIES} a launch")
+    return np.ascontiguousarray(idx), np.ascontiguousarray(valid.astype(np.uint32))
+
+
+def splice_slabs_torch(block, slabs, idx, valid) -> None:
+    """Plain K15: for each entry j in order, slabs[j] is written over
+    block[clip(idx[j], 0, S_local - 1)] when valid[j] is nonzero; an
+    invalid entry leaves the part as it is. In place."""
+    s_local = block.shape[0]
+    for j in range(slabs.shape[0]):
+        if int(valid[j]) != 0:
+            block[min(max(int(idx[j]), 0), s_local - 1)] = slabs[j]
+
+
+def splice_slabs(block, slabs, idx, valid) -> None:
+    """K15: (block int32[S_local, R, W] one part of a sharded stack, slabs
+    int32[C, R, W] on its device, idx int32[C] the entries' local shard
+    indices, valid uint32[C] their flags; idx and valid on the host, C <=
+    MAX_SPLICE_ENTRIES) -> each valid slab written over its clipped shard
+    in entry order, later entries winning; block is updated in place."""
+    idx, valid = _splice_entries("splice_slabs", block, slabs, idx, valid)
+    if _plain("splice_slabs", block):
+        return splice_slabs_torch(block, slabs, idx, valid)
+    from pilosa_tpu_torch.ops.build import library
+
+    s_local, rows, w = block.shape
+    _launch("splice_slabs", block.device, library(_LIBRARY["splice_slabs"]).splice_slabs_launch,
+            block.data_ptr(), slabs.data_ptr(), idx.ctypes.data, valid.ctypes.data,
+            slabs.shape[0], s_local, rows, w)

@@ -193,9 +193,9 @@ class Config:
     # half-lives track phase changes quickly but forget the working set
     # over a lull; the 5-minute default matches the SLO fast window.
     heat_half_life: float = 300.0
-    # Shard the device stacks over this many devices (a mesh). 0 or 1 =
-    # single device; the mesh is not ported yet, so the server refuses
-    # any other value (ROADMAP.md).
+    # Shard the device stacks over this many cards (a mesh in one process,
+    # parallel/mesh.py): 0 or 1 = one device, -1 = every visible card. A
+    # count past the visible cards makes the server refuse to start.
     mesh_devices: int = 0
     # -- latency SLO objectives --------------------------------
     # Each objective: {metric, quantile, threshold_s, window_s} —

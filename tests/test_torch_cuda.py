@@ -1565,3 +1565,112 @@ def test_anti_entropy_heals_card_results(card):
             assert c.query(node, "i", "Count(Row(f=3))")["results"][0] == 3
             pinned = c[node].api.query("i", "Count(Row(f=3))", shards=[0], remote=True)
             assert pinned["results"] == [3]
+
+
+@pytest.mark.parametrize("entries", [
+    [(0, 1)], [(2, 1), (2, 1)], [(1, 0), (3, 1)], [(-4, 1), (9, 1)],
+    [(3, 1), (0, 0), (3, 1), (1, 1)], [(0, 0)],
+], ids=["one", "duplicate", "invalid", "clipped", "mixed", "none-valid"])
+def test_splice_slabs_equals_its_plain_form(card, entries):
+    """K15 writes a part in place exactly as its plain form does: later
+    entries win, an invalid entry leaves its shard, indices clip."""
+    rng = np.random.default_rng(len(entries) + 40)
+    s_local, rows = 4, 8
+    block = rng.integers(0, 2**32, (s_local, rows, W), dtype=np.uint32).view(np.int32)
+    slabs = rng.integers(0, 2**32, (len(entries), rows, W), dtype=np.uint32).view(np.int32)
+    idx = np.array([e[0] for e in entries], dtype=np.int32)
+    valid = np.array([e[1] for e in entries], dtype=np.uint32)
+    want = torch.from_numpy(block.copy())
+    K.splice_slabs(want, torch.from_numpy(slabs), idx, valid)
+    got = torch.from_numpy(block.copy()).to(card)
+    before = K.launch_counts().get("splice_slabs", 0)
+    K.splice_slabs(got, torch.from_numpy(slabs).to(card), idx, valid)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["splice_slabs"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_meshed_backend_on_one_card_equals_unmeshed(card):
+    """A CUDABackend over ShardMesh([cuda:0] * 2) (5 shards padded to 6,
+    two parts on the one card) answers Counts, Row, TopN, Sum, Min, Max,
+    a BSI condition and 1- to 3-field GroupBys as the unmeshed backend
+    does, across write epochs that its stacks absorb by K15 splices."""
+    _meshed_equals_unmeshed([torch.device("cuda", 0)] * 2)
+
+
+def test_meshed_paged_backend_on_one_card_equals_unmeshed(card):
+    """The same mesh under a byte budget of two and a half padded row
+    pages: its Counts, Rows and TopNs read padded row pages, psum'd per
+    page, and answer as the unmeshed backend with no budget does."""
+    _meshed_equals_unmeshed([torch.device("cuda", 0)] * 2, paged=True)
+
+
+def test_meshed_backend_over_distinct_cards_equals_unmeshed(card):
+    """The same over every visible card, one part a card (the merges copy
+    between cards); needs two cards or more."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards or more")
+    _meshed_equals_unmeshed([torch.device("cuda", i) for i in range(n)])
+
+
+def _meshed_equals_unmeshed(devices, paged=False):
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.core.field import options_for_int
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.exec.result import result_to_json
+    from pilosa_tpu_torch.parallel import ShardMesh, Sharded
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    rng = np.random.default_rng(20)
+    shards = 5
+    h = Holder(None).open()
+    idx = h.create_index("i")
+    for name, rows in (("f", 8), ("g", 4), ("hh", 2)):
+        field = idx.create_field(name)
+        cols = np.unique(rng.integers(0, shards * SHARD_WIDTH, 20000, dtype=np.uint64))
+        field.import_bits(rng.integers(0, rows, cols.size, dtype=np.uint64), cols)
+        idx.existence_field().import_bits(np.zeros(cols.size, dtype=np.uint64), cols)
+    idx.create_field("v", options_for_int(-500, 500))
+    cols = np.unique(rng.integers(0, shards * SHARD_WIDTH, 3000, dtype=np.uint64))
+    idx.field("v").import_value(cols, rng.integers(-500, 501, cols.size))
+    s_pad = -(-shards // len(devices)) * len(devices)
+    page = s_pad * 32768 * 4
+    meshed = CUDABackend(h, mesh=ShardMesh(devices),
+                         max_bytes=2 * page + page // 2 if paged else None)
+    mesh_ex = Executor(h, backend=meshed)
+    uploads = sum(global_stats.counter_totals("hbm_page_uploads_total").values())
+    one = Executor(h, backend=CUDABackend(h))
+    queries = ["Count(Intersect(Row(f=1), Row(g=2)))", "Count(Not(Row(f=3)))", "Row(f=2)",
+               "Count(Union(Row(f=1), Row(f=2), Row(hh=1)))", "TopN(f, n=3)",
+               "TopN(f, Row(g=1), n=2)", "Sum(field=v)", "Min(field=v)", "Max(field=v)",
+               "Count(Row(v > 100))", "GroupBy(Rows(f))", "GroupBy(Rows(f), Rows(g))",
+               "GroupBy(Rows(f), Rows(g), Rows(hh))",
+               " ".join(f"Count(Intersect(Row(f={a}), Row(g={b})))"
+                        for a in range(3) for b in range(3))]
+
+    def same(what):
+        for q in queries:
+            got = [result_to_json(r) for r in mesh_ex.execute("i", q)]
+            assert got == [result_to_json(r) for r in one.execute("i", q)], (what, q)
+
+    same("cold")
+    assert all(isinstance(e[1], Sharded) and e[1].shape[0] == s_pad
+               and [p.device for p in e[1].parts] == list(devices)
+               for e in meshed.blocks._entries.values())
+    if paged:
+        assert sum(global_stats.counter_totals("hbm_page_uploads_total").values()) > uploads
+        h.close()
+        return
+    rebuilds = sum(global_stats.counter_totals("stack_full_rebuilds_total").values())
+    k15 = K.launch_counts().get("splice_slabs", 0)
+    for k in range(3):
+        col = int(rng.integers(0, shards * SHARD_WIDTH))
+        mesh_ex.execute("i", f"{'Set' if k % 2 == 0 else 'Clear'}({col}, f={k % 8})")
+        mesh_ex.execute("i", f"Set({col + 1}, v={100 + k})")
+        same(f"epoch {k}")
+    assert K.launch_counts()["splice_slabs"] > k15
+    assert sum(global_stats.counter_totals("stack_full_rebuilds_total").values()) == rebuilds
+    h.close()

@@ -297,7 +297,7 @@ def test_every_kernel_source_is_built():
     assert set(K._LIBRARY.values()) == set(build.SOURCES)
 
 
-@pytest.mark.parametrize("lib_name", ["bitcount", "bmma", "spec", "expand"])
+@pytest.mark.parametrize("lib_name", ["bitcount", "bmma", "spec", "expand", "splice"])
 def test_bind_covers_exactly_the_entry_points_of_each_source(lib_name):
     """_bind binds every entry point a source defines and nothing else (a
     stale name would fail the real library's load), each with argtypes

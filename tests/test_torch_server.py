@@ -594,14 +594,14 @@ def _write_topology(data_dir, n_nodes):
 
 
 @pytest.mark.parametrize("knob,toml,argv", [
-    ("mesh-devices", "mesh-devices = 2\n", []),
     ("profile.port", "[profile]\nport = 6060\n", []),
     ("executor='tpu'", 'executor = "tpu"\n', []),
 ])
 def test_cli_refuses_unported_knob(tmp_path, monkeypatch, capsys, knob, toml, argv):
-    """What the port does not serve yet (the mesh, the profiler server) and
-    an executor it has no backend for are refused at startup. The cluster
-    settings are served (tests/test_torch_cluster.py)."""
+    """What the port does not serve yet (the profiler server) and an
+    executor it has no backend for are refused at startup. The cluster
+    settings (tests/test_torch_cluster.py) and mesh-devices (below) are
+    served."""
     _no_serving(monkeypatch)
     data_dir = str(tmp_path / "d")
     conf = tmp_path / "c.toml"
@@ -732,6 +732,148 @@ def test_config_defaults_serve():
     assert cfg.executor == "cuda"
     assert cfg.heat_half_life == 300.0
     assert cli._unported_knobs(cfg, None) == []
+
+
+def test_mesh_devices_is_not_an_unported_knob():
+    """mesh-devices is served (parallel/mesh.py): no value of it is refused
+    as unported."""
+    for n in (-1, 0, 1, 2, 4):
+        cfg = cli_config("/nonexistent")
+        cfg.mesh_devices = n
+        assert cli._unported_knobs(cfg, None) == []
+
+
+def _cards(monkeypatch, n):
+    """Stand in for n visible cards (torch.cuda's inventory only)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: n > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+
+
+@pytest.mark.parametrize("toml,env,argv,visible", [
+    ("mesh-devices = 2\n", {}, [], 1),
+    ("", {"PILOSA_TPU_MESH_DEVICES": "4"}, [], 2),
+    ("", {}, ["--mesh-devices", "2"], 1),
+    ("", {}, ["--mesh-devices", "-1"], 0),
+], ids=["toml", "env", "flag", "every-card-of-none"])
+def test_cli_mesh_devices_past_the_visible_cards_exits_nonzero(
+        tmp_path, monkeypatch, capsys, toml, env, argv, visible):
+    """A mesh-devices count past the visible cards raises MeshConfigError
+    before the backend is built: the server logs its message and exits
+    non-zero, and does not serve from the CPU instead."""
+    _no_serving(monkeypatch)
+    _cards(monkeypatch, visible)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    conf = tmp_path / "c.toml"
+    conf.write_text(toml)
+    rc = cli.main(["server", "-d", str(tmp_path / "d"), "--bind", "127.0.0.1:0",
+                   "-c", str(conf)] + argv)
+    err = capsys.readouterr().err
+    assert rc != 0
+    assert "mesh-devices=" in err and f"but {visible} card" in err and "visible" in err
+    assert "not serving" in err
+
+
+@pytest.mark.parametrize("toml,env,argv,visible,n", [
+    ("mesh-devices = 2\n", {}, [], 2, 2),
+    ("", {"PILOSA_TPU_MESH_DEVICES": "3"}, [], 4, 3),
+    ("mesh-devices = 4\n", {}, ["--mesh-devices", "2"], 4, 2),
+    ("", {}, ["--mesh-devices", "-1"], 4, 4),
+    ("mesh-devices = 1\n", {}, [], 1, None),
+], ids=["toml", "env", "flag-wins", "every-card", "one"])
+def test_cli_mesh_devices_reaches_the_backend(tmp_path, monkeypatch, toml, env, argv,
+                                              visible, n):
+    """mesh-devices from TOML, PILOSA_TPU_MESH_DEVICES or the flag (which
+    wins) is the server's CUDABackend mesh, over the first N cards (-1:
+    every visible card); one card is no mesh. The cards are stood in for
+    by CPU parts running the plain versions."""
+    from pilosa_tpu_torch.exec import cuda as cuda_mod
+    from pilosa_tpu_torch.parallel import ShardMesh
+    from pilosa_tpu_torch.server import api as api_mod
+
+    _cards(monkeypatch, visible)
+    built, meshes = {}, []
+
+    def capture(self, holder, executor, *a, **k):
+        built["executor"] = executor
+        raise _Booted
+
+    real = cuda_mod.CUDABackend
+
+    def on_cpu(holder, mesh=None, **k):
+        meshes.append(mesh)
+        cpu_mesh = ShardMesh(["cpu"] * mesh.n) if mesh is not None else None
+        return real(holder, device="cpu", mesh=cpu_mesh, **k)
+
+    monkeypatch.setattr(cuda_mod, "CUDABackend", on_cpu)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "stand-in")
+    monkeypatch.setattr(api_mod.API, "__init__", capture)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    conf = tmp_path / "c.toml"
+    conf.write_text(toml)
+    with pytest.raises(_Booted):
+        cli.main(["server", "-d", str(tmp_path / "d"), "--bind", "127.0.0.1:0",
+                  "-c", str(conf)] + argv)
+    ex = built["executor"]
+    try:
+        (asked,) = meshes
+        if n is None:
+            assert ex.backend.mesh is None
+            assert asked is None or asked.n == 1
+            assert ex._explain_devices()["n"] == 1
+        else:
+            assert asked.devices == [torch.device("cuda", i) for i in range(n)]
+            assert ex.backend.mesh.n == n
+            assert ex._explain_devices() == {"n": n, "mesh": True,
+                                             "backend": "CUDABackend"}
+    finally:
+        ex.holder.close()
+
+
+def test_meshed_server_answers_and_explains_as_unmeshed(tmp_path):
+    """The port's server over a meshed backend (two CPU parts) answers a
+    Count, a TopN and a GroupBy as the unmeshed backend does, and its
+    ?explain=1 plan names two devices in the call node and in every launch
+    record."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.parallel import ShardMesh
+
+    h = Holder(str(tmp_path / "d")).open()
+    idx = h.create_index("i")
+    rng = np.random.default_rng(4)
+    for name in ("f", "g"):
+        field = idx.create_field(name)
+        cols = np.unique(rng.integers(0, 3 * SHARD_WIDTH, 3000, dtype=np.uint64))
+        field.import_bits(rng.integers(0, 4, cols.size, dtype=np.uint64), cols)
+    one = Executor(h, backend=CUDABackend(h, device="cpu"))
+    meshed = Executor(h, backend=CUDABackend(h, device="cpu", mesh=ShardMesh(["cpu"] * 2)))
+    srv = Server(API(h, meshed), port=0).open()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        for q in ("Count(Intersect(Row(f=1), Row(g=2)))", "TopN(f, n=2)",
+                  "GroupBy(Rows(f), Rows(g))"):
+            conn.request("POST", "/index/i/query?explain=1", body=q)
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            assert resp.status == 200, body
+            want = json.loads(json.dumps(
+                {"results": [r for r in _json_results(one.execute("i", q))]}))
+            assert body["results"] == want["results"], q
+            calls = body["explain"]["calls"]
+            assert all(c["devices"]["n"] == 2 for c in calls), q
+            records = [r for c in calls for r in c.get("launches", [])]
+            assert all(r["devices"] == 2 for r in records), q
+        conn.close()
+    finally:
+        srv.close()
+        h.close()
+
+
+def _json_results(results):
+    from pilosa_tpu_torch.exec.result import result_to_json
+
+    return [result_to_json(r) for r in results]
 
 
 def test_heat_half_life_is_accepted(tmp_path, monkeypatch):
