@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --cold | --cluster | --mesh | --host-count | --host-count-ab PARENT]
+    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --cold | --cluster | --mesh | --epochs | --host-count | --host-count-ab PARENT]
 
 Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
@@ -16,7 +16,8 @@ chip_smoke.py to time it).
    and CUDA versions, and the kernel build seconds with ptxas's report
    (ops/csrc/bmma.cu: K1, K2 and K4 to K7 on the tensor cores' binary MMA,
    and the probe; ops/csrc/bitcount.cu: K3, K8, K9 and K10;
-   ops/csrc/spec.cu: K11; ops/csrc/expand.cu: K12 to K14);
+   ops/csrc/spec.cu: K11; ops/csrc/expand.cu: K12 to K14;
+   ops/csrc/splice.cu: K15);
    then the AND-popcount rate probe (ops/csrc/bmma.cu, ops/probe.py): the
    b1 tensor-core MMA's and the CUDA cores' popcount rates in bit-products
    a second, which set the kernels' operations bounds;
@@ -167,7 +168,8 @@ chip_smoke.py to time it).
 4d. two nodes of a cluster sharing the card (phase_cluster, after the
    2-shard tile index; ``--cluster`` runs it alone, after the kernel
    libraries' build and load): bench.py's f, g and h over CLUSTER_SHARDS
-   shards (cut from 954; PERF.md section 4) and the existence of h's
+   shards (cut from 954; PERF.md section 4; CLUSTER_SHARDS_WHOLE in the
+   whole run) and the existence of h's
    columns, written through the port's holder into a data directory and
    copied to a second; two `cli server` processes with executor cuda, the
    same cluster.hosts, replicas 2, hedge-delay 0 and a 10 s anti-entropy
@@ -192,17 +194,25 @@ chip_smoke.py to time it).
    FAMILIES (h for its hh), bench.py's Count, the pair request and the
    GroupBys, every meshed answer equal to the unmeshed one, cold and after
    each of 3 Set/Clear/value epochs, which every backend absorbs by
-   splices (K15 on the meshed ones, one launch a spliced shard) and no
-   full rebuild; per read kind and backend a window of up to 100
-   requests with the tables dropped, in two runs with the backends built
-   cold and timed in alternating order: p50 and p90, the programs and the
-   kernel launches a request; the
-   kernel counts zeroed before the phase and every kernel of its path
-   launched; `cli server --mesh-devices` past the visible cards exiting
-   non-zero with MeshConfigError's message, and `--mesh-devices 1`
-   serving. K15 (phase_splice_kernel) is held against its plain form at
-   the main path's shape and with duplicate, invalid and clipped entries,
-   with its times, `graph_ms`, bound and `index_copy_`'s time;
+   splices and no full rebuild (K15 on the meshed ones: one launch a
+   round, so its launches equal the sum over the parts of ceil(dirty
+   shards in the part / 32) at rows_p 8); per read kind and backend a
+   window of up to 100 requests with the tables dropped, in two runs with
+   the backends built cold and timed in alternating order: p50 and p90,
+   the programs and the kernel launches a request; the kernel counts
+   zeroed before the phase and every kernel of its path launched; then the
+   epoch absorption (phase_epochs: write epochs dirtying 1 shard, 8 shards
+   in each part and 400 spread over every part, each absorbed by the first
+   read on each backend, its writes and that read timed and its splices
+   split into pack, copy, launch and wait, with the K15 launches the
+   rounds give and no full rebuild; ``--epochs [--root DIR]`` runs it
+   alone on f's stack, for a parent/change A/B); `cli server
+   --mesh-devices` past the visible cards exiting non-zero with
+   MeshConfigError's message, and `--mesh-devices 1` serving. K15
+   (phase_splice_kernel) is held against its plain form at 1, 8 and 32
+   live slabs into a 477-shard part and at 32 entries with duplicate,
+   invalid and clipped ones, with its times, `graph_ms`, bound, the
+   launch floor at its grid and `index_copy_`'s time at each;
 5. each kernel against its plain PyTorch version on the card, on the
    inputs the main path gave it and at edge shapes (pair faces off 8 and
    16 rows, word axes that are not a multiple of 8, 1 to 9 group slots
@@ -700,11 +710,11 @@ def phase_probe(card_line):
 # ---------------------------------------------------------------------------
 
 
-def build_bench_index(holder, shards: int = SHARDS):
+def build_bench_index(holder, shards: int = SHARDS, only_f: bool = False):
     """bench.py build_index: per shard, f and g hold ROWS * SHARD_WIDTH *
     DENSITY uniform columns per row, and h H_ROWS rows of n_bits // 4, all
     from SFC64(42)'s raw stream in that order, over the first ``shards``
-    shards."""
+    shards; only f (the same f) with only_f."""
     import numpy as np
 
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
@@ -725,6 +735,8 @@ def build_bench_index(holder, shards: int = SHARDS):
         field = idx.create_field(fname)
         for shard in range(shards):
             field.import_bits(rows, rand_cols(shard, rows.size))
+        if only_f:
+            return
     hrows = np.repeat(np.arange(H_ROWS, dtype=np.uint8), n_bits // 4)
     field = idx.create_field("h")
     for shard in range(shards):
@@ -3669,8 +3681,14 @@ def cli_server_run(root, env, data_dir, tmp, extra, load, wait_log=None, probe=N
 
 #: Shards of the cluster phase's index: bench.py's f, g and h (8, 8 and 4
 #: rows, density 0.05), cut from 954 because at 954 the phase took past
-#: 240 s before its reads were done (PERF.md section 4).
+#: 240 s before its reads were done (PERF.md section 4): CLUSTER_SHARDS
+#: under ``--cluster``, CLUSTER_SHARDS_WHOLE in the whole run, whose
+#: clustered GroupBys, answered on a node's host a shard at a time, took
+#: 10 to 33 s each at 256 and brought the run within 14 s of its limit
+#: on a slow host; the whole run drives the cluster's path, --cluster
+#: measures it.
 CLUSTER_SHARDS = 256
+CLUSTER_SHARDS_WHOLE = 64
 #: Each node's anti-entropy interval in seconds (short, for the heal step).
 CLUSTER_ANTI_ENTROPY_S = 10.0
 #: A read window after the first request: CLUSTER_WINDOW_N timed requests,
@@ -4039,8 +4057,11 @@ MESH_WINDOW_N = 100
 MESH_WINDOW_S = 1.5
 MESH_WINDOW_MIN = 30
 #: Runs of the windows, the backends in alternating order (unmeshed first,
-#: then last), each after a cold build in that order.
+#: then last), each after a cold build in that order: MESH_RUNS under
+#: ``--mesh``, MESH_RUNS_WHOLE in the whole run, which keeps one run of
+#: windows so that it stays well inside its time limit.
 MESH_RUNS = 2
+MESH_RUNS_WHOLE = 1
 #: tests/test_mesh.py's FAMILIES on bench.py's fields (its hh is h here).
 MESH_FAMILIES = [
     "Count(Row(f=1))",
@@ -4261,23 +4282,27 @@ def mesh_cli(root) -> None:
                 f"answers, exit code {every['rc']}")
 
 
-def phase_mesh(holder, root, cards: bool = False) -> dict:
+def phase_mesh(holder, root, cards: bool = False, n_runs: int = MESH_RUNS) -> dict:
     """The shard mesh on the card, on bench.py's index with v (5.0 GB): an
     unmeshed CUDABackend and meshed ones over ShardMesh([cuda:0] * n), n in
     MESH_PARTS, each with its batcher. Every read of mesh_reads() answers
     as the unmeshed backend does, cold and after each of MESH_EPOCHS, which
     the stacks absorb by splices (K15 on the meshed ones): no stack is
     rebuilt whole, stack_incremental_updates_total rises, and K15's
-    launches equal the shards it spliced (MESH_UPDATE_CHUNK 1: one launch
-    a part a round). Per read kind and backend, a window of requests
-    (mesh_timings) in each of MESH_RUNS runs, the backends built cold and
-    timed in alternating order; the table pools both windows into p50 and
+    launches equal what the package's rounds give (SpliceSplit.
+    expected_launches: the sum over the parts of ceil(dirty shards in the
+    part / 32) at rows_p 8, one launch a dirty shard in a package with
+    MESH_UPDATE_CHUNK 1). Per read kind and backend, a window of requests
+    (mesh_timings) in each of n_runs runs (MESH_RUNS under ``--mesh``,
+    MESH_RUNS_WHOLE in the whole run), the backends built cold and timed
+    in alternating order; the table pools the runs' windows into p50 and
     p90 beside each run's p50, with the programs and kernel launches a
     request. A bitmap read is timed once. The kernel counts are zeroed before the
     phase and read after: every kernel of MESH_KERNELS must have launched.
-    Returns those counts. cards puts the parts on distinct cards
-    (``--mesh-cards``, on a machine with at least as many), one a card,
-    and prints each card's allocated bytes once the stacks are built."""
+    Then the epoch absorption (phase_epochs) on the same backends. Returns
+    those counts. cards puts the parts on distinct cards (``--mesh-cards``,
+    on a machine with at least as many), one a card, and prints each
+    card's allocated bytes once the stacks are built."""
     import torch
 
     from pilosa_tpu_torch.ops import kernels as K
@@ -4290,7 +4315,7 @@ def phase_mesh(holder, root, cards: bool = False) -> dict:
     where = "one a card" if cards else "on cuda:0"
     labels = [("unmeshed", None)] + [(f"mesh {n} ({where})", n) for n in parts]
     exes, want, runs, row_ms = {}, None, [], {}
-    for run in range(MESH_RUNS):
+    for run in range(n_runs):
         order = labels if run % 2 == 0 else labels[::-1]
         cold, timings = {}, {}
         for label, n in order:
@@ -4339,19 +4364,23 @@ def phase_mesh(holder, root, cards: bool = False) -> dict:
                                                 "stack_incremental_shards_total",
                                                 "stack_full_rebuilds_total")}
             k15 = K.launch_counts().get("splice_slabs", 0)
-            mesh_read_pass(ex, reads, want, f"{label} epoch {k}",
-                           rows=k == len(MESH_EPOCHS) - 1)
+            with SpliceSplit() as split:
+                mesh_read_pass(ex, reads, want, f"{label} epoch {k}",
+                               rows=k == len(MESH_EPOCHS) - 1)
             d = {c: counter_total(c) - v for c, v in c0.items()}
             spliced = K.launch_counts().get("splice_slabs", 0) - k15
+            rounds = split.expected_launches()
             check(d["stack_full_rebuilds_total"] == 0,
                   f"mesh {label} epoch {k}: a stack was rebuilt whole: {d}")
             check(d["stack_incremental_updates_total"] > 0 and spliced > 0
-                  and spliced == d["stack_incremental_shards_total"],
-                  f"mesh {label} epoch {k}: K15 launched {spliced} for {d}")
+                  and spliced == rounds
+                  and split.totals()["dirty"] == d["stack_incremental_shards_total"],
+                  f"mesh {label} epoch {k}: K15 launched {spliced}, its rounds give "
+                  f"{rounds}, for {d}")
             log(f"mesh {label} epoch {k}: reads equal; splices "
                 f"{d['stack_incremental_updates_total']:g} over "
-                f"{d['stack_incremental_shards_total']:g} shards, K15 launches {spliced}, "
-                "full rebuilds 0")
+                f"{d['stack_incremental_shards_total']:g} shards, K15 launches {spliced} "
+                f"(the rounds give {rounds}), full rebuilds 0")
     launches = K.launch_counts()
     missing = [k for k in MESH_KERNELS if not launches.get(k)]
     check(not missing, f"mesh: kernels of the meshed path never launched: {missing}")
@@ -4373,6 +4402,7 @@ def phase_mesh(holder, root, cards: bool = False) -> dict:
     for r in runs:
         log("mesh cold reads s, in the order built: "
             + ", ".join(f"{lb} {r['cold_s'][lb]:.2f}" for lb in r["order"]))
+    phase_epochs([(label, n) + exes[label] for label, n in labels])
     del exes
     gc.collect()
     torch.cuda.empty_cache()
@@ -4385,77 +4415,408 @@ def phase_mesh(holder, root, cards: bool = False) -> dict:
 
 
 def splice_parts(n_parts: int = MESH_PARTS[0]):
-    """K15's inputs at the shape the meshed main path gives it: one part of
+    """K15's inputs at the shapes the meshed main path gives it: one part of
     f's stack over SHARDS shards in n_parts parts (477 x 8 x 32768 words at
-    n = 2) and one slab, a random part's words."""
+    n = 2) and a round's worth of slabs (MAX_SPLICE_ENTRIES), random
+    words."""
     import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
 
     s_local = -(-SHARDS // n_parts)
     gen = torch.Generator(device="cuda").manual_seed(15)
     part = torch.randint(-2**31, 2**31 - 1, (s_local, ROWS, 32768), dtype=torch.int32,
                          device="cuda", generator=gen)
-    slabs = torch.randint(-2**31, 2**31 - 1, (4, ROWS, 32768), dtype=torch.int32,
-                          device="cuda", generator=gen)
+    slabs = torch.randint(-2**31, 2**31 - 1, (K.MAX_SPLICE_ENTRIES, ROWS, 32768),
+                          dtype=torch.int32, device="cuda", generator=gen)
     return part, slabs, s_local
 
 
+class SpliceSplit:
+    """Within its block, times and records every dirty-shard splice of the
+    --root package by wrapping what the port has had since its mesh:
+    _StackedBlocks._splice (the splice's host seconds, "host"; then a
+    synchronize, whose seconds are "wait": the device work that the splice
+    left, which the read that follows would wait for at its readback),
+    _StackedBlocks._pack_slabs ("pack"), and the K15 wrapper that
+    exec/cuda.py calls and Tensor.index_copy_ inside a splice ("launch").
+    "copy" is the rest of the splice's host time: staging and enqueueing
+    the host-to-device copy, or a pageable copy that blocks; "take" is the
+    part of it spent taking staging buffers from ops/sparse.py's pool
+    (waits on their last copies included; 0 where the package's splice
+    does not stage through the pool). Each record
+    also holds the splice's dirty positions, its parts, shards a part and
+    rows_p."""
+
+    def __init__(self):
+        self.splices = []
+        self._saved = []
+
+    def __enter__(self):
+        import torch
+
+        from pilosa_tpu_torch.exec import cuda as cuda_mod
+        from pilosa_tpu_torch.ops import sparse
+
+        blocks = cuda_mod._StackedBlocks
+        cur = {}  # the splice in progress, empty outside one
+
+        def timed(key, fn):
+            def wrapper(*a, **k):
+                if not cur:
+                    return fn(*a, **k)
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    cur[key] += time.perf_counter() - t0
+            return wrapper
+
+        real_splice = blocks._splice
+
+        def splice(be, old_arr, shards, frags, dirty, rows_p):
+            parts = getattr(old_arr, "parts", None) or [old_arr]
+            cur.update(dirty=list(dirty), parts=len(parts), s_local=int(parts[0].shape[0]),
+                       rows_p=rows_p, pack=0.0, launch=0.0, take=0.0)
+            t0 = time.perf_counter()
+            try:
+                out = real_splice(be, old_arr, shards, frags, dirty, rows_p)
+                cur["host"] = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                cur["wait"] = time.perf_counter() - t1
+            finally:
+                rec = dict(cur)
+                cur.clear()
+            rec["copy"] = rec["host"] - rec["pack"] - rec["launch"]
+            self.splices.append(rec)
+            return out
+
+        self._saved = [(obj, name, obj.__dict__.get(name, _MISSING)) for obj, name in (
+            (blocks, "_splice"), (blocks, "_pack_slabs"), (cuda_mod, "splice_slabs"),
+            (torch.Tensor, "index_copy_"), (sparse, "_take_buffer"))]
+        sparse._take_buffer = timed("take", sparse._take_buffer)
+        blocks._pack_slabs = timed("pack", blocks._pack_slabs)
+        cuda_mod.splice_slabs = timed("launch", cuda_mod.splice_slabs)
+        torch.Tensor.index_copy_ = timed("launch", torch.Tensor.index_copy_)
+        blocks._splice = splice
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, was in reversed(self._saved):
+            if was is _MISSING:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, was)
+        return False
+
+    def totals(self) -> dict:
+        """The splices, their dirty shards and their summed split in ms."""
+        out = {"splices": len(self.splices),
+               "dirty": sum(len(r["dirty"]) for r in self.splices)}
+        for key in ("pack", "copy", "take", "launch", "wait", "host"):
+            out[key + "_ms"] = 1e3 * sum(r[key] for r in self.splices)
+        return out
+
+    def expected_launches(self) -> int:
+        """The K15 launches the recorded meshed splices make under the
+        package's rounds: MESH_UPDATE_CHUNK slabs a part a round where the
+        package has that constant (one a dirty shard), else at most
+        MAX_SPLICE_ENTRIES slabs and sparse.CHUNK_WORDS words."""
+        from pilosa_tpu_torch.exec import cuda as cuda_mod
+        from pilosa_tpu_torch.ops import kernels as K
+        from pilosa_tpu_torch.ops import sparse
+
+        chunk = getattr(cuda_mod._StackedBlocks, "MESH_UPDATE_CHUNK", None)
+        n = 0
+        for r in self.splices:
+            if r["parts"] == 1:
+                continue
+            per = chunk or max(1, min(K.MAX_SPLICE_ENTRIES,
+                                      sparse.CHUNK_WORDS // (r["rows_p"] * 32768)))
+            by_part: dict = {}
+            for i in r["dirty"]:
+                by_part[i // r["s_local"]] = by_part.get(i // r["s_local"], 0) + 1
+            n += sum(-(-c // per) for c in by_part.values())
+        return n
+
+
+_MISSING = object()
+
+#: The epoch absorption measure (phase_epochs): EPOCH_REPS write epochs of
+#: each kind on each backend, each absorbed by the first EPOCH_READ after
+#: it, which splices f's resident stack (a 3-row Count is one K11 launch on
+#: the stack; a single-row Count may be answered by the host's pair table).
+EPOCH_KINDS = ("1 shard", "8 a part", "400 spread")
+EPOCH_REPS = 3
+EPOCH_READ = "Count(Union(Row(f=1), Row(f=2), Row(f=3)))"
+#: The column of a shard that an epoch kind toggles in row 1 of f (k-th
+#: kind: EPOCH_COL + k).
+EPOCH_COL = 777
+
+
+def epoch_shards(kind: str, n_parts: int) -> list:
+    """The shards an epoch of the kind dirties on a backend of n_parts
+    parts (1 unmeshed): shard 318, in the middle of a part at n = 2 and 4;
+    8 in each part, 13 apart; 400 spread evenly over the 954."""
+    import numpy as np
+
+    if kind == "1 shard":
+        return [SHARDS // 3]
+    if kind == "8 a part":
+        s_local = -(-SHARDS // n_parts)
+        return [d * s_local + 5 + 13 * k for d in range(n_parts) for k in range(8)]
+    return sorted(set(np.linspace(0, SHARDS - 1, 400).round().astype(int).tolist()))
+
+
+def phase_epochs(backends) -> dict:
+    """One write epoch absorbed end to end, on each of ``backends`` ((label,
+    parts or None, backend, executor), f's stack resident on each): for
+    each EPOCH_KINDS and EPOCH_REPS times, the epoch's writes (one query of
+    Set or Clear calls, each toggling a bit of f's row 1) and the first
+    read after them (EPOCH_READ, which splices), each timed on the host
+    clock; the read's splices split into pack, copy, launch and wait
+    (SpliceSplit); K15 launches equal to what the rounds give, every
+    written shard spliced, no full rebuild. Every backend absorbs the
+    others' epochs with an untimed read before its own. Prints a line a
+    backend and kind and the table; returns it."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    t_phase = time.perf_counter()
+    cols = {k: EPOCH_COL + i for i, k in enumerate(EPOCH_KINDS)}
+    every = sorted({s for k in EPOCH_KINDS for n in (1, 2, 4) for s in epoch_shards(k, n)})
+    writer = backends[0][3]
+    for kind, col in cols.items():  # start from clear bits
+        writer.execute("bench", " ".join(f"Clear({s * SHARD_WIDTH + col}, f=1)" for s in every))
+    is_set: dict = {}  # (column, shard) -> the bit is set
+    table = {}
+    for label, n, _, ex in backends:
+        ex.execute("bench", EPOCH_READ)
+        for kind in EPOCH_KINDS:
+            shards = epoch_shards(kind, n or 1)
+            rows = []
+            for rep in range(EPOCH_REPS):
+                q = " ".join(f"{'Clear' if is_set.get((cols[kind], s)) else 'Set'}"
+                             f"({s * SHARD_WIDTH + cols[kind]}, f=1)" for s in shards)
+                c0 = {c: counter_total(c) for c in ("stack_full_rebuilds_total",
+                                                    "stack_incremental_shards_total")}
+                k0 = K.launch_counts().get("splice_slabs", 0)
+                t0 = time.perf_counter()
+                changed = ex.execute("bench", q)
+                writes_ms = (time.perf_counter() - t0) * 1e3
+                for s in shards:
+                    is_set[(cols[kind], s)] = not is_set.get((cols[kind], s))
+                check(len(changed) == len(shards) and all(changed),
+                      f"epochs {label} {kind}: a write changed no bit")
+                with SpliceSplit() as split:
+                    t0 = time.perf_counter()
+                    ex.execute("bench", EPOCH_READ)
+                    torch.cuda.synchronize()
+                    read_ms = (time.perf_counter() - t0) * 1e3
+                d = {c: counter_total(c) - v for c, v in c0.items()}
+                k15 = K.launch_counts().get("splice_slabs", 0) - k0
+                tot = split.totals()
+                check(d["stack_full_rebuilds_total"] == 0,
+                      f"epochs {label} {kind}: a stack was rebuilt whole")
+                check(tot["splices"] == 1 and tot["dirty"] == len(shards)
+                      == d["stack_incremental_shards_total"],
+                      f"epochs {label} {kind}: {len(shards)} shards written, splices {tot}")
+                check(k15 == split.expected_launches(),
+                      f"epochs {label} {kind}: K15 launched {k15}, the rounds give "
+                      f"{split.expected_launches()}")
+                rows.append(dict(tot, writes_ms=writes_ms, read_ms=read_ms, k15=k15))
+            med = {k: statistics.median(r[k] for r in rows)
+                   for k in ("writes_ms", "read_ms", "pack_ms", "copy_ms", "take_ms",
+                             "launch_ms", "wait_ms")}
+            table[f"{label}: {kind}"] = dict(med, dirty=len(shards), k15=rows[0]["k15"],
+                                             reps=rows)
+            log(f"epochs {label}: {kind} ({len(shards)} shards): read ms "
+                + ", ".join(f"{r['read_ms']:.3f}" for r in rows)
+                + f" (median {med['read_ms']:.3f}); writes ms median {med['writes_ms']:.3f}; "
+                f"splice ms median pack {med['pack_ms']:.3f} copy {med['copy_ms']:.3f} "
+                f"(take {med['take_ms']:.3f}) launch {med['launch_ms']:.3f} wait "
+                f"{med['wait_ms']:.3f}; K15 launches "
+                f"{rows[0]['k15']}, full rebuilds 0")
+    left = [f"Clear({s * SHARD_WIDTH + col}, f=1)" for (col, s), on in is_set.items() if on]
+    if left:  # leave f's bits as they were
+        writer.execute("bench", " ".join(left))
+    log("epoch table: " + json.dumps({k: {f: v[f] for f in v if f != "reps"}
+                                       for k, v in table.items()}))
+    log(f"epochs: {time.perf_counter() - t_phase:.1f} s")
+    return table
+
+
+def phase_epochs_alone(root) -> int:
+    """`chip_smoke.py --epochs [--root DIR]`: the card line, f of bench.py's
+    index (954 shards, 8 rows), f's stack built on an unmeshed backend and
+    on meshes of 2 and 4 parts of the card, and phase_epochs on them, for
+    DIR's package. It needs only the executor, the backend's counters and
+    the launch counts, so it runs a parent's package as well."""
+    import torch
+
+    from pilosa_tpu_torch.core import Holder
+
+    phase_card()
+    holder = Holder(None).open()
+    t0 = time.perf_counter()
+    build_bench_index(holder, only_f=True)
+    log(f"epochs: f built in {time.perf_counter() - t0:.1f} s")
+    backends = []
+    for label, n in [("unmeshed", None)] + [(f"mesh {n}", n) for n in MESH_PARTS]:
+        be, ex = mesh_backend(holder, n)
+        t0 = time.perf_counter()
+        ex.execute("bench", EPOCH_READ)
+        log(f"epochs {label}: f's stack cold in {time.perf_counter() - t0:.2f} s")
+        backends.append((label, n, be, ex))
+    phase_epochs(backends)
+    holder.close()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+#: K15's timed shapes: live slabs a launch into one 477-shard part.
+SPLICE_SHAPES = (1, 8, 32)
+#: Launches a K15 timing cycles its targets over, so that repeated calls
+#: do not write the same shards.
+SPLICE_ROTATE = 7
+
+
 def phase_splice_kernel(launches) -> list:
-    """K15 against its plain form on the card, exactly: at the main path's
-    shape (one slab into a 477-shard part, rows_p = 8) and with duplicate,
-    invalid and clipped entries; graph_ms and kernel_ms at the main path's
-    shape beside the launch floor, the plain form's ms and the library
-    call's (index_copy_ of the same, deduplicated splice) ms."""
+    """K15 against its plain form on the card, exactly: at 1, 8 and 32 live
+    slabs into a 477-shard part (rows_p = 8; the rounds of the meshed main
+    path) and at 32 entries with duplicate, invalid and clipped ones. At
+    each shape: ms (the wrapper), kernel_ms and graph_ms (bare launches of
+    the resolved pairs), the plain form's ms, index_copy_'s ms for the same
+    splice (also as graph_ms), the bound (each slab read once and written
+    once), the launch floor at K15's grid (ops/probe.py splice_floor) and
+    the wrapper's host time split (splice_host_us). Each timed call writes
+    its slabs over other targets than the call before (SPLICE_ROTATE target
+    sets); the slabs are read warm, as a round's just-copied slabs are. The
+    line's top-level numbers are the one-slab shape's, every shape's under
+    ``cases``."""
     import numpy as np
     import torch
 
     from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.ops import probe
     from pilosa_tpu_torch.ops.build import library
 
     part, slabs, s_local = splice_parts()
-    cases = {
-        "main path": ([s_local - 1], [1]),
-        "duplicate, invalid, clipped": ([5, 5, 400, -3], [1, 1, 0, 1]),
-    }
+    s_l, rows, w = part.shape
+    mixed_idx = [(37 * j) % (s_local + 40) - 20 for j in range(32)]
+    mixed_idx[6] = mixed_idx[20] = mixed_idx[5]
+    mixed = (mixed_idx, [int(j % 7 != 3) for j in range(32)])
+    cases = {f"c{c}": ([s_local - 1 - 13 * j for j in range(c)], [1] * c)
+             for c in SPLICE_SHAPES}
+    cases["c32 duplicate, invalid, clipped"] = mixed
     err = 0
     for label, (idx, valid) in cases.items():
         c = len(idx)
         got = part.clone()
         want = part.clone()
-        K.splice_slabs(got, slabs[:c].contiguous(), idx, valid)
+        K.splice_slabs(got, slabs[:c], idx, valid)
         K.splice_slabs_torch(want, slabs[:c], idx, valid)
         torch.cuda.synchronize()
         e = max_abs_err(got, want)
         err = max(err, e)
-        log(f"kernel splice_slabs ({label}, {c} entries): max_abs_err {e}")
+        del got, want
+        log(f"kernel splice_slabs ({label}, {c} entries, "
+            f"{K.splice_pairs(np.array(idx, dtype=np.int32), np.array(valid) != 0, s_local).shape[1]}"
+            f" live): max_abs_err {e}")
         check(e == 0, f"splice_slabs disagrees with its plain form ({label})")
-    one = slabs[:1].contiguous()
-    idx = np.array([s_local - 1], dtype=np.int32)
-    valid = np.ones(1, dtype=np.uint32)
     lib = library("splice")
-    s_l, rows, w = part.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for c in SPLICE_SHAPES:
+        src = slabs[:c]
+        idxs = [np.array([(s_local - 1 - 13 * j - 61 * r) % s_local for j in range(c)],
+                         dtype=np.int32) for r in range(SPLICE_ROTATE)]
+        valid = np.ones(c, dtype=np.uint32)
+        pairs = [K.splice_pairs(i, valid != 0, s_local) for i in idxs]
+        idx_t = [torch.from_numpy(i.astype(np.int64)).to("cuda") for i in idxs]
+        turn = [0]
 
-    def bare():
-        lib.splice_slabs_launch(part.data_ptr(), one.data_ptr(), idx.ctypes.data,
-                                valid.ctypes.data, 1, s_l, rows, w,
-                                torch.cuda.current_stream().cuda_stream)
+        def nxt():
+            turn[0] = (turn[0] + 1) % SPLICE_ROTATE
+            return turn[0]
 
-    ms = time_ms(lambda: K.splice_slabs(part, one, idx, valid))
-    k_ms = kernel_ms(bare)
-    g_ms = graph_ms(bare)
-    plain_ms = time_ms(lambda: K.splice_slabs_torch(part, one, idx, valid))
-    idx_t = torch.tensor([s_local - 1], dtype=torch.int64, device="cuda")
-    library_ms = time_ms(lambda: part.index_copy_(0, idx_t, one))
-    floor = launch_floor()
-    nbytes = 2 * one.nbytes  # the slab read, its shard written
-    line = kernel_line("splice_slabs", ms, k_ms, plain_ms, (nbytes, 0), err,
-                       launches.get("splice_slabs", 0))
-    line["graph_ms"] = g_ms
-    line["library_ms"] = library_ms
-    log(f"kernel splice_slabs: ms {ms:.5f}, kernel_ms {k_ms:.5f}, graph_ms {g_ms:.5f}, "
-        f"bound {line['bound_ms']:.5f} ({line['bound_by']}, {nbytes} bytes), plain "
-        f"{plain_ms:.5f}, index_copy_ {library_ms:.5f}; launch floor "
-        + json.dumps({b: {k: round(v, 5) for k, v in f.items()} for b, f in floor.items()}))
+        def bare(fixed=True, src=src, pairs=pairs, c=c):
+            p = pairs[nxt()]
+            rc = lib.splice_slabs_launch(
+                part.data_ptr(), src.data_ptr(), p.ctypes.data, c, c, s_l, rows, w,
+                stream if fixed else torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise SmokeFailure(f"splice_slabs: CUDA launch failed with cudaError {rc}")
+
+        ms = time_ms(lambda: K.splice_slabs(part, src, idxs[nxt()], valid))
+        k_ms = kernel_ms(bare)
+        g_ms = graph_ms(lambda: bare(fixed=False))
+        plain_ms = time_ms(lambda: K.splice_slabs_torch(part, src, idxs[nxt()], valid))
+        library_ms = time_ms(lambda: part.index_copy_(0, idx_t[nxt()], src))
+        library_graph_ms = graph_ms(lambda: part.index_copy_(0, idx_t[nxt()], src))
+        floor = {"kernel_ms": kernel_ms(probe.splice_floor(c, rows, w, stream=stream)),
+                 "graph_ms": graph_ms(probe.splice_floor(c, rows, w))}
+        host_us = splice_host_us(part, src, idxs[0], valid, pairs[0], lib, stream)
+        nbytes = 2 * src.nbytes  # each slab read once, its shard written once
+        line = kernel_line("splice_slabs", ms, k_ms, plain_ms, (nbytes, 0), err,
+                           launches.get("splice_slabs", 0))
+        line.update(graph_ms=g_ms, library_ms=library_ms, library_graph_ms=library_graph_ms,
+                    launch_floor=floor, host_us=host_us)
+        out[c] = line
+        log(f"kernel splice_slabs, {c} live slab(s) of {rows} rows into a {s_l}-shard part: "
+            f"ms {ms:.5f}, kernel_ms {k_ms:.5f}, graph_ms {g_ms:.5f}, bound "
+            f"{line['bound_ms']:.5f} ({line['bound_by']}, {nbytes} bytes; graph_ms at "
+            f"{100 * line['bound_ms'] / g_ms:.0f} %), plain {plain_ms:.5f}, index_copy_ "
+            f"{library_ms:.5f} (graph_ms {library_graph_ms:.5f}); launch floor at K15's grid "
+            f"kernel_ms "
+            f"{floor['kernel_ms']:.5f}, graph_ms {floor['graph_ms']:.5f} "
+            f"(graph_ms {g_ms / floor['graph_ms']:.2f} times it); host us a call: "
+            + json.dumps({k: round(v, 2) for k, v in host_us.items()}))
+    line = dict(out[SPLICE_SHAPES[0]])
+    line["cases"] = {f"c{c}": {f: out[c][f] for f in (
+        "ms", "kernel_ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+        "bound_ms", "bound_by", "launch_floor", "host_us")} for c in SPLICE_SHAPES}
     return [line]
+
+
+def splice_host_us(part, src, idx, valid, pairs, lib, stream, n: int = 300) -> dict:
+    """The host microseconds of one K15 wrapper call and of its parts, each
+    the mean of n calls on the host clock (the kernel enqueued each time,
+    but for the checks and the resolver): the wrapper, its entry checks
+    (_splice_entries), its resolver (splice_pairs), the counted launch
+    through the package's launch helper (_launch) and the bare ctypes
+    call."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+
+    s_l, rows, w = part.shape
+    c = src.shape[0]
+    args = (part.data_ptr(), src.data_ptr(), pairs.ctypes.data, pairs.shape[1], c, s_l,
+            rows, w)
+    parts = {
+        "wrapper": lambda: K.splice_slabs(part, src, idx, valid),
+        "entries": lambda: K._splice_entries("splice_slabs", part, src, idx, valid),
+        "pairs": lambda: K.splice_pairs(idx, valid, s_l),
+        "launch": lambda: K._launch("splice_slabs", part.device, lib.splice_slabs_launch,
+                                    *args),
+        "ctypes": lambda: lib.splice_slabs_launch(*args, stream),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return out
 
 
 def phase_mesh_alone(root, cards: bool = False) -> int:
@@ -5457,6 +5818,10 @@ def main(argv=None) -> int:
                     help="run only the card line, the shard-mesh phase (phase_mesh: "
                          "bench.py's index with v on meshes of 2 and 4 parts of the "
                          "card) and K15's checks on the --root checkout's package")
+    ap.add_argument("--epochs", action="store_true",
+                    help="run only the card line and the epoch absorption (phase_epochs: "
+                         "f's stack unmeshed and on meshes of 2 and 4 parts of the card) "
+                         "on the --root checkout's package")
     ap.add_argument("--mesh-cards", action="store_true",
                     help="--mesh with each mesh's parts on distinct cards (a machine "
                          "with 4 cards runs meshes of 2 and 4 cards)")
@@ -5498,6 +5863,8 @@ def main(argv=None) -> int:
         return phase_cluster_alone(root, args.cluster_shards)
     if args.mesh or args.mesh_cards:
         return phase_mesh_alone(root, args.mesh_cards)
+    if args.epochs:
+        return phase_epochs_alone(root)
     if args.host_count:
         return phase_host_count(root, args.rounds)
     if args.host_count_ab:
@@ -5523,11 +5890,11 @@ def main(argv=None) -> int:
     cold_launches, capture = phase_cold_build(holder)
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_launches = phase_mesh(holder, root)
+    mesh_launches = phase_mesh(holder, root, n_runs=MESH_RUNS_WHOLE)
     holder.close()
     del backend
     phase_groupby_tiles()
-    phase_cluster(root)
+    phase_cluster(root, CLUSTER_SHARDS_WHOLE)
     launches = dict(results["launches"])
     for name in ("group_tile_stats", "group_tile_stats_pershard"):
         launches[name] = group_launches[name]

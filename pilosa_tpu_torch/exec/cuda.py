@@ -88,6 +88,7 @@ from pilosa_tpu_torch.ops.kernels import (  # noqa: F401 (the range helpers are 
     MAX_GROUP_EXTRAS,
     MAX_GROUP_TILE_SLOTS,
     MAX_PAIR_SHARDS,
+    MAX_SPLICE_ENTRIES,
     _between_unsigned,
     _bsi_slabs,
     _eq_slab,
@@ -240,6 +241,15 @@ def _count_reuse_samples(n: int) -> None:
     global_stats.count("reuse_distance_samples_total", n)
 
 
+def _give_staged(held) -> None:
+    """Give a splice round's staging buffers ((buffers, pinned, event of
+    their copy) or None) back to ops/sparse.py's pool."""
+    if held is not None:
+        bufs, pinned, event = held
+        for buf in bufs:
+            sparse._give_buffer(buf, pinned, event)
+
+
 class _StackedBlocks:
     """Device cache: (index, field, view) -> int32[S, R_pad, W] + freshness.
 
@@ -266,15 +276,6 @@ class _StackedBlocks:
     #: Incremental-update cutoff: splice at most 1/2 of the shard axis
     #: before a full repack wins.
     MAX_INCREMENTAL_FRACTION = 2
-
-    #: Dirty slabs are packed and copied in chunks of this many shards, so
-    #: the host staging buffer stays small for any dirty count.
-    UPDATE_CHUNK = 8
-
-    #: Slabs a part takes in one round of the sharded splice (one K15
-    #: launch a part with a dirty shard in the round), as in the JAX
-    #: package: a single dirty shard costs one slab's copy, never a part's.
-    MESH_UPDATE_CHUNK = 1
 
     #: Decayed-frequency half-life of an entry's heat, in seconds: an entry
     #: untouched for one half-life keeps half its heat.
@@ -430,56 +431,95 @@ class _StackedBlocks:
             return None
         return self._splice(old_arr, shards, frags, dirty, rows_p)
 
-    def _pack_slabs(self, frags, shards, positions, rows_p) -> np.ndarray:
+    def _pack_slabs(self, frags, shards, positions, rows_p, out=None) -> np.ndarray:
         """uint32[len(positions), rows_p, W]: the fresh packs of the shards
         at those positions of the stack's axis, zeros for a missing
-        fragment."""
-        slabs = np.zeros((len(positions), rows_p, WORDS_PER_SHARD), dtype=np.uint32)
+        fragment; written into out (a staging buffer's view) when given."""
+        if out is None:
+            out = np.zeros((len(positions), rows_p, WORDS_PER_SHARD), dtype=np.uint32)
         for j, i in enumerate(positions):
             fr = frags[shards[i]]
-            if fr is not None:
-                slabs[j] = pack_fragment(fr, n_rows=rows_p)
-        return slabs
+            out[j] = pack_fragment(fr, n_rows=rows_p) if fr is not None else 0
+        return out
 
     def _splice(self, old_arr, shards, frags, dirty, rows_p):
         """Writes the dirty shards' fresh packs into the resident stack in
         place and returns it. The dirty shards group by the part that holds
-        them (the whole stack is one part unmeshed), and each round sends
-        every part with a dirty shard left at most a chunk of slabs, packed
-        on the host and copied to the part's device: UPDATE_CHUNK, written
-        by index_copy_, for an unmeshed stack; under a mesh
-        MESH_UPDATE_CHUNK, written by K15 (ops/kernels.py splice_slabs), as
-        the JAX package's _splice_sharded. A part with nothing left in a
-        round is not launched on (the JAX program writes every device's
-        lane, the idle ones with an invalid entry), so a single dirty shard
-        costs one slab's copy and one launch."""
+        them (the whole stack is one part unmeshed), and each part takes
+        its own in rounds of at most MAX_SPLICE_ENTRIES slabs and at most
+        sparse.CHUNK_WORDS words, so the staging stays bounded for any
+        rows_p (_splice_round). A round is one K15 launch
+        (ops/kernels.py splice_slabs) into a meshed part, or one
+        index_copy_ into the unmeshed stack (the JAX package's XLA scatter,
+        _update_fn, which no Pallas kernel computes).
+
+        The JAX package ships fixed chunks instead (UPDATE_CHUNK 8
+        unmeshed, MESH_UPDATE_CHUNK 1 a device meshed;
+        pilosa_tpu/exec/tpu.py:180-192): XLA compiles one program per
+        operand shape, and its shard_map program writes every device's
+        lane each round, padding included. Neither holds here: K15 and
+        index_copy_ take their shapes at run time, and a part with no
+        dirty shard gets no launch, so a single dirty shard still costs
+        one slab's copy and one launch."""
         meshed = isinstance(old_arr, Sharded)
         parts = old_arr.parts if meshed else [old_arr]
         s_local = int(parts[0].shape[0])
+        per_round = max(1, min(MAX_SPLICE_ENTRIES,
+                               sparse.CHUNK_WORDS // (rows_p * WORDS_PER_SHARD)))
         by_part: dict[int, list[int]] = {}
         for i in dirty:
             by_part.setdefault(i // s_local, []).append(i)
-        c = self.MESH_UPDATE_CHUNK if meshed else self.UPDATE_CHUNK
-        rounds = max(len(v) for v in by_part.values())
-        for r0 in range(0, rounds, c):
-            for d, items in by_part.items():
-                chunk = items[r0 : r0 + c]
-                if not chunk:
-                    continue
-                slabs = self._pack_slabs(frags, shards, chunk, rows_p)
-                part = parts[d]
-                src = torch.from_numpy(slabs.view(np.int32)).to(part.device)
-                local = [i - d * s_local for i in chunk]
-                if meshed:
-                    splice_slabs(part, src, np.array(local, dtype=np.int32),
-                                 np.ones(len(chunk), dtype=np.uint32))
-                else:
-                    part.index_copy_(0, torch.tensor(local, dtype=torch.int64,
-                                                     device=part.device), src)
-                global_stats.count("stack_update_bytes_total", slabs.nbytes)
+        held = None
+        for d, items in by_part.items():
+            for r0 in range(0, len(items), per_round):
+                held = self._splice_round(parts[d], meshed, d * s_local, shards, frags,
+                                          items[r0 : r0 + per_round], rows_p, held)
+        _give_staged(held)
         global_stats.count("stack_incremental_updates_total")
         global_stats.count("stack_incremental_shards_total", len(dirty))
         return old_arr
+
+    def _splice_round(self, part, meshed, base, shards, frags, chunk, rows_p, held):
+        """One round of _splice into one part: the chunk's slabs packed
+        into a staging buffer of ops/sparse.py's pool (pinned on the card),
+        copied with non_blocking=True on the part's current stream (the
+        readers', as the in-place contract of refresh_stale needs), and
+        written there by K15 (meshed; its entries travel in the launch's
+        parameters) or by index_copy_ (unmeshed; its shard indices staged
+        and copied beside the slabs, in a buffer of their own). Returns the
+        round's buffers with the event of its copy, which the caller gives
+        back to the pool after the next round took its own (held), so a
+        round packs while the last one's copy runs, and the pool hands a
+        buffer out again only once its copy is done. On the CPU the same
+        loop reads the slabs from an unpinned buffer in place."""
+        n = len(chunk)
+        local = [i - base for i in chunk]
+        cuda = part.device.type == "cuda"
+        slab_bytes = n * rows_p * WORDS_PER_SHARD * 4
+        sizes = [slab_bytes] if meshed else [slab_bytes, 8 * n]
+        staged = [sparse._take_buffer(nb, cuda) for nb in sizes]
+        _give_staged(held)
+        if not meshed:
+            staged[1][: 8 * n].numpy().view(np.int64)[:] = local
+        self._pack_slabs(frags, shards, chunk, rows_p,
+                         out=staged[0][:slab_bytes].numpy().view(np.uint32)
+                         .reshape(n, rows_p, WORDS_PER_SHARD))
+        src = [h[:nb] for h, nb in zip(staged, sizes)]
+        if cuda:
+            stream = torch.cuda.current_stream(part.device)
+            src = [h.to(part.device, non_blocking=True) for h in src]
+        slabs = src[0].view(torch.int32).view(n, rows_p, WORDS_PER_SHARD)
+        if meshed:
+            splice_slabs(part, slabs, np.array(local, dtype=np.int32),
+                         np.ones(n, dtype=np.uint32))
+        else:
+            part.index_copy_(0, src[1].view(torch.int64), slabs)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(stream)
+        global_stats.count("stack_update_bytes_total", slab_bytes)
+        return staged, cuda, event
 
     def _stream_build(self, frags, shards, rows_p, s_pad):
         """The chunked cold build (ops/sparse.py): each chunk ships on its

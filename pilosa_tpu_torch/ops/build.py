@@ -37,7 +37,8 @@ BUILD_DIR = os.path.join(_HERE, "build")
 #: a BSI condition) and spec.cu (K11, the evaluation of a bitmap call tree
 #: for a window of query slots) and expand.cu (K12 to K14, the expansion of
 #: a cold build's container wire into the stack, ops/sparse.py) and
-#: splice.cu (K15, the dirty-shard splice of a sharded stack's part).
+#: splice.cu (K15, the dirty-shard splice of a sharded stack's part, and
+#: the no-op kernel at its grid).
 SOURCES = {
     name: os.path.join(_HERE, "csrc", f"{name}.cu")
     for name in ("bitcount", "bmma", "spec", "expand", "splice")
@@ -162,8 +163,10 @@ def _bind(name: str, lib) -> None:
         "expand": {name: [ptr, ptr, ptr, ptr, i32, i32, ptr] for name in
                    ("expand_positions_launch", "expand_runs_launch",
                     "expand_words_launch")},
-        # block, slabs, idx (host), valid (host), c, s_local, rows, w, stream
-        "splice": {"splice_slabs_launch": [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]},
+        # block, slabs, pairs (host), n, c, s_local, rows, w, stream; the
+        # no-op kernel at K15's grid: n, rows, w, stream
+        "splice": {"splice_slabs_launch": [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr],
+                   "splice_floor_launch": [i32, i32, i32, ptr]},
     }
     for fn_name, argtypes in signatures[name].items():
         fn = getattr(lib, fn_name)

@@ -12,20 +12,36 @@
 // written in place (the JAX program returns a new array; the port's stacks
 // are updated in place, exec/cuda.py _StackedBlocks._try_incremental).
 //
-// The design is the simple one: a thread owns one 16-byte column of a
-// slab (4 words) and walks the entries in order, storing each valid entry's
-// column over its target shard's. One thread writes a column of every
-// target, in program order, so duplicate indices resolve deterministically.
-// The entries (at most kMaxEntries) travel in the launch's parameters from
-// host memory, and block's thread 0 resolves them into shared memory first:
-// the clipped target of each valid entry, or -1 for an invalid one and for
-// one that a later valid entry with the same target overwrites (its stores
-// would be dead). So each distinct target's column is read once and
-// written once.
+// Bound: bytes. Each live slab is read once and written once: 2 x n x slab
+// bytes over 3.35 TB/s. A round of the backend's splice (exec/cuda.py
+// _StackedBlocks._splice) carries up to kMaxEntries slabs a part; at rows_p
+// = 8 a slab is 1 MiB, so one slab is 0.63 us (below the launch floor) and
+// 32 slabs 20 us.
 //
-// Bound: bytes. One round of the backend's splice (exec/cuda.py
-// _StackedBlocks._splice: one slab a part, rows_p = 8) reads 1 MiB and writes
-// 1 MiB, 0.63 us at 3.35 TB/s, below the launch floor.
+// The design:
+// - Entries. The wrapper (ops/kernels.py splice_pairs) resolves the entries
+//   on the host in O(C): it clips each index, drops invalid entries and
+//   keeps only the last entry for each target. The kernel gets the live
+//   (source slab, target shard) pairs in its parameters, every target
+//   distinct, so no block resolves anything, no two blocks write one word,
+//   and no barrier is needed. The parameter is __grid_constant__, so a
+//   block reads its pair in place, with no copy to local memory.
+// - Grid. blockIdx.y is the live pair and blockIdx.x a tile of its slab.
+//   A block is one warp; each thread issues the 16-byte loads of kUnroll
+//   vectors before it stores them, so a warp keeps 2 KiB in flight. A
+//   1 MiB slab has 512 tiles: at one live slab the grid is 512 blocks, about
+//   four to an SM, and the whole slab is in flight at once. With more
+//   slabs, each pair gets a share of kBlocksPerSm blocks an SM and its
+//   blocks stride over its tiles, so the launch keeps about 32 KiB in
+//   flight on every SM, enough to cover device-memory latency at the full
+//   rate.
+// - The other design weighed, a TMA bulk copy (cp.async.bulk) through
+//   shared memory, was not taken. Hopper has no bulk copy from global to
+//   global memory, so every byte would pass through shared memory with an
+//   mbarrier wait between its load and its store; a splice reuses nothing,
+//   so shared memory buys no reuse, and the register path needs neither
+//   shared memory nor barriers, which keeps a block small enough to spread
+//   one slab over every SM.
 //
 // The entry point returns cudaGetLastError() right after its launch, so a
 // launch the card refuses is reported to the caller.
@@ -36,69 +52,103 @@
 
 namespace {
 
-constexpr int kSpliceThreads = 256;
-constexpr int kMaxEntries = 32;  // ops/kernels.py MAX_SPLICE_ENTRIES
+constexpr int kThreads = 32;      // one warp a block
+constexpr int kUnroll = 4;        // 16-byte vectors a thread loads before storing
+constexpr long long kTile = kThreads * kUnroll;  // vectors a block moves a step
+constexpr int kBlocksPerSm = 16;  // the grid a launch aims at, over its pairs
+constexpr int kMaxEntries = 32;   // ops/kernels.py MAX_SPLICE_ENTRIES
 
-struct SpliceEntries {
-  int idx[kMaxEntries];
-  uint32_t valid[kMaxEntries];
+struct SplicePairs {
+  int src[kMaxEntries];  // the source slab of each live pair
+  int tgt[kMaxEntries];  // its target shard in the part, all distinct
 };
 
-__global__ void __launch_bounds__(kSpliceThreads)
+__global__ void __launch_bounds__(kThreads)
 splice_slabs_kernel(uint4* __restrict__ block, const uint4* __restrict__ slabs,
-                    const SpliceEntries e, int c, int s_local, long long slab_vec) {
-  // Each entry's target in shared memory, resolved with static indices: a
-  // dynamic index into the parameter would copy it to local memory.
-  __shared__ int tgt[kMaxEntries];
-  if (threadIdx.x == 0) {
+                    const __grid_constant__ SplicePairs p, long long slab_vec) {
+  const uint4* __restrict__ src = slabs + (long long)p.src[blockIdx.y] * slab_vec;
+  uint4* __restrict__ dst = block + (long long)p.tgt[blockIdx.y] * slab_vec;
+  for (long long base = (long long)blockIdx.x * kTile + threadIdx.x; base < slab_vec;
+       base += (long long)gridDim.x * kTile) {
+    uint4 r[kUnroll];
 #pragma unroll
-    for (int k = 0; k < kMaxEntries; ++k) {
-      int li = e.idx[k];
-      li = li < 0 ? 0 : (li > s_local - 1 ? s_local - 1 : li);
-      tgt[k] = (k < c && e.valid[k] != 0u) ? li : -1;
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = base + (long long)u * kThreads;
+      if (v < slab_vec) r[u] = __ldcs(src + v);  // read once: evict first
     }
-    for (int k = 0; k < c; ++k) {
-      for (int l = k + 1; l < c; ++l) {
-        if (tgt[l] >= 0 && tgt[l] == tgt[k]) {
-          tgt[k] = -1;  // a later entry wins: this one's stores are dead
-          break;
-        }
-      }
-    }
-  }
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * kSpliceThreads;
-  for (long long v = (long long)blockIdx.x * kSpliceThreads + threadIdx.x; v < slab_vec;
-       v += stride) {
-    for (int j = 0; j < c; ++j) {
-      const int li = tgt[j];
-      if (li >= 0) block[(long long)li * slab_vec + v] = __ldg(slabs + (long long)j * slab_vec + v);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = base + (long long)u * kThreads;
+      if (v < slab_vec) dst[v] = r[u];
     }
   }
 }
 
+// The launch floor at K15's grid: the same blocks and threads, no work.
+__global__ void __launch_bounds__(kThreads) splice_floor_kernel() {}
+
+int sm_count() {
+  static int sms = 0;  // the same on every card a process drives
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms <= 0) {
+      sms = 132;  // an H100 SXM's
+    }
+  }
+  return sms;
+}
+
+// K15's grid for n live slabs of rows x w words: (blocks a pair, n).
+dim3 splice_grid(int n, int rows, int w) {
+  const long long slab_vec = (long long)rows * (w / 4);
+  const long long tiles = (slab_vec + kTile - 1) / kTile;
+  const long long aim = ((long long)sm_count() * kBlocksPerSm + n - 1) / n;
+  long long bx = tiles < aim ? tiles : aim;
+  if (bx < 1) bx = 1;
+  return dim3((unsigned)bx, (unsigned)n, 1);
+}
+
 }  // namespace
 
-// block int32[s_local, rows, w] (written in place), slabs int32[c, rows, w];
-// idx (host memory, int32[c]) and valid (host memory, uint32[c]) the
-// entries, c <= kMaxEntries; w a multiple of 4 and both tensors 16-byte
-// aligned.
-extern "C" int splice_slabs_launch(void* block, const void* slabs, const void* idx,
-                                   const void* valid, int c, int s_local, int rows, int w,
-                                   void* stream) {
-  if (c < 0 || c > kMaxEntries || s_local <= 0 || rows <= 0 || w <= 0 || w % 4) {
+// block int32[s_local, rows, w] (written in place), slabs int32[c, rows, w],
+// not overlapping block; pairs (host memory, int32[2 n]) the n live pairs'
+// source slabs, then their target shards, n <= kMaxEntries, every source in
+// [0, c), every target in [0, s_local) and distinct; w a multiple of 4 and
+// both tensors 16-byte aligned.
+extern "C" int splice_slabs_launch(void* block, const void* slabs, const void* pairs, int n,
+                                   int c, int s_local, int rows, int w, void* stream) {
+  if (n < 0 || n > kMaxEntries || n > c || s_local <= 0 || rows <= 0 || w <= 0 || w % 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (c == 0) return static_cast<int>(cudaSuccess);
-  SpliceEntries e;
-  memset(&e, 0, sizeof(e));
-  memcpy(e.idx, idx, sizeof(int) * c);
-  memcpy(e.valid, valid, sizeof(uint32_t) * c);
-  const long long slab_vec = (long long)rows * (w / 4);
-  long long blocks = (slab_vec + kSpliceThreads - 1) / kSpliceThreads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // the loop strides past it
-  splice_slabs_kernel<<<(unsigned)blocks, kSpliceThreads, 0,
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  SplicePairs p;
+  memset(&p, 0, sizeof(p));
+  memcpy(p.src, pairs, sizeof(int) * n);
+  memcpy(p.tgt, static_cast<const int*>(pairs) + n, sizeof(int) * n);
+  for (int k = 0; k < n; ++k) {
+    if (p.src[k] < 0 || p.src[k] >= c || p.tgt[k] < 0 || p.tgt[k] >= s_local) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    for (int l = 0; l < k; ++l) {
+      if (p.tgt[l] == p.tgt[k]) return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  splice_slabs_kernel<<<splice_grid(n, rows, w), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint4*>(block), static_cast<const uint4*>(slabs), e, c, s_local, slab_vec);
+      static_cast<uint4*>(block), static_cast<const uint4*>(slabs), p,
+      (long long)rows * (w / 4));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The no-op kernel at the grid and block that splice_slabs_launch gives n
+// live slabs of rows x w words (ops/probe.py splice_floor).
+extern "C" int splice_floor_launch(int n, int rows, int w, void* stream) {
+  if (n <= 0 || n > kMaxEntries || rows <= 0 || w <= 0 || w % 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  splice_floor_kernel<<<splice_grid(n, rows, w), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,8 +58,10 @@ the row popcounts and the BSI plane walk on the CUDA cores
   chokepoint (exec/cuda.py CUDABackend._launched) never sees them.
 - ``splice_slabs`` (K15, splice.cu): a write epoch's dirty shard slabs
   written into one part of a sharded stack in place, entries in order,
-  later ones winning (the JAX package's splice_shard_slabs). Like K12 to
-  K14 it updates a stack and is not a query launch.
+  later ones winning (the JAX package's splice_shard_slabs); the wrapper
+  resolves the entries into live (slab, shard) pairs on the host
+  (splice_pairs) and one launch writes up to MAX_SPLICE_ENTRIES of them.
+  Like K12 to K14 it updates a stack and is not a query launch.
 - the group tensor of an N-field GroupBy (K4-K7): for slots q, with m_q the
   AND of one row of each extra field (and of a filter slab),
 
@@ -1490,33 +1492,61 @@ def expand_words(out, mask, vals, bases) -> None:
 # the dirty-shard splice of a sharded stack (K15)
 # ---------------------------------------------------------------------------
 
-#: Entries of one K15 launch: they travel in the launch's parameters.
+#: Entries of one K15 launch (splice.cu kMaxEntries): its live pairs travel
+#: in the launch's parameters, and the backend's splice rounds carry at most
+#: this many slabs a part (exec/cuda.py _StackedBlocks._splice).
 MAX_SPLICE_ENTRIES = 32
 
 
+def _host_entries(x):
+    """idx or valid as a flat host numpy array: numpy arrays as they come,
+    lists and tensors (the tests') converted."""
+    import numpy as np
+
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x).reshape(-1)
+
+
 def _splice_entries(name, block, slabs, idx, valid):
-    """(idx int32[C], valid uint32[C]) as host numpy arrays, checked against
-    block int32[S_local, R, W] and slabs int32[C, R, W]."""
+    """(idx int32[C], valid[C], nonzero for a valid entry) as host numpy
+    arrays, checked against block int32[S_local, R, W] and slabs
+    int32[C, R, W]."""
     import numpy as np
 
     _check_words(name, block, 3)
     _check_words(name, slabs, 3)
     if slabs.device != block.device:
         raise ValueError(f"{name}: slabs on {slabs.device}, the part on {block.device}")
-    if slabs.shape[1:] != block.shape[1:]:
-        raise ValueError(f"{name}: slabs {tuple(slabs.shape)} do not fit the part "
-                         f"{tuple(block.shape)}")
-    if not block.shape[0]:
+    bs, ss = block.shape, slabs.shape
+    if ss[1:] != bs[1:]:
+        raise ValueError(f"{name}: slabs {tuple(ss)} do not fit the part {tuple(bs)}")
+    if not bs[0]:
         raise ValueError(f"{name}: the part has no shards")
-    idx = np.asarray(torch.as_tensor(idx).cpu(), dtype=np.int32).reshape(-1)
-    valid = np.asarray(torch.as_tensor(valid).cpu(), dtype=np.int64).reshape(-1)
-    c = slabs.shape[0]
+    idx = _host_entries(idx).astype(np.int32, copy=False)
+    valid = _host_entries(valid)
+    c = ss[0]
     if idx.size != c or valid.size != c:
         raise ValueError(f"{name}: {c} slabs need {c} indices and flags, got "
                          f"{idx.size} and {valid.size}")
     if c > MAX_SPLICE_ENTRIES:
         raise ValueError(f"{name}: {c} entries exceed {MAX_SPLICE_ENTRIES} a launch")
-    return np.ascontiguousarray(idx), np.ascontiguousarray(valid.astype(np.uint32))
+    return idx, valid
+
+
+def splice_pairs(idx, valid, s_local: int):
+    """K15's live entries, resolved on the host in O(C): int32[2, n], the
+    source slab and the target shard of each valid entry whose clipped
+    target no later valid entry writes. Every target is distinct, so
+    applying the pairs in any order gives splice_slabs_torch's result."""
+    import numpy as np
+
+    hi = s_local - 1
+    last = {}
+    for j, (i, ok) in enumerate(zip(idx.tolist(), valid.tolist())):
+        if ok:
+            last[0 if i < 0 else (hi if i > hi else i)] = j
+    return np.array([*last.values(), *last], dtype=np.int32).reshape(2, -1)
 
 
 def splice_slabs_torch(block, slabs, idx, valid) -> None:
@@ -1531,16 +1561,23 @@ def splice_slabs_torch(block, slabs, idx, valid) -> None:
 
 def splice_slabs(block, slabs, idx, valid) -> None:
     """K15: (block int32[S_local, R, W] one part of a sharded stack, slabs
-    int32[C, R, W] on its device, idx int32[C] the entries' local shard
-    indices, valid uint32[C] their flags; idx and valid on the host, C <=
+    int32[C, R, W] on its device and not overlapping it, idx int32[C] the
+    entries' local shard indices, valid uint32[C] their flags; idx and
+    valid on the host (numpy arrays, lists or tensors), C <=
     MAX_SPLICE_ENTRIES) -> each valid slab written over its clipped shard
-    in entry order, later entries winning; block is updated in place."""
+    in entry order, later entries winning; block is updated in place. On
+    the card one launch writes the live pairs of splice_pairs."""
     idx, valid = _splice_entries("splice_slabs", block, slabs, idx, valid)
     if _plain("splice_slabs", block):
         return splice_slabs_torch(block, slabs, idx, valid)
+    b0, s0 = block.data_ptr(), slabs.data_ptr()
+    if b0 < s0 + slabs.numel() * 4 and s0 < b0 + block.numel() * 4:
+        raise ValueError("splice_slabs: the slabs overlap the part")
+    s_local, rows, w = block.shape
+    pairs = splice_pairs(idx, valid, s_local)
+    if not pairs.shape[1]:
+        return
     from pilosa_tpu_torch.ops.build import library
 
-    s_local, rows, w = block.shape
     _launch("splice_slabs", block.device, library(_LIBRARY["splice_slabs"]).splice_slabs_launch,
-            block.data_ptr(), slabs.data_ptr(), idx.ctypes.data, valid.ctypes.data,
-            slabs.shape[0], s_local, rows, w)
+            b0, s0, pairs.ctypes.data, pairs.shape[1], slabs.shape[0], s_local, rows, w)

@@ -8,7 +8,8 @@ One block per SM runs a register-only loop of one instruction kind:
 
 ``and_popc_rates()`` times each with CUDA events and returns bit-products
 a second. It needs a CUDA card. ``noop()`` launches a kernel that does
-nothing: the launch floor beside a kernel's time.
+nothing: the launch floor beside a kernel's time; ``splice_floor()`` the
+same at K15's grid.
 
 The bound of a pair or group kernel is the least time the card could take
 for its work: the larger of its bytes (each input read once, each output
@@ -88,18 +89,31 @@ def noop(device="cuda", blocks: int = 1, stream=None):
     a CUDA graph's capture needs): timed like a kernel's bare launches, it
     is the launch floor under which no kernel's time can fall. It needs a
     CUDA card."""
+    return _floor("noop", device, stream, "bmma", blocks)
+
+
+def splice_floor(n: int, rows: int, w: int, device="cuda", stream=None):
+    """The launch floor at K15's grid: a callable as noop's that enqueues
+    splice.cu's kernel that does nothing, with the grid and block that
+    splice_slabs gives n live slabs of rows x w words."""
+    return _floor("splice_floor", device, stream, "splice", n, rows, w)
+
+
+def _floor(name, device, stream, lib_name, *args):
+    """A callable that enqueues ``<name>_launch`` of library lib_name with
+    args and the stream."""
     from pilosa_tpu_torch.ops.build import library
 
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError("noop: the launch floor is a CUDA card's")
-    fn = library("bmma").noop_launch
+        raise ValueError(f"{name}: the launch floor is a CUDA card's")
+    fn = getattr(library(lib_name), name + "_launch")
 
     def launch():
-        rc = fn(blocks, stream if stream is not None
+        rc = fn(*args, stream if stream is not None
                 else torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"noop: CUDA launch failed with cudaError {rc}")
+            raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
     return launch
 

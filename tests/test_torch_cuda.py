@@ -1567,15 +1567,26 @@ def test_anti_entropy_heals_card_results(card):
             assert pinned["results"] == [3]
 
 
+#: K15 cases with 8 and 32 entries: 8 distinct targets and one written
+#: twice; 32 distinct; 32 with duplicate, invalid and clipped entries.
+_SPLICE_C8 = [(3 * j, 1) for j in range(8)] + [(9, 1)]
+_SPLICE_C32 = [(j, 1) for j in range(32)]
+_SPLICE_C32_MIXED = [((7 * j) % 47 - 3, int(j % 5 != 3)) for j in range(32)]
+
+
 @pytest.mark.parametrize("entries", [
-    [(0, 1)], [(2, 1), (2, 1)], [(1, 0), (3, 1)], [(-4, 1), (9, 1)],
+    [(0, 1)], [(2, 1), (2, 1)], [(1, 0), (3, 1)], [(-4, 1), (49, 1)],
     [(3, 1), (0, 0), (3, 1), (1, 1)], [(0, 0)],
-], ids=["one", "duplicate", "invalid", "clipped", "mixed", "none-valid"])
+    _SPLICE_C8[:8], _SPLICE_C8, _SPLICE_C32, _SPLICE_C32_MIXED,
+], ids=["one", "duplicate", "invalid", "clipped", "mixed", "none-valid",
+        "c8", "c9-duplicate", "c32", "c32-mixed"])
 def test_splice_slabs_equals_its_plain_form(card, entries):
     """K15 writes a part in place exactly as its plain form does: later
-    entries win, an invalid entry leaves its shard, indices clip."""
+    entries win, an invalid entry leaves its shard, indices clip; one
+    launch carries the live pairs the host resolved, none when no entry is
+    valid."""
     rng = np.random.default_rng(len(entries) + 40)
-    s_local, rows = 4, 8
+    s_local, rows = 40, 8
     block = rng.integers(0, 2**32, (s_local, rows, W), dtype=np.uint32).view(np.int32)
     slabs = rng.integers(0, 2**32, (len(entries), rows, W), dtype=np.uint32).view(np.int32)
     idx = np.array([e[0] for e in entries], dtype=np.int32)
@@ -1586,8 +1597,57 @@ def test_splice_slabs_equals_its_plain_form(card, entries):
     before = K.launch_counts().get("splice_slabs", 0)
     K.splice_slabs(got, torch.from_numpy(slabs).to(card), idx, valid)
     torch.cuda.synchronize()
-    assert K.launch_counts()["splice_slabs"] == before + 1
+    assert K.launch_counts().get("splice_slabs", 0) == before + int(valid.any())
     assert torch.equal(got.cpu(), want)
+
+
+def test_splice_slabs_refuses_overlapping_slabs(card):
+    block = torch.zeros((4, 1, 8), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="overlap"):
+        K.splice_slabs(block, block[1:2], [0], [1])
+
+
+def test_meshed_backend_absorbs_a_40_shard_epoch_in_two_launches(card):
+    """ShardMesh([cuda:0] * 2) over 80 shards: 40 dirty shards of one part
+    are spliced by ceil(40 / 32) = 2 K15 launches and one dirty shard by 1,
+    no stack rebuilt whole, every answer the unmeshed backend's."""
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.exec.result import result_to_json
+    from pilosa_tpu_torch.parallel import ShardMesh
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils.stats import global_stats
+
+    shards, rng = 80, np.random.default_rng(21)
+    h = Holder(None).open()
+    field = h.create_index("i").create_field("f")
+    cols = np.unique(rng.integers(0, shards * SHARD_WIDTH, 20000, dtype=np.uint64))
+    field.import_bits(rng.integers(0, 4, cols.size, dtype=np.uint64), cols)
+    meshed = Executor(h, backend=CUDABackend(h, mesh=ShardMesh([torch.device("cuda", 0)] * 2)))
+    one = Executor(h, backend=CUDABackend(h))
+    queries = ["Count(Row(f=1))", "Row(f=2)", "Count(Union(Row(f=1), Row(f=3)))",
+               "TopN(f, n=2)"]
+
+    def same(what):
+        for q in queries:
+            got = [result_to_json(r) for r in meshed.execute("i", q)]
+            assert got == [result_to_json(r) for r in one.execute("i", q)], (what, q)
+
+    same("cold")
+    try:
+        for cols_set, launches in (([s * SHARD_WIDTH + 3 * s + 1 for s in range(40)], 2),
+                                   ([45 * SHARD_WIDTH + 17], 1)):
+            rebuilds = sum(global_stats.counter_totals("stack_full_rebuilds_total").values())
+            k15 = K.launch_counts().get("splice_slabs", 0)
+            for col in cols_set:
+                meshed.execute("i", f"Set({col}, f=1)")
+            same(f"{len(cols_set)} dirty shards")
+            assert K.launch_counts()["splice_slabs"] - k15 == launches
+            assert sum(global_stats.counter_totals(
+                "stack_full_rebuilds_total").values()) == rebuilds
+    finally:
+        h.close()
 
 
 def test_meshed_backend_on_one_card_equals_unmeshed(card):
