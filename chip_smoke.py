@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pilosa_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --cold | --cluster | --mesh | --epochs | --host-count | --host-count-ab PARENT]
+    python3 chip_smoke.py [--root DIR] [--churn | --miss | --budget | --cold | --cluster | --mesh | --epochs | --trace | --host-count | --host-count-ab PARENT]
 
 Builds the hand-written CUDA kernels from pilosa_tpu_torch/ops/csrc with
 nvcc, then runs the phases below. ``--root DIR`` drives the
@@ -136,6 +136,20 @@ chip_smoke.py to time it).
    /debug/programs' launches equal to device_launches_total, /debug/heat's
    entries, tier heat and reuse curve, and one ?explain=1 launch record
    per launch of a Count;
+   then the device trace server (phase_trace, utils/devtrace.py, the
+   server's profile.port): in-process Counts from 16 threads in 2 s
+   windows, untraced and traced in turns (two of each), GET /trace
+   covering each traced window; Counts/s of each, the trace's pilosa.*
+   ranges, kernels (K11's among them), bytes and events, the window's
+   device_launches_total beside the trace's K11 kernels (its
+   completeness), and the share of pilosa.count ranges whose thread's
+   launch calls lie inside them (the clock alignment); the run fails where
+   a trace holds no kernel or no pilosa.* range, or a second concurrent
+   GET /trace is not answered 409. ``--trace`` runs it alone on an
+   unmeshed backend over bench.py's index, then traces a meshed backend of
+   2 parts (on two cards where two are visible, else both on cuda:0)
+   through a write epoch and reads, printing each request's kernels by
+   part, their intervals and the parts' overlap;
    after phase 4, the main backend's f, g, h and v stacks, spliced in
    place through its write windows, must equal fresh packs of the holder
    bit for bit (phase_stacks_exact);
@@ -284,6 +298,7 @@ With no CUDA card the script exits with code 2 before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -612,6 +627,22 @@ def bare_spec_eval(ops, leaves, rows, mode, body=None):
     return launch
 
 
+def profiler_guard():
+    """The package's one-profiler-session guard (utils/devtrace.py
+    exclusive), so that no torch.profiler window here overlaps a device
+    trace; a package from before the device trace server has none."""
+    try:
+        from pilosa_tpu_torch.utils.devtrace import exclusive
+    except ImportError:
+        return contextlib.nullcontext()
+    return exclusive()
+
+
+def is_k11(name: str) -> bool:
+    """A trace's kernel name is K11's (ops/csrc/spec.cu)."""
+    return "spec_slot_kernel" in name or "spec_window_kernel" in name
+
+
 def device_share(fn, label: str, n: int = 10, warm: int = 3) -> None:
     """Profile n calls of fn with torch.profiler: wall ms per call, device
     kernel ms per call and the device's busy share, and the kernels that
@@ -623,8 +654,9 @@ def device_share(fn, label: str, n: int = 10, warm: int = 3) -> None:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=warm, active=n, repeat=1)) as prof:
+    with profiler_guard(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                   schedule=schedule(wait=0, warmup=warm, active=n,
+                                                     repeat=1)) as prof:
         for _ in range(warm):
             fn()
             prof.step()
@@ -3065,7 +3097,8 @@ def profiled_device_ms(fn):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler_guard(), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kern = copy = 0.0
@@ -3462,6 +3495,269 @@ def phase_http(holder, backend, root):
     phase_cli(root)
     log(f"http: phase seconds {time.perf_counter() - t_phase:.1f}")
     return throughput
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the device trace server (profile.port)
+# ---------------------------------------------------------------------------
+
+#: phase_trace's load: in-process Counts from TRACE_THREADS threads over
+#: TRACE_ROUNDS pairs of TRACE_SECONDS windows, untraced then traced; a
+#: traced window's GET /trace covers it with TRACE_SLACK seconds to spare.
+TRACE_THREADS = 16
+TRACE_SECONDS = 2.0
+TRACE_ROUNDS = 2
+TRACE_SLACK = 0.5
+#: trace_mesh's window, for the write epoch and the reads after it.
+TRACE_MESH_SECONDS = 3.0
+TRACE_QUERIES = [f"Count(Intersect(Row(f={a}), Row(g={b})))"
+                 for a in range(1, 5) for b in (2, 5)]
+
+
+def http_get(port: int, path: str, timeout: float = 300.0):
+    """(status, body bytes) of GET path on 127.0.0.1:port."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def traced(port: int, seconds: float, body):
+    """GET /trace?seconds=S on port from a thread, body() run once the
+    trace is live, and a second GET while it is: (status, trace bytes,
+    body's result, the second GET's status)."""
+    import threading
+
+    from pilosa_tpu_torch.utils import devtrace
+
+    got = {}
+    t = threading.Thread(target=lambda: got.update(r=http_get(port, f"/trace?seconds={seconds}")))
+    t.start()
+    deadline = time.perf_counter() + 120
+    while devtrace._LIVE is None:
+        check(t.is_alive() and time.perf_counter() < deadline, "trace: the window never opened")
+        time.sleep(0.001)
+    second = http_get(port, "/trace?seconds=0.1")[0]
+    out = body()
+    t.join(timeout=300)
+    check(not t.is_alive(), "trace: GET /trace did not return")
+    status, data = got["r"]
+    return status, data, out, second
+
+
+def trace_summary(data: bytes, label: str) -> dict:
+    """What a trace holds: its pilosa.* ranges by name, kernels (K11's
+    spec_*_kernel among them), the window's device launches, the share of
+    pilosa.count ranges whose thread's launch calls lie inside them."""
+    from pilosa_tpu_torch.utils import devtrace
+
+    trace = json.loads(data)
+    events = trace["traceEvents"]
+    meta = trace["pilosaTrace"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ranges: dict = {}
+    for e in events:
+        if e.get("cat") == "pilosa":
+            ranges[e["name"]] = ranges.get(e["name"], 0) + 1
+    counts = devtrace.range_kernels(trace, "pilosa.count")
+    out = {
+        "label": label, "bytes": len(data), "events": len(events),
+        "seconds": round(meta["seconds"], 6), "ranges": ranges,
+        "rangesDropped": meta["rangesDropped"],
+        "deviceLaunches": meta["deviceLaunches"], "kernels": len(kernels),
+        "k11Kernels": sum(is_k11(e["name"]) for e in kernels),
+        "countRanges": len(counts),
+        "countRangesWithLaunch": sum(bool(calls) for _, calls, _ in counts),
+        "countRangesWithK11": sum(any(is_k11(k["name"]) for k in ks)
+                                  for _, _, ks in counts),
+        "launchCallKinds": sorted({e["name"] for e in events
+                                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                                   and e.get("name", "").startswith(devtrace.LAUNCH_CALLS)}),
+    }
+    out["completeness"] = (out["k11Kernels"] / out["deviceLaunches"]
+                           if out["deviceLaunches"] else None)
+    out["alignedShare"] = (out["countRangesWithLaunch"] / out["countRanges"]
+                           if out["countRanges"] else None)
+    return out
+
+
+def phase_trace(holder, backend) -> list:
+    """The device trace server over the main path's backend: in-process
+    Counts from TRACE_THREADS threads in alternating untraced and traced
+    windows, GET /trace covering each traced one; Counts/s of each, the
+    trace's pilosa.count ranges, kernels (K11 among them) and bytes, the
+    window's device_launches_total beside the trace's K11 kernels, and the
+    share of pilosa.count ranges whose launch calls lie inside them. Fails
+    where a trace holds no kernel or no pilosa.* range, or where a second
+    concurrent trace is not refused."""
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.utils import devtrace
+
+    t_phase = time.perf_counter()
+    dev = Executor(holder, backend=backend)
+    answers = {q: dev.execute("bench", q) for q in TRACE_QUERIES}
+    srv = devtrace.DeviceTraceServer("127.0.0.1", 0, [backend.device])
+    out = []
+    try:
+        for rnd in range(TRACE_ROUNDS):
+            r = inproc_load(dev, TRACE_QUERIES, answers, TRACE_THREADS, TRACE_SECONDS)
+            check(r["mismatches"] == 0, "trace: an untraced Count disagrees")
+            r.update(request="Count", traced=False, round=rnd)
+            log("trace: throughput " + json.dumps(r))
+            out.append(r)
+            status, data, r, second = traced(
+                srv.port, TRACE_SECONDS + TRACE_SLACK,
+                lambda: inproc_load(dev, TRACE_QUERIES, answers, TRACE_THREADS,
+                                    TRACE_SECONDS))
+            check(r["mismatches"] == 0, "trace: a traced Count disagrees")
+            check(second == 409, f"trace: a second concurrent trace got {second}, not 409")
+            check(status == 200, f"trace: GET /trace answered {status}: {data[:300]!r}")
+            r.update(request="Count", traced=True, round=rnd)
+            log("trace: throughput " + json.dumps(r))
+            out.append(r)
+            s = trace_summary(data, f"Counts x{TRACE_THREADS}, round {rnd}")
+            log("trace: window " + json.dumps(s))
+            check(s["kernels"] > 0, "trace: the trace holds no kernel of the window")
+            check(s["ranges"].get("pilosa.count", 0) > 0, "trace: the trace holds no "
+                  "pilosa.* range")
+            out.append(s)
+    finally:
+        srv.stop()
+    untraced = [r["rps"] for r in out if r.get("traced") is False]
+    traced_rps = [r["rps"] for r in out if r.get("traced") is True]
+    log(f"trace: Counts/s untraced {untraced} traced {traced_rps} "
+        f"({torch.cuda.get_device_name(0)})")
+    log(f"trace: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return out
+
+
+def kernel_short_name(name: str) -> str:
+    """A trace's demangled kernel name without its return type, namespaces,
+    template and parameters: "void (anonymous namespace)::spec_window_kernel<
+    true, 128>(...)" -> "spec_window_kernel"."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.removeprefix("void ")
+    return name.split("<")[0].split("(")[0].split("::")[-1]
+
+
+def trace_mesh(holder) -> None:
+    """A meshed backend of 2 parts traced through a write epoch and a few
+    reads: each request's kernels by part (the pilosa.part.<d> ranges inside
+    its launch), their intervals from the request's start and the overlap
+    of the two parts' intervals; the parts on distinct cards where two are
+    visible, else both on cuda:0 (then they run in launch order)."""
+    import threading
+
+    import torch
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+    from pilosa_tpu_torch.parallel import ShardMesh
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+    from pilosa_tpu_torch.utils import devtrace
+
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", d if n_cards >= 2 else 0) for d in range(2)]
+    be = CUDABackend(holder, mesh=ShardMesh(devices))
+    ex = Executor(holder, backend=be)
+    reads = [("Count", "Count(Intersect(Row(f=1), Row(g=2)))"),
+             ("3-row Count", "Count(Union(Row(f=1), Row(f=2), Row(g=3)))"),
+             ("TopN", "TopN(f, n=5)"), ("pair request", PAIR_REQUEST)]
+    for _, q in reads:
+        ex.execute("bench", q)  # resident stacks
+    writes = [f"Set({s * SHARD_WIDTH + 7}, f=1)" for s in (3, SHARDS - 3)]
+
+    def epoch():
+        for w in writes:
+            ex.execute("bench", w)
+        for label, q in reads + reads[:1]:
+            with devtrace.trace_range("chip_smoke.", label):
+                ex.execute("bench", q)
+            torch.cuda.synchronize()
+
+    # The epoch runs on a thread of its own once the window is live.
+    took = {}
+
+    def run_epoch():
+        while devtrace._LIVE is None:
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        epoch()
+        took["s"] = time.perf_counter() - t0
+
+    t = threading.Thread(target=run_epoch)
+    t.start()
+    trace = devtrace.trace_window(TRACE_MESH_SECONDS, devices)
+    t.join(timeout=300)
+    check(not t.is_alive() and "s" in took, "trace: the mesh epoch did not end")
+    log(f"trace mesh: epoch and reads {took['s']:.3f} s of the "
+        f"{trace['pilosaTrace']['seconds']:.3f} s window")
+    check(trace["pilosaTrace"]["deviceKernels"] > 0, "trace: the mesh trace holds no kernel")
+    events = trace["traceEvents"]
+    by_part = {d: devtrace.range_kernels(trace, f"pilosa.part.{d}") for d in (0, 1)}
+    requests = sorted((e for e in events if e.get("cat") == "pilosa"
+                       and e["name"].startswith("chip_smoke.")), key=lambda e: e["ts"])
+    check(len(requests) == len(reads) + 1, f"trace: {len(requests)} mesh requests traced")
+    log(f"trace mesh: parts on {[str(d) for d in devices]} "
+        f"({n_cards} card{'s' if n_cards > 1 else ''} visible)")
+    launched = {}
+    for name in {r["name"] for r in requests}:
+        for r, _, ks in devtrace.range_kernels(trace, name):
+            launched[(r["tid"], r["ts"])] = ks
+    for req in requests:
+        lo, hi = req["ts"], req["ts"] + req["dur"]
+        spans, in_parts = {}, set()
+        for d in (0, 1):
+            ks = [k for r, _, kk in by_part[d] if r["tid"] == req["tid"]
+                  and lo <= r["ts"] <= hi for k in kk]
+            in_parts.update(id(k) for k in ks)
+            if ks:
+                spans[d] = (min(k["ts"] for k in ks) - lo,
+                            max(k["ts"] + k["dur"] for k in ks) - lo, len(ks),
+                            sorted({k["args"].get("device") for k in ks}))
+        overlap = None
+        if len(spans) == 2:
+            overlap = max(0.0, min(spans[0][1], spans[1][1]) - max(spans[0][0], spans[1][0]))
+        log("trace mesh: " + json.dumps({
+            "request": req["name"][len("chip_smoke."):], "us": round(req["dur"], 3),
+            "parts": {d: {"kernels": n, "from_us": round(a, 3), "to_us": round(b, 3),
+                          "cards": cards} for d, (a, b, n, cards) in spans.items()},
+            "overlap_us": None if overlap is None else round(overlap, 3),
+            "outside_parts": sorted(
+                {kernel_short_name(k["name"]) for k in launched.get((req["tid"], lo), [])
+                 if id(k) not in in_parts}),
+            "order": (None if len(spans) < 2 else
+                      "serial" if spans[0][1] <= spans[1][0] or spans[1][1] <= spans[0][0]
+                      else "overlapping")}))
+
+
+def phase_trace_alone(root) -> int:
+    """`chip_smoke.py --trace`: the card line, bench.py's index (f, g and
+    h), phase_trace over an unmeshed backend, then trace_mesh."""
+    import torch
+
+    from pilosa_tpu_torch.core import Holder
+    from pilosa_tpu_torch.exec.cuda import CUDABackend
+
+    phase_card()
+    holder = Holder(None).open()
+    t0 = time.perf_counter()
+    build_bench_index(holder)
+    log(f"trace: index build seconds {time.perf_counter() - t0:.1f}")
+    phase_trace(holder, CUDABackend(holder))
+    trace_mesh(holder)
+    holder.close()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def phase_cli(root):
@@ -3987,6 +4283,22 @@ def phase_cluster(root, shards: int = CLUSTER_SHARDS):
             f"{lost['first_ms']} ms, every read equal in "
             f"{time.perf_counter() - t_loss:.1f} s: " + json.dumps(lost))
         step("loss")
+
+        # The survivor's failure detector confirms the loss (CONFIRM_DOWN
+        # probes a second apart) before the write. Until then the write's
+        # leg to the dead replica fails and the write is answered 502, as
+        # a write that a reachable-looking replica did not take must be;
+        # the reads above can end before the confirmation.
+        t_down = time.perf_counter()
+        while True:
+            status, _ = cluster_http(coord.url, "/status")
+            if any(x["id"] == other.id and x["state"] == "DOWN" for x in status["nodes"]):
+                break
+            check(time.perf_counter() - t_down < 60,
+                  f"cluster: {coord.id} never marked {other.id} DOWN: {status}")
+            time.sleep(0.25)
+        log(f"cluster: {coord.id} marked {other.id} DOWN "
+            f"{time.perf_counter() - t_loss:.1f} s after the kill")
 
         # Heal: a write on the survivor reaches the restarted node by
         # anti-entropy.
@@ -5825,6 +6137,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-cards", action="store_true",
                     help="--mesh with each mesh's parts on distinct cards (a machine "
                          "with 4 cards runs meshes of 2 and 4 cards)")
+    ap.add_argument("--trace", action="store_true",
+                    help="run only the card line, the device trace phase (phase_trace) "
+                         "and a meshed backend's trace (trace_mesh) on the --root "
+                         "checkout's package")
     ap.add_argument("--cluster-shards", type=int, default=CLUSTER_SHARDS, metavar="N",
                     help=f"shards of the cluster phase's index (default {CLUSTER_SHARDS})")
     ap.add_argument("--pairs", type=int, default=10,
@@ -5865,6 +6181,8 @@ def main(argv=None) -> int:
         return phase_mesh_alone(root, args.mesh_cards)
     if args.epochs:
         return phase_epochs_alone(root)
+    if args.trace:
+        return phase_trace_alone(root)
     if args.host_count:
         return phase_host_count(root, args.rounds)
     if args.host_count_ab:
@@ -5883,6 +6201,7 @@ def main(argv=None) -> int:
 
     rebuilds = sum(global_stats.counter_totals("stack_full_rebuilds_total").values())
     phase_http(holder, backend, root)
+    phase_trace(holder, backend)
     phase_stacks_exact(holder, backend, gstacks, rebuilds)
     groupby_oracle_check(holder, backend)
     bsi_oracle_check(holder, backend)

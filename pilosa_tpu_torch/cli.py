@@ -23,8 +23,6 @@ def _unported_knobs(cfg, args) -> list[str]:
     out = []
     if cfg.executor not in ("cuda", "cpu"):
         out.append(f"executor={cfg.executor!r}: choose cuda or cpu")
-    if cfg.profile_port:
-        out.append("profile.port: the device profiler server is not ported yet")
     return [f"{m} ({_ROADMAP})" for m in out]
 
 
@@ -160,6 +158,23 @@ def cmd_server(args) -> int:
             cfg.max_result_cache_bytes / (1 << 20), cfg.max_staleness,
         )
     executor.logger = log
+    trace_server = None
+    if cfg.profile_port:
+        from pilosa_tpu_torch.utils.devtrace import DeviceTraceServer
+
+        # GET /trace?seconds=S on profile.port: a Chrome trace of the
+        # card's kernels and the requests' pilosa.* ranges
+        # (utils/devtrace.py). A port that cannot be bound is logged, and
+        # the server serves on without it.
+        if backend is None:
+            devices = ("cpu",)
+        else:
+            devices = backend.mesh.devices if backend.mesh is not None else (backend.device,)
+        try:
+            trace_server = DeviceTraceServer(cfg.host, cfg.profile_port, devices)
+            log.printf("device profiler server on :%d", cfg.profile_port)
+        except OSError as e:
+            log.printf("device profiler server failed: %s", e)
     if cfg.long_query_time > 0:
         executor.long_query_time = cfg.long_query_time
     api = API(holder, executor)
@@ -303,7 +318,7 @@ def cmd_server(args) -> int:
             )
         return cluster
 
-    daemons = []
+    daemons = [] if trace_server is None else [trace_server]
     from pilosa_tpu_torch.utils.monitor import RuntimeMonitor
 
     monitor = RuntimeMonitor(holder, backend)

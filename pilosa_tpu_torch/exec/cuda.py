@@ -114,6 +114,7 @@ from pilosa_tpu_torch.pql.ast import (
     is_reserved_arg,
 )
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.utils.devtrace import trace_range
 from pilosa_tpu_torch.utils.locks import InstrumentedRLock
 from pilosa_tpu_torch.utils.qprofile import NOP_PROFILE, current_profile
 from pilosa_tpu_torch.utils.reuse import ReuseDistanceEstimator
@@ -1413,7 +1414,8 @@ class CUDABackend:
         and bytes_returned, and one launch record to an EXPLAIN plan. An
         unprofiled launch pays only the counter and the ledger."""
         t0 = time.perf_counter()
-        out = launch()
+        with trace_range("pilosa.launch.", kind):
+            out = launch()
         wall = time.perf_counter() - t0
         # The bookkeeping runs while the card runs the launch.
         stats = self._kind_stats.get(kind)
@@ -1465,7 +1467,10 @@ class CUDABackend:
         sh = None if self.mesh is None else _first_sharded(args)
         if sh is None:
             return fn(*args)
-        outs = [fn(*_part_args(args, d)) for d in range(len(sh.parts))]
+        outs = []
+        for d in range(len(sh.parts)):
+            with trace_range("pilosa.part.", d):
+                outs.append(fn(*_part_args(args, d)))
         if merge is None:
             if isinstance(outs[0], tuple):
                 return tuple(Sharded([o[k] for o in outs], sh.real, axis)
@@ -2098,7 +2103,7 @@ class CUDABackend:
             for s in shards:
                 out.merge(self.cpu.bitmap_call_shard(index, c, s))
             return out
-        with prof.phase("device_dispatch"):
+        with trace_range("pilosa.bitmap_call"), prof.phase("device_dispatch"):
             slab = self._vec_program(spec, blocks, scalars)
             if isinstance(slab, Sharded):
                 slab = slab.gather()
@@ -2134,7 +2139,7 @@ class CUDABackend:
         except _Unsupported:
             self._cpu_routed(c)
             return sum(self.cpu.count_shard(index, c, s) for s in shards)
-        with prof.phase("device_dispatch"):
+        with trace_range("pilosa.count"), prof.phase("device_dispatch"):
             total = self._count_program(spec, blocks, scalars)
             self.blocks.reuse.flush(self._REUSE_BATCH)  # while the card runs K11
             count = int(total)  # waits for K11
@@ -2217,7 +2222,7 @@ class CUDABackend:
         for (spec, _bk), idxs in groups.items():
             blocks = assembled[idxs[0]][0]
             unique, slot_of = self._distinct_slots(idxs, assembled)
-            with prof.phase("device_dispatch"):
+            with trace_range("pilosa.count_batch"), prof.phase("device_dispatch"):
                 totals = self._spec_run(spec_program(spec), blocks, unique, "count",
                                         "count_batch", "sum")
             pending.append((idxs, totals, slot_of, blocks))
@@ -2265,7 +2270,7 @@ class CUDABackend:
             per_chunk = 1 << (per_chunk.bit_length() - 1)
             prog = spec_program(spec)
             outs = []
-            with prof.phase("device_dispatch"):
+            with trace_range("pilosa.row_batch"), prof.phase("device_dispatch"):
                 for base in range(0, len(unique), per_chunk):
                     outs.append(self._spec_run(prog, blocks, unique[base : base + per_chunk],
                                                "slab", "vec_batch", "parts"))
@@ -2485,7 +2490,7 @@ class CUDABackend:
         vers_f = bvers_f if bvers_f is not None else vers_f
         vers_g = bvers_g if bvers_g is not None else vers_g
         self.stats.count("pair_stats_sweeps_total")
-        with prof.phase("device_dispatch"):
+        with trace_range("pilosa.pair_stats"), prof.phase("device_dispatch"):
             flat = self._pair_program(fblock, gblock, pershard_ok)
         # A shard that moved during the build or the sweep is recorded
         # _VERS_STALE: its swept content matches no version we could record.
@@ -2802,21 +2807,24 @@ class CUDABackend:
         pershard = None
         with prof.phase("device_dispatch"):
             if block is None:
+                # Each page is a range of its own (the JAX package's
+                # pilosa.topn_page, outside its pilosa.topn).
                 counts = self._topn_paged_counts(f, shards_t, src)
             else:
-                masks = () if src is None else (self._filter_slab(src),)
-                args = (block, masks)
-                if src is None and self._topn_pershard_ok(block.shape[0], rows_p):
-                    table = self._launched(
-                        "topn", "row_popcounts", args,
-                        lambda: self._run(lambda b, m: row_popcounts(b, 0, rows_p, m)[0],
-                                          args, 0))
-                    pershard = self._readback(table).astype(np.int64)
-                    counts = pershard.sum(axis=0)
-                else:
-                    counts = self._readback(self._launched(
-                        "topn", "row_popcounts", args,
-                        lambda: self._run(_row_counts_summed(rows_p), args, "psum")))
+                with trace_range("pilosa.topn"):
+                    masks = () if src is None else (self._filter_slab(src),)
+                    args = (block, masks)
+                    if src is None and self._topn_pershard_ok(block.shape[0], rows_p):
+                        table = self._launched(
+                            "topn", "row_popcounts", args,
+                            lambda: self._run(lambda b, m: row_popcounts(b, 0, rows_p, m)[0],
+                                              args, 0))
+                        pershard = self._readback(table).astype(np.int64)
+                        counts = pershard.sum(axis=0)
+                    else:
+                        counts = self._readback(self._launched(
+                            "topn", "row_popcounts", args,
+                            lambda: self._run(_row_counts_summed(rows_p), args, "psum")))
         if ckey is not None:
             # The launch read the stack after its versions: a shard that
             # moved meanwhile is recorded stale (_confirm_vers).
@@ -2867,9 +2875,10 @@ class CUDABackend:
             global_stats.count("hbm_page_uploads_total")
             global_stats.count("hbm_page_bytes_total", dev.nbytes)  # padding included
             args = (dev, masks)
-            sums = self._launched("topn", "row_popcounts", args,
-                                  lambda: self._run(_row_counts_summed(page), args, "psum"))
-            counts[start : start + page] += self._readback(sums)
+            with trace_range("pilosa.topn_page"):
+                sums = self._launched("topn", "row_popcounts", args,
+                                      lambda: self._run(_row_counts_summed(page), args, "psum"))
+                counts[start : start + page] += self._readback(sums)
             del dev, sums  # after the readback: one page in flight
         return counts[:n_rows]
 
@@ -3007,7 +3016,7 @@ class CUDABackend:
         except _Unsupported:
             return None
         depth = opts.bit_depth
-        with prof.phase("device_dispatch"):
+        with trace_range("pilosa.bsi_sum"), prof.phase("device_dispatch"):
             filt = self._filter_slab(src)
             pos, neg, consider = self._run(_sum_masks, (bsi_block, filt))
 
@@ -3168,7 +3177,7 @@ class CUDABackend:
         except _Unsupported:
             return None
         depth = opts.bit_depth
-        with prof.phase("device_dispatch"):
+        with trace_range("pilosa.", kind), prof.phase("device_dispatch"):
             filt = self._filter_slab(src)
             which = "min" if kind == "bsi_min" else "max"
             args = (bsi_block, filt)
@@ -3405,7 +3414,7 @@ class CUDABackend:
             if payload is not None:
                 self.stats.count("agg_cache_hits_total")
         if payload is None:
-            with current_profile().phase("device_dispatch"):
+            with trace_range("pilosa.group_by"), current_profile().phase("device_dispatch"):
                 if n >= 3:
                     payload = self._group_tiled_sweep(stacks, filt, rs)
                     if payload is None:
@@ -3737,7 +3746,7 @@ class CUDABackend:
         if s_pad * k_total * face * 4 > self.MAX_PAIR_PERSHARD_BYTES:
             return None  # table too big to retain: the generic path sweeps
         s = len(shards_t)
-        with prof.phase("device_dispatch"):
+        with trace_range("pilosa.groupn"), prof.phase("device_dispatch"):
             # The pruned slots of the dense table stay exactly zero.
             _, combos = self._prune(stacks)
             tiles = self._group_tiles(stacks, None, combos, pershard=True)

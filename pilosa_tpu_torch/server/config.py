@@ -88,11 +88,11 @@ class Config:
     # startup so first queries skip the cold upload (off by default: it
     # fronts residency for ALL fields, wanted only on read-serving nodes).
     preheat: bool = False
-    # TCP port of a device-trace profiler server (the reference's
-    # profile.* config, server/config.go:153-155). 0 = off. Not ported
-    # yet: the server refuses a nonzero port (ROADMAP.md). Python CPU
-    # profiling needs no config — it's always-available via
-    # /debug/pprof/* (utils/profiler.py).
+    # TCP port of the device trace server (the reference's profile.*
+    # config, server/config.go:153-155): GET /trace?seconds=S there answers
+    # a Chrome trace of the card's kernels and the requests' pilosa.*
+    # ranges (utils/devtrace.py). 0 = off. Python CPU profiling needs no
+    # config — it's always-available via /debug/pprof/* (utils/profiler.py).
     profile_port: int = 0
     # Internal HTTP client timeout in seconds (peer queries, probes,
     # broadcasts). The SIGSTOP/partition tests lower it so hung-peer

@@ -25,7 +25,7 @@ tools/lint/checkers/metrics.py points here):
     device-refresh, groupby-prewarm, sparse-warm, sync-daemon,
     failure-detector, divergence-monitor, monitor-poll, profiler,
     cluster-map, cluster-broadcast, resize-follower, resize-lease,
-    resize-worker, preheat, cluster-announce
+    resize-worker, preheat, cluster-announce, device-trace
 
 plus the two synthetic roles ``main`` (the main thread) and
 ``unknown`` (a thread that did not start through spawn — stdlib pool

@@ -541,6 +541,42 @@ def test_failure_detector_marks_down_and_queries_survive():
         assert _counter("stack_full_rebuilds_total") - rebuilds <= 4
 
 
+def test_write_after_a_replica_dies_fails_until_it_is_marked_down():
+    """A write whose other replica stopped answering is answered 502, in
+    both packages, until the failure detector marks that replica DOWN
+    (the survivor's own leg ran first, so its copy holds the bit); then
+    the survivor takes the write alone and answers it. chip_smoke.py's
+    cluster phase waits for the DOWN before its heal write for this."""
+    from pilosa_tpu.cluster.sync import FailureDetector as JaxDetector
+    from pilosa_tpu.server.api import APIError as JaxAPIError
+    from pilosa_tpu_torch.cluster.sync import FailureDetector
+    from pilosa_tpu_torch.server.api import APIError
+
+    shard = 1
+    port, ref = _both(replica_n=2)
+    with port, ref:
+        for tc, detector, error in ((port, FailureDetector, APIError),
+                                    (ref, JaxDetector, JaxAPIError)):
+            populate(tc)
+            held = set(_columns(tc[0].api.query("i", "Row(f=1)", shards=[shard], remote=True)))
+            col = next(c for c in range(shard * SHARD_WIDTH, (shard + 1) * SHARD_WIDTH)
+                       if c not in held)
+            tc[1].server.close()
+            with pytest.raises(error) as refused:
+                tc.query(0, "i", f"Set({col}, f=1)")
+            assert refused.value.status == 502
+            got = _columns(tc[0].api.query("i", "Row(f=1)", shards=[shard], remote=True))
+            assert sorted(got) == sorted(held | {col})
+            det = detector(tc[0].cluster, confirm_down=2)
+            det.probe_once()
+            det.probe_once()
+            assert tc[0].cluster.topology.node_by_id(tc[1].node.id).state == "DOWN"
+            assert tc.query(0, "i", f"Set({col}, f=1)")["results"] == [False]
+            assert tc.query(0, "i", f"Clear({col}, f=1)")["results"] == [True]
+            got = _columns(tc[0].api.query("i", "Row(f=1)", shards=[shard], remote=True))
+            assert sorted(got) == sorted(held)
+
+
 # ---------------------------------------------------------------------------
 # carry and the CLI
 # ---------------------------------------------------------------------------

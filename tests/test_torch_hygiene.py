@@ -82,6 +82,23 @@ def test_every_named_port_module_imports(name):
     assert importlib.import_module(name).__name__ == name
 
 
+def test_devtrace_is_scanned_and_imports_without_side_effects():
+    """utils/devtrace.py is among the scanned files and the imported
+    modules; importing it starts no thread, imports no torch.profiler and
+    leaves no trace live."""
+    import subprocess
+    import sys
+
+    assert ROOT / "pilosa_tpu_torch" / "utils" / "devtrace.py" in _port_files()
+    assert "pilosa_tpu_torch.utils.devtrace" in _named_port_modules()
+    code = ("import sys, threading; import pilosa_tpu_torch.utils.devtrace as d; "
+            "print(threading.active_count(), 'torch.profiler' in sys.modules, d._LIVE)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["1", "False", "None"]
+
+
 def test_scanner_sees_lazy_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text(

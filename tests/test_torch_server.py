@@ -594,14 +594,12 @@ def _write_topology(data_dir, n_nodes):
 
 
 @pytest.mark.parametrize("knob,toml,argv", [
-    ("profile.port", "[profile]\nport = 6060\n", []),
     ("executor='tpu'", 'executor = "tpu"\n', []),
 ])
 def test_cli_refuses_unported_knob(tmp_path, monkeypatch, capsys, knob, toml, argv):
-    """What the port does not serve yet (the profiler server) and an
-    executor it has no backend for are refused at startup. The cluster
-    settings (tests/test_torch_cluster.py) and mesh-devices (below) are
-    served."""
+    """An executor the port has no backend for is refused at startup. The
+    cluster settings (tests/test_torch_cluster.py), mesh-devices (below)
+    and profile.port (tests/test_torch_devtrace.py) are served."""
     _no_serving(monkeypatch)
     data_dir = str(tmp_path / "d")
     conf = tmp_path / "c.toml"
